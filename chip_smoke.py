@@ -7,11 +7,16 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device and build: the card's name and power limit (nvidia-smi), and the
    build of every kernel in seaweedfs_tpu_torch/csrc/ with nvcc.
-2. Kernel against its plain version on the card, byte for byte: RS(10,4)
-   parity rows, the recovery rows for shards {1,4,11,13} and {3}, RS(28,4),
-   a k=40 code (tables tiled over k), ragged widths, strided column views;
-   then the kernel's time at the main path's launch shapes beside its
-   memory bound and the plain version's time.
+2. Kernel against its plain version on the card, byte for byte, on every
+   path of the kernel: RS(10,4) parity rows, the recovery rows for shards
+   {1,4,11,13} and {3}, RS(28,4) and k=40 (a tile's rows over several ring
+   stages), k=70 (two launches, the second XORing into the output), random
+   codes with m in {1, 2, 3, 5, 8} (partly filled packed words, two output
+   groups), ragged widths ending mid-tile and mid-stage, a 16-byte-aligned
+   strided view (bulk-copy ring) and a misaligned one (direct-load path);
+   then the kernel's time at the main path's launch shapes (encode m=4,
+   rebuild m=1 and m=4) beside its memory bound and the plain version's
+   time, with nvidia-smi sampling the SM clock and power over the window.
 3. The main path at real size (BASELINE config #1, cut from SeaweedFS's
    30 GB volume limit to 1 GiB): write_ec_files(backend="cuda") on a
    1 GiB seeded .dat, verify_ec_files on the dense `torch` backend, a
@@ -100,45 +105,92 @@ def phase_device():
     return card
 
 
+def sample_clocks():
+    """Start nvidia-smi sampling the SM clock, power draw and limit every
+    100 ms; stop() -> the samples as (MHz, W, W) tuples."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    first = proc.stdout.readline()   # sampling has started
+
+    def stop():
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        samples = []
+        for line in [first, *out.splitlines()]:
+            try:
+                samples.append(tuple(float(v) for v in line.split(",")))
+            except ValueError:
+                pass
+        return samples
+
+    return stop
+
+
 def phase_kernel():
     from seaweedfs_tpu_torch.ops import codec_cuda, codec_numpy, rs_matrix
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
 
     def rand(k, n):
         return torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
                              generator=gen)
 
     def tables_of(coef):
-        return torch.from_numpy(codec_cuda.product_tables(coef)).to(dev)
+        return torch.from_numpy(codec_cuda.packed_tables(coef)).to(dev)
+
+    def random_coef(m, k):
+        return rng.integers(0, 256, (m, k), dtype=np.uint8)
 
     parity = rs_matrix.parity_rows(10, 4)
     present4 = [i for i in range(14) if i not in (1, 4, 11, 13)]
     rec4, _ = rs_matrix.recovery_rows(10, 4, present4, [1, 4, 11, 13])
     rec1, _ = rs_matrix.recovery_rows(
         10, 4, [i for i in range(14) if i != 3], [3])
+    tile = 4096   # columns per kernel tile (kTile in the .cu)
     cases = [
         ("rs10.4 parity n=32Mi", parity, rand(10, CHUNK)),
         ("rs10.4 recover {1,4,11,13}", rec4, rand(10, CHUNK)),
         ("rs10.4 recover {3}", rec1, rand(10, CHUNK)),
-        ("rs28.4 parity", rs_matrix.parity_rows(28, 4), rand(28, 1 << 22)),
-        ("k=40 m=6 parity (k-tiled, 2 output groups)",
+        ("rs28.4 parity (2 ring stages per tile)",
+         rs_matrix.parity_rows(28, 4), rand(28, 1 << 22)),
+        ("k=40 m=6 parity (3 ring stages per tile, 2 output groups)",
          rs_matrix.parity_rows(40, 6), rand(40, 1 << 20)),
+        ("k=70 m=4 random (2 launches, the second XORs into the output)",
+         random_coef(4, 70), rand(70, (1 << 18) + 48)),
+        ("k=1 m=3 random", random_coef(3, 1), rand(1, (1 << 20) + 5)),
     ]
+    for m in (1, 2, 3, 5, 8):
+        cases.append((f"k=10 m={m} random", random_coef(m, 10),
+                      rand(10, (1 << 22) + 16 * 37)))
     for n in (1, 4095, 4097, (8 << 20) + 13):
         cases.append((f"rs10.4 parity ragged n={n}", parity, rand(10, n)))
+    cases.append(("rs10.4 parity, ends mid-tile, 16-byte aligned width",
+                  parity, rand(10, 5 * tile + 16 * 7)))
+    cases.append(("rs28.4 parity, ends mid-stage and mid-tile",
+                  rs_matrix.parity_rows(28, 4), rand(28, 3 * tile + 1001)))
     wide = rand(10, (1 << 20) + 64)
-    cases.append(("rs10.4 parity strided aligned view",
+    cases.append(("rs10.4 parity strided aligned view (bulk ring)",
                   parity, wide[:, 4096:4096 + 100000]))
-    cases.append(("rs10.4 parity strided misaligned view",
+    cases.append(("rs10.4 parity strided misaligned view (direct path)",
                   parity, wide[:, 5:5 + 100003]))
+    cases.append(("k=5 m=2 random strided aligned view, ragged",
+                  random_coef(2, 5), wide[:5, 32:32 + 3 * tile + 999]))
 
     max_err = 0
+    bad = []
     for label, coef, x in cases:
+        m = coef.shape[0]
         tables = tables_of(coef)
-        got = codec_cuda.coded_matmul(tables, x)
-        want = codec_cuda.coded_matmul_plain(tables, x)
+        got = codec_cuda.coded_matmul(tables, x, m)
+        want = codec_cuda.coded_matmul_plain(tables, x, m)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max()) if x.shape[1] else 0
         # and an independent host check on a window
@@ -148,22 +200,46 @@ def phase_kernel():
         log(f"[2] {label}: shape {tuple(x.shape)} -> {tuple(got.shape)}, "
             f"max |kernel - plain| = {err}, numpy window equal: {host_ok}")
         if err != 0 or not host_ok:
-            fail(f"kernel disagrees with its plain version on {label}")
+            bad.append(label)
         max_err = max(max_err, err)
+    if bad:
+        fail(f"kernel disagrees with its plain version on {bad}")
 
     timings = {}
-    for label, coef in (("encode m=4", parity), ("rebuild m=1", rec1)):
+    stop = sample_clocks()
+    for label, coef in (("encode m=4", parity), ("rebuild m=1", rec1),
+                        ("rebuild m=4", rec4)):
         x = rand(10, CHUNK)
         tables = tables_of(coef)
         m, k = coef.shape
-        ms = time_ms(lambda: codec_cuda.coded_matmul(tables, x), 20)
-        plain_ms = time_ms(lambda: codec_cuda.coded_matmul_plain(tables, x), 3)
+        ms = time_ms(lambda: codec_cuda.coded_matmul(tables, x, m), 200)
+        plain_ms = time_ms(
+            lambda: codec_cuda.coded_matmul_plain(tables, x, m), 3)
         bound_ms = (k + m) * CHUNK / HBM_BYTES_PER_S * 1e3
         timings[label] = (ms, plain_ms, bound_ms)
         log(f"[2] {label} k=10 n={CHUNK}: kernel {ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms (bytes), plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes), {bound_ms / ms:.1%} of "
+            f"bound, plain {plain_ms:.3f} ms, "
             f"{(k + m) * CHUNK / ms / 1e6:.1f} GB/s; library: none "
             f"(no single PyTorch call computes a GF(256) coded matmul)")
+        if label == "encode m=4":
+            # yardsticks for the memory system's practical rate on this
+            # card: a device copy and a read-only reduction of the input
+            copy_ms = time_ms(lambda: x.clone(), 200)
+            xs = x.view(torch.int64)
+            sum_ms = time_ms(lambda: xs.sum(dim=1), 200)
+            log(f"[2] yardsticks on the same (10, {CHUNK}) input: clone "
+                f"{copy_ms:.4f} ms ({2 * x.numel() / copy_ms / 1e9:.3f} TB/s"
+                f" moved), int64 row sums {sum_ms:.4f} ms "
+                f"({x.numel() / sum_ms / 1e9:.3f} TB/s read)")
+    samples = stop()
+    if samples:
+        clk = sorted(s[0] for s in samples)
+        pw = sorted(s[1] for s in samples)
+        log(f"[2] nvidia-smi over the timing window, {len(samples)} samples:"
+            f" SM clock min/median/max {clk[0]:.0f}/{clk[len(clk) // 2]:.0f}"
+            f"/{clk[-1]:.0f} MHz, power draw median {pw[len(pw) // 2]:.1f} W"
+            f" (max {pw[-1]:.1f} W), limit {samples[0][2]:.2f} W")
     return max_err, timings
 
 
@@ -271,8 +347,8 @@ def phase_batched():
     stripes = torch.randint(0, 256, (64, 10, 1 << 20), dtype=torch.uint8,
                             device=dev, generator=gen)
     tables = torch.from_numpy(
-        codec_cuda.product_tables(rs_matrix.parity_rows(10, 4))).to(dev)
-    expected = torch.stack([codec_cuda.coded_matmul(tables, s)
+        codec_cuda.packed_tables(rs_matrix.parity_rows(10, 4))).to(dev)
+    expected = torch.stack([codec_cuda.coded_matmul(tables, s, 4)
                             for s in stripes])
     a_bits = ec_pipeline.parity_bit_matrix(10, 4)
     torch.cuda.synchronize()
@@ -305,6 +381,7 @@ def main() -> int:
     launches = phase_main_path()
     phase_batched()
     ms, plain_ms, bound_ms = timings["encode m=4"]
+    rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
     record = {"kernels": [{
         "name": "coded_matmul",
         "route": "cuda",
@@ -317,6 +394,9 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "rebuild_ms": rebuild_ms,
+        "rebuild_plain_ms": rebuild_plain_ms,
+        "rebuild_bound_ms": rebuild_bound_ms,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -8,12 +8,17 @@ kernel `_kernel` of seaweedfs_tpu/ops/codec_pallas.py:43, launched by
 out[i, c] = XOR_j coef[i, j] * x[j, c] over GF(256). The Pallas kernel
 does it as a bf16 bit-plane matmul with plane-major columns and host
 padding to 4096 columns, both shaped by Mosaic's sublane layout. On an
-H100 the function is bound by memory traffic: (k + m) * n bytes at
-3.35 TB/s, against a few integer operations per byte. So the CUDA kernel
-reads each input byte once in 16-byte vector loads, looks products up
-in a (m, k, 256) product table staged in shared memory, XORs them into
-registers, writes each output byte once, and masks the ragged edge
-itself: no bit planes, no padding, no intermediate in device memory.
+H100 the least time is the bytes, (k + m) * n at 3.35 TB/s; above it the
+product lookups bind, through shared-memory wavefronts (random table
+addresses conflict in the banks) and instruction issue. So the operand
+is a packed product table (`packed_tables`): one uint32 word per (output
+group of 4 rows, input row, byte value) holding the 4 products, so one
+lookup serves 4 output rows. The kernel stages it in shared memory,
+streams the input through a ring of shared-memory stages filled by bulk
+asynchronous copies, XORs into registers, writes each output byte once,
+and masks the ragged edge itself: no bit planes, no padding, no
+intermediate in device memory. The source note in the .cu gives the
+reckoning.
 
 The wrapper `coded_matmul` runs the kernel for CUDA tensors and the
 plain version `coded_matmul_plain` for CPU tensors, and for no other
@@ -35,19 +40,35 @@ from ..utils.device import DEFAULT_DEVICE
 
 _launch_lock = threading.Lock()
 
+# Table rows one launch keeps in shared memory (kMaxK in the .cu); a
+# larger k runs as several launches that XOR into the output.
+MAX_K_PER_LAUNCH = 64
 
-def product_tables(coef: np.ndarray) -> np.ndarray:
-    """(m, k) coefficient bytes -> (m, k, 256) uint8 product table,
-    tables[i, j, v] = coef[i, j] * v in GF(256)."""
+
+def packed_tables(coef: np.ndarray) -> np.ndarray:
+    """(m, k) coefficient bytes -> (ceil(m/4), k, 256) int32 packed
+    product table: byte o of word [g, j, v] is coef[4g + o, j] * v in
+    GF(256), and 0 for rows 4g + o >= m. (int32 holds the uint32 bits,
+    since torch indexes int32 and not uint32.)"""
     coef = np.asarray(coef, dtype=np.uint8)
-    return np.ascontiguousarray(gf256.MUL_TABLE[coef])
+    if coef.ndim != 2 or not coef.size:
+        raise ValueError(f"coef shape {coef.shape} is not (m, k)")
+    m, k = coef.shape
+    groups = -(-m // 4)
+    prod = np.zeros((4 * groups, k, 256), dtype=np.uint32)
+    prod[:m] = gf256.MUL_TABLE[coef]
+    prod = prod.reshape(groups, 4, k, 256)
+    packed = (prod[:, 0] | prod[:, 1] << 8 | prod[:, 2] << 16
+              | prod[:, 3] << 24)
+    return np.ascontiguousarray(packed).view(np.int32)
 
 
 def operands_from_pallas(a_pm: np.ndarray, pack: np.ndarray) -> np.ndarray:
     """Carry the Pallas codec's per-coefficient state across: its
     plane-major bit matrix (`plane_major_bit_matrix`, (8m, 8k)) and
     packing matrix (`packing_matrix`, (m, 8m)), as numpy arrays, ->
-    this kernel's (m, k, 256) product table.
+    this kernel's packed product table (`packed_tables`), for
+    m = pack.shape[0] output rows.
 
     Column s*k + j of the plane-major matrix multiplies bit s of shard
     j, and column t = 0 of each 8x8 block is the coefficient's own bits,
@@ -74,55 +95,71 @@ def operands_from_pallas(a_pm: np.ndarray, pack: np.ndarray) -> np.ndarray:
     if not np.array_equal(gf256.expand_to_bits(coef)[:, perm], bits):
         raise ValueError("a_pm is not the plane-major expansion of a "
                          "GF(256) coefficient matrix")
-    return product_tables(coef)
+    return packed_tables(coef)
 
 
-def coded_matmul_plain(tables: torch.Tensor, x: torch.Tensor
+def coded_matmul_plain(tables: torch.Tensor, x: torch.Tensor, m: int
                        ) -> torch.Tensor:
     """The kernel's function in plain torch ops, on any device:
-    (m, k, 256) uint8 tables x (k, n) uint8 -> (m, n) uint8."""
-    m, k = tables.shape[:2]
-    out = torch.zeros((m, x.shape[1]), dtype=torch.uint8, device=x.device)
+    (ceil(m/4), k, 256) int32 packed tables x (k, n) uint8 -> (m, n)
+    uint8."""
+    groups, k = tables.shape[:2]
+    acc = torch.zeros((groups, x.shape[1]), dtype=torch.int32,
+                      device=x.device)
     for j in range(k):
-        out ^= tables[:, j].index_select(1, x[j].long())
-    return out
+        acc ^= tables[:, j].index_select(1, x[j].long())
+    out = torch.empty((groups, 4, x.shape[1]), dtype=torch.uint8,
+                      device=x.device)
+    for o in range(4):
+        out[:, o] = (acc >> (8 * o)) & 0xff
+    return out.reshape(4 * groups, -1)[:m]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("coded_matmul")
     lib.coded_matmul_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.coded_matmul_launch.restype = ctypes.c_int
     lib.coded_matmul_error_string.argtypes = [ctypes.c_int]
     lib.coded_matmul_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def coded_matmul(tables: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """GF(256) coded matmul: (m, k, 256) uint8 product tables (see
-    product_tables) x (k, n) uint8 -> (m, n) uint8, out[i] =
-    XOR_j tables[i, j][x[j]].
+def _aligned(*values: int) -> bool:
+    return all(v % 16 == 0 for v in values)
+
+
+def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int
+                 ) -> torch.Tensor:
+    """GF(256) coded matmul: (ceil(m/4), k, 256) int32 packed product
+    tables (see packed_tables) x (k, n) uint8 -> (m, n) uint8,
+    out[4g + o] = byte o of XOR_j tables[g, j][x[j]].
 
     CUDA tensors launch csrc/coded_matmul.cu on the current stream
-    without synchronising; `x` may be a column view with any row stride.
-    CPU tensors run coded_matmul_plain. Anything else raises."""
-    if tables.dtype != torch.uint8 or x.dtype != torch.uint8:
-        raise TypeError(f"need uint8 tensors, got {tables.dtype} and "
-                        f"{x.dtype}")
+    without synchronising; `x` may be a column view with any row stride
+    (full tiles stream through the kernel's bulk-copy ring when x and its
+    row stride are 16-byte aligned, the rest through its direct-load
+    path). CPU tensors run coded_matmul_plain. Anything else raises."""
+    if tables.dtype != torch.int32 or x.dtype != torch.uint8:
+        raise TypeError(f"need int32 tables and uint8 x, got {tables.dtype}"
+                        f" and {x.dtype}")
     if tables.dim() != 3 or tables.shape[2] != 256:
         raise ValueError(f"tables shape {tuple(tables.shape)} is not "
-                         "(m, k, 256)")
-    m, k = tables.shape[:2]
-    if x.dim() != 2 or x.shape[0] != k or m == 0 or k == 0:
+                         "(ceil(m/4), k, 256)")
+    groups, k = tables.shape[:2]
+    if m < 1 or not 4 * groups - 4 < m <= 4 * groups:
+        raise ValueError(f"m={m} does not match {groups} packed groups")
+    if x.dim() != 2 or x.shape[0] != k or k == 0:
         raise ValueError(f"x shape {tuple(x.shape)} does not match "
                          f"tables {tuple(tables.shape)}")
     if x.device != tables.device:
         raise ValueError(f"x on {x.device}, tables on {tables.device}")
     if x.device.type == "cpu":
-        return coded_matmul_plain(tables, x)
+        return coded_matmul_plain(tables, x, m)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n = x.shape[1]
@@ -136,18 +173,23 @@ def coded_matmul(tables: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.uint8, device=x.device)
     if n == 0:
         return out
-    vec = all(v % 16 == 0 for v in (x.data_ptr(), ldx, out.data_ptr(), n))
     lib = _lib()
     stream = torch.cuda.current_stream(x.device)
-    rc = lib.coded_matmul_launch(
-        tables.data_ptr(), x.data_ptr(), ldx, out.data_ptr(), n, m, k, n,
-        int(vec), x.device.index, stream.cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"coded_matmul launch failed: cudaError {rc} "
-            f"({lib.coded_matmul_error_string(rc).decode()})")
-    with _launch_lock:
-        coded_matmul.launches += 1
+    vec_out = _aligned(out.data_ptr(), n)
+    for j0 in range(0, k, MAX_K_PER_LAUNCH):
+        kc = min(MAX_K_PER_LAUNCH, k - j0)
+        xp = x.data_ptr() + j0 * ldx
+        ring = _aligned(xp, ldx if kc > 1 else 0)
+        rc = lib.coded_matmul_launch(
+            tables.data_ptr() + j0 * 1024, k * 256, xp, ldx,
+            out.data_ptr(), n, m, kc, n, int(ring), int(vec_out), int(j0 > 0),
+            x.device.index, stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"coded_matmul launch failed: cudaError {rc} "
+                f"({lib.coded_matmul_error_string(rc).decode()})")
+        with _launch_lock:
+            coded_matmul.launches += 1
     return out
 
 
@@ -157,7 +199,7 @@ coded_matmul.launches = 0
 class CudaCodec(TorchCodec):
     """Codec backend `cuda`: TorchCodec's feed (pinned ring, copy and
     compute streams, staged stream) around the hand-written kernel.
-    Per coefficient matrix it caches the (m, k, 256) product table on
+    Per coefficient matrix it caches the packed product table and m on
     the device. The kernel keeps no intermediate, so the default slab
     is one 32 MiB-per-shard encode block: one launch per block."""
 
@@ -167,8 +209,11 @@ class CudaCodec(TorchCodec):
                  device: str | torch.device = DEFAULT_DEVICE):
         super().__init__(slab=slab, device=device)
 
-    def _make_mats(self, coef: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(product_tables(coef)).to(self.device)
+    def _make_mats(self, coef: np.ndarray) -> tuple[torch.Tensor, int]:
+        tables = torch.from_numpy(packed_tables(coef)).to(self.device)
+        return tables, coef.shape[0]
 
-    def _kernel(self, tables: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return coded_matmul(tables, x)
+    def _kernel(self, mats: tuple[torch.Tensor, int], x: torch.Tensor
+                ) -> torch.Tensor:
+        tables, m = mats
+        return coded_matmul(tables, x, m)

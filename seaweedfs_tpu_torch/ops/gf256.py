@@ -18,7 +18,7 @@ Two representations are maintained:
    (0/1 products summed in f32 stay exact for every code width). This
    module builds those matrices; the device paths live in bits.py /
    codec_torch.py (dense bit-plane matmul) and codec_cuda.py (the
-   product-table kernel, which uses MUL_TABLE rows directly).
+   kernel's packed product tables are built from MUL_TABLE rows).
 
 Host-side copy of seaweedfs_tpu/ops/gf256.py: pure numpy + python ints.
 """
