@@ -13,7 +13,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    stages), k=70 (two launches, the second XORing into the output), random
    codes with m in {1, 2, 3, 5, 8} (partly filled packed words, two output
    groups), ragged widths ending mid-tile and mid-stage, a 16-byte-aligned
-   strided view (bulk-copy ring) and a misaligned one (direct-load path);
+   strided view (bulk-copy ring) and a misaligned one (direct-load path),
+   and the result written into an aligned and a misaligned `out=` view;
    then the kernel's time at the main path's launch shapes (encode m=4,
    rebuild m=1 and m=4) beside its memory bound and the plain version's
    time, with nvidia-smi sampling the SM clock and power over the window.
@@ -26,6 +27,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    be above 0.
 4. The batched step: encode_scrub_step on 64 stripes x 10 x 1 MiB; 0
    mismatches against the kernel's parity, 1 after flipping one byte.
+5. The measured router and the EC lifecycle, with the probe cache in the
+   run's temporary directory (so the sweep is always fresh):
+   a. probe.get_curve(refresh=True): the size x depth sweep of the feed
+      (1, 4, 16, 64 MiB x depths 1, 2, 4) with its transfer-only
+      ceilings, and the CPU codec's rate; every row printed with its
+      feed-stage seconds beside the kernel's own launch time at that
+      width (CUDA events). Fatal: device backend not `cuda`, no measured
+      row, or no kernel launch during the sweep.
+   b. The router's decisions at 1 MiB, 64 MiB and 1 GiB and its buckets.
+   c. Phase 3's seeded 1 GiB .dat (same seed) encoded with
+      backend="cuda", "native" (the native whole-file encode) and "auto",
+      each twice, in the order cuda, native, auto, auto, native, cuda,
+      into fresh shard files; the shard sets must be hash-equal, and each
+      encode must have recorded its `ec.write_ec_files` span with `peer`
+      = the backend it ran on.
+   d. The torch backend's scheduled XOR program (schedule pinned on)
+      byte-equal to the kernel on 4 seeded blocks; then the chooser's
+      measured verdict on a 4 MiB sample, with both times.
+   e. A seeded .idx tiling the .dat with needle records (overwrites and
+      tombstones included) -> write_sorted_ecx; find_dat_size must give
+      back the .dat size; shards {0, 5, 11} deleted; write_dat_file with
+      backend="cuda" must rebuild a .dat sha256-equal to the original
+      through the kernel; write_idx_from_ecx (one .ecj deletion) must
+      write the .ecx's entries plus that tombstone.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -48,6 +73,7 @@ SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 DAT_BYTES = 1 << 30             # 1 GiB volume
 CHUNK = 32 << 20                # encoder.DEFAULT_CHUNK, bytes per shard
+CARD = "cuda"                   # the device phase 5 times the kernel on
 
 
 def fail(msg: str) -> None:
@@ -72,6 +98,16 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def write_seeded_dat(path: str) -> float:
+    """The main path's seeded 1 GiB .dat; -> seconds taken."""
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(DAT_BYTES // (64 << 20)):
+            f.write(rng.bytes(64 << 20))
+    return time.perf_counter() - t0
 
 
 def sha256(path: str) -> str:
@@ -102,6 +138,13 @@ def phase_device():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[1] ptxas {name}: {line.strip()}")
+    from seaweedfs_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.load()._name
+    log(f"[1] built the native host codec {os.path.basename(lib)} in "
+        f"{time.perf_counter() - t0:.2f} s (SIMD level "
+        f"{native.simd_level()}: 3 = AVX2)")
     return card
 
 
@@ -202,6 +245,26 @@ def phase_kernel():
         if err != 0 or not host_ok:
             bad.append(label)
         max_err = max(max_err, err)
+    # out= with a row stride above the width (a slab of a wider output),
+    # aligned and misaligned: only the view's bytes may change
+    for off in (4096, 3):
+        x = rand(10, (1 << 20) + 77)
+        tables = tables_of(parity)
+        outer = torch.zeros((4, (2 << 20) + 4096), dtype=torch.uint8,
+                            device=dev)
+        view = outer[:, off:off + x.shape[1]]
+        codec_cuda.coded_matmul(tables, x, 4, out=view)
+        want = codec_cuda.coded_matmul_plain(tables, x, 4)
+        torch.cuda.synchronize()
+        err = int((view.int() - want.int()).abs().max())
+        rest = int(outer[:, :off].any()) + int(outer[:, off +
+                                                     x.shape[1]:].any())
+        log(f"[2] rs10.4 parity into an out= view at column {off} of a "
+            f"{tuple(outer.shape)} tensor: max |kernel - plain| = {err}, "
+            f"bytes outside the view touched: {bool(rest)}")
+        if err or rest:
+            bad.append(f"out= view at {off}")
+        max_err = max(max_err, err)
     if bad:
         fail(f"kernel disagrees with its plain version on {bad}")
 
@@ -254,15 +317,10 @@ def phase_main_path():
     tmp = tempfile.mkdtemp(prefix="ec-smoke-")
     try:
         base = os.path.join(tmp, "1")
-        rng = np.random.default_rng(SEED)
-        t0 = time.perf_counter()
-        with open(base + ".dat", "wb") as f:
-            for _ in range(DAT_BYTES // (64 << 20)):
-                f.write(rng.bytes(64 << 20))
+        dt = write_seeded_dat(base + ".dat")
         n_large, n_small = geo.row_layout(DAT_BYTES)
-        log(f"[3] wrote {DAT_BYTES} B seeded .dat in "
-            f"{time.perf_counter() - t0:.2f} s; rows: {n_large} large, "
-            f"{n_small} small")
+        log(f"[3] wrote {DAT_BYTES} B seeded .dat in {dt:.2f} s; rows: "
+            f"{n_large} large, {n_small} small")
 
         def stage_seconds():
             return {s: metrics.counter_value(
@@ -369,6 +427,236 @@ def phase_batched():
         fail(f"scrub counted {mism} mismatches after one flipped byte")
 
 
+def _latest_span(name: str) -> dict | None:
+    from seaweedfs_tpu_torch.utils import tracing
+
+    spans = [sp for tr in tracing.traces_json(limit=50)
+             for sp in tr["spans"] if sp["name"] == name]
+    return max(spans, key=lambda sp: sp["start"]) if spans else None
+
+
+def _seeded_idx(path: str, seed: int) -> tuple[int, int]:
+    """An .idx whose needle records tile a DAT_BYTES .dat from offset 8
+    (after the superblock): ~5% of records overwrite an earlier key, then
+    ~2% of keys get a tombstone; the last record stays live, so the
+    volume's end is its end. -> (entries, live keys)."""
+    from seaweedfs_tpu_torch.ec import decoder
+    from seaweedfs_tpu_torch.storage import idx as idxmod
+    from seaweedfs_tpu_torch.storage import types as t
+
+    rng = np.random.default_rng(seed)
+    off, rows, keys = 8, [], []
+    while off < DAT_BYTES:
+        disk = int(rng.integers(4096, 1 << 20)) // 8 * 8
+        if DAT_BYTES - off - disk < 4096:
+            disk = DAT_BYTES - off
+        size = disk - 29      # the size whose padded record is `disk`
+        if decoder.needle_entry_disk_size(size) != disk:
+            fail(f"needle size {size} does not pad to {disk}")
+        if keys and rng.random() < 0.05 and off + disk < DAT_BYTES:
+            key = keys[int(rng.integers(0, len(keys)))]
+        else:
+            key = int(rng.integers(1, 1 << 40))
+            keys.append(key)
+        rows.append((key, t.actual_to_offset(off), size))
+        off += disk
+    last = rows[-1][0]
+    dead = {k for k in keys if k != last and rng.random() < 0.02}
+    rows += [(k, 0, t.size_to_u32(t.TOMBSTONE_SIZE)) for k in sorted(dead)]
+    idxmod.write_index(path, np.array(rows, dtype=idxmod.IDX_DTYPE))
+    return len(rows), len(set(keys) - dead)
+
+
+def phase_router_lifecycle():
+    """Phase 5 -> (sweep launches, decode launches)."""
+    from seaweedfs_tpu_torch.ec import backend as ecb
+    from seaweedfs_tpu_torch.ec import decoder, encoder, probe
+    from seaweedfs_tpu_torch.ec import geometry as geo
+    from seaweedfs_tpu_torch.ops import codec_cuda, codec_torch, rs_matrix
+    from seaweedfs_tpu_torch.storage import idx as idxmod
+
+    tmp = tempfile.mkdtemp(prefix="ec-smoke5-")
+    os.environ["SEAWEEDFS_TPU_EC_PROBE_CACHE"] = os.path.join(
+        tmp, "ec_probe.json")
+    try:
+        # a. the sweep
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        curve = probe.get_curve(refresh=True)
+        sweep_wall = time.perf_counter() - t0
+        sweep_launches = codec_cuda.coded_matmul.launches
+        log(f"[5a] sweep: {sweep_wall:.2f} s wall ({curve['sweep_seconds']}"
+            f" s inside run_sweep), device {json.dumps(curve['device'])}, "
+            f"device_backend {curve['device_backend']}, cpu_backend "
+            f"{curve['cpu_backend']} at {curve['cpu_mbps']} MB/s, kernel "
+            f"launches {sweep_launches}; cache {probe.cache_path()}")
+        dev = torch.device(CARD)
+        tables = torch.from_numpy(codec_cuda.packed_tables(
+            rs_matrix.parity_rows(10, 4))).to(dev)
+        launch_ms = {}
+        for size in probe.SWEEP_SIZES:
+            x = torch.randint(0, 256, (10, size // 10), dtype=torch.uint8,
+                              device=dev)
+            launch_ms[size] = time_ms(
+                lambda: codec_cuda.coded_matmul(tables, x, 4), 50)
+        for r in curve["rows"]:
+            if "e2e_mbps" not in r:
+                log(f"[5a] row {json.dumps(r)}")
+                continue
+            st = r["stages_s"]
+            log(f"[5a] size {r['size'] >> 20} MiB depth {r['depth']} "
+                f"blocks {r['blocks']}: e2e {r['e2e_mbps']} MB/s, ceiling "
+                f"{r['xfer_ceiling_mbps']} MB/s, vs_ceiling "
+                f"{r['vs_ceiling']}; kernel stage "
+                f"{st['kernel'] / r['blocks'] * 1e3:.4f} ms per block vs "
+                f"{launch_ms[r['size']]:.4f} ms per launch (CUDA events, "
+                f"10 x {r['size'] // 10}); stages "
+                f"{json.dumps({k: round(v, 6) for k, v in st.items()})}")
+        if curve["device_backend"] != "cuda":
+            fail(f"device backend {curve['device_backend']}, not cuda")
+        if any("error" in r for r in curve["rows"]):
+            fail("a sweep row recorded an error")
+        if not probe.measured_rows(curve):
+            fail("the sweep measured no device row")
+        if sweep_launches <= 0:
+            fail("the sweep launched the kernel no time")
+
+        # b. decisions
+        for nbytes in (1 << 20, 64 << 20, 1 << 30):
+            log(f"[5b] {nbytes >> 20} MiB: choose_backend_for_size -> "
+                f"{ecb.choose_backend_for_size(nbytes)}, "
+                f"pipeline_depth_for -> {ecb.pipeline_depth_for(nbytes)}, "
+                f"device e2e {probe.e2e_mbps_at(curve, nbytes):.1f} MB/s "
+                f"vs cpu {curve['cpu_mbps']} MB/s")
+        for b in ecb.router_buckets(curve):
+            log(f"[5b] bucket {json.dumps(b)}")
+
+        # c. one volume, three encodes, each twice in mirrored order
+        from seaweedfs_tpu_torch.utils import metrics
+
+        base = os.path.join(tmp, "5")
+        write_seeded_dat(base + ".dat")
+        paths = [base + geo.shard_ext(i) for i in range(14)]
+        hashes = {}
+        for backend in ("cuda", "native", "auto", "auto", "native", "cuda"):
+            for p in paths:     # every encode writes fresh shard files
+                if os.path.exists(p):
+                    os.remove(p)
+            n0 = codec_cuda.coded_matmul.launches
+            stages0 = {st: metrics.counter_value(
+                "ec_codec_stage_seconds_sum", {"stage": st,
+                                               "backend": "cuda"})
+                for st in probe.STAGES}
+            t0 = time.perf_counter()
+            encoder.write_ec_files(base, backend=backend)
+            dt = time.perf_counter() - t0
+            chosen = (ecb.get_backend("auto").chosen if backend == "auto"
+                      else backend)
+            stages = {st: round(metrics.counter_value(
+                "ec_codec_stage_seconds_sum", {"stage": st,
+                                               "backend": "cuda"})
+                - stages0[st], 6) for st in probe.STAGES}
+            sp = _latest_span("ec.write_ec_files")
+            got = [sha256(p) for p in paths]
+            if hashes.setdefault(backend, got) != got:
+                fail(f"backend {backend} wrote other shards the second time")
+            log(f"[5c] encode backend={backend}"
+                f"{f' (chose {chosen})' if backend == 'auto' else ''}: "
+                f"{dt:.3f} s, {DAT_BYTES / dt / 1e6:.1f} MB/s, kernel "
+                f"launches {codec_cuda.coded_matmul.launches - n0}, span "
+                f"peer {sp and sp['peer']!r}, duration "
+                f"{sp and round(sp['duration'], 4)} s; cuda feed stage "
+                f"seconds {json.dumps(stages)}")
+            if sp is None or sp["peer"] != chosen or \
+                    sp["start"] < time.time() - dt - 5:
+                fail(f"no ec.write_ec_files span with peer {chosen!r}")
+        if not hashes["cuda"] == hashes["native"] == hashes["auto"]:
+            bad = [i for i in range(14) if len({hashes[b][i]
+                                                for b in hashes}) > 1]
+            fail(f"shard sets differ between backends at shards {bad}")
+        log("[5c] cuda, native and auto shard sets are hash-equal")
+
+        # d. the scheduled XOR program on the card
+        parity = rs_matrix.parity_rows(10, 4)
+        rng = np.random.default_rng(SEED + 4)
+        blocks = [rng.integers(0, 256, (10, (1 << 20) + 13 * i),
+                               dtype=np.uint8) for i in range(4)]
+        kern = ecb.get_backend("cuda")
+        want = [kern.coded_matmul(parity, b) for b in blocks]
+        os.environ["SEAWEEDFS_TPU_EC_SCHEDULE"] = "on"
+        sched = codec_torch.TorchCodec()
+        t0 = time.perf_counter()
+        got = list(sched.coded_matmul_stream(parity, iter(blocks)))
+        dt = time.perf_counter() - t0
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        log(f"[5d] torch backend, schedule on: 4 blocks of 10 x ~1 MiB in "
+            f"{dt:.3f} s, byte-equal to the kernel: {same}")
+        if not same or len(got) != 4:
+            fail("the scheduled XOR program disagrees with the kernel")
+        os.environ["SEAWEEDFS_TPU_EC_SCHEDULE"] = "auto"
+        chooser_codec = codec_torch.TorchCodec()
+        sample = rng.integers(0, 256, (10, (4 << 20) // 10), dtype=np.uint8)
+        if not np.array_equal(chooser_codec.coded_matmul(parity, sample),
+                              kern.coded_matmul(parity, sample)):
+            fail("torch backend disagrees with the kernel on the sample")
+        deadline = time.monotonic() + 300
+        while chooser_codec._chooser.snapshot()["measuring"]:
+            if time.monotonic() > deadline:
+                fail("the chooser's measurement did not finish")
+            time.sleep(0.05)
+        snap = chooser_codec._chooser.snapshot()
+        for v in snap["verdicts"]:
+            log(f"[5d] chooser verdict at the 4 MiB sample (bucket "
+                f"2^{v['bucket']} B): scheduled {v['scheduled']}; "
+                f"scheduled {v['sched_s'] * 1e3:.3f} ms, dense "
+                f"{v['dense_s'] * 1e3:.3f} ms")
+        if snap["failed"] or not snap["verdicts"]:
+            fail(f"chooser measurement failed: {snap}")
+
+        # e. .ecx, decode through the kernel, .idx
+        n_entries, n_live = _seeded_idx(base + ".idx", SEED + 5)
+        encoder.write_sorted_ecx(base)
+        ecx = idxmod.read_index(base + ".ecx")
+        dat_size = decoder.find_dat_size(base)
+        log(f"[5e] .idx {n_entries} entries -> .ecx {len(ecx)} live "
+            f"(expected {n_live}); find_dat_size {dat_size}")
+        if dat_size != DAT_BYTES or len(ecx) != n_live:
+            fail(f"find_dat_size {dat_size} / .ecx {len(ecx)} entries")
+        orig = sha256(base + ".dat")
+        os.remove(base + ".dat")
+        for i in (0, 5, 11):
+            os.remove(paths[i])
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        decoder.write_dat_file(base, dat_size, backend="cuda")
+        dt = time.perf_counter() - t0
+        decode_launches = codec_cuda.coded_matmul.launches
+        same = sha256(base + ".dat") == orig
+        log(f"[5e] write_dat_file with shards {{0, 5, 11}} gone: {dt:.3f} s"
+            f", {DAT_BYTES / dt / 1e6:.1f} MB/s, kernel launches "
+            f"{decode_launches}, sha256 equal to the original: {same}, "
+            f"parity shard 11 left absent: "
+            f"{not os.path.exists(paths[11])}")
+        if not same:
+            fail("the decoded .dat differs from the original")
+        if decode_launches <= 0:
+            fail("the decode launched the kernel no time")
+        gone = int(ecx["key"][len(ecx) // 2])
+        decoder.append_ecj(base, gone)
+        decoder.write_idx_from_ecx(base)
+        idx = idxmod.read_index(base + ".idx")
+        ok = (np.array_equal(idx[:len(ecx)], ecx) and len(idx) == len(ecx) + 1
+              and int(idx["key"][-1]) == gone and int(idx["offset"][-1]) == 0
+              and decoder.read_ecj(base) == [gone])
+        log(f"[5e] write_idx_from_ecx: {len(idx)} entries = the .ecx's "
+            f"{len(ecx)} + 1 tombstone: {ok}")
+        if not ok:
+            fail("write_idx_from_ecx did not reproduce the .ecx entries")
+        return sweep_launches, decode_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -380,6 +668,7 @@ def main() -> int:
     max_err, timings = phase_kernel()
     launches = phase_main_path()
     phase_batched()
+    sweep_launches, decode_launches = phase_router_lifecycle()
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
     record = {"kernels": [{
@@ -397,6 +686,8 @@ def main() -> int:
         "rebuild_ms": rebuild_ms,
         "rebuild_plain_ms": rebuild_plain_ms,
         "rebuild_bound_ms": rebuild_bound_ms,
+        "sweep_launches": sweep_launches,
+        "decode_launches": decode_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

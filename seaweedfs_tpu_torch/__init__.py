@@ -7,14 +7,19 @@ the same name there; the port imports nothing from that package.
 
 Layout:
     ops/        GF(256) math, RS matrices, the numpy reference codec,
-                the dense torch bit-plane codec (bits, codec_torch) and
-                the hand-written CUDA coded-matmul kernel (codec_cuda)
+                the dense torch bit-plane codec (bits, codec_torch) with
+                its XOR-schedule chooser (schedule), the native host
+                codec (codec_native) and the hand-written CUDA
+                coded-matmul kernel (codec_cuda)
     csrc/       CUDA C++ kernel sources, built at first use by ops/_build
-    ec/         erasure-coding geometry, codec registry, file encode /
-                rebuild / verify
-    storage/    the .vif volume-info sidecar
+    native/     the C++ AVX2 host codec, built with g++ at first use
+    ec/         erasure-coding geometry, codec registry and the measured
+                router (backend, probe), file encode / rebuild / verify
+                and .ecx (encoder), decode back to .dat / .idx (decoder)
+    storage/    the .vif sidecar, index files (types, idx, needle_map),
+                needle record sizes
     models/     the batched encode + scrub step
-    utils/      metrics registry, device selection
+    utils/      metrics registry, tracing spans, glog, device selection
 
 Entry points run on the GPU (device "cuda") unless the caller asks for
 the CPU; without a GPU they raise instead of falling back.

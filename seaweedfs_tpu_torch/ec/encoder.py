@@ -1,38 +1,46 @@
 """File-level erasure coding: volume .dat -> .ec00..ecNN shard files,
-rebuild of missing shards, and parity verification — the counterpart of
-seaweedfs_tpu/ec/encoder.py.
+rebuild of missing shards, parity verification, and .idx -> sorted
+.ecx — the counterpart of seaweedfs_tpu/ec/encoder.py.
 
 Functional equivalents of the reference's WriteEcFiles / RebuildEcFiles
-(weed/storage/erasure_coding/ec_encoder.go:57,61), built for a batched
-device codec:
+/ WriteSortedFileFromIdx (weed/storage/erasure_coding/
+ec_encoder.go:27,57,61), built for a batched device codec:
 
 * The .dat is memory-mapped and fed to the codec backend as wide (k, W)
   byte matrices — W spans many stripe rows of the small-block region at
   once (a row-group transpose turns contiguous file bytes into codec
-  columns), so one kernel launch covers tens of MB.
+  columns), so one kernel launch covers tens of MB. Host codecs take
+  one stripe row at a time instead, as a zero-copy view.
 * The same coded-matmul stream serves encode (parity rows) and rebuild
-  (recovery rows from rs_matrix).
+  (recovery rows from rs_matrix), at the pipeline depth the measured
+  curve recommends (ec/probe.py; the double buffer when none is cached).
+* `backend="auto"` is resolved once per operation from the measured
+  curve at the request's size; when it (or the caller) picks `native`,
+  the encode runs as one native call (`native.ec_encode_file`).
+* Every encode runs under the `ec.write_ec_files` span, with `peer` set
+  to the backend that ran it (the native bypass included, which the
+  reference leaves outside the span).
 
 Shard-file bytes are identical to the reference's. The default backend
 is the CUDA kernel on the GPU (`backend="cuda"`); pass a codec instance
-such as `CudaCodec(device="cpu")` to run elsewhere. Left for later
-slices: the native C++ bypass, the tracing span, `write_sorted_ecx` and
-the measured pipeline depth (the double buffer is used).
+such as `CudaCodec(device="cpu")` to run elsewhere.
 """
 from __future__ import annotations
 
 import os
+import time as _time
 
 import numpy as np
 
+from ..storage import needle_map
+from ..utils import tracing
 from . import geometry as geo
-from .backend import CodecBackend, ReedSolomon
+from .backend import (CodecBackend, ReedSolomon, observe_codec,
+                      pipeline_depth_for)
 
 # Default column width per codec dispatch (bytes per shard). Multiple
 # small rows are packed per dispatch up to this width.
 DEFAULT_CHUNK = 32 << 20
-# In-flight blocks of the streaming pipeline: the classic double buffer.
-DEFAULT_DEPTH = 2
 
 
 def _contig_view(row: np.ndarray):
@@ -111,6 +119,31 @@ class _AsyncWriter:
             raise self._err[0]
 
 
+def write_sorted_ecx(base: str, ext: str = ".ecx") -> None:
+    """.idx -> sorted .ecx (WriteSortedFileFromIdx, ec_encoder.go:27)."""
+    db = needle_map.MemDb()
+    db.load_from_idx(base + ".idx")
+    db.save_to_idx(base + ext)
+
+
+def codec_of(base: str) -> tuple[int, int]:
+    """(data_shards, parity_shards) of the shard set at `base`, read
+    from the .vif sidecar ('' -> the RS(10,4) default)."""
+    code = code_of(base)
+    return code.k, code.m
+
+
+def _resolved_name(rs: ReedSolomon, nbytes: int) -> str:
+    """The backend name an operation of `nbytes` runs on: `auto` is
+    pinned here from the measured curve at this size, so every dispatch
+    of the operation rides one backend."""
+    name = getattr(rs.backend, "name", "")
+    if name == "auto":
+        rs.backend.resolve_for(nbytes)
+        name = rs.backend.chosen or ""
+    return name
+
+
 def code_of(base: str) -> geo.CodeConfig:
     """Full code config of the shard set at `base` (.vif sidecar)."""
     from ..storage import volume_info as vinfo
@@ -157,21 +190,41 @@ def write_ec_files(base: str, backend: str | CodecBackend = "cuda",
     dat_size = os.path.getsize(dat_path)
     n_large, n_small = geo.row_layout(dat_size, large_block, small_block,
                                       data_shards=k)
+    # the router interpolates the measured curve at THIS volume's size,
+    # so a small volume can route to the CPU codec while a bulk encode
+    # on the same host rides the card
+    backend_name = _resolved_name(rs, dat_size)
+    shard_paths = [base + geo.shard_ext(i) for i in range(k + m)]
+    with tracing.span("ec.write_ec_files", kind="internal",
+                      peer=backend_name):
+        if backend_name == "native" and dat_size:
+            # the whole read -> parity -> write loop in one native call,
+            # no GIL on either side; the same rs_matrix coefficients as
+            # rs.encode, so the same bytes
+            from .. import native
 
-    dat = np.memmap(dat_path, dtype=np.uint8, mode="r") if dat_size else \
-        np.zeros(0, dtype=np.uint8)
-    # buffering=0: every write here is a full shard block; the default
-    # BufferedWriter adds a copy
-    outs = [open(base + geo.shard_ext(i), "wb", buffering=0)
-            for i in range(k + m)]
-    try:
-        _encode_region(rs, dat, 0, n_large, large_block, chunk, outs)
-        _encode_region(rs, dat, n_large * large_block * k,
-                       n_small, small_block, chunk, outs)
-    finally:
-        for f in outs:
-            f.close()
-        if dat_size:
+            t0 = _time.perf_counter()
+            native.ec_encode_file(dat_path, shard_paths, rs._parity_rows,
+                                  k, m, large_block, small_block)
+            # the bypass skips rs.encode: record it here
+            observe_codec("encode", "native", _time.perf_counter() - t0,
+                          dat_size, code=code.spec)
+            return
+        dat = np.memmap(dat_path, dtype=np.uint8, mode="r") \
+            if dat_size else np.zeros(0, dtype=np.uint8)
+        # buffering=0: every write here is a full shard block; the
+        # default BufferedWriter adds a copy
+        outs = [open(p, "wb", buffering=0) for p in shard_paths]
+        try:
+            # host codecs walk zero-copy stripe rows
+            wide = backend_name not in ("numpy", "native")
+            _encode_region(rs, dat, 0, n_large, large_block, chunk, outs,
+                           wide)
+            _encode_region(rs, dat, n_large * large_block * k,
+                           n_small, small_block, chunk, outs, wide)
+        finally:
+            for f in outs:
+                f.close()
             del dat
 
 
@@ -231,17 +284,19 @@ def _region_blocks(dat: np.ndarray, start: int, n_rows: int,
             .reshape(k, (r1 - r0) * block))
 
 
-def _encode_region(rs: ReedSolomon, dat: np.ndarray, start: int, n_rows: int,
-                   block: int, chunk: int, outs: list) -> None:
+def _encode_region(rs: ReedSolomon, dat: np.ndarray, start: int,
+                   n_rows: int, block: int, chunk: int, outs: list,
+                   wide: bool) -> None:
     """Encode a stripe-row region, writing each shard's blocks
     sequentially. Data-shard bytes are written as each block is
     gathered (they never touch the codec); parity arrives through the
-    backend's streaming pipeline, which keeps DEFAULT_DEPTH blocks in flight
-    on a device codec so H2D, kernel and D2H overlap."""
+    backend's streaming pipeline, which keeps `depth` blocks in flight
+    on a device codec so H2D, kernel and D2H overlap. Host codecs take
+    narrow zero-copy row views (wide=False); device codecs get wide
+    packed dispatches that amortize launch and transfer latency."""
     k = rs.k
-    # the host codec takes narrow zero-copy row views; device codecs get
-    # wide packed dispatches that amortize launch and transfer latency
-    wide = getattr(rs.backend, "name", "") != "numpy"
+    # pipeline depth from the measured curve at this dispatch size
+    depth = pipeline_depth_for(k * chunk)
     w = _AsyncWriter()
     try:
         def gen():
@@ -251,7 +306,7 @@ def _encode_region(rs: ReedSolomon, dat: np.ndarray, start: int, n_rows: int,
                     w.put(outs[i], data[i])
                 yield data
 
-        for parity in rs.encode_stream(gen(), depth=DEFAULT_DEPTH):
+        for parity in rs.encode_stream(gen(), depth=depth):
             for j in range(rs.m):
                 w.put(outs[k + j], parity[j])
     finally:
@@ -306,6 +361,8 @@ def rebuild_ec_files(base: str, backend: str | CodecBackend = "cuda",
     from ..ops import rs_matrix
 
     rows, inputs = rs_matrix.recovery_rows_for(code, present, missing)
+    _resolved_name(rs, len(inputs) * shard_size)
+    depth = pipeline_depth_for(len(inputs) * chunk, code=code.spec)
     ins = {i: np.memmap(base + geo.shard_ext(i), dtype=np.uint8, mode="r")
            for i in inputs} if shard_size else {i: np.zeros(0, np.uint8)
                                                 for i in inputs}
@@ -319,7 +376,7 @@ def rebuild_ec_files(base: str, backend: str | CodecBackend = "cuda",
 
         w = _AsyncWriter()
         try:
-            for rec in rs.matmul_stream(rows, gen(), depth=DEFAULT_DEPTH,
+            for rec in rs.matmul_stream(rows, gen(), depth=depth,
                                         op="reconstruct"):
                 for j, i in enumerate(missing):
                     w.put(outs[i], rec[j])
@@ -345,6 +402,8 @@ def verify_ec_files(base: str, backend: str | CodecBackend = "cuda",
         return False
     if not size:
         return True
+    _resolved_name(rs, k * size)
+    depth = pipeline_depth_for(k * chunk, code=code.spec)
     maps = [np.memmap(p, dtype=np.uint8, mode="r") for p in paths]
     from collections import deque
 
@@ -357,7 +416,7 @@ def verify_ec_files(base: str, backend: str | CodecBackend = "cuda",
             expected.append(stack[k:])
             yield stack[:k]
 
-    for parity in rs.encode_stream(gen(), depth=DEFAULT_DEPTH):
+    for parity in rs.encode_stream(gen(), depth=depth):
         if not np.array_equal(parity, expected.popleft()):
             return False
     return True

@@ -135,6 +135,23 @@ class CodeConfig:
                 return grp
         return None
 
+    @property
+    def storage_overhead(self) -> float:
+        return self.total / self.k
+
+    @property
+    def repair_fanin(self) -> int:
+        """Shards read to heal ONE lost data/local shard."""
+        return self.group_size if self.n_local else self.k
+
+    def describe(self) -> dict:
+        return {
+            "spec": self.spec, "kind": self.kind, "k": self.k,
+            "locals": self.n_local, "globals": self.n_global,
+            "total": self.total,
+            "storage_overhead": round(self.storage_overhead, 3),
+            "repair_fanin": self.repair_fanin,
+        }
 
     # -- repair planning ------------------------------------------------
 

@@ -133,8 +133,8 @@ def _aligned(*values: int) -> bool:
     return all(v % 16 == 0 for v in values)
 
 
-def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int
-                 ) -> torch.Tensor:
+def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """GF(256) coded matmul: (ceil(m/4), k, 256) int32 packed product
     tables (see packed_tables) x (k, n) uint8 -> (m, n) uint8,
     out[4g + o] = byte o of XOR_j tables[g, j][x[j]].
@@ -143,7 +143,10 @@ def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int
     without synchronising; `x` may be a column view with any row stride
     (full tiles stream through the kernel's bulk-copy ring when x and its
     row stride are 16-byte aligned, the rest through its direct-load
-    path). CPU tensors run coded_matmul_plain. Anything else raises."""
+    path). `out`, when given, is the (m, n) uint8 result on x's device,
+    with any row stride; it is written and returned (the caller
+    allocates it ahead, e.g. outside a timed window). CPU tensors run
+    coded_matmul_plain. Anything else raises."""
     if tables.dtype != torch.int32 or x.dtype != torch.uint8:
         raise TypeError(f"need int32 tables and uint8 x, got {tables.dtype}"
                         f" and {x.dtype}")
@@ -158,11 +161,22 @@ def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int
                          f"tables {tuple(tables.shape)}")
     if x.device != tables.device:
         raise ValueError(f"x on {x.device}, tables on {tables.device}")
+    n = x.shape[1]
+    if out is not None:
+        if out.dtype != torch.uint8 or out.device != x.device or \
+                tuple(out.shape) != (m, n):
+            raise ValueError(f"out {out.dtype} {tuple(out.shape)} on "
+                             f"{out.device} is not uint8 ({m}, {n}) on "
+                             f"{x.device}")
+        if n > 1 and out.stride(1) != 1 or m > 1 and out.stride(0) < n:
+            raise ValueError(f"out strides {out.stride()} do not hold "
+                             f"contiguous rows of {n}")
     if x.device.type == "cpu":
-        return coded_matmul_plain(tables, x, m)
+        if out is None:
+            return coded_matmul_plain(tables, x, m)
+        return out.copy_(coded_matmul_plain(tables, x, m))
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    n = x.shape[1]
     ldx = x.stride(0)
     if n > 1 and x.stride(1) != 1:
         raise ValueError("x rows must be contiguous (stride 1 along columns)")
@@ -170,19 +184,22 @@ def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int
         raise ValueError(f"x row stride {ldx} is below its width {n}")
     if not tables.is_contiguous() or tables.data_ptr() % 16:
         raise ValueError("tables must be contiguous and 16-byte aligned")
-    out = torch.empty((m, n), dtype=torch.uint8, device=x.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.uint8, device=x.device)
     if n == 0:
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(x.device)
-    vec_out = _aligned(out.data_ptr(), n)
+    ldo = out.stride(0) if m > 1 else n
+    vec_out = _aligned(out.data_ptr(), ldo)
     for j0 in range(0, k, MAX_K_PER_LAUNCH):
         kc = min(MAX_K_PER_LAUNCH, k - j0)
         xp = x.data_ptr() + j0 * ldx
         ring = _aligned(xp, ldx if kc > 1 else 0)
         rc = lib.coded_matmul_launch(
             tables.data_ptr() + j0 * 1024, k * 256, xp, ldx,
-            out.data_ptr(), n, m, kc, n, int(ring), int(vec_out), int(j0 > 0),
+            out.data_ptr(), ldo, m, kc, n, int(ring), int(vec_out),
+            int(j0 > 0),
             x.device.index, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(
@@ -213,7 +230,13 @@ class CudaCodec(TorchCodec):
         tables = torch.from_numpy(packed_tables(coef)).to(self.device)
         return tables, coef.shape[0]
 
-    def _kernel(self, mats: tuple[torch.Tensor, int], x: torch.Tensor
-                ) -> torch.Tensor:
+    def _kernel(self, mats: tuple[torch.Tensor, int], x: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
         tables, m = mats
-        return coded_matmul(tables, x, m)
+        return coded_matmul(tables, x, m, out=out)
+
+    def _plan_for(self, coef, nbytes):
+        # the kernel reads each input byte once and writes each output
+        # byte once; the scheduled XOR program never applies here (as
+        # PallasCodec._plan_for)
+        return None

@@ -1,0 +1,68 @@
+"""`native` codec backend: the in-tree C++ SIMD kernel via ctypes — the
+counterpart of seaweedfs_tpu/ops/codec_native.py.
+
+The klauspost-equivalent CPU path — split-nibble PSHUFB GF(256)
+multiply — wrapped in the CodecBackend protocol so `backend="native"`
+selects it through the registry (ec/backend.py), and so the measured
+router (`auto`) can compare the card's feed against it.
+
+Since the bit-matrix scheduling pass (ops/schedule.py) the backend has
+a second kernel: the CSE-optimized XOR program run word-wide over
+packed bit-planes (`gf256_scheduled_matmul`). Which kernel serves a
+given (coefficient matrix, request size) is decided by measurement
+(schedule.Chooser): both run once at first sight of a size bucket and
+the winner is cached, so the scheduled path is never slower than the
+dense one at any probed size. `SEAWEEDFS_TPU_EC_SCHEDULE=on|off` pins
+the choice for tests and benches.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .. import native
+from . import schedule
+
+
+class NativeCodec:
+    name = "native"
+
+    def __init__(self):
+        native.load()  # build + bind eagerly so failures surface here
+        self._chooser = schedule.Chooser()
+        self._flat: dict[bytes, np.ndarray] = {}
+
+    def _flattened(self, coef: np.ndarray) -> np.ndarray:
+        key = schedule.coef_key(coef)
+        flat = self._flat.get(key)
+        if flat is None:
+            flat = schedule.flatten(schedule.plan_for(coef))
+            if len(self._flat) >= schedule.PLAN_CACHE_MAX:
+                self._flat.clear()
+            self._flat[key] = flat
+        return flat
+
+    def _scheduled(self, coef: np.ndarray,
+                   shards: np.ndarray) -> np.ndarray:
+        return native.scheduled_matmul(self._flattened(coef), shards,
+                                       coef.shape[0])
+
+    def coded_matmul(self, coef: np.ndarray,
+                     shards: np.ndarray) -> np.ndarray:
+        coef = np.asarray(coef, dtype=np.uint8)
+        shards = np.asarray(shards, dtype=np.uint8)
+        if shards.shape[1] and native.has_scheduled():
+            # sample columns derive from a BYTE cap, and the verdict is
+            # keyed by the sample's own size — the cached decision is
+            # only ever one that was actually measured at that size
+            cap = max(1, schedule.MEASURE_BYTES_MAX // shards.shape[0])
+            sample = shards[:, :cap] if shards.shape[1] > cap \
+                else shards
+            if self._chooser.use_scheduled(
+                    coef, sample.nbytes,
+                    lambda: self._scheduled(coef, sample),
+                    lambda: native.coded_matmul(coef, sample)):
+                return self._scheduled(coef, shards)
+        return native.coded_matmul(coef, shards)
+
+    def schedule_snapshot(self) -> dict:
+        return self._chooser.snapshot()

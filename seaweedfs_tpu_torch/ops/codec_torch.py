@@ -13,26 +13,33 @@ this class but swaps the per-coefficient operands and the kernel.
 
 What it keeps from JaxCodec: the column slab split (bounding the (8k, n)
 float32 intermediate), the LRU of per-coefficient device operands
-(BITMAT_CACHE_MAX), and the depth-N staged `coded_matmul_stream` with the
-ec_codec_stage_seconds{stage,backend} stages pread, h2d, kernel, d2h and
-relay, plus `pin` on a GPU: the host copy into pinned staging, which the
-JAX feed did not have. What it drops: the power-of-two column padding
-(`_pad_width`), which only bounded XLA recompiles — eager PyTorch
-compiles nothing, so blocks go to the device at their true width and
-nothing is sliced off; and the measured XOR-schedule chooser, which a
-later slice ports.
+(BITMAT_CACHE_MAX), the measured XOR-schedule chooser (`_plan_for`: the
+CSE-scheduled program of ops/schedule.py run as torch XOR ops on uint8
+bit planes, `xor_matmul`, picked per (matrix, size bucket) when it
+measured faster than the dense product), and the depth-N staged
+`coded_matmul_stream` with the ec_codec_stage_seconds{stage,backend}
+stages pread, h2d, kernel, d2h and relay, plus `pin` on a GPU: the host
+copy into pinned staging, which the JAX feed did not have. What it drops:
+the power-of-two column padding (`_pad_width`), which only bounded XLA
+recompiles — eager PyTorch compiles nothing, so blocks go to the device
+at their true width and nothing is sliced off.
 
 On a CUDA device the stream stages every block through a ring of `depth`
 pinned host buffers (a pageable `np.memmap` slice would make the copy
-synchronous), uploads on its own copy stream, runs the kernel on a
-compute stream that waits on the upload's event, and reads back on a
-third stream into pinned memory. A ring slot is refilled only after the
-event of its previous upload has fired; device tensors used on another
-stream than the one that allocated them are marked with record_stream.
-Device stages are timed with CUDA events, not the host clock.
+synchronous), uploads on its own copy stream, runs the kernel on the
+codec's compute stream (`TorchCodec.stream`, which the chooser's
+measurement also runs on and synchronises) after the upload's event,
+and reads back on a third stream into pinned memory. A ring slot is
+refilled only after the event of its previous upload has fired; device
+tensors used on another stream than the one that allocated them are
+marked with record_stream. Device stages are timed with CUDA events, not
+the host clock. `transfer_stream` runs the same feed with the product
+replaced by a row-slice copy: the link's ceiling for the same traffic,
+which the probe (ec/probe.py) pairs with every measured rate.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time as _time
 from collections import OrderedDict, deque
@@ -41,7 +48,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import bits, gf256
+from . import bits, gf256, schedule
 from ..utils import metrics
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -55,6 +62,51 @@ def observe_stage(backend: str, stage: str, seconds: float) -> None:
     per (stage, backend)."""
     metrics.histogram_observe("ec_codec_stage_seconds", seconds,
                               {"stage": stage, "backend": backend})
+
+
+@functools.lru_cache(maxsize=schedule.PLAN_CACHE_MAX)
+def _dead_after(program: schedule.Program) -> tuple[tuple[int, ...], ...]:
+    """For each op of `program`, the op-result variables whose last read
+    it is (outputs excepted): dropping them there bounds the live pool to
+    the program's widest cut instead of one plane row per op."""
+    last: dict[int, int] = {}
+    for i, (_, a, b) in enumerate(program.ops):
+        last[a] = last[b] = i
+    keep = set(program.outputs)
+    dead: list[list[int]] = [[] for _ in program.ops]
+    for v, i in last.items():
+        if v >= program.n_in and v not in keep:
+            dead[i].append(v)
+    return tuple(tuple(d) for d in dead)
+
+
+def xor_matmul(program: schedule.Program, shards: torch.Tensor
+               ) -> torch.Tensor:
+    """The scheduled alternative to the dense product (codec_jax.
+    _xor_matmul_body): run the CSE-scheduled XOR program over uint8 bit
+    planes, (k, n) uint8 -> (m, n) uint8 on the tensor's device. Same
+    bytes as the dense product: the schedule rewrites the program, not
+    the layout. One torch op per XOR, so ~10^3 launches per call at
+    RS(10,4); each dead intermediate is released after its last read."""
+    if shards.shape[0] * 8 != program.n_in:
+        raise ValueError(f"shards {tuple(shards.shape)} do not match a "
+                         f"program over {program.n_in} planes")
+    planes = bits.unpack_bits(shards, dtype=torch.uint8)
+    pool: list[torch.Tensor | None] = [planes[i]
+                                       for i in range(program.n_in)]
+    pool += [None] * len(program.ops)
+    for (dst, a, b), dead in zip(program.ops, _dead_after(program)):
+        pool[dst] = pool[a] ^ pool[b]
+        for v in dead:
+            pool[v] = None
+    zero = torch.zeros_like(planes[0])
+    rows = torch.stack([pool[v] if v >= 0 else zero
+                        for v in program.outputs])
+    return bits.pack_bits_uint8(rows)
+
+
+def _into(out: torch.Tensor | None, result: torch.Tensor) -> torch.Tensor:
+    return result if out is None else out.copy_(result)
 
 
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -83,9 +135,14 @@ class TorchCodec:
         self.device = resolve_device(device)
         self._mats: "OrderedDict[bytes, torch.Tensor]" = OrderedDict()
         self._mats_lock = threading.Lock()
+        self._chooser = schedule.Chooser()
+        # the compute stream: every feed's products and the chooser's
+        # timed runs go here (None on the CPU)
+        self.stream = None
         if self.device.type == "cuda":
             # the dense product is specified in full float32 (bits.py)
             torch.backends.cuda.matmul.allow_tf32 = False
+            self.stream = torch.cuda.Stream(self.device)
 
     # -- per-backend operands and kernel (CudaCodec overrides both) ----
     def _make_mats(self, coef: np.ndarray) -> torch.Tensor:
@@ -93,9 +150,11 @@ class TorchCodec:
         a = gf256.expand_to_bits(coef).astype(np.float32)
         return torch.from_numpy(a).to(self.device)
 
-    def _kernel(self, mats: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """One (k, w) device slab -> (m, w) device result."""
-        return bits.coded_matmul_bits(mats, x)
+    def _kernel(self, mats: torch.Tensor, x: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        """One (k, w) device slab -> (m, w) device result, written into
+        `out` when one is given."""
+        return _into(out, bits.coded_matmul_bits(mats, x))
 
     # ------------------------------------------------------------------
     def _coef_mats(self, coef: np.ndarray) -> torch.Tensor:
@@ -112,15 +171,72 @@ class TorchCodec:
                 self._mats.popitem(last=False)
         return mats
 
-    def _run(self, mats: torch.Tensor, dev: torch.Tensor) -> torch.Tensor:
-        """The kernel over one on-device (k, n) block, slab by slab.
-        Slabs are column views of `dev` (row stride n, no copy); no
-        padding, since eager torch has no compiled shapes to bound."""
+    def _run(self, mats, dev: torch.Tensor,
+             plan: schedule.Program | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+        """The kernel over one on-device (k, n) block, slab by slab: the
+        scheduled XOR program when the chooser picked it (`plan`), else
+        the dense product; into `out` when one is given. Slabs are
+        column views of `dev` and `out` (no copy); no padding, since
+        eager torch has no compiled shapes to bound."""
+        if plan is not None:
+            def op(x, o=None):
+                return _into(o, xor_matmul(plan, x))
+        else:
+            op = functools.partial(self._kernel, mats)
         n = dev.shape[1]
         if n <= self.slab:
-            return self._kernel(mats, dev)
-        return torch.cat([self._kernel(mats, dev[:, off:off + self.slab])
-                          for off in range(0, n, self.slab)], dim=1)
+            return op(dev, out)
+        if out is None:
+            return torch.cat([op(dev[:, off:off + self.slab])
+                              for off in range(0, n, self.slab)], dim=1)
+        for off in range(0, n, self.slab):
+            op(dev[:, off:off + self.slab], out[:, off:off + self.slab])
+        return out
+
+    def _plan_for(self, coef: np.ndarray, nbytes: int
+                  ) -> schedule.Program | None:
+        """The scheduled program when measurement says it beats the
+        dense product at this (matrix, size bucket); None otherwise
+        (codec_jax.JaxCodec._plan_for). Both are timed once per bucket
+        on a seeded sample of at most one slab, after a warm call each,
+        on a background thread, and the verdict is keyed by the
+        sample's byte size; SEAWEEDFS_TPU_EC_SCHEDULE=on|off pins it.
+        On a GPU the runs go to the codec's compute stream and each
+        returns only after synchronising it, so the host clock times
+        device work, not launches."""
+        k = coef.shape[1]
+        w = min(max(1, nbytes // max(1, k)), self.slab)
+        sample_bytes = min(nbytes, k * w)
+        state: dict = {}
+
+        def prep():
+            if not state:
+                chunk = np.random.default_rng(0).integers(
+                    0, 256, (k, w), dtype=np.uint8)
+                state["x"] = torch.from_numpy(chunk).to(self.device)
+                state["mats"] = self._coef_mats(coef)
+                state["plan"] = schedule.plan_for(coef)
+
+        def timed(fn):
+            prep()
+            if self.stream is None:
+                fn()
+                return
+            with torch.cuda.stream(self.stream):
+                fn()
+            self.stream.synchronize()
+
+        def run_sched():
+            timed(lambda: xor_matmul(state["plan"], state["x"]))
+
+        def run_dense():
+            timed(lambda: self._kernel(state["mats"], state["x"]))
+
+        if self._chooser.use_scheduled(coef, sample_bytes, run_sched,
+                                       run_dense, background=True):
+            return schedule.plan_for(coef)
+        return None
 
     def coded_matmul(self, coef: np.ndarray, shards) -> np.ndarray:
         coef = np.asarray(coef, dtype=np.uint8)
@@ -131,8 +247,9 @@ class TorchCodec:
                              f"{coef.shape}")
         if shards.shape[1] == 0:
             return np.zeros((m, 0), dtype=np.uint8)
+        plan = self._plan_for(coef, shards.nbytes)
         mats = self._coef_mats(coef)
-        out = self._run(mats, host_tensor(shards).to(self.device))
+        out = self._run(mats, host_tensor(shards).to(self.device), plan)
         return out.cpu().numpy()
 
     def coded_matmul_stream(self, coef: np.ndarray, blocks,
@@ -142,7 +259,9 @@ class TorchCodec:
         with up to `depth` blocks in flight.
 
           caller thread   pread   next(blocks)
-          upload thread   pin     stage into a pinned ring slot (GPU)
+          upload thread   pin     stage into a pinned ring slot, and
+                                  allocate the block's device input,
+                                  output and pinned read-back (GPU)
                           h2d     copy to the device on the copy stream;
                                   then enqueue the kernel and the
                                   read-back
@@ -153,11 +272,29 @@ class TorchCodec:
         pread+pin+h2d+kernel+d2h+relay accounts for the whole feed.
         """
         coef = np.asarray(coef, dtype=np.uint8)
-        m = coef.shape[0]
+        # streams are bulk: decide scheduled-vs-dense once at slab size
+        plan = self._plan_for(coef, coef.shape[1] * self.slab)
+        run = functools.partial(self._run, self._coef_mats(coef),
+                                plan=plan)
+        yield from self._stream(run, coef.shape[0], blocks, depth,
+                                self.name)
+
+    def transfer_stream(self, m: int, blocks, depth: int = 2):
+        """The feed of coded_matmul_stream with the product replaced by
+        a copy of each block's first `m` rows on the compute stream: the
+        same pinned ring, streams and events, so the same bytes cross
+        the link both ways. Stages are recorded under backend
+        `<name>-ceiling`."""
+        def copy_rows(dev, out):
+            out.copy_(dev[:m])
+
+        yield from self._stream(copy_rows, m, blocks, depth,
+                                self.name + "-ceiling")
+
+    def _stream(self, run, m: int, blocks, depth: int, backend: str):
         depth = max(1, int(depth))
-        backend = self.name
         feed_cls = _CudaFeed if self.device.type == "cuda" else _HostFeed
-        feed = feed_cls(self, self._coef_mats(coef), m, depth)
+        feed = feed_cls(self, run, m, depth, backend)
 
         up_ex = ThreadPoolExecutor(1, thread_name_prefix="ec-h2d")
         down_ex = ThreadPoolExecutor(1, thread_name_prefix="ec-d2h")
@@ -208,16 +345,18 @@ class _HostFeed:
     """The stream's stages on the CPU: no copies, no streams; each stage
     is timed on the host clock."""
 
-    def __init__(self, codec: TorchCodec, mats, m: int, depth: int):
-        self.codec, self.mats = codec, mats
+    def __init__(self, codec: TorchCodec, run, m: int, depth: int,
+                 backend: str):
+        self.run, self.m, self.backend = run, m, backend
 
     def upload(self, block: np.ndarray):
         t0 = _time.perf_counter()
         x = host_tensor(block)
+        out = torch.empty((self.m, x.shape[1]), dtype=torch.uint8)
         t1 = _time.perf_counter()
-        out = self.codec._run(self.mats, x)
+        self.run(x, out=out)
         t2 = _time.perf_counter()
-        observe_stage(self.codec.name, "h2d", t1 - t0)
+        observe_stage(self.backend, "h2d", t1 - t0)
         return out, t2 - t1
 
     def drain(self, handle):
@@ -225,21 +364,22 @@ class _HostFeed:
         t0 = _time.perf_counter()
         arr = out.numpy()
         t1 = _time.perf_counter()
-        observe_stage(self.codec.name, "kernel", kernel_s)
-        observe_stage(self.codec.name, "d2h", t1 - t0)
+        observe_stage(self.backend, "kernel", kernel_s)
+        observe_stage(self.backend, "d2h", t1 - t0)
         return arr, t1
 
 
 class _CudaFeed:
     """The stream's stages on a GPU: a ring of `depth` pinned staging
-    buffers, and three streams (upload, compute, read-back) ordered by
-    CUDA events."""
+    buffers, and three streams (upload, the codec's compute stream,
+    read-back) ordered by CUDA events."""
 
-    def __init__(self, codec: TorchCodec, mats, m: int, depth: int):
-        self.codec, self.mats, self.m = codec, mats, m
+    def __init__(self, codec: TorchCodec, run, m: int, depth: int,
+                 backend: str):
+        self.codec, self.run, self.m, self.backend = codec, run, m, backend
         dev = codec.device
         self.copy_stream = torch.cuda.Stream(dev)
-        self.compute_stream = torch.cuda.Stream(dev)
+        self.compute_stream = codec.stream
         self.d2h_stream = torch.cuda.Stream(dev)
         self.ring: list[torch.Tensor | None] = [None] * depth
         self.ring_free: list[torch.cuda.Event | None] = [None] * depth
@@ -262,13 +402,23 @@ class _CudaFeed:
             self.ring[slot] = buf
         staged = buf[:block.nbytes].view(k, w)
         np.copyto(staged.numpy(), block)
+        # every allocation before the first event: a first allocation on
+        # a stream can call cudaMalloc, which waits on the device, and
+        # inside a stage's events it would be billed to that stage
+        with torch.cuda.device(codec.device):
+            with torch.cuda.stream(self.copy_stream):
+                dev = torch.empty((k, w), dtype=torch.uint8,
+                                  device=codec.device)
+            with torch.cuda.stream(self.compute_stream):
+                out = torch.empty((self.m, w), dtype=torch.uint8,
+                                  device=codec.device)
+        host_out = torch.empty((self.m, w), dtype=torch.uint8,
+                               pin_memory=True)
         host_s = _time.perf_counter() - t0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         with torch.cuda.device(codec.device):
             with torch.cuda.stream(self.copy_stream):
                 ev[0].record()
-                dev = torch.empty((k, w), dtype=torch.uint8,
-                                  device=codec.device)
                 dev.copy_(staged, non_blocking=True)
                 ev[1].record()
             self.ring_free[slot] = ev[1]
@@ -276,10 +426,8 @@ class _CudaFeed:
                 self.compute_stream.wait_event(ev[1])
                 dev.record_stream(self.compute_stream)
                 ev[2].record()
-                out = codec._run(self.mats, dev)
+                self.run(dev, out=out)
                 ev[3].record()
-            host_out = torch.empty((self.m, w), dtype=torch.uint8,
-                                   pin_memory=True)
             with torch.cuda.stream(self.d2h_stream):
                 self.d2h_stream.wait_event(ev[3])
                 out.record_stream(self.d2h_stream)
@@ -291,7 +439,7 @@ class _CudaFeed:
     def drain(self, handle):
         host_out, host_s, ev = handle
         ev[5].synchronize()
-        name = self.codec.name
+        name = self.backend
         observe_stage(name, "pin", host_s)
         observe_stage(name, "h2d", ev[0].elapsed_time(ev[1]) / 1e3)
         observe_stage(name, "kernel", ev[2].elapsed_time(ev[3]) / 1e3)

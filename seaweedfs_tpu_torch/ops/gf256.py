@@ -149,3 +149,21 @@ def expand_to_bits(m: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
+
+
+def pack_bits(bits: np.ndarray) -> np.ndarray:
+    """(8r, n) 0/1 -> (r, n) uint8, bit s of row r taken from row 8r+s."""
+    r8, n = bits.shape
+    if r8 % 8:
+        raise ValueError(f"{r8} bit rows are not a multiple of 8")
+    b = bits.reshape(r8 // 8, 8, n).astype(np.uint16)
+    weights = (1 << np.arange(8, dtype=np.uint16))[None, :, None]
+    return (b * weights).sum(axis=1).astype(np.uint8)
+
+
+def unpack_bits(data: np.ndarray) -> np.ndarray:
+    """(r, n) uint8 -> (8r, n) 0/1 uint8 (bit-minor)."""
+    r, n = data.shape
+    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
+    bits = (data[:, None, :] >> shifts) & 1
+    return bits.reshape(8 * r, n)

@@ -5,6 +5,8 @@ a small slab, empty blocks, RS(28,4) and lrc-10.2.2; ReedSolomon of the
 port against the reference's; the backend registry; and the rule that
 a codec built without `device=` raises when there is no GPU.
 Tolerance 0: all of it is integer GF(256) arithmetic."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -128,6 +130,43 @@ def test_stream_records_every_stage():
         assert count(stage) >= n + 3, stage
 
 
+def test_stream_host_stage_order(monkeypatch):
+    """Per block at depth 1 the feed's steps run in order: the caller
+    reads the block (pread), the upload thread stages it and runs the
+    product (3 slabs here), then records h2d; the drain thread records
+    kernel and d2h; the consumer records relay. The kernel stage holds
+    the product's time and the h2d stage does not."""
+    events = []
+    real_observe = codec_torch.observe_stage
+
+    def observe(backend, stage, seconds):
+        events.append((stage, seconds))
+        real_observe(backend, stage, seconds)
+
+    monkeypatch.setattr(codec_torch, "observe_stage", observe)
+    codec = codec_cuda.CudaCodec(slab=256, device="cpu")
+    real_kernel = codec._kernel
+
+    def slow_kernel(mats, x, out=None):
+        events.append(("run", None))
+        time.sleep(0.02)
+        return real_kernel(mats, x, out)
+
+    codec._kernel = slow_kernel
+    coef = _coef("10.4")
+    rng = np.random.default_rng(4)
+    blocks = [rng.integers(0, 256, (10, 600), dtype=np.uint8)
+              for _ in range(3)]
+    got = list(codec.coded_matmul_stream(coef, iter(blocks), depth=1))
+    for g, b in zip(got, blocks):
+        assert np.array_equal(g, codec_numpy.coded_matmul(coef, b))
+    order = ["pread", "run", "run", "run", "h2d", "kernel", "d2h", "relay"]
+    assert [e for e, _ in events] == order * 3
+    for i in range(3):
+        stages = dict(events[8 * i:8 * i + 8])
+        assert stages["kernel"] >= 0.06 > stages["h2d"]
+
+
 def test_stream_reads_memmap_blocks(tmp_path):
     path = tmp_path / "blk"
     rng = np.random.default_rng(8)
@@ -183,7 +222,8 @@ def test_reed_solomon_matches_reference(kind, spec):
 
 
 def test_registry():
-    assert port_backend.backend_names() == ["cuda", "numpy", "torch"]
+    assert port_backend.backend_names() == ["auto", "cuda", "native",
+                                            "numpy", "torch"]
     assert port_backend.get_backend("numpy").name == "numpy"
     with pytest.raises(KeyError):
         port_backend.get_backend("pallas")

@@ -166,6 +166,29 @@ def test_wrapper_strided_column_views():
     assert tuple(empty.shape) == (4, 0)
 
 
+def test_wrapper_writes_into_a_given_out():
+    """`out=` (what the feed allocates ahead of its events): a column
+    view of a wider tensor, row stride above its width, is written in
+    place; anything not (m, n) uint8 with contiguous rows raises."""
+    coef = _coef("rs10.4")
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 256, (10, 3001), dtype=np.uint8)
+    tables = torch.from_numpy(codec_cuda.packed_tables(coef))
+    wide = torch.zeros((4, 5000), dtype=torch.uint8)
+    view = wide[:, 7:7 + 3001]
+    got = codec_cuda.coded_matmul(tables, torch.from_numpy(x), 4, out=view)
+    assert got.data_ptr() == view.data_ptr()
+    assert np.array_equal(wide[:, 7:7 + 3001].numpy(),
+                          codec_numpy.coded_matmul(coef, x))
+    assert not wide[:, :7].any() and not wide[:, 7 + 3001:].any()
+    for bad in (torch.empty((4, 3000), dtype=torch.uint8),
+                torch.empty((3, 3001), dtype=torch.uint8),
+                torch.empty((4, 3001), dtype=torch.int16),
+                torch.empty((3001, 4), dtype=torch.uint8).t()):
+        with pytest.raises(ValueError):
+            codec_cuda.coded_matmul(tables, torch.from_numpy(x), 4, out=bad)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     tables = torch.from_numpy(codec_cuda.packed_tables(_coef("rs10.4")))
     x = torch.zeros((10, 64), dtype=torch.uint8)

@@ -178,8 +178,10 @@ def _port_python_files():
 
 
 def _forbidden(name: str) -> bool:
+    # google_crc32c: the card's machine does not have it
     return (name == "jax" or name.startswith("jax.")
-            or name == "seaweedfs_tpu" or name.startswith("seaweedfs_tpu."))
+            or name == "seaweedfs_tpu" or name.startswith("seaweedfs_tpu.")
+            or name == "google_crc32c")
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -212,3 +214,4 @@ def test_import_scan_catches_forbidden_names():
     assert _forbidden("seaweedfs_tpu.ops")
     assert not _forbidden("seaweedfs_tpu_torch.ops")
     assert not _forbidden("jaxtyping_free") and not _forbidden("torch")
+    assert _forbidden("google_crc32c")
