@@ -51,6 +51,19 @@ Phases, each fatal on failure (exit code 1, no result line):
       backend="cuda" must rebuild a .dat sha256-equal to the original
       through the kernel; write_idx_from_ecx (one .ecj deletion) must
       write the .ecx's entries plus that tombstone.
+6. The Store the volume server calls, at 1 GiB: Store([dir],
+   ec_backend="cuda"), seeded needles (1 KiB - 1 MiB, log-uniform; 5% of
+   writes overwrite an earlier id, then 2% of ids deleted) until the .dat
+   holds 1 GiB; mark_readonly, generate_ec_shards through the kernel
+   (launches > 0), mount all 14 shards and hash them, delete the volume;
+   read every live needle (bytes and cookie equal, deleted ids raise
+   KeyError, 1% more deleted through the .ecj raise too); delete shards
+   {0, 5, 11} and read every needle again (intervals of shards 0 and 5
+   reconstruct on the CPU codec, as the reference routes single-interval
+   reads); rebuild_ec_shards through the kernel (launches > 0), remount,
+   rebuilt shards sha256-equal, a last read pass. One line per step with
+   wall s, MB/s, reads/s, p50 / p99 read latency, launches and the feed's
+   stage seconds.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -116,6 +129,24 @@ def sha256(path: str) -> str:
         for piece in iter(lambda: f.read(8 << 20), b""):
             h.update(piece)
     return h.hexdigest()
+
+
+def feed_stage_seconds() -> dict:
+    """The `cuda` feed's stage seconds so far (ec_codec_stage_seconds)."""
+    from seaweedfs_tpu_torch.utils import metrics
+
+    return {s: metrics.counter_value(
+        "ec_codec_stage_seconds_sum", {"stage": s, "backend": "cuda"})
+        for s in ("pread", "pin", "h2d", "kernel", "d2h", "relay")}
+
+
+def stages_since(before: dict, wall: float) -> str:
+    now = feed_stage_seconds()
+    d = {s: now[s] - before[s] for s in now}
+    dev = d["h2d"] + d["kernel"] + d["d2h"]
+    return (f"stage seconds {json.dumps(d)}; device stages sum to "
+            f"{dev / wall:.1%} of the wall time (idle share >= "
+            f"{1 - dev / wall:.1%})")
 
 
 def phase_device():
@@ -197,11 +228,15 @@ def phase_kernel():
     rec4, _ = rs_matrix.recovery_rows(10, 4, present4, [1, 4, 11, 13])
     rec1, _ = rs_matrix.recovery_rows(
         10, 4, [i for i in range(14) if i != 3], [3])
+    rec3, _ = rs_matrix.recovery_rows(
+        10, 4, [i for i in range(14) if i not in (0, 5, 11)], [0, 5, 11])
     tile = 4096   # columns per kernel tile (kTile in the .cu)
     cases = [
         ("rs10.4 parity n=32Mi", parity, rand(10, CHUNK)),
         ("rs10.4 recover {1,4,11,13}", rec4, rand(10, CHUNK)),
         ("rs10.4 recover {3}", rec1, rand(10, CHUNK)),
+        ("rs10.4 recover {0,5,11} (phase 6's rebuild)", rec3,
+         rand(10, CHUNK)),
         ("rs28.4 parity (2 ring stages per tile)",
          rs_matrix.parity_rows(28, 4), rand(28, 1 << 22)),
         ("k=40 m=6 parity (3 ring stages per tile, 2 output groups)",
@@ -322,22 +357,9 @@ def phase_main_path():
         log(f"[3] wrote {DAT_BYTES} B seeded .dat in {dt:.2f} s; rows: "
             f"{n_large} large, {n_small} small")
 
-        def stage_seconds():
-            return {s: metrics.counter_value(
-                "ec_codec_stage_seconds_sum", {"stage": s, "backend": "cuda"})
-                for s in ("pread", "pin", "h2d", "kernel", "d2h", "relay")}
-
-        def stages_since(before, wall):
-            now = stage_seconds()
-            d = {s: now[s] - before[s] for s in now}
-            dev = d["h2d"] + d["kernel"] + d["d2h"]
-            return (f"stage seconds {json.dumps(d)}; device stages sum to "
-                    f"{dev / wall:.1%} of the wall time (idle share >= "
-                    f"{1 - dev / wall:.1%})")
-
         metrics.reset()
         codec_cuda.coded_matmul.launches = 0
-        before = stage_seconds()
+        before = feed_stage_seconds()
         t0 = time.perf_counter()
         write_ec_files(base, backend="cuda")
         t_enc = time.perf_counter() - t0
@@ -373,7 +395,7 @@ def phase_main_path():
             for i in lost:
                 os.remove(paths[i])
             n_before = codec_cuda.coded_matmul.launches
-            before = stage_seconds()
+            before = feed_stage_seconds()
             t0 = time.perf_counter()
             got = rebuild_ec_files(base, backend="cuda")
             dt = time.perf_counter() - t0
@@ -657,6 +679,173 @@ def phase_router_lifecycle():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _read_pass(store, live: dict, label: str) -> dict:
+    """Read every live needle through Store.read_needle with its cookie;
+    fail on any byte or cookie mismatch. -> wall, bytes and per-read
+    latencies (host clock)."""
+    lat = np.empty(len(live))
+    nbytes = 0
+    t0 = time.perf_counter()
+    for i, (key, (cookie, digest)) in enumerate(live.items()):
+        r0 = time.perf_counter()
+        n = store.read_needle(1, key, cookie)
+        lat[i] = time.perf_counter() - r0
+        if n.cookie != cookie or \
+                hashlib.sha256(n.data).hexdigest() != digest:
+            fail(f"{label}: needle {key} read back other bytes")
+        nbytes += len(n.data)
+    wall = time.perf_counter() - t0
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    return {"wall": wall, "bytes": nbytes, "p50_ms": p50, "p99_ms": p99}
+
+
+def _expect_gone(store, keys, label: str) -> None:
+    for key in keys:
+        try:
+            store.read_needle(1, key)
+        except KeyError:
+            continue
+        fail(f"{label}: deleted needle {key} still reads")
+
+
+def phase_store():
+    """Phase 6: the Store the volume server calls, at 1 GiB. -> kernel
+    launches of (generate_ec_shards, rebuild_ec_shards)."""
+    from seaweedfs_tpu_torch.ec import geometry as geo
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    tmp = tempfile.mkdtemp(prefix="ec-smoke6-")
+    try:
+        store = Store([tmp], ec_backend="cuda")
+        vol = store.add_volume(1)
+        base = vol.file_name()
+        rng = np.random.default_rng(SEED + 6)
+        lo, hi = np.log(1 << 10), np.log(1 << 20)
+        live: dict[int, tuple[int, str]] = {}
+        writes = overwrites = 0
+        t0 = time.perf_counter()
+        while vol.content_size() < DAT_BYTES:
+            data = rng.bytes(int(np.exp(rng.uniform(lo, hi))))
+            if live and rng.random() < 0.05:
+                keys = list(live)
+                key = keys[int(rng.integers(0, len(keys)))]
+                overwrites += 1
+            else:
+                key = int(rng.integers(1, 1 << 48))
+            cookie = int(rng.integers(0, 1 << 32))
+            store.write_needle(1, Needle(id=key, cookie=cookie, data=data))
+            live[key] = (cookie, hashlib.sha256(data).hexdigest())
+            writes += 1
+        dead = [int(k) for k in rng.choice(list(live), len(live) // 50,
+                                           replace=False)]
+        for key in dead:
+            store.delete_needle(1, key)
+            del live[key]
+        dt = time.perf_counter() - t0
+        dat_size = vol.content_size()
+        log(f"[6] 1. Store([dir], ec_backend='cuda'), add_volume(1); "
+            f"{writes} writes ({overwrites} overwrites, sizes log-uniform "
+            f"1 KiB - 1 MiB), {len(dead)} deletes: {len(live)} live "
+            f"needles, .dat {dat_size} B, {dt:.3f} s, "
+            f"{dat_size / dt / 1e6:.1f} MB/s")
+
+        store.mark_readonly(1)
+        before = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        store.generate_ec_shards(1)
+        dt = time.perf_counter() - t0
+        gen_launches = codec_cuda.coded_matmul.launches
+        sp = _latest_span("ec.write_ec_files")
+        log(f"[6] 3. generate_ec_shards(1) (fsync of the .dat, .dat -> 14 "
+            f"shards, .ecx): {dt:.3f} s, {dat_size / dt / 1e6:.1f} MB/s "
+            f"(.dat bytes in), of which the ec.write_ec_files span "
+            f"{sp and round(sp['duration'], 4)} s (peer {sp and sp['peer']!r}"
+            f"), kernel launches {gen_launches}, {stages_since(before, dt)}")
+        if sp is None or sp["peer"] != "cuda":
+            fail("generate_ec_shards recorded no ec.write_ec_files span on "
+                 "the cuda backend")
+        if gen_launches <= 0:
+            fail("generate_ec_shards launched the kernel no time")
+        store.mount_ec_shards(1, "", range(14))
+        paths = [base + geo.shard_ext(i) for i in range(14)]
+        orig = [sha256(p) for p in paths]
+        store.delete_volume(1)
+        if os.path.exists(base + ".dat"):
+            fail("delete_volume left the .dat behind")
+        log(f"[6] 3. mounted shards 0-13 ({os.path.getsize(paths[0])} B "
+            f"each), hashed them, deleted volume 1: every read now goes "
+            f"through the EC volume")
+
+        recon = []
+        real = store._reconstruct_interval
+
+        def counted(ecv, sid, off, size):
+            recon.append(size)
+            return real(ecv, sid, off, size)
+
+        store._reconstruct_interval = counted
+        for step, label in ((4, "all 14 shards"),
+                            (5, "shards {0, 5, 11} lost")):
+            if step == 5:
+                store.delete_ec_shards(1, [0, 5, 11])
+            n0, r0 = codec_cuda.coded_matmul.launches, len(recon)
+            st = _read_pass(store, live, f"step {step}")
+            log(f"[6] {step}. read {len(live)} live needles, {label}: "
+                f"{st['wall']:.3f} s, {st['bytes'] / st['wall'] / 1e6:.1f} "
+                f"MB/s, {len(live) / st['wall']:.1f} reads/s, latency p50 "
+                f"{st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms; "
+                f"intervals reconstructed {len(recon) - r0} "
+                f"({sum(recon[r0:])} B, CPU codec), kernel launches "
+                f"{codec_cuda.coded_matmul.launches - n0}")
+            if step == 4:
+                _expect_gone(store, dead, "step 4")
+                more = list(live)[::100]
+                for key in more:
+                    store.delete_needle(1, key)
+                    del live[key]
+                _expect_gone(store, more, "step 4 (.ecj)")
+                log(f"[6] 4. {len(dead)} ids deleted before sealing and "
+                    f"{len(more)} deleted through the .ecj raise KeyError")
+        if len(recon) == 0:
+            fail("no interval was reconstructed with shards 0 and 5 lost")
+
+        before = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        rebuilt = store.rebuild_ec_shards(1)
+        dt = time.perf_counter() - t0
+        reb_launches = codec_cuda.coded_matmul.launches
+        shard_size = os.path.getsize(paths[1])
+        log(f"[6] 6. rebuild_ec_shards(1) -> {rebuilt}: {dt:.3f} s, "
+            f"{10 * shard_size / dt / 1e6:.1f} MB/s (input shard bytes "
+            f"in), kernel launches {reb_launches}, "
+            f"{stages_since(before, dt)}")
+        if rebuilt != [0, 5, 11]:
+            fail(f"rebuilt {rebuilt}, expected [0, 5, 11]")
+        if reb_launches <= 0:
+            fail("rebuild_ec_shards launched the kernel no time")
+        store.mount_ec_shards(1, "", [0, 5, 11])
+        bad = [i for i in (0, 5, 11) if sha256(paths[i]) != orig[i]]
+        if bad:
+            fail(f"rebuilt shards {bad} differ from the originals")
+        r0 = len(recon)
+        st = _read_pass(store, live, "step 6")
+        log(f"[6] 6. remounted {{0, 5, 11}}, sha256-equal to step 3's; "
+            f"read {len(live)} needles: {st['wall']:.3f} s, "
+            f"{len(live) / st['wall']:.1f} reads/s, p50 {st['p50_ms']:.3f}"
+            f" ms p99 {st['p99_ms']:.3f} ms, intervals reconstructed "
+            f"{len(recon) - r0}")
+        if len(recon) != r0:
+            fail("reads after the remount still reconstructed")
+        store.close()
+        return gen_launches, reb_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -669,6 +858,7 @@ def main() -> int:
     launches = phase_main_path()
     phase_batched()
     sweep_launches, decode_launches = phase_router_lifecycle()
+    gen_launches, reb_launches = phase_store()
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
     record = {"kernels": [{
@@ -688,6 +878,7 @@ def main() -> int:
         "rebuild_bound_ms": rebuild_bound_ms,
         "sweep_launches": sweep_launches,
         "decode_launches": decode_launches,
+        "store_launches": gen_launches + reb_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -1,9 +1,10 @@
 """seaweedfs_tpu_torch — the PyTorch/CUDA port of seaweedfs_tpu.
 
 The port runs the erasure-coding hot path (Reed-Solomon encode and
-rebuild of volume files) on an NVIDIA Hopper GPU. Its layout mirrors
-seaweedfs_tpu module for module, so each file's reference is the file of
-the same name there; the port imports nothing from that package.
+rebuild of volume files) on an NVIDIA Hopper GPU, behind the storage
+layer that serves it. Its layout mirrors seaweedfs_tpu module for
+module, so each file's reference is the file of the same name there;
+the port imports nothing from that package.
 
 Layout:
     ops/        GF(256) math, RS matrices, the numpy reference codec,
@@ -12,14 +13,19 @@ Layout:
                 codec (codec_native) and the hand-written CUDA
                 coded-matmul kernel (codec_cuda)
     csrc/       CUDA C++ kernel sources, built at first use by ops/_build
-    native/     the C++ AVX2 host codec, built with g++ at first use
+    native/     the C++ AVX2 host codec, CRC32C and .dat record walker,
+                built with g++ at first use
     ec/         erasure-coding geometry, codec registry and the measured
                 router (backend, probe), file encode / rebuild / verify
-                and .ecx (encoder), decode back to .dat / .idx (decoder)
-    storage/    the .vif sidecar, index files (types, idx, needle_map),
-                needle record sizes
+                and .ecx (encoder), decode back to .dat / .idx (decoder),
+                the mounted EC volume (volume)
+    storage/    needle records, super block, storage files, needle maps,
+                volumes, disk locations, the .vif sidecar, index files,
+                and the Store the volume server calls (generate /
+                rebuild shards, the degraded-read ladder)
     models/     the batched encode + scrub step
-    utils/      metrics registry, tracing spans, glog, device selection
+    utils/      metrics registry, tracing spans, glog, workload
+                sketches, device selection
 
 Entry points run on the GPU (device "cuda") unless the caller asks for
 the CPU; without a GPU they raise instead of falling back.

@@ -1,7 +1,8 @@
-"""Erasure-coding geometry: RS(10,4), code configs, block layout.
+"""Erasure-coding geometry: RS(10,4), code configs, block layout,
+needle-location math (Interval, locate).
 
 Byte-layout-compatible with the reference (weed/storage/
-erasure_coding/ec_encoder.go:17-23): a volume's .dat is
+erasure_coding/ec_encoder.go:17-23, ec_locate.go): a volume's .dat is
 striped row-major — while more than one full large row (10 x 1GB) remains,
 emit large rows; then 10 x 1MB small rows, the last one zero-padded. Data
 shard i of a row holds block i; parity shards .ec10-.ec13 extend each row.
@@ -31,7 +32,7 @@ def parse_codec(codec: str) -> tuple[int, int]:
 
     Accepts 'k.m' (RS), 'lrc-k.l.g' (LRC: l local XOR parities + g
     global RS parities, total parity l+g), or '' for the RS(10,4)
-    default. Geometry (stripe layout, shard count) only
+    default. Geometry (stripe layout, shard count, locate math) only
     needs (k, m); code structure lives in parse_code/CodeConfig.
     """
     if not codec:
@@ -280,3 +281,65 @@ def shard_file_size(dat_size: int, large_block: int = LARGE_BLOCK,
     return n_large * large_block + n_small * small_block
 
 
+@dataclass(frozen=True)
+class Interval:
+    """A run of logical .dat bytes inside one striped block."""
+
+    block_index: int        # index within its region (large or small area)
+    inner_offset: int       # offset inside the block
+    size: int
+    is_large_block: bool
+    large_block_rows: int   # large-row count of the volume
+    data_shards: int = DATA_SHARDS  # stripe width of the volume's codec
+
+    def to_shard_and_offset(self, large_block: int = LARGE_BLOCK,
+                            small_block: int = SMALL_BLOCK) -> tuple[int, int]:
+        """-> (shard_id, offset within shard file) — Interval.
+        ToShardIdAndOffset (ec_locate.go:77)."""
+        row = self.block_index // self.data_shards
+        off = self.inner_offset
+        if self.is_large_block:
+            off += row * large_block
+        else:
+            off += self.large_block_rows * large_block + row * small_block
+        return self.block_index % self.data_shards, off
+
+
+def locate(dat_size: int, offset: int, size: int,
+           large_block: int = LARGE_BLOCK,
+           small_block: int = SMALL_BLOCK,
+           data_shards: int = DATA_SHARDS) -> list[Interval]:
+    """Map a logical [offset, offset+size) range of the original .dat to
+    shard-block intervals (LocateData, ec_locate.go:15).
+
+    Deviation from the reference: the large-row count here is taken from
+    the ACTUAL encode layout (row_layout) rather than re-derived as
+    `(datSize + 10*small) / (10*large)` — the two disagree when datSize
+    is within 10*small of an exact large-row multiple, where the
+    reference's locate would point into the wrong region.
+    """
+    n_large_rows, _ = row_layout(dat_size, large_block, small_block,
+                                 data_shards)
+    large_row = large_block * data_shards
+
+    if offset < n_large_rows * large_row:
+        is_large = True
+        block_index, inner = divmod(offset, large_block)
+    else:
+        is_large = False
+        block_index, inner = divmod(offset - n_large_rows * large_row,
+                                    small_block)
+
+    out: list[Interval] = []
+    while size > 0:
+        block = large_block if is_large else small_block
+        take = min(size, block - inner)
+        out.append(Interval(int(block_index), int(inner), int(take),
+                            is_large, int(n_large_rows), data_shards))
+        size -= take
+        block_index += 1
+        if is_large and block_index == n_large_rows * data_shards:
+            is_large = False
+            block_index = 0
+        inner = 0
+    return out

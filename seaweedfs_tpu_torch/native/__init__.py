@@ -1,14 +1,15 @@
-"""Native (C++) host codec: the AVX2 GF(256) kernels and CRC32C of
-gf256_codec.cc, bound with ctypes — the codec part of seaweedfs_tpu/
-native/__init__.py.
+"""Native (C++) host library: the AVX2 GF(256) kernels, CRC32C and the
+.dat record walker of gf256_codec.cc, bound with ctypes — the codec
+part of seaweedfs_tpu/native/__init__.py.
 
 The reference system gets these from vendored dependencies:
 klauspost/reedsolomon SIMD GF(256) and hardware CRC32C. Here they are
 in-tree C++ built by build.py on first use; no pybind11 for a flat C
 ABI. `load()` builds on demand and returns the configured ctypes
 handle; `available()` is a cheap probe (a built library or a g++ to
-build one). ops.codec_native and the encoder's whole-file bypass go
-through here.
+build one). ops.codec_native, the encoder's whole-file bypass, the
+needle record's CRC32C (storage/needle.py) and the volume's index
+rebuild (storage/volume.py) go through here.
 """
 from __future__ import annotations
 
@@ -62,6 +63,12 @@ def _load_locked() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32), u8p, ctypes.c_int,
         ctypes.c_int64, u8p]
     lib.gf256_scheduled_matmul.restype = None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.dat_scan.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint64), i64p,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, i64p]
+    lib.dat_scan.restype = ctypes.c_int64
     lib.ec_encode_file.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
         u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
@@ -162,3 +169,26 @@ def ec_encode_file(dat_path: str, shard_paths: list[str],
         ctypes.c_int64(chunk), n_threads)
     if rc != 0:
         raise IOError(f"native ec_encode_file: {os.strerror(-rc)}")
+
+
+def dat_scan(dat: np.ndarray, start: int, version: int
+             ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Walk a .dat image natively -> (ids u64, byte offsets i64,
+    signed sizes i32, end_offset). end_offset < len(dat) means the
+    tail is torn after the last whole record."""
+    lib = load()
+    dat = np.ascontiguousarray(dat, dtype=np.uint8)
+    # smallest record is an empty v2 tombstone: 16+4 padded -> 24
+    cap = max(1, dat.size // 24)
+    ids = np.empty(cap, dtype=np.uint64)
+    offsets = np.empty(cap, dtype=np.int64)
+    sizes = np.empty(cap, dtype=np.int32)
+    end = ctypes.c_int64(0)
+    n = lib.dat_scan(
+        _u8p(dat), ctypes.c_int64(dat.size), ctypes.c_int64(start),
+        ctypes.c_int(version),
+        ids.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(cap), ctypes.byref(end))
+    return ids[:n], offsets[:n], sizes[:n], int(end.value)

@@ -1,6 +1,5 @@
-"""Core storage value types and on-disk constants — the part of
-seaweedfs_tpu/storage/types.py that the index files and the EC decoder
-use.
+"""Core storage value types and on-disk constants — a copy of
+seaweedfs_tpu/storage/types.py.
 
 Byte-compatible with the reference formats (weed/storage/types/
 needle_types.go:33-40, offset_4bytes.go:14-17 / offset_5bytes.go:14-17).
@@ -27,6 +26,8 @@ NEEDLE_MAP_ENTRY_SIZE = NEEDLE_ID_SIZE + OFFSET_SIZE + SIZE_SIZE  # 16 / 17
 TIMESTAMP_SIZE = 8
 TOMBSTONE_SIZE = -1  # Size value marking a deleted needle
 SIZE_MASK = 0xFFFFFFFF
+# 32GB with 4-byte padded offsets; 8TiB with 5
+MAX_VOLUME_SIZE = NEEDLE_PADDING * (1 << (8 * OFFSET_SIZE))
 
 
 def offset_to_disk_bytes(offset: int) -> bytes:
@@ -94,3 +95,29 @@ class NeedleValue:
         size = u32_to_size(int.from_bytes(
             b[8 + OFFSET_SIZE:8 + OFFSET_SIZE + SIZE_SIZE], "big"))
         return cls(key, offset, size)
+
+
+def format_file_id(volume_id: int, key: int, cookie: int) -> str:
+    """'vid,khexchex' — reference fid string (needle/file_id.go)."""
+    return f"{volume_id},{key:x}{cookie:08x}"
+
+
+def parse_file_id(fid: str) -> tuple[int, int, int]:
+    """fid string -> (volume_id, key, cookie). A `_N` suffix adds N to
+    the key (needle.go ParsePath:121-141) — that's how clients address
+    the extra slots of an `assign?count=N` batch: fid, fid_1, ...,
+    fid_{N-1}."""
+    vid_s, _, rest = fid.partition(",")
+    delta = 0
+    if "_" in rest:
+        rest, _, delta_s = rest.rpartition("_")
+        try:
+            delta = int(delta_s)
+        except ValueError:
+            raise ValueError(f"bad file id delta {fid!r}") from None
+    if not rest or len(rest) <= 8:
+        raise ValueError(f"bad file id {fid!r}")
+    volume_id = int(vid_s)
+    key = int(rest[:-8], 16) + delta
+    cookie = int(rest[-8:], 16)
+    return volume_id, key, cookie

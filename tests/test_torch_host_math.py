@@ -215,3 +215,27 @@ def test_import_scan_catches_forbidden_names():
     assert not _forbidden("seaweedfs_tpu_torch.ops")
     assert not _forbidden("jaxtyping_free") and not _forbidden("torch")
     assert _forbidden("google_crc32c")
+
+
+STORAGE_LAYER = ["ec/geometry.py", "native/__init__.py", "storage/types.py",
+                 "storage/needle.py", "storage/super_block.py",
+                 "storage/backend.py", "storage/needle_map.py",
+                 "storage/volume.py", "storage/disk_location.py",
+                 "utils/sketch.py", "ec/volume.py", "storage/store.py"]
+
+
+@pytest.mark.parametrize("module", STORAGE_LAYER)
+def test_scan_covers_the_storage_layer(module):
+    """The storage layer's modules are in the scanned set, each has its
+    reference at the same path, and none imports jax, seaweedfs_tpu or
+    google_crc32c."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in names if _forbidden(n)]
