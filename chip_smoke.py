@@ -846,6 +846,306 @@ def phase_store():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _http_read_pass(server: str, live: dict, label: str) -> dict:
+    """GET every live needle from `server` over HTTP; fail on any status
+    or byte mismatch. -> wall, bytes and per-read latencies (host clock)."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    lat = np.empty(len(live))
+    nbytes = 0
+    t0 = time.perf_counter()
+    for i, (fid, digest) in enumerate(live.items()):
+        r0 = time.perf_counter()
+        r = session().get(f"http://{server}/{fid}", timeout=(5.0, 60.0))
+        body = r.content
+        lat[i] = time.perf_counter() - r0
+        if r.status_code != 200 or \
+                hashlib.sha256(body).hexdigest() != digest:
+            fail(f"{label}: GET {fid} from {server} gave status "
+                 f"{r.status_code} and other bytes")
+        nbytes += len(body)
+    wall = time.perf_counter() - t0
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    return {"wall": wall, "bytes": nbytes, "p50_ms": p50, "p99_ms": p99}
+
+
+def sha256_prefix(path: str, size: int) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while size > 0:
+            piece = f.read(min(8 << 20, size))
+            if not piece:
+                break
+            h.update(piece)
+            size -= len(piece)
+    return h.hexdigest()
+
+
+def _records(path: str, start: int, end: int) -> list[tuple[int, int, int]]:
+    """(offset, needle id, record bytes) of the records in [start, end)
+    of a .dat."""
+    from seaweedfs_tpu_torch.storage import needle as ndl
+    from seaweedfs_tpu_torch.storage import types as t
+
+    out = []
+    with open(path, "rb") as f:
+        off = start
+        while off < end:
+            f.seek(off)
+            head = f.read(t.NEEDLE_HEADER_SIZE)
+            key = int.from_bytes(head[4:12], "big")
+            size = t.u32_to_size(int.from_bytes(head[12:16], "big"))
+            out.append((off, key, ndl.disk_size(max(size, 0))))
+            off += out[-1][2]
+    return out
+
+
+def _shard_paths(cluster, vid: int) -> dict[int, str]:
+    """{shard id: file} of every mounted shard of `vid` in the cluster."""
+    out = {}
+    for store in cluster.stores:
+        ecv = store.ec_volumes.get(vid)
+        for sid, shard in (ecv.shards.items() if ecv else ()):
+            out[sid] = shard.path
+    return out
+
+
+def phase_cluster(card: str) -> dict:
+    """Phase 7: the master, three volume servers and the shell over HTTP
+    at 1 GiB. -> kernel launches of each shell command."""
+    from seaweedfs_tpu_torch.ec import geometry as geo
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import commands_ec, repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ec-smoke7-")
+    cluster = Cluster(tmp, n_volume_servers=3, max_volumes=8,
+                      volume_size_limit=2 * DAT_BYTES, ec_backend="cuda")
+    launches: dict[str, int] = {}
+    try:
+        master = cluster.master_url
+        env = CommandEnv(master)
+        log(f"[7] {card}")
+        log(f"[7] Cluster: master {master}, volume servers "
+            f"{[th.address for th in cluster.volume_threads]}, "
+            f"ec_backend='cuda', volume size limit {2 * DAT_BYTES} B")
+        grown = env.master_get("/vol/grow", collection="smoke7", count=1)
+        if grown.get("count") != 1:
+            fail(f"/vol/grow answered {grown}")
+
+        # 2. seeded needles through assign + upload over HTTP
+        rng = np.random.default_rng(SEED + 7)
+        lo, hi = np.log(1 << 10), np.log(1 << 20)
+        live: dict[str, str] = {}
+        writes = overwrites = 0
+        vid, vol, url = None, None, None
+        t0 = time.perf_counter()
+        while vol is None or vol.content_size() < DAT_BYTES:
+            data = rng.bytes(int(np.exp(rng.uniform(lo, hi))))
+            if live and rng.random() < 0.05:
+                fids = list(live)
+                fid = fids[int(rng.integers(0, len(fids)))]
+                overwrites += 1
+            else:
+                a = verbs.assign(master, collection="smoke7")
+                fid = a.fid
+                if vid is None:
+                    vid, url = int(fid.split(",")[0]), a.url
+                    vol = next(s.find_volume(vid) for s in cluster.stores
+                               if s.has_volume(vid))
+                elif int(fid.split(",")[0]) != vid or a.url != url:
+                    fail(f"assign left volume {vid}: {fid} on {a.url}")
+            verbs.upload(f"http://{url}/{fid}", data)
+            live[fid] = hashlib.sha256(data).hexdigest()
+            writes += 1
+        dead = [live_fid for live_fid in rng.choice(
+            sorted(live), len(live) // 50, replace=False)]
+        for fid in dead:
+            verbs.delete(f"http://{url}/{fid}")
+            del live[fid]
+        dt = time.perf_counter() - t0
+        dat_path = vol.file_name() + ".dat"
+        dat_size = vol.content_size()
+        sealed = sha256(dat_path)
+        # a decode ends at the last live needle's record (SeaweedFS's
+        # FindDatFileSize): what comes back is this prefix, and the tail
+        # past it holds only records of deleted needles
+        keys = {t.parse_file_id(f)[1] for f in live}
+        gone = {t.parse_file_id(f)[1] for f in dead}
+        recs = _records(dat_path, vol.super_block.block_size, dat_size)
+        live_end = max(off + n for off, key, n in recs if key in keys)
+        tail = [key for off, key, n in recs if off >= live_end]
+        prefix = sha256_prefix(dat_path, live_end)
+        if not set(tail) <= gone:
+            fail("the sealed .dat holds live needles past its last live one")
+        log(f"[7] 2. volume {vid} on {url}: {writes} uploads over HTTP "
+            f"({overwrites} overwrites, 1 KiB - 1 MiB log-uniform), "
+            f"{len(dead)} deletes: {len(live)} live needles, .dat "
+            f"{dat_size} B, {dt:.3f} s, {dat_size / dt / 1e6:.1f} MB/s; "
+            f"sealed .dat sha256 {sealed[:16]}")
+
+        def shell(line: str, op: str, fn=None) -> tuple[dict, float]:
+            before = feed_stage_seconds()
+            codec_cuda.coded_matmul.launches = 0
+            t0 = time.perf_counter()
+            out = fn() if fn is not None else repl.run_command(env, line)
+            dt = time.perf_counter() - t0
+            launches[op] = codec_cuda.coded_matmul.launches
+            if feed_stage_seconds() != before:
+                stages = stages_since(before, dt)
+            else:
+                stages = ("no stage of the staged feed ran: its codec "
+                          "calls went to CudaCodec.coded_matmul chunk by "
+                          "chunk")
+            log(f"[7] {line}: {dt:.3f} s, kernel launches {launches[op]}, "
+                f"{stages}")
+            if launches[op] <= 0:
+                fail(f"{line} launched the kernel no time")
+            return out, dt
+
+        def reads(step: int, server: str, label: str) -> None:
+            n0 = codec_cuda.coded_matmul.launches
+            f0, r0 = len(fetched), len(recon)
+            st = _http_read_pass(server, live, f"step {step}")
+            log(f"[7] {step}. GET {len(live)} live needles from {server}, "
+                f"{label}: {st['wall']:.3f} s, "
+                f"{st['bytes'] / st['wall'] / 1e6:.1f} MB/s, "
+                f"{len(live) / st['wall']:.1f} reads/s, latency p50 "
+                f"{st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms; remote "
+                f"shard intervals fetched over ec/shard_read "
+                f"{len(fetched) - f0} ({sum(fetched[f0:])} B), intervals "
+                f"reconstructed {len(recon) - r0} ({sum(recon[r0:])} B, "
+                f"CPU codec), kernel launches "
+                f"{codec_cuda.coded_matmul.launches - n0}")
+            if codec_cuda.coded_matmul.launches != n0:
+                fail(f"step {step}: a read pass launched the kernel")
+
+        # 3. ec.encode through the shell
+        repl.run_command(env, "lock")
+        placement, dt = shell(f"ec.encode -volumeId={vid}", "encode")
+        log(f"[7] 3. ec.encode: {dat_size / dt / 1e6:.1f} MB/s (.dat bytes "
+            f"in); placement {placement}")
+        if any(s.has_volume(vid) for s in cluster.stores):
+            fail("ec.encode left the original volume behind")
+        paths = _shard_paths(cluster, vid)
+        if sorted(paths) != list(range(14)):
+            fail(f"mounted shards {sorted(paths)} after ec.encode")
+        orig = {sid: sha256(p) for sid, p in paths.items()}
+
+        # count remote interval fetches and reconstructs on every server
+        fetched: list[int] = []
+        recon: list[int] = []
+        for store in cluster.stores:
+            real_fetch = store.remote_shards_fetcher
+            real_recon = store._reconstruct_interval
+
+            def counted_fetch(vid_, sids, off, size, need, deadline,
+                              _real=real_fetch):
+                got = _real(vid_, sids, off, size, need, deadline)
+                fetched.extend(len(v) for v in got.values())
+                return got
+
+            def counted_recon(ecv, sid, off, size, _real=real_recon):
+                recon.append(size)
+                return _real(ecv, sid, off, size)
+
+            store.remote_shards_fetcher = counted_fetch
+            store._reconstruct_interval = counted_recon
+        reader = placement[1]
+        reads(4, reader, "all 14 shards")
+        if not fetched:
+            fail("step 4: no interval came from another server")
+
+        def drop(sids) -> None:
+            locs = env.ec_shard_locations(vid)
+            for sid in sids:
+                for holder in locs.get(sid, []):
+                    env.vs_post(holder, "/admin/ec/delete",
+                                {"volume": vid, "shard_ids": [sid]})
+            deadline = time.monotonic() + 30
+            while set(sids) & set(env.ec_shard_locations(vid)):
+                if time.monotonic() > deadline:
+                    fail(f"the master still lists shards {sids}")
+                time.sleep(0.05)
+
+        drop((0, 5, 11))
+        reads(5, reader, "shards {0, 5, 11} deleted")
+        if not recon:
+            fail("step 5: no interval was reconstructed")
+
+        # 6. partial, then full rebuild
+        copy0 = metrics.counter_value("repair_read_bytes_total",
+                                      {"mode": "full"})
+        out, dt = shell(f"ec.rebuild -volumeId={vid}", "partial")
+        shard_size = os.path.getsize(paths[1])
+        log(f"[7] 6. partial rebuild on {out.get('rebuilder')}: mode "
+            f"{out.get('mode')!r}, rebuilt {out.get('rebuilt')}, read_bytes "
+            f"{out.get('read_bytes')} B over HTTP, rebuilt_bytes "
+            f"{out.get('rebuilt_bytes')} B, {10 * shard_size / dt / 1e6:.1f}"
+            f" MB/s (input shard bytes)")
+        if out.get("mode") != "partial" or out.get("rebuilt") != [0, 5, 11]:
+            fail(f"ec.rebuild did not rebuild {{0, 5, 11}} partially: {out}")
+
+        def check_rebuilt(label: str) -> None:
+            now = _shard_paths(cluster, vid)
+            bad = [i for i in range(14) if i not in now
+                   or sha256(now[i]) != orig[i]]
+            if bad:
+                fail(f"{label}: shards {bad} missing or differ")
+            log(f"[7] 6. {label}: all 14 shards mounted, sha256-equal to "
+                f"step 3's")
+
+        check_rebuilt("after the partial rebuild")
+        drop((0, 5, 11))
+        out, dt = shell(f"commands_ec.ec_rebuild(env, {vid}, partial=False)",
+                        "full", lambda: commands_ec.ec_rebuild(
+                            env, vid, partial=False))
+        copied = metrics.counter_value("repair_read_bytes_total",
+                                       {"mode": "full"}) - copy0
+        log(f"[7] 6. full rebuild on {out.get('rebuilder')}: mode "
+            f"{out.get('mode')!r}, rebuilt {out.get('rebuilt')}, ec/copy "
+            f"{copied} B over HTTP, rebuilt_bytes {out.get('rebuilt_bytes')}"
+            f" B, {10 * shard_size / dt / 1e6:.1f} MB/s (input shard bytes)")
+        if out.get("mode") != "full" or sorted(out.get("rebuilt", [])) != \
+                [0, 5, 11]:
+            fail(f"full rebuild did not rebuild {{0, 5, 11}}: {out}")
+        check_rebuilt("after the full rebuild")
+        reads(6, reader, "after both rebuilds")
+
+        # 7. lose data shards 0 and 5, decode back to a volume
+        drop((0, 5))
+        out, dt = shell(f"ec.decode -volumeId={vid}", "decode")
+        server = out["server"]
+        store = next(s for s in cluster.stores
+                     if f"{s.ip}:{s.port}" == server)
+        v = store.find_volume(vid)
+        if v is None:
+            fail(f"ec.decode left no volume {vid} on {server}")
+        dec_path = v.file_name() + ".dat"
+        dec_size = os.path.getsize(dec_path)
+        decoded = sha256(dec_path)
+        log(f"[7] 7. ec.decode on {server} with data shards 0 and 5 "
+            f"deleted: {dec_size / dt / 1e6:.1f} MB/s (.dat bytes out); "
+            f"decoded .dat {dec_size} B sha256 {decoded[:16]}; the sealed "
+            f".dat up to its last live needle: {live_end} B sha256 "
+            f"{prefix[:16]} (whole .dat {dat_size} B {sealed[:16]}; its "
+            f"tail holds {len(tail)} records, all of deleted needles)")
+        if dec_size != live_end or decoded != prefix:
+            fail("the decoded .dat differs from the sealed one")
+        reads(7, server, "from the decoded volume")
+        log(f"[7] phase 7 took {time.perf_counter() - t_phase:.3f} s; "
+            f"kernel launches {launches}")
+        return launches
+    finally:
+        cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -859,6 +1159,7 @@ def main() -> int:
     phase_batched()
     sweep_launches, decode_launches = phase_router_lifecycle()
     gen_launches, reb_launches = phase_store()
+    cluster_launches = phase_cluster(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
     record = {"kernels": [{
@@ -879,6 +1180,8 @@ def main() -> int:
         "sweep_launches": sweep_launches,
         "decode_launches": decode_launches,
         "store_launches": gen_launches + reb_launches,
+        "cluster_launches": sum(cluster_launches.values()),
+        "cluster_launches_by_command": cluster_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

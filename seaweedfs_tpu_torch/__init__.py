@@ -2,7 +2,7 @@
 
 The port runs the erasure-coding hot path (Reed-Solomon encode and
 rebuild of volume files) on an NVIDIA Hopper GPU, behind the storage
-layer that serves it. Its layout mirrors seaweedfs_tpu module for
+layer, the servers and the admin shell that reach it. Its layout mirrors seaweedfs_tpu module for
 module, so each file's reference is the file of the same name there;
 the port imports nothing from that package.
 
@@ -24,8 +24,21 @@ Layout:
                 and the Store the volume server calls (generate /
                 rebuild shards, the degraded-read ladder)
     models/     the batched encode + scrub step
+    rpc/        the HTTP transport on the standard library: route
+                table and threaded server (http), pooled client
+                (httpclient)
+    master/     topology, placement and the file-id sequencer
+    server/     the master, the volume server (data plane by fid, EC
+                admin routes, heartbeat) and the in-process Cluster
+    wdclient/   the client-side volume and EC-shard location cache
+    operation/  client verbs: assign, upload, download, delete
+    shell/      the admin shell: ec.encode / ec.rebuild / ec.decode /
+                ec.balance / ec.verify, volume.list, the REPL
+    cluster/    filer / broker membership the master tracks
+    cli.py      `python -m seaweedfs_tpu_torch master|volume|server|shell`
     utils/      metrics registry, tracing spans, glog, workload
-                sketches, device selection
+                sketches, device selection, retry and deadlines, the
+                repair token bucket, HTTP range parsing
 
 Entry points run on the GPU (device "cuda") unless the caller asks for
 the CPU; without a GPU they raise instead of falling back.

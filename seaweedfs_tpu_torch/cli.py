@@ -1,0 +1,160 @@
+"""Command-line entry point — the `weed` binary equivalent; the
+counterpart of seaweedfs_tpu/cli.py. Run as
+`python -m seaweedfs_tpu_torch <cmd>`.
+
+Subcommands: master, volume, server (master + one volume server in
+one process) and shell. `-ec.backend` picks the codec a volume server
+runs its EC encode and rebuild on: auto (the measured router; needs a
+GPU), cuda (the hand-written kernel; needs a GPU), native (the AVX2
+host codec) or numpy. `-ec.code` sets the code family new EC volumes
+are encoded with. Every other subcommand of the reference, and the
+`-ec.mesh.*` flags (they come with the multi-GPU codec), are not here.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def _add_ec_flags(p) -> None:
+    p.add_argument("-ec.backend", dest="ec_backend", default="auto",
+                   help="erasure-coding codec: auto (measured-curve "
+                        "router; needs a GPU) | cuda (the CUDA kernel; "
+                        "needs a GPU) | native | numpy")
+    p.add_argument("-ec.code", dest="ec_code", default="",
+                   help="erasure-code family new EC volumes are "
+                        "encoded with: 10.4 (RS default) | 28.4 "
+                        "(wide RS) | lrc-k.l.g e.g. lrc-12.3.2 "
+                        "(k data, l local XOR parities, g global "
+                        "parities; single-shard repair reads one "
+                        "local group instead of k shards); recorded "
+                        "per volume so mixed-code clusters decode "
+                        "correctly")
+    p.add_argument("-index", default="memory",
+                   help="needle map kind: memory | compact | btree")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="seaweedfs-tpu-torch",
+        description="SeaweedFS with its erasure coding on a GPU")
+    parser.add_argument(
+        "-v", dest="verbosity", type=int, default=0,
+        help="log verbosity for glog.v() messages; place BEFORE the "
+             "subcommand")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("master", help="start a master server")
+    p.add_argument("-port", type=int, default=9333)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
+    p.add_argument("-defaultReplication", default="000")
+
+    p = sub.add_parser("volume", help="start a volume server")
+    p.add_argument("-port", type=int, default=8080)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-dir", default="./data", help="comma-separated dirs")
+    p.add_argument("-max", type=int, default=8)
+    p.add_argument("-mserver", default="127.0.0.1:9333")
+    p.add_argument("-dataCenter", default="DefaultDataCenter")
+    p.add_argument("-rack", default="DefaultRack")
+    p.add_argument("-disk", default="hdd",
+                   help="disk class of this server (hdd | ssd)")
+    _add_ec_flags(p)
+
+    p = sub.add_parser("server", help="combined master + volume server")
+    p.add_argument("-dir", default="./data")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-master.port", dest="master_port", type=int,
+                   default=9333)
+    p.add_argument("-volume.port", dest="volume_port", type=int,
+                   default=8080)
+    p.add_argument("-volumeSizeLimitMB", type=int, default=1024)
+    _add_ec_flags(p)
+
+    p = sub.add_parser("shell", help="interactive admin shell")
+    p.add_argument("-master", default="http://127.0.0.1:9333")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    from .utils import glog
+
+    glog.set_verbosity(args.verbosity)
+    # the default code family travels by env: shell `ec.encode` (in
+    # another process) and the probe fingerprint both consult it
+    if getattr(args, "ec_code", ""):
+        from .ec import geometry as _geo
+
+        _geo.parse_code(args.ec_code)  # fail fast on a bad spec
+        os.environ["SEAWEEDFS_TPU_EC_CODE"] = args.ec_code
+    if args.cmd == "master":
+        return _run_master(args)
+    if args.cmd == "volume":
+        return _run_volume(args)
+    if args.cmd == "server":
+        return _run_server(args)
+    from .shell.repl import run_shell
+
+    return run_shell(args.master)
+
+
+def _run_master(args) -> int:
+    from .rpc.http import ServerThread, run_apps_forever
+    from .server.master_server import MasterServer
+
+    ms = MasterServer(volume_size_limit=args.volumeSizeLimitMB << 20,
+                      default_replication=args.defaultReplication)
+    t = ServerThread(ms.app, host=args.ip, port=args.port).start()
+    print(f"master listening on {t.url}", flush=True)
+    run_apps_forever([t])
+    return 0
+
+
+def _start_volume(args, dirs: list[str], port: int, master: str,
+                  max_volumes: int | None = None, **labels):
+    from .rpc.http import ServerThread
+    from .server.volume_server import VolumeServer
+    from .storage.store import Store
+
+    store = Store(dirs, ip=args.ip, port=port, ec_backend=args.ec_backend,
+                  needle_map_kind=args.index)
+    if max_volumes is not None:
+        for loc in store.locations:
+            loc.max_volumes = max_volumes
+    vs = VolumeServer(store, master, **labels)
+    t = ServerThread(vs.app, host=args.ip, port=port).start()
+    store.port = t.port
+    store.public_url = t.address
+    print(f"volume server listening on {t.url}, dirs={dirs}, "
+          f"ec.backend={args.ec_backend}", flush=True)
+    return t
+
+
+def _run_volume(args) -> int:
+    from .rpc.http import run_apps_forever
+
+    t = _start_volume(args, args.dir.split(","), args.port, args.mserver,
+                      max_volumes=args.max, data_center=args.dataCenter,
+                      rack=args.rack, disk_type=args.disk)
+    run_apps_forever([t])
+    return 0
+
+
+def _run_server(args) -> int:
+    from .rpc.http import ServerThread, run_apps_forever
+    from .server.master_server import MasterServer
+
+    ms = MasterServer(volume_size_limit=args.volumeSizeLimitMB << 20)
+    mt = ServerThread(ms.app, host=args.ip, port=args.master_port).start()
+    print(f"master listening on {mt.url}", flush=True)
+    vol_dir = os.path.join(args.dir, "volume")
+    os.makedirs(vol_dir, exist_ok=True)
+    try:
+        vt = _start_volume(args, [vol_dir], args.volume_port, mt.url)
+    except BaseException:
+        mt.stop()
+        raise
+    run_apps_forever([vt, mt])
+    return 0

@@ -1,0 +1,336 @@
+"""Master server: the cluster's control plane over HTTP; the counterpart
+of seaweedfs_tpu/server/master_server.py.
+
+Equivalent of SeaweedFS weed/server/master_server.go (HTTP routes
+:135-149) and master_grpc_server*.go: /dir/assign (Assign,
+master_grpc_server_assign.go:37), /dir/lookup, /vol/grow
+(ProcessGrowRequest, master_grpc_server_volume.go:21-77), the
+heartbeat (SendHeartbeat, master_grpc_server.go:61), and the status
+and EC-registry views the shell reads.
+
+The heartbeat: the reference keeps one websocket per volume server and
+unregisters the server when the stream drops. Here every pulse is one
+`POST /heartbeat` carrying the same JSON the websocket carried, and the
+reply carries what the master sent back on the stream. A server that
+stays silent for `Topology.dead_nodes`' timeout (5 pulses) is
+unregistered by the reaper thread, in place of the disconnect.
+
+Single master only. Not here: raft and followers, the redundancy
+watchdog, tiering, the collector, the workload aggregator, vacuum, the
+KeepConnected stream (`/ws/keepconnected`; clients re-read the EC map
+by TTL, wdclient/client.py), traces, metrics federation, JWT signing.
+"""
+from __future__ import annotations
+
+import secrets
+import threading
+
+from ..cluster.membership import ClusterMembership
+from ..master.sequence import MemorySequencer
+from ..master.topology import (NoFreeSlots, NoWritableVolume, Topology,
+                               VolumeInfo)
+from ..rpc.http import (App, Request, Response, debug_index_factory,
+                        json_error, json_ok, json_response)
+from ..rpc.httpclient import session
+from ..storage import types as t
+from ..utils import glog
+
+# timeout of one /admin/assign_volume call made by /vol/grow
+GROW_TIMEOUT = (5.0, 60.0)
+
+
+class MasterServer:
+    def __init__(self, volume_size_limit: int = 30 << 30,
+                 default_replication: str = "000",
+                 pulse_seconds: float = 5.0):
+        self.topo = Topology(volume_size_limit, pulse_seconds)
+        self.default_replication = default_replication
+        self.seq = MemorySequencer()
+        self.pulse_seconds = pulse_seconds
+        self.membership = ClusterMembership(ttl_seconds=pulse_seconds * 3)
+        self._grow_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._reaper: threading.Thread | None = None
+        self.app = self._build_app()
+
+    def _build_app(self) -> App:
+        app = App()
+        app.get("/debug", debug_index_factory("master", {
+            "/debug/ec": "EC codec router: probe curve + backends",
+        }))
+        app.get("/debug/ec", self.handle_debug_ec)
+        for method in ("GET", "POST"):
+            app.route(method, "/dir/assign", self.handle_assign)
+            app.route(method, "/vol/grow", self.handle_grow)
+        app.get("/dir/lookup", self.handle_lookup)
+        app.get("/vol/status", self.handle_vol_status)
+        app.get("/dir/status", self.handle_dir_status)
+        app.get("/cluster/status", self.handle_cluster_status)
+        app.post("/cluster/announce", self.handle_cluster_announce)
+        app.get("/cluster/nodes", self.handle_cluster_nodes)
+        app.get("/cluster/ec_shards", self.handle_ec_shards)
+        app.post("/heartbeat", self.handle_heartbeat)
+        app.on_startup.append(self.start)
+        app.on_cleanup.append(self.stop)
+        return app
+
+    # ------------------------------------------------------------------
+    # liveness: unregister servers whose heartbeats stopped
+    # ------------------------------------------------------------------
+    def start(self) -> None:
+        self._stop.clear()
+        self._reaper = threading.Thread(target=self._reap_loop,
+                                        name="master-reaper", daemon=True)
+        self._reaper.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._reaper is not None:
+            self._reaper.join(timeout=10)
+            self._reaper = None
+
+    def _reap_loop(self) -> None:
+        while not self._stop.wait(self.pulse_seconds):
+            self.reap_dead_nodes()
+
+    def reap_dead_nodes(self) -> list[str]:
+        dead = self.topo.dead_nodes()
+        for node_id in dead:
+            glog.warning("volume server %s silent for 5 pulses: "
+                         "unregistered", node_id)
+            self.topo.unregister_data_node(node_id)
+        return dead
+
+    # ------------------------------------------------------------------
+    # assignment
+    # ------------------------------------------------------------------
+    def handle_assign(self, req: Request) -> Response:
+        q = req.query
+        count = int(q.get("count", 1))
+        collection = q.get("collection", "")
+        replication = q.get("replication") or self.default_replication
+        ttl = _parse_ttl(q.get("ttl", ""))
+        dc = q.get("dataCenter") or None
+        disk = q.get("disk", "")
+        try:
+            vid, nodes = self.topo.pick_for_write(collection, replication,
+                                                  ttl, disk_type=disk,
+                                                  preferred_dc=dc or "")
+        except NoWritableVolume:
+            try:
+                self._grow(collection, replication, ttl, dc,
+                           disk_type=disk)
+            except NoFreeSlots as e:
+                return json_error(str(e), status=500)
+            try:
+                vid, nodes = self.topo.pick_for_write(
+                    collection, replication, ttl, disk_type=disk,
+                    preferred_dc=dc or "")
+            except NoWritableVolume as e:
+                return json_error(str(e), status=500)
+        key = self.seq.next_ids(count)
+        node = nodes[0]
+        if dc:
+            # the returned upload target must be IN the requested dc
+            for cand in nodes:
+                if cand.rack.dc.id == dc:
+                    node = cand
+                    break
+        fid = t.format_file_id(vid, key, _new_cookie())
+        return json_ok({
+            "fid": fid,
+            "url": node.url,
+            "publicUrl": node.public_url,
+            "count": count,
+            "replicas": [{"url": n.url, "publicUrl": n.public_url}
+                         for n in nodes[1:]],
+            "auth": "",
+        })
+
+    def handle_lookup(self, req: Request) -> Response:
+        vid_s = req.query.get("volumeId", "")
+        vid = int(vid_s.split(",")[0]) if vid_s else 0
+        nodes = self.topo.lookup(vid)
+        if not nodes:
+            return json_error(f"volume {vid} not found", status=404)
+        return json_ok({
+            "volumeId": str(vid),
+            "locations": [{"url": n.url, "publicUrl": n.public_url}
+                          for n in nodes],
+        })
+
+    def handle_grow(self, req: Request) -> Response:
+        q = req.query
+        count = int(q.get("count", 1))
+        collection = q.get("collection", "")
+        replication = q.get("replication") or self.default_replication
+        ttl = _parse_ttl(q.get("ttl", ""))
+        try:
+            grown = 0
+            for _ in range(count):
+                self._grow(collection, replication, ttl,
+                           q.get("dataCenter") or None, force=True,
+                           disk_type=q.get("disk", ""),
+                           rack=q.get("rack") or None,
+                           data_node=q.get("dataNode") or None)
+                grown += 1
+        except NoFreeSlots as e:
+            return json_error(str(e), status=500)
+        return json_ok({"count": grown})
+
+    def _grow(self, collection: str, replication: str,
+              ttl: tuple[int, int], dc: str | None = None,
+              force: bool = False, disk_type: str = "",
+              rack: str | None = None,
+              data_node: str | None = None) -> int:
+        """findAndGrow (volume_growth.go:107): pick servers, allocate the
+        volume on each over its admin API, let heartbeats register it.
+        Without `force`, skips when another waiter already grew the
+        layout (the assign-path contention case)."""
+        with self._grow_lock:
+            if not force:
+                try:
+                    self.topo.pick_for_write(collection, replication,
+                                             ttl, disk_type=disk_type,
+                                             preferred_dc=dc or "")
+                    return 0
+                except NoWritableVolume:
+                    pass
+            nodes = self.topo.find_empty_slots(replication, dc,
+                                               disk_type=disk_type,
+                                               preferred_rack=rack,
+                                               preferred_node=data_node)
+            vid = self.topo.next_volume_id()
+            for node in nodes:
+                resp = session().post(
+                    f"http://{node.url}/admin/assign_volume",
+                    json={"volume": vid, "collection": collection,
+                          "replication": replication,
+                          "ttl": list(bytes(ttl))},
+                    timeout=GROW_TIMEOUT)
+                if resp.status_code != 200:
+                    raise NoFreeSlots(f"allocate volume {vid} on "
+                                      f"{node.url}: {resp.text}")
+            # optimistic local registration so assigns can proceed
+            # before the next heartbeat confirms
+            for node in nodes:
+                v = VolumeInfo(vid=vid, collection=collection,
+                               replica_placement=replication, ttl=ttl)
+                node.volumes[vid] = v
+                self.topo._register_volume(v, node)
+            return vid
+
+    # ------------------------------------------------------------------
+    # heartbeat (master_grpc_server.go:61 SendHeartbeat, one pulse)
+    # ------------------------------------------------------------------
+    def handle_heartbeat(self, req: Request) -> Response:
+        hb = req.json()
+        node_id = f"{hb['ip']}:{hb['port']}"
+        node = self.topo.register_node(
+            node_id, hb["ip"], hb["port"],
+            hb.get("public_url", node_id),
+            hb.get("max_volume_count", 8),
+            hb.get("data_center", "DefaultDataCenter"),
+            hb.get("rack", "DefaultRack"),
+            hb.get("disk_type", "hdd"))
+        if "volumes" in hb:
+            self.topo.sync_node_volumes(
+                node, [VolumeInfo(
+                    vid=v["id"], collection=v.get("collection", ""),
+                    size=v.get("size", 0),
+                    file_count=v.get("file_count", 0),
+                    delete_count=v.get("delete_count", 0),
+                    deleted_bytes=v.get("deleted_bytes", 0),
+                    read_only=v.get("read_only", False),
+                    replica_placement=v.get("replica_placement", "000"),
+                    ttl=tuple(v.get("ttl", (0, 0))),
+                    modified_at=v.get("modified_at", 0),
+                    last_read_at=v.get("last_read_at", 0.0),
+                    read_count=v.get("read_count", 0),
+                ) for v in hb["volumes"]])
+        if "ec_shards" in hb:
+            self.topo.sync_node_ec_shards(
+                node, [(e["id"], e.get("collection", ""),
+                        e["shard_bits"], e.get("codec", ""),
+                        {"remote": e.get("remote", False),
+                         "last_read_at": e.get("last_read_at", 0.0),
+                         "read_count": e.get("read_count", 0)})
+                       for e in hb["ec_shards"]])
+        if "repair_bw" in hb:
+            node.repair_bw = hb["repair_bw"]
+        return json_ok({"volume_size_limit": self.topo.volume_size_limit,
+                        "pulse_seconds": self.pulse_seconds})
+
+    # ------------------------------------------------------------------
+    # status / introspection
+    # ------------------------------------------------------------------
+    def handle_cluster_status(self, req: Request) -> Response:
+        return json_ok({
+            "IsLeader": True,
+            "Leader": "",
+            "Peers": [],
+            "Topology": self.topo.to_dict(),
+            "EcRouter": _ec_router_snapshot(),
+        })
+
+    def handle_cluster_announce(self, req: Request) -> Response:
+        """Filer/broker liveness beat (cluster.go membership)."""
+        d = req.json()
+        address, node_type = d.get("address"), d.get("type")
+        if not address or not node_type:
+            return json_error("announce requires address and type",
+                              status=400)
+        if d.get("leave"):
+            self.membership.leave(address, node_type)
+        else:
+            self.membership.announce(address, node_type,
+                                     d.get("filerGroup", ""),
+                                     d.get("version", ""))
+        return json_ok({"ok": True})
+
+    def handle_cluster_nodes(self, req: Request) -> Response:
+        node_type = req.query.get("type", "")
+        return json_ok({"nodes": self.membership.to_dict(node_type)})
+
+    def handle_dir_status(self, req: Request) -> Response:
+        return json_ok({"Topology": self.topo.to_dict()})
+
+    def handle_vol_status(self, req: Request) -> Response:
+        return json_ok({"Volumes": self.topo.to_dict()})
+
+    def handle_ec_shards(self, req: Request) -> Response:
+        vid = int(req.query.get("volumeId", 0))
+        shards = self.topo.lookup_ec_shards(vid)
+        return json_ok({
+            "volumeId": vid,
+            "collection": self.topo.ec_collections.get(vid, ""),
+            "codec": self.topo.ec_codecs.get(vid, ""),
+            "shards": {str(sid): [n.url for n in nodes]
+                       for sid, nodes in shards.items()},
+        })
+
+    def handle_debug_ec(self, req: Request) -> Response:
+        return json_response(_ec_router_snapshot())
+
+
+def _ec_router_snapshot() -> dict:
+    """EC router state: reads the probe cache only (never triggers a
+    sweep from the control plane)."""
+    from ..ec import backend as ec_backend
+
+    return ec_backend.probe_snapshot()
+
+
+def _parse_ttl(s: str) -> tuple[int, int]:
+    """'3m'/'4h'/'5d'/'6w'/'7M'/'8y' -> stored (count, unit) pair
+    (needle/volume_ttl.go:33)."""
+    if not s:
+        return (0, 0)
+    units = {"m": 1, "h": 2, "d": 3, "w": 4, "M": 5, "y": 6}
+    if s[-1].isdigit():
+        return (int(s), 1)
+    return (int(s[:-1]), units.get(s[-1], 1))
+
+
+def _new_cookie() -> int:
+    return secrets.randbits(32)

@@ -3,10 +3,14 @@ for byte (tolerance 0: all of it is integer GF(256) arithmetic): gf256
 tables, rs_matrix for every known code, the numpy codec, geometry, the
 .vif sidecar and the metrics registry. Also scans the port's sources
 and chip_smoke.py for imports of jax or seaweedfs_tpu (the image imports
-jax into every process, so sys.modules cannot tell)."""
+jax into every process, so sys.modules cannot tell), of aiohttp,
+requests and the libraries under them (the card's machine has none of
+them), and of anything beyond the standard library, numpy, torch and
+triton."""
 import ast
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -177,35 +181,60 @@ def _port_python_files():
     return sorted(out)
 
 
+# google_crc32c, aiohttp, requests and what carries them (urllib3, the
+# websocket stacks): the card's machine has none of them
+_BANNED_TOP = ("jax", "seaweedfs_tpu", "google_crc32c", "aiohttp",
+               "requests", "urllib3", "websockets", "websocket")
+# beyond the standard library, the port may import only these
+_CARD_PACKAGES = {"numpy", "torch", "triton", "seaweedfs_tpu_torch"}
+
+
 def _forbidden(name: str) -> bool:
-    # google_crc32c: the card's machine does not have it
-    return (name == "jax" or name.startswith("jax.")
-            or name == "seaweedfs_tpu" or name.startswith("seaweedfs_tpu.")
-            or name == "google_crc32c")
+    return name.split(".")[0] in _BANNED_TOP
+
+
+def _imports(path: str) -> list[tuple[int, str]]:
+    """(line, module) of every import in a file, dynamic ones included."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr",
+                          getattr(node.func, "id", "")) in
+              ("import_module", "__import__")):
+            names = [node.args[0].value]
+        out += [(node.lineno, n) for n in names]
+    return out
+
+
+def _outside_the_card(name: str) -> bool:
+    top = name.split(".")[0]
+    return top not in sys.stdlib_module_names and top not in _CARD_PACKAGES
 
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_python_files()
     assert len(files) >= 15, files
-    bad = []
-    for path in files:
-        with open(path, encoding="utf-8") as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            elif (isinstance(node, ast.Call) and node.args
-                  and isinstance(node.args[0], ast.Constant)
-                  and isinstance(node.args[0].value, str)
-                  and getattr(node.func, "attr",
-                              getattr(node.func, "id", "")) in
-                  ("import_module", "__import__")):
-                names = [node.args[0].value]
-            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
-                    for n in names if _forbidden(n)]
+    bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
+           for path in files for line, n in _imports(path) if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_port_imports_only_what_the_card_has():
+    """Any third-party module could pull aiohttp or requests in behind
+    its own imports: the port takes nothing past the standard library,
+    numpy, torch and triton."""
+    bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
+           for path in _port_python_files()
+           for line, n in _imports(path) if _outside_the_card(n)]
     assert not bad, bad
 
 
@@ -215,6 +244,46 @@ def test_import_scan_catches_forbidden_names():
     assert not _forbidden("seaweedfs_tpu_torch.ops")
     assert not _forbidden("jaxtyping_free") and not _forbidden("torch")
     assert _forbidden("google_crc32c")
+    assert _forbidden("aiohttp") and _forbidden("aiohttp.web")
+    assert _forbidden("requests") and _forbidden("requests.adapters")
+    assert _forbidden("urllib3.util")
+    assert not _forbidden("http.client") and not _forbidden("requests_x")
+
+
+def test_import_scan_catches_a_module_that_imports_them(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import http.client\nfrom aiohttp import web\n"
+                   "def f():\n    import requests.adapters\n"
+                   "    importlib.import_module('urllib3')\n"
+                   "    import yarl\n    from . import sibling\n")
+    names = [n for _, n in _imports(str(src))]
+    assert sorted(n for n in names if _forbidden(n)) == [
+        "aiohttp", "requests.adapters", "urllib3"]
+    assert sorted(n for n in names if _outside_the_card(n)) == [
+        "aiohttp", "requests.adapters", "urllib3", "yarl"]
+
+
+SERVER_AND_SHELL = ["rpc/http.py", "utils/retry.py", "rpc/httpclient.py",
+                    "master/sequence.py", "master/topology.py",
+                    "master/placement.py", "server/master_server.py",
+                    "wdclient/client.py", "operation/verbs.py",
+                    "utils/ratelimit.py", "server/volume_server.py",
+                    "server/cluster.py", "shell/env.py",
+                    "shell/commands_ec.py", "shell/repl.py", "cli.py",
+                    "utils/httprange.py", "cluster/membership.py",
+                    "shell/commands_volume.py"]
+
+
+@pytest.mark.parametrize("module", SERVER_AND_SHELL)
+def test_scan_covers_the_server_and_shell_layer(module):
+    """The control plane's modules are scanned, each has its reference
+    at the same path, and none imports jax, seaweedfs_tpu, aiohttp,
+    requests or anything the card's machine lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
 
 
 STORAGE_LAYER = ["ec/geometry.py", "native/__init__.py", "storage/types.py",
