@@ -16,8 +16,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    strided view (bulk-copy ring) and a misaligned one (direct-load path),
    and the result written into an aligned and a misaligned `out=` view;
    then the kernel's time at the main path's launch shapes (encode m=4,
-   rebuild m=1 and m=4) beside its memory bound and the plain version's
-   time, with nvidia-smi sampling the SM clock and power over the window.
+   rebuild m=1 and m=4, RS(28,4) encode) beside its memory bound and the
+   plain version's time, with nvidia-smi sampling the SM clock and power
+   over the window.
 3. The main path at real size (BASELINE config #1, cut from SeaweedFS's
    30 GB volume limit to 1 GiB): write_ec_files(backend="cuda") on a
    1 GiB seeded .dat, verify_ec_files on the dense `torch` backend, a
@@ -64,6 +65,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    rebuilt shards sha256-equal, a last read pass. One line per step with
    wall s, MB/s, reads/s, p50 / p99 read latency, launches and the feed's
    stage seconds.
+
+8. The mesh and the batched feeds, on every card torch sees (one card:
+   a (1, 1) mesh; four: (2, 2)):
+   a. MeshCodec: coded_matmul byte-equal to the kernel on one card
+      (RS(10,4) and RS(28,4) parity, the recovery rows of {1,4,11,13};
+      n = 32 Mi + 777 and 1); write_ec_files(backend="mesh") on phase
+      3's seeded 1 GiB .dat, shards sha256-equal to phase 3's;
+      rebuild_ec_files(backend="mesh") of {1,4,11,13}, sha256-equal;
+      kernel launches > 0 on every card of the mesh.
+   b. pipelined_encode_stream, BASELINE config #3 at full size: 64 x
+      1 GiB volumes, RS(10,4), depth 2, 208 blocks of (8, 10, <= 4 Mi)
+      from a pool of 4 seeded blocks, each result equal to the native
+      codec's parity of its pool block; with mesh=None and with the
+      mesh; then the same bytes through the kernel's route
+      (CudaCodec.coded_matmul_stream per volume) and its transfer-only
+      ceiling (and, with more than one card, the mesh codec's route and
+      ceiling). MB/s and stage seconds of each.
+   c. pipelined_scrub over the same blocks (BASELINE config #5, cut
+      from 1000 volumes to 64), without and with the mesh: 0 mismatches
+      clean; with one byte flipped in one pool entry's parity, as many
+      mismatches as that entry was fed.
+   d. sharded_rebuild over rebuild_mesh(), shards {0,3,11,13} missing,
+      (10, 32 Mi) shards: byte-equal to the kernel's reconstruction; the
+      per-device product and the reduce-scatter timed apart (CUDA
+      events).
+   e. sharded_encode_scrub over make_mesh() on (64, 10, 1 Mi): 0
+      mismatches, 1 after one flipped byte.
+   f. The current device is what it was before phase 8; with more than
+      one card, the probe's mesh rows beside its single-card rows and
+      the router's choice at 1 MiB, 64 MiB and 1 GiB.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -131,17 +162,18 @@ def sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def feed_stage_seconds() -> dict:
-    """The `cuda` feed's stage seconds so far (ec_codec_stage_seconds)."""
+def feed_stage_seconds(backend: str = "cuda") -> dict:
+    """A feed's stage seconds so far (ec_codec_stage_seconds), by its
+    backend label."""
     from seaweedfs_tpu_torch.utils import metrics
 
     return {s: metrics.counter_value(
-        "ec_codec_stage_seconds_sum", {"stage": s, "backend": "cuda"})
+        "ec_codec_stage_seconds_sum", {"stage": s, "backend": backend})
         for s in ("pread", "pin", "h2d", "kernel", "d2h", "relay")}
 
 
-def stages_since(before: dict, wall: float) -> str:
-    now = feed_stage_seconds()
+def stages_since(before: dict, wall: float, backend: str = "cuda") -> str:
+    now = feed_stage_seconds(backend)
     d = {s: now[s] - before[s] for s in now}
     dev = d["h2d"] + d["kernel"] + d["d2h"]
     return (f"stage seconds {json.dumps(d)}; device stages sum to "
@@ -306,16 +338,17 @@ def phase_kernel():
     timings = {}
     stop = sample_clocks()
     for label, coef in (("encode m=4", parity), ("rebuild m=1", rec1),
-                        ("rebuild m=4", rec4)):
-        x = rand(10, CHUNK)
-        tables = tables_of(coef)
+                        ("rebuild m=4", rec4),
+                        ("encode k=28 m=4", rs_matrix.parity_rows(28, 4))):
         m, k = coef.shape
+        x = rand(k, CHUNK)
+        tables = tables_of(coef)
         ms = time_ms(lambda: codec_cuda.coded_matmul(tables, x, m), 200)
         plain_ms = time_ms(
             lambda: codec_cuda.coded_matmul_plain(tables, x, m), 3)
         bound_ms = (k + m) * CHUNK / HBM_BYTES_PER_S * 1e3
         timings[label] = (ms, plain_ms, bound_ms)
-        log(f"[2] {label} k=10 n={CHUNK}: kernel {ms:.4f} ms, "
+        log(f"[2] {label} k={k} n={CHUNK}: kernel {ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms (bytes), {bound_ms / ms:.1%} of "
             f"bound, plain {plain_ms:.3f} ms, "
             f"{(k + m) * CHUNK / ms / 1e6:.1f} GB/s; library: none "
@@ -413,7 +446,7 @@ def phase_main_path():
             f"(encode {enc_launches})")
         if launches <= 0:
             fail("the main path launched the kernel no time")
-        return launches
+        return launches, orig
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1146,6 +1179,399 @@ def phase_cluster(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 8: the mesh codec and the batched feeds
+# ----------------------------------------------------------------------
+
+GROUP = 8                        # volumes per batched block (8b)
+BLOCK_COLS = 4 << 20             # columns per batched block
+VOLUMES = 64                     # BASELINE config #3: 64 x 1 GiB
+VOLUME_ROW = -(-DAT_BYTES // 10)  # bytes per shard row of a 1 GiB volume
+POOL = 4                         # distinct seeded blocks the feeds reuse
+SCRUB_COLS = 1 << 20             # 8e's stripe width, phase 4's shape
+MESH_DEVICE = "cuda"             # the platform phase 8's meshes span
+
+
+class Checker:
+    """Compares results with their expected arrays on 4 threads (numpy
+    drops the GIL), at most 8 behind the feed."""
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.ex = ThreadPoolExecutor(4, thread_name_prefix="smoke-check")
+        self.pending = []
+        self.n = self.bad = 0
+
+    def add(self, got, want) -> None:
+        self.pending.append(self.ex.submit(np.array_equal, got, want))
+        while len(self.pending) > 8:
+            self._pop()
+
+    def _pop(self) -> None:
+        self.n += 1
+        self.bad += not self.pending.pop(0).result()
+
+    def close(self) -> tuple[int, int]:
+        while self.pending:
+            self._pop()
+        self.ex.shutdown()
+        return self.n, self.bad
+
+
+def _plan() -> list[tuple[int, int]]:
+    """(pool entry, width) of each of 8b's blocks: 8 groups of 8 volumes,
+    each group's 107,374,183-column rows cut into 4 Mi-column blocks."""
+    out = []
+    for g in range(VOLUMES // GROUP):
+        for c0 in range(0, VOLUME_ROW, BLOCK_COLS):
+            out.append((len(out) % POOL, min(BLOCK_COLS, VOLUME_ROW - c0)))
+    return out
+
+
+def _mesh_codec_phase(tmp: str, orig: list[str]) -> tuple[int, dict]:
+    """8a -> (launches over the encode and rebuild, launches by card)."""
+    from seaweedfs_tpu_torch.ec import backend as ecb
+    from seaweedfs_tpu_torch.ec import geometry as geo
+    from seaweedfs_tpu_torch.ec.encoder import (rebuild_ec_files,
+                                                write_ec_files)
+    from seaweedfs_tpu_torch.ops import codec_cuda, rs_matrix
+
+    codec = ecb.get_backend("mesh")
+    log(f"[8a] MeshCodec().describe(): {json.dumps(codec.describe())}")
+    dev0 = torch.device(MESH_DEVICE, 0)
+    rng = np.random.default_rng(SEED + 8)
+    lost = [1, 4, 11, 13]
+    rec4, _ = rs_matrix.recovery_rows(
+        10, 4, [i for i in range(14) if i not in lost], lost)
+    for label, coef in (("rs10.4 parity", rs_matrix.parity_rows(10, 4)),
+                        ("rs28.4 parity", rs_matrix.parity_rows(28, 4)),
+                        ("rs10.4 recover {1,4,11,13}", rec4)):
+        m, k = coef.shape
+        tables = torch.from_numpy(codec_cuda.packed_tables(coef)).to(dev0)
+        for n in (CHUNK + 777, 1):
+            x = rng.integers(0, 256, (k, n), dtype=np.uint8)
+            t0 = time.perf_counter()
+            got = codec.coded_matmul(coef, x)
+            dt = time.perf_counter() - t0
+            want = codec_cuda.coded_matmul(
+                tables, torch.from_numpy(x).to(dev0), m).cpu().numpy()
+            ok = np.array_equal(got, want)
+            log(f"[8a] coded_matmul {label} n={n}: mesh equal to the kernel "
+                f"on one card: {ok} ({dt:.3f} s host to host)")
+            if not ok:
+                fail(f"mesh coded_matmul {label} n={n} differs")
+
+    base = os.path.join(tmp, "1")
+    write_seeded_dat(base + ".dat")
+    paths = [base + geo.shard_ext(i) for i in range(14)]
+    codec_cuda.reset_launches()
+    before = feed_stage_seconds("mesh")
+    t0 = time.perf_counter()
+    write_ec_files(base, backend="mesh")
+    dt = time.perf_counter() - t0
+    enc = dict(codec_cuda.coded_matmul.launches_by_device)
+    bad = [i for i in range(14) if sha256(paths[i]) != orig[i]]
+    log(f"[8a] write_ec_files(backend='mesh'): {dt:.3f} s, "
+        f"{DAT_BYTES / dt / 1e6:.1f} MB/s, launches by card {enc}, shards "
+        f"sha256-equal to phase 3's: {not bad}; "
+        f"{stages_since(before, dt, 'mesh')}")
+    if bad:
+        fail(f"mesh shards {bad} differ from phase 3's")
+    for i in lost:
+        os.remove(paths[i])
+    before = feed_stage_seconds("mesh")
+    t0 = time.perf_counter()
+    got = rebuild_ec_files(base, backend="mesh")
+    dt = time.perf_counter() - t0
+    bad = [i for i in lost if sha256(paths[i]) != orig[i]]
+    by_dev = dict(codec_cuda.coded_matmul.launches_by_device)
+    shard = os.path.getsize(paths[0])
+    log(f"[8a] rebuild_ec_files(backend='mesh') of {lost}: {dt:.3f} s, "
+        f"{10 * shard / dt / 1e6:.1f} MB/s (input shard bytes), rebuilt "
+        f"{got}, sha256-equal: {not bad}; launches by card over encode + "
+        f"rebuild {by_dev}; {stages_since(before, dt, 'mesh')}")
+    if got != lost or bad:
+        fail(f"mesh rebuild gave {got}, differing shards {bad}")
+    idle = [d.index for d in codec.mesh.device_list
+            if by_dev.get(d.index, 0) <= 0]
+    if idle:
+        fail(f"the mesh launched the kernel no time on cards {idle}")
+    return sum(by_dev.values()), by_dev
+
+
+def _pool_blocks():
+    """POOL seeded (8, 10, 4 Mi) blocks and their parity from the native
+    codec."""
+    from seaweedfs_tpu_torch.ec import backend as ecb
+    from seaweedfs_tpu_torch.ops import rs_matrix
+
+    parity = rs_matrix.parity_rows(10, 4)
+    native = ecb.get_backend("native")
+    dev0 = torch.device(MESH_DEVICE, 0)
+    gen = torch.Generator(device=dev0).manual_seed(SEED + 80)
+    pool, exp = [], []
+    t0 = time.perf_counter()
+    for _ in range(POOL):
+        blk = torch.randint(0, 256, (GROUP, 10, BLOCK_COLS), dtype=torch.uint8,
+                            device=dev0, generator=gen).cpu().numpy()
+        pool.append(blk)
+        exp.append(np.stack([native.coded_matmul(parity, v) for v in blk]))
+    log(f"[8b] pool: {POOL} seeded {pool[0].shape} blocks "
+        f"({pool[0].nbytes} B each) and their native-codec parity in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return pool, exp
+
+
+def _feed_run(label: str, backend: str, outs, expect, n_in: int) -> dict:
+    """Drive one feed, check every result, print its rate and stages."""
+    before = feed_stage_seconds(backend)
+    check = Checker()
+    n = 0
+    t0 = time.perf_counter()
+    for out, want in zip(outs, expect, strict=True):
+        n += 1
+        if want is not None:
+            check.add(out, want)
+    wall = time.perf_counter() - t0
+    checked, bad = check.close()
+    now = feed_stage_seconds(backend)
+    stages = {s: round(now[s] - before[s], 4) for s in now}
+    rate = n_in / wall / 1e6
+    log(f"[8b] {label}: {n} blocks, {n_in} B in {wall:.3f} s = "
+        f"{rate:.1f} MB/s; results checked: {checked - bad} equal, {bad} "
+        f"differ; stage seconds {json.dumps(stages)}")
+    if bad:
+        fail(f"{label}: {bad} blocks differ")
+    return {"wall_s": wall, "mbps": rate, "blocks": n, "stages_s": stages}
+
+
+def _batched_phase() -> dict:
+    """8b and 8c -> rates of every feed."""
+    from seaweedfs_tpu_torch.ec import backend as ecb
+    from seaweedfs_tpu_torch.models import ec_pipeline as ep
+    from seaweedfs_tpu_torch.ops import rs_matrix
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+
+    pool, exp = _pool_blocks()
+    plan = _plan()
+    n_in = sum(GROUP * 10 * w for _, w in plan)
+    mesh = pmesh.make_mesh(device=MESH_DEVICE)
+    log(f"[8b] pipelined_encode_stream, BASELINE config #3: {VOLUMES} x "
+        f"{DAT_BYTES} B volumes, RS(10,4), depth 2: {len(plan)} blocks of "
+        f"({GROUP}, 10, <= {BLOCK_COLS}), {n_in} B in; mesh "
+        f"{json.dumps(pmesh.describe(mesh))}")
+
+    def stripes():
+        return (pool[p][:, :, :w] for p, w in plan)
+
+    def expected():
+        return (exp[p][:, :, :w] for p, w in plan)
+
+    res = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        res[f"ec_pipeline_{name}"] = _feed_run(
+            f"pipelined_encode_stream(mesh={name})",
+            "ec_pipeline" if m is None else "ec_pipeline_mesh",
+            ep.pipelined_encode_stream(stripes(), depth=2, mesh=m,
+                                       device=MESH_DEVICE),
+            expected(), n_in)
+
+    # the kernel's route over the same bytes, per volume, and the link's
+    # ceiling through the same feed
+    def per_volume():
+        return (pool[p][v][:, :w] for p, w in plan for v in range(GROUP))
+
+    def per_volume_expected():
+        return (exp[p][v][:, :w] for p, w in plan for v in range(GROUP))
+
+    parity = rs_matrix.parity_rows(10, 4)
+    cuda = ecb.get_backend("cuda")
+    res["cuda_route"] = _feed_run(
+        "CudaCodec.coded_matmul_stream per volume", "cuda",
+        cuda.coded_matmul_stream(parity, per_volume(), depth=2),
+        per_volume_expected(), n_in)
+    res["cuda_ceiling"] = _feed_run(
+        "transfer-only ceiling, CudaCodec.transfer_stream per volume "
+        "(one card)", "cuda-ceiling",
+        cuda.transfer_stream(4, per_volume(), depth=2),
+        (None for _ in range(len(plan) * GROUP)), n_in)
+    if mesh.devices.size > 1:
+        codec = ecb.get_backend("mesh")
+        res["mesh_route"] = _feed_run(
+            "MeshCodec.coded_matmul_stream per volume", "mesh",
+            codec.coded_matmul_stream(parity, per_volume(), depth=2),
+            per_volume_expected(), n_in)
+        res["mesh_ceiling"] = _feed_run(
+            "transfer-only ceiling, MeshCodec.transfer_stream per volume "
+            "(every card)", "mesh-ceiling",
+            codec.transfer_stream(4, per_volume(), depth=2),
+            (None for _ in range(len(plan) * GROUP)), n_in)
+        log(f"[8b] mesh ceiling {res['mesh_ceiling']['mbps']:.1f} MB/s in "
+            f"total, {res['mesh_ceiling']['mbps'] / mesh.devices.size:.1f}"
+            f" MB/s per card; one card alone "
+            f"{res['cuda_ceiling']['mbps']:.1f} MB/s")
+
+    # 8c: the scrub over the same blocks (BASELINE config #5, cut from
+    # 1000 volumes to 64)
+    def pairs():
+        return ((pool[p][:, :, :w], exp[p][:, :, :w]) for p, w in plan)
+
+    fed = sum(1 for p, _ in plan if p == 1)
+    n_pairs = n_in + sum(GROUP * 4 * w for _, w in plan)
+    for flip in (False, True):
+        if flip:
+            exp[1][3, 2, 12345] ^= 0xFF
+        for name, m in (("none", None), ("mesh", mesh)):
+            t0 = time.perf_counter()
+            total, n = ep.pipelined_scrub(pairs(), depth=2, mesh=m,
+                                          device=MESH_DEVICE)
+            wall = time.perf_counter() - t0
+            want = fed if flip else 0
+            log(f"[8c] pipelined_scrub(mesh={name}) "
+                f"{'one byte flipped in pool entry 1' if flip else 'clean'}"
+                f": {total} mismatches over {n} blocks (want {want} over "
+                f"{len(plan)}), {n_pairs} B in {wall:.3f} s = "
+                f"{n_pairs / wall / 1e6:.1f} MB/s")
+            if (total, n) != (want, len(plan)):
+                fail(f"scrub counted {total} over {n} blocks")
+            res[f"scrub_{name}{'_flipped' if flip else ''}_mbps"] = \
+                n_pairs / wall / 1e6
+    exp[1][3, 2, 12345] ^= 0xFF
+    return res
+
+
+def _events_ms(devices, fn):
+    """Run fn() with an event pair on each device's current stream ->
+    (result, the slowest device's ms); the host clock on the CPU."""
+    if devices[0].type == "cpu":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    starts, ends = [], []
+    for d in devices:
+        with torch.cuda.device(d):
+            starts.append(torch.cuda.Event(enable_timing=True))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+    out = fn()
+    for d, e in zip(devices, ends):
+        with torch.cuda.device(d):
+            e.record()
+    for e in ends:
+        e.synchronize()
+    return out, max(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def _sharded_rebuild_phase() -> dict:
+    """8d -> the two halves' times."""
+    from seaweedfs_tpu_torch.models import ec_pipeline as ep
+    from seaweedfs_tpu_torch.ops import codec_cuda
+
+    missing = [0, 3, 11, 13]
+    present = [i for i in range(14) if i not in missing]
+    mesh = ep.rebuild_mesh(device=MESH_DEVICE)
+    devices = mesh.device_list
+    rebuild, a_bits, coef = ep.sharded_rebuild(mesh, present=present,
+                                               missing=missing)
+    gen = torch.Generator(device=devices[0]).manual_seed(SEED + 84)
+    x = torch.randint(0, 256, (10, CHUNK), dtype=torch.uint8,
+                      device=devices[0], generator=gen)
+    tables = torch.from_numpy(codec_cuda.packed_tables(coef)).to(x.device)
+    want = codec_cuda.coded_matmul(tables, x, 4).cpu()
+    placed = rebuild.place(x.cpu().numpy())
+    rebuild(a_bits, placed)                          # warm
+    if devices[0].type == "cuda":
+        torch.cuda.synchronize()
+    partials, prod_ms = _events_ms(
+        devices, lambda: rebuild.partials(a_bits, placed))
+    out, red_ms = _events_ms(devices, lambda: rebuild.reduce(partials))
+    got = out.gather()
+    ok = torch.equal(got, want)
+    d = len(devices)
+    part_bytes = partials[0].numel() * 4
+    log(f"[8d] sharded_rebuild over rebuild_mesh() ({d} cards), missing "
+        f"{missing}, (10, {CHUNK}) shards: per-device product "
+        f"{prod_ms:.3f} ms (slowest card; each reads its "
+        f"{placed[0].numel()} B of shard rows and writes "
+        f"{part_bytes} B of int32 counts), reduce-scatter + & 1 + pack "
+        f"{red_ms:.3f} ms (each card's {part_bytes} B of counts in, "
+        f"{(d - 1) * part_bytes // d} B of ring traffic per card, "
+        f"{part_bytes // d} B out); equal to the kernel's reconstruction: "
+        f"{ok}")
+    if not ok:
+        fail("sharded_rebuild differs from the kernel's reconstruction")
+    return {"product_ms": prod_ms, "reduce_ms": red_ms, "devices": d}
+
+
+def _sharded_scrub_phase() -> None:
+    """8e."""
+    from seaweedfs_tpu_torch.models import ec_pipeline as ep
+    from seaweedfs_tpu_torch.ops import codec_cuda, rs_matrix
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(device=MESH_DEVICE)
+    step, a_bits, place = ep.sharded_encode_scrub(mesh)
+    dev0 = mesh.device_list[0]
+    gen = torch.Generator(device=dev0).manual_seed(SEED + 85)
+    stripes = torch.randint(0, 256, (64, 10, SCRUB_COLS), dtype=torch.uint8,
+                            device=dev0, generator=gen)
+    tables = torch.from_numpy(
+        codec_cuda.packed_tables(rs_matrix.parity_rows(10, 4))).to(dev0)
+    expected = torch.stack([codec_cuda.coded_matmul(tables, s, 4)
+                            for s in stripes]).cpu().numpy()
+    s_sh = place(stripes.cpu().numpy())
+    for flip in (False, True):
+        if flip:
+            expected[7, 2, 12345] ^= 1
+        t0 = time.perf_counter()
+        parity, mism = step(a_bits, s_sh, place(expected))
+        mism = int(mism)
+        dt = time.perf_counter() - t0
+        log(f"[8e] sharded_encode_scrub over {json.dumps(pmesh.describe(mesh))}"
+            f" on (64, 10, {SCRUB_COLS}): {mism} mismatches "
+            f"{'after one flipped byte' if flip else 'clean'} ({dt:.3f} s "
+            f"host to host, {len(parity.pieces)} pieces)")
+        if mism != int(flip):
+            fail(f"sharded scrub counted {mism}")
+
+
+def phase_mesh(orig: list[str]) -> dict:
+    """Phase 8 -> the numbers the kernels' line carries."""
+    from seaweedfs_tpu_torch.ec import backend as ecb
+    from seaweedfs_tpu_torch.ec import probe
+
+    t_phase = time.perf_counter()
+    cuda = MESH_DEVICE == "cuda"
+    cur = torch.cuda.current_device() if cuda else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke8-")
+    os.environ["SEAWEEDFS_TPU_EC_PROBE_CACHE"] = os.path.join(
+        tmp, "ec_probe.json")
+    try:
+        launches, by_dev = _mesh_codec_phase(tmp, orig)
+        batched = _batched_phase()
+        rebuild = _sharded_rebuild_phase()
+        _sharded_scrub_phase()
+        now = torch.cuda.current_device() if cuda else None
+        log(f"[8f] current device before phase 8: {cur}, after: {now}")
+        if now != cur:
+            fail(f"phase 8 moved the current device from {cur} to {now}")
+        if cuda and torch.cuda.device_count() > 1:
+            curve = probe.get_curve(refresh=True)
+            for key in ("rows", "mesh_rows"):
+                for row in curve.get(key, []):
+                    log(f"[8f] probe {key}: {json.dumps(row)}")
+            log(f"[8f] probe summary: {json.dumps(probe.summary(curve))}")
+            for size in (1 << 20, 64 << 20, 1 << 30):
+                log(f"[8f] router at {size} B: "
+                    f"{ecb.choose_backend_for_size(size)}, depth "
+                    f"{ecb.pipeline_depth_for(size)}")
+        log(f"[8] phase 8 took {time.perf_counter() - t_phase:.3f} s")
+        return {"mesh_launches": launches, "mesh_launches_by_device": by_dev,
+                "batched": batched, "sharded_rebuild": rebuild}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -1155,12 +1581,14 @@ def main() -> int:
         fail(f"run from the root of the repository: {e}")
     card = phase_device()
     max_err, timings = phase_kernel()
-    launches = phase_main_path()
+    launches, shard_hashes = phase_main_path()
     phase_batched()
     sweep_launches, decode_launches = phase_router_lifecycle()
     gen_launches, reb_launches = phase_store()
     cluster_launches = phase_cluster(card)
+    mesh = phase_mesh(shard_hashes)
     ms, plain_ms, bound_ms = timings["encode m=4"]
+    rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
     record = {"kernels": [{
         "name": "coded_matmul",
@@ -1182,6 +1610,15 @@ def main() -> int:
         "store_launches": gen_launches + reb_launches,
         "cluster_launches": sum(cluster_launches.values()),
         "cluster_launches_by_command": cluster_launches,
+        "rs28_ms": rs28_ms,
+        "rs28_plain_ms": rs28_plain_ms,
+        "rs28_bound_ms": rs28_bound_ms,
+        "mesh_launches": mesh["mesh_launches"],
+        "mesh_launches_by_device": mesh["mesh_launches_by_device"],
+        "batched_mbps": {k: round(v["mbps"], 1) if isinstance(v, dict)
+                         else round(v, 1)
+                         for k, v in mesh["batched"].items()},
+        "sharded_rebuild_ms": mesh["sharded_rebuild"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

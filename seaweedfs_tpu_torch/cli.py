@@ -5,10 +5,11 @@ counterpart of seaweedfs_tpu/cli.py. Run as
 Subcommands: master, volume, server (master + one volume server in
 one process) and shell. `-ec.backend` picks the codec a volume server
 runs its EC encode and rebuild on: auto (the measured router; needs a
-GPU), cuda (the hand-written kernel; needs a GPU), native (the AVX2
-host codec) or numpy. `-ec.code` sets the code family new EC volumes
-are encoded with. Every other subcommand of the reference, and the
-`-ec.mesh.*` flags (they come with the multi-GPU codec), are not here.
+GPU), cuda (the hand-written kernel; needs a GPU), mesh (the kernel on
+every local card, shaped by `-ec.mesh.devices` / `-ec.mesh.col`),
+native (the AVX2 host codec) or numpy. `-ec.code` sets the code family
+new EC volumes are encoded with. Every other subcommand of the
+reference is not here.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ def _add_ec_flags(p) -> None:
     p.add_argument("-ec.backend", dest="ec_backend", default="auto",
                    help="erasure-coding codec: auto (measured-curve "
                         "router; needs a GPU) | cuda (the CUDA kernel; "
-                        "needs a GPU) | native | numpy")
+                        "needs a GPU) | mesh (the kernel on every local "
+                        "GPU) | native | numpy")
     p.add_argument("-ec.code", dest="ec_code", default="",
                    help="erasure-code family new EC volumes are "
                         "encoded with: 10.4 (RS default) | 28.4 "
@@ -30,6 +32,14 @@ def _add_ec_flags(p) -> None:
                         "local group instead of k shards); recorded "
                         "per volume so mixed-code clusters decode "
                         "correctly")
+    p.add_argument("-ec.mesh.devices", dest="ec_mesh_devices",
+                   type=int, default=0,
+                   help="GPUs the mesh codec spans (0 = all local GPUs)")
+    p.add_argument("-ec.mesh.col", dest="ec_mesh_col", type=int,
+                   default=0,
+                   help="column-parallel axis of the mesh codec's "
+                        "(vol, col) grid; must divide the device "
+                        "count (0 = heuristic)")
     p.add_argument("-index", default="memory",
                    help="needle map kind: memory | compact | btree")
 
@@ -82,13 +92,7 @@ def main(argv: list[str] | None = None) -> int:
     from .utils import glog
 
     glog.set_verbosity(args.verbosity)
-    # the default code family travels by env: shell `ec.encode` (in
-    # another process) and the probe fingerprint both consult it
-    if getattr(args, "ec_code", ""):
-        from .ec import geometry as _geo
-
-        _geo.parse_code(args.ec_code)  # fail fast on a bad spec
-        os.environ["SEAWEEDFS_TPU_EC_CODE"] = args.ec_code
+    apply_env_flags(args)
     if args.cmd == "master":
         return _run_master(args)
     if args.cmd == "volume":
@@ -98,6 +102,23 @@ def main(argv: list[str] | None = None) -> int:
     from .shell.repl import run_shell
 
     return run_shell(args.master)
+
+
+def apply_env_flags(args) -> None:
+    """Flags that travel by env. The default code family: shell
+    `ec.encode` (in another process) and the probe fingerprint both
+    consult it. The mesh shape: MeshCodec reads it at construction, and
+    the probe fingerprint carries it."""
+    if getattr(args, "ec_code", ""):
+        from .ec import geometry as _geo
+
+        _geo.parse_code(args.ec_code)  # fail fast on a bad spec
+        os.environ["SEAWEEDFS_TPU_EC_CODE"] = args.ec_code
+    if getattr(args, "ec_mesh_devices", 0):
+        os.environ["SEAWEEDFS_TPU_EC_MESH_DEVICES"] = str(
+            args.ec_mesh_devices)
+    if getattr(args, "ec_mesh_col", 0):
+        os.environ["SEAWEEDFS_TPU_EC_MESH_COL"] = str(args.ec_mesh_col)
 
 
 def _run_master(args) -> int:

@@ -79,6 +79,7 @@
 // cudaError_t of the launch as an int, 0 on success.
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -312,19 +313,46 @@ coded_matmul_kernel(const Params p) {
   }
 }
 
+// Per-device caches, filled by whichever thread launches first on a
+// device (one thread per card may launch at once); every thread writes
+// the same value, so relaxed atomics suffice.
+std::atomic<int> g_sm_count[64];
+std::atomic<int> g_smem_set[64];
+
 int sm_count(int device) {
-  static int cached[64] = {0};
   if (device < 0 || device >= 64) return 132;
-  if (cached[device] == 0) {
+  int cached = g_sm_count[device].load(std::memory_order_relaxed);
+  if (cached == 0) {
     int sms = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                device) != cudaSuccess || sms <= 0) {
       return 132;
     }
-    cached[device] = sms;
+    g_sm_count[device].store(sms, std::memory_order_relaxed);
+    cached = sms;
   }
-  return cached[device];
+  return cached;
 }
+
+// Makes `device` current for one launch and gives the calling thread its
+// own current device back on every return path: the caller's later
+// allocations (torch's "cuda" without an index) must not move to the
+// card of the last launch.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err != cudaSuccess || prev == device) {
+      prev = -1;
+    } else {
+      err = cudaSetDevice(device);
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
 
 }  // namespace
 
@@ -344,8 +372,9 @@ int coded_matmul_launch(const void* tables, long long tab_ld, const void* x,
     return int(cudaErrorInvalidValue);
   }
   if (n == 0) return int(cudaSuccess);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  cudaError_t err = cudaSuccess;
 
   Params p;
   p.tables = static_cast<const uint32_t*>(tables);
@@ -374,13 +403,13 @@ int coded_matmul_launch(const void* tables, long long tab_ld, const void* x,
   if (!ring) p.stages = 0;   // every tile takes the direct path
   const int smem = fixed + p.stages * stage_bytes;
 
-  static int smem_set[64] = {0};
-  if (device >= 0 && device < 64 && smem_set[device] < kSmemPerBlock) {
+  if (device >= 0 && device < 64 &&
+      g_smem_set[device].load(std::memory_order_relaxed) < kSmemPerBlock) {
     err = cudaFuncSetAttribute(coded_matmul_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemPerBlock);
     if (err != cudaSuccess) return int(err);
-    smem_set[device] = kSmemPerBlock;
+    g_smem_set[device].store(kSmemPerBlock, std::memory_order_relaxed);
   }
 
   const int groups = (m + 3) / 4;

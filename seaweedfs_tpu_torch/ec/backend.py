@@ -13,18 +13,20 @@ backends add `coded_matmul_stream`. Registered names:
             at first use
     torch   dense float32 bit-plane matmul on the GPU (ops/codec_torch.py)
     cuda    the hand-written CUDA kernel (ops/codec_cuda.py)
-    auto    AutoCodec: per request size, whichever of the device feed and
-            the CPU codec the measured curve (ec/probe.py) says is faster
+    mesh    the kernel over every local card (ops/codec_mesh.py; shape
+            from -ec.mesh.devices / -ec.mesh.col)
+    auto    AutoCodec: per request size, whichever of the device feed,
+            the mesh and the CPU codec the measured curve (ec/probe.py)
+            says is fastest
 
-`torch` and `cuda` run on the GPU and raise without one, and so does
-`auto` when it has to sweep (it measures the card's feed). Callers that
+`torch`, `cuda` and `mesh` run on the GPU and raise without one, and so
+does `auto` when it has to sweep (it measures the card's feed). Callers that
 want the device codecs on the CPU pass an instance instead of a name,
 e.g. `ReedSolomon(10, 4, backend=CudaCodec(device="cpu"))`. Routing to
 the CPU codec happens only where the measured curve says it is faster,
 never because a device path failed: those failures raise. Encode,
 reconstruct and verify are built on top here, using the systematic
-matrices from ops.rs_matrix. The mesh codec and its rows wait for the
-multi-GPU slice.
+matrices from ops.rs_matrix.
 """
 from __future__ import annotations
 
@@ -87,8 +89,8 @@ def backend_names() -> list[str]:
 
 
 def get_backend(name: str = "cuda") -> CodecBackend:
-    """The process-wide instance of a registered backend. `torch` and
-    `cuda` build on the GPU and raise when there is none; `native`
+    """The process-wide instance of a registered backend. `torch`, `cuda`
+    and `mesh` build on the GPU and raise when there is none; `native`
     builds its library and raises when that fails."""
     inst = _instances.get(name)
     if inst is None:
@@ -128,6 +130,13 @@ def _register_builtins() -> None:
         return codec_cuda.CudaCodec()
 
     register("cuda", _cuda_factory)
+
+    def _mesh_factory():
+        from ..ops import codec_mesh
+
+        return codec_mesh.MeshCodec()
+
+    register("mesh", _mesh_factory)
     register("auto", AutoCodec)
 
 
@@ -214,19 +223,29 @@ def _env_override() -> str | None:
 
 
 def _decide(curve: dict, nbytes: int) -> str:
-    """Router core: the measured e2e rate of the device feed
-    interpolated at this request size versus the measured CPU-codec
-    rate. The device backend is chosen only when its *measured
-    end-to-end* feed beats the CPU codec."""
+    """Router core: the measured e2e rates interpolated at this request
+    size versus the measured CPU-codec rate. A device backend (one card
+    or the mesh) is chosen only when its *measured end-to-end* feed
+    beats the CPU codec. Three-way: the mesh rows of the same sweep
+    compete against the single-card rows, so small requests that cannot
+    amortize the scatter stay on one card while bulk streams ride every
+    card."""
     from . import probe
 
     cpu_name = curve.get("cpu_backend") or cpu_backend_name()
     cpu_rate = curve.get("cpu_mbps")
+    candidates = []
     dev_rate = probe.e2e_mbps_at(curve, nbytes)
     dev_name = curve.get("device_backend")
-    if dev_rate is not None and dev_name and \
-            (cpu_rate is None or dev_rate > cpu_rate):
-        return dev_name
+    if dev_rate is not None and dev_name:
+        candidates.append((dev_rate, dev_name))
+    mesh_rate = probe.mesh_mbps_at(curve, nbytes)
+    if mesh_rate is not None:
+        candidates.append((mesh_rate, "mesh"))
+    if candidates:
+        rate, name = max(candidates)
+        if cpu_rate is None or rate > cpu_rate:
+            return name
     return cpu_name
 
 
@@ -254,12 +273,18 @@ def choose_backend_for_size(nbytes: int, code: str = "") -> str:
 def pipeline_depth_for(nbytes: int, code: str = "") -> int:
     """Streaming-pipeline depth the measured curve recommends for blocks
     of `nbytes` (2 when nothing is measured — the classic double
-    buffer). Never sweeps."""
+    buffer). When the router would send this size to the mesh, the
+    depth comes from the mesh rows: the scatter across N cards has its
+    own overlap sweet spot. Never sweeps."""
     from . import probe
 
     curve = probe.peek(code=_curve_code(code))
     if curve is None:
         return 2
+    env = _env_override()
+    choice = env if env is not None else _decide(curve, nbytes)
+    if choice == "mesh":
+        return probe.mesh_depth_at(curve, nbytes)
     return probe.depth_at(curve, nbytes)
 
 
@@ -300,16 +325,37 @@ def router_buckets(curve: dict) -> list[dict]:
     out = []
     for size in probe.SWEEP_SIZES:
         dev_rate = probe.e2e_mbps_at(curve, size)
+        mesh_rate = probe.mesh_mbps_at(curve, size)
+        backend = env if env is not None else _decide(curve, size)
+        depth = (probe.mesh_depth_at(curve, size) if backend == "mesh"
+                 else probe.depth_at(curve, size))
         out.append({
             "size_mb": size >> 20,
-            "backend": env if env is not None else _decide(curve, size),
+            "backend": backend,
             "pinned_by_env": env is not None,
             "device_e2e_mbps": (round(dev_rate, 2)
                                 if dev_rate is not None else None),
+            "mesh_e2e_mbps": (round(mesh_rate, 2)
+                              if mesh_rate is not None else None),
             "cpu_mbps": curve.get("cpu_mbps"),
-            "depth": probe.depth_at(curve, size),
+            "depth": depth,
         })
     return out
+
+
+def mesh_geometry() -> dict:
+    """Mesh codec geometry for /debug/ec: the live instance's shape when
+    one exists (never constructs one: a debug GET must not pay device
+    init), else the configured knobs."""
+    inst = _instances.get("mesh")
+    if inst is not None:
+        geom = dict(inst.describe())
+        geom["state"] = "active"
+        return geom
+    from ..parallel import mesh as pmesh
+
+    n_devices, col = pmesh.mesh_config()
+    return {"state": "unbuilt", "devices": n_devices, "col": col}
 
 
 def probe_snapshot() -> dict:
@@ -325,6 +371,7 @@ def probe_snapshot() -> dict:
         "cpu_backend": cpu_backend_name(),
         "cache_path": probe.cache_path(),
         "cache_ttl_s": probe.cache_ttl_s(),
+        "mesh": mesh_geometry(),
         "default_code": default_code_spec() or "10.4",
         "codes": code_table(),
     }

@@ -24,12 +24,20 @@ Interpolation: `e2e_mbps_at(curve, nbytes)` is piecewise-linear in
 log2(size) over the best depth per measured size, clamped at both
 ends — monotone between measured points by construction.
 
+With more than one card visible, the sweep also measures the mesh codec
+(`mesh_rows`, same protocol without the ceilings, same shared budget;
+`mesh` holds its geometry): its scatter and gather are real costs, so its curve is
+measured, never derived from the single-card rows times N.
+`mesh_mbps_at` / `mesh_depth_at` read it as `e2e_mbps_at` / `depth_at`
+read the single-card rows.
+
 Differences from the reference, by design: the sweep needs a CUDA device
 and raises without one unless the caller passes `device="cpu"` (a CPU
-sweep drives the kernel's plain version, for tests); a device row, the
+sweep drives the kernel's plain version, for tests, and measures mesh
+rows only for a mesh codec passed in); a device row, a mesh row, the
 warm-up or the CPU codec that raises makes the sweep raise instead of
 recording the error and moving on (budget-skipped rows stay marked
-`"skipped": "budget"`); and there are no mesh rows yet.
+`"skipped": "budget"`).
 """
 from __future__ import annotations
 
@@ -45,7 +53,7 @@ from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 # probe schema version: bump when the sweep method or JSON layout
 # changes so stale caches self-invalidate
-PROBE_VERSION = 1
+PROBE_VERSION = 2
 
 SWEEP_SIZES = (1 << 20, 4 << 20, 16 << 20, 64 << 20)
 SWEEP_DEPTHS = (1, 2, 4)
@@ -116,9 +124,12 @@ def code_fingerprint(spec: str = "") -> dict:
 
 def host_fingerprint(code: str = "") -> dict:
     """What must match for a cached curve to be trusted: same machine,
-    same visible cards behind the same torch and CUDA, same swept code
-    (spec + encode-matrix hash), same probe schema."""
+    same visible cards (their count too: a mesh curve must not outlive
+    a card) behind the same torch and CUDA, same mesh shape knobs, same
+    swept code (spec + encode-matrix hash), same probe schema."""
     import platform as _plat
+
+    from ..parallel import mesh as pmesh
 
     return {"probe_version": PROBE_VERSION,
             "host": _plat.node(),
@@ -126,9 +137,10 @@ def host_fingerprint(code: str = "") -> dict:
             "code": code_fingerprint(code),
             "device": (_device_info(torch.device("cuda", 0))
                        if torch.cuda.is_available() else None),
+            "device_count": torch.cuda.device_count(),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
-            "mesh_config": None}
+            "mesh_config": list(pmesh.mesh_config())}
 
 
 # ----------------------------------------------------------------------
@@ -222,12 +234,16 @@ def _device_codec(dev: torch.device):
 def run_sweep(sizes=SWEEP_SIZES, depths=SWEEP_DEPTHS,
               budget_s: float | None = None,
               with_ceilings: bool = True, code: str = "",
-              device: str | torch.device = DEFAULT_DEVICE) -> dict:
+              device: str | torch.device = DEFAULT_DEVICE,
+              mesh=None) -> dict:
     """Measure the curve for one code family (default: the RS(10,4)
     production feed) on `device`: the CPU codec's rate, then every
-    (size, depth) row of the device feed within the budget. Raises
-    without a CUDA device unless `device="cpu"`, and raises when a
-    device row fails."""
+    (size, depth) row of the device feed within the budget, then the
+    mesh rows within what is left of it. The mesh is `mesh` (a
+    MeshCodec) when given, else, on a CUDA device with more than one
+    card visible, the registry's `mesh`. Raises without a CUDA device
+    unless `device="cpu"`, and raises when a device or mesh row
+    fails."""
     from ..ops import rs_matrix
     from . import backend as ecb
     from . import geometry as geo
@@ -256,28 +272,51 @@ def run_sweep(sizes=SWEEP_SIZES, depths=SWEEP_DEPTHS,
     name, codec = _device_codec(dev)
     curve["device_backend"] = name
 
+    budget = _Budget(budget_s, t_start)
+    curve["rows"] = _sweep_rows(codec, coef, sizes, depths, budget,
+                                with_ceilings, k, m)
+    if mesh is None and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = ecb.get_backend("mesh")
+    if mesh is not None:
+        curve["mesh"] = mesh.describe()
+        # as the reference's mesh rows: no transfer-only twins, which
+        # would double the mesh's share of the one budget
+        curve["mesh_rows"] = _sweep_rows(mesh, coef, sizes, depths, budget,
+                                         False, k, m)
+    curve["sweep_seconds"] = round(_time.perf_counter() - t_start, 2)
+    return curve
+
+
+class _Budget:
+    """The sweep's shared wall budget: a row is affordable when its
+    projected time at the last measured rate fits in what is left;
+    before any rate is known, only a positive remainder is required."""
+
+    def __init__(self, seconds: float, t_start: float):
+        self.seconds, self.t_start = seconds, t_start
+        self.last_rate: float | None = None
+
+    def affordable(self, nbytes: int) -> bool:
+        remaining = self.seconds - (_time.perf_counter() - self.t_start)
+        if self.last_rate:
+            return nbytes / 1e6 / self.last_rate <= remaining
+        return remaining > 0
+
+
+def _sweep_rows(codec, coef, sizes, depths, budget: _Budget,
+                with_ceilings: bool, k: int, m: int) -> list[dict]:
+    """The size x depth rows of one device codec's feed (the card's, or
+    the mesh's), each with its stage seconds and, with_ceilings, its
+    transfer-only twin; rows the budget cannot afford are marked
+    `"skipped": "budget"` instead of silently dropped."""
     # spin up the path (first launches, pinned buffers, executors)
     # outside every timed row
     _measure_e2e_row(codec, coef, 1 << 18, 1, n_blocks=2, k=k, m=m)
-
-    last_rate: float | None = None
-
-    def remaining() -> float:
-        return budget_s - (_time.perf_counter() - t_start)
-
-    def affordable(nbytes: int) -> bool:
-        # projection from the last measured rate; before any rate is
-        # known, only a positive budget is required
-        if last_rate:
-            return nbytes / 1e6 / last_rate <= remaining()
-        return remaining() > 0
-
+    rows: list[dict] = []
     for size in sorted(sizes):
-        if not affordable(2 * size):
-            for depth in depths:
-                curve["rows"].append({"size": int(size),
-                                      "depth": int(depth),
-                                      "skipped": "budget"})
+        if not budget.affordable(2 * size):
+            rows += [{"size": int(size), "depth": int(depth),
+                      "skipped": "budget"} for depth in depths]
             continue
         # one warm block at this width: allocations of this size are
         # made before any timed row
@@ -288,12 +327,10 @@ def run_sweep(sizes=SWEEP_SIZES, depths=SWEEP_DEPTHS,
             n_blocks = depth + 2
             row = {"size": int(size), "depth": int(depth),
                    "blocks": n_blocks}
-            cost = n_blocks * size * (2 if with_ceilings else 1)
-            if not affordable(cost):
-                # marked, so the table says so instead of silently
-                # truncating
+            rows.append(row)
+            if not budget.affordable(n_blocks * size
+                                     * (2 if with_ceilings else 1)):
                 row["skipped"] = "budget"
-                curve["rows"].append(row)
                 continue
             before = _stage_sums(codec.name)
             rate = _measure_e2e_row(codec, coef, size, depth, n_blocks,
@@ -301,16 +338,14 @@ def run_sweep(sizes=SWEEP_SIZES, depths=SWEEP_DEPTHS,
             after = _stage_sums(codec.name)
             row["e2e_mbps"] = round(rate, 2)
             row["stages_s"] = {s: after[s] - before[s] for s in STAGES}
-            last_rate = rate
+            budget.last_rate = rate
             if with_ceilings:
                 ceil = _measure_xfer_ceiling(codec, size, depth,
                                              n_blocks, k=k, m=m)
                 row["xfer_ceiling_mbps"] = round(ceil, 2)
                 if ceil > 0:
                     row["vs_ceiling"] = round(rate / ceil, 2)
-            curve["rows"].append(row)
-    curve["sweep_seconds"] = round(_time.perf_counter() - t_start, 2)
-    return curve
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -448,10 +483,22 @@ def depth_at(curve: dict, nbytes: int) -> int:
     return _nearest_depth(best_by_size(curve), nbytes)
 
 
+def mesh_mbps_at(curve: dict, nbytes: int) -> float | None:
+    """Mesh-codec e2e MB/s at `nbytes`: the same interpolation over the
+    mesh rows; None when no mesh was swept (a one-card host)."""
+    return _interp_at(best_by_size(curve, "mesh_rows"), nbytes)
+
+
+def mesh_depth_at(curve: dict, nbytes: int) -> int:
+    """Pipeline depth the mesh rows recommend at `nbytes` (2 when no mesh
+    row was measured)."""
+    return _nearest_depth(best_by_size(curve, "mesh_rows"), nbytes)
+
+
 def summary(curve: dict) -> dict:
     """Compact view for logs: per-size best rates plus the CPU rate the
     router compares against."""
-    return {
+    out = {
         "cpu_backend": curve.get("cpu_backend"),
         "cpu_mbps": curve.get("cpu_mbps"),
         "device": curve.get("device"),
@@ -464,3 +511,9 @@ def summary(curve: dict) -> dict:
         "measured_at": curve.get("measured_at"),
         "source": curve.get("source"),
     }
+    if curve.get("mesh") is not None:
+        out["mesh"] = curve["mesh"]
+        out["mesh_best_by_size_mb"] = {
+            str(s >> 20): {"e2e_mbps": round(r, 2), "depth": d}
+            for s, r, d in best_by_size(curve, "mesh_rows")}
+    return out

@@ -23,7 +23,10 @@ reckoning.
 The wrapper `coded_matmul` runs the kernel for CUDA tensors and the
 plain version `coded_matmul_plain` for CPU tensors, and for no other
 reason: a CUDA tensor either launches the kernel or raises. Its launch
-count is `coded_matmul.launches`.
+count is `coded_matmul.launches`, and per card
+`coded_matmul.launches_by_device`. A launch leaves the calling thread's
+current device as it found it, so one thread may launch on every card of
+a mesh.
 """
 from __future__ import annotations
 
@@ -139,8 +142,8 @@ def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int,
     tables (see packed_tables) x (k, n) uint8 -> (m, n) uint8,
     out[4g + o] = byte o of XOR_j tables[g, j][x[j]].
 
-    CUDA tensors launch csrc/coded_matmul.cu on the current stream
-    without synchronising; `x` may be a column view with any row stride
+    CUDA tensors launch csrc/coded_matmul.cu on x's device, on that
+    device's current stream, without synchronising; `x` may be a column view with any row stride
     (full tiles stream through the kernel's bulk-copy ring when x and its
     row stride are 16-byte aligned, the rest through its direct-load
     path). `out`, when given, is the (m, n) uint8 result on x's device,
@@ -207,10 +210,20 @@ def coded_matmul(tables: torch.Tensor, x: torch.Tensor, m: int,
                 f"({lib.coded_matmul_error_string(rc).decode()})")
         with _launch_lock:
             coded_matmul.launches += 1
+            by_dev = coded_matmul.launches_by_device
+            by_dev[x.device.index] = by_dev.get(x.device.index, 0) + 1
     return out
 
 
+def reset_launches() -> None:
+    """Set the launch counts (total and per card) to 0."""
+    with _launch_lock:
+        coded_matmul.launches = 0
+        coded_matmul.launches_by_device = {}
+
+
 coded_matmul.launches = 0
+coded_matmul.launches_by_device = {}
 
 
 class CudaCodec(TorchCodec):

@@ -24,18 +24,18 @@ the power-of-two column padding (`_pad_width`), which only bounded XLA
 recompiles — eager PyTorch compiles nothing, so blocks go to the device
 at their true width and nothing is sliced off.
 
-On a CUDA device the stream stages every block through a ring of `depth`
-pinned host buffers (a pageable `np.memmap` slice would make the copy
-synchronous), uploads on its own copy stream, runs the kernel on the
-codec's compute stream (`TorchCodec.stream`, which the chooser's
-measurement also runs on and synchronises) after the upload's event,
-and reads back on a third stream into pinned memory. A ring slot is
-refilled only after the event of its previous upload has fired; device
-tensors used on another stream than the one that allocated them are
-marked with record_stream. Device stages are timed with CUDA events, not
-the host clock. `transfer_stream` runs the same feed with the product
-replaced by a row-slice copy: the link's ceiling for the same traffic,
-which the probe (ec/probe.py) pairs with every measured rate.
+On a CUDA device the stream runs every block through a `DeviceLane`: a
+ring of `depth` pinned host buffers (a pageable `np.memmap` slice would
+make the copy synchronous), an upload on its own copy stream, the kernel
+on the codec's compute stream (`TorchCodec.stream`, which the chooser's
+measurement also runs on and synchronises) after the upload's event, and
+a read-back on a third stream into pinned memory. Device stages are
+timed with CUDA events, not the host clock. `staged_feed` is the
+pipeline's skeleton (pread, upload and drain threads, relay) that every
+feed of the port shares; the mesh codec and models/ec_pipeline run one
+lane per card on it. `transfer_stream` runs the same feed with the
+product replaced by a row-slice copy: the link's ceiling for the same
+traffic, which the probe (ec/probe.py) pairs with every measured rate.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ import functools
 import threading
 import time as _time
 from collections import OrderedDict, deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -292,158 +292,253 @@ class TorchCodec:
                                 self.name + "-ceiling")
 
     def _stream(self, run, m: int, blocks, depth: int, backend: str):
-        depth = max(1, int(depth))
-        feed_cls = _CudaFeed if self.device.type == "cuda" else _HostFeed
-        feed = feed_cls(self, run, m, depth, backend)
+        lane = DeviceLane(self.device, depth, self.stream)
+        whole = (slice(None), slice(None))
 
-        up_ex = ThreadPoolExecutor(1, thread_name_prefix="ec-h2d")
-        down_ex = ThreadPoolExecutor(1, thread_name_prefix="ec-d2h")
+        def upload(block):
+            block = np.asarray(block, dtype=np.uint8)
+            if block.shape[1] == 0:
+                # an empty result still rides the queue: yielding it
+                # directly would reorder it ahead of pending blocks
+                return block.shape[1], []
+            blk = lane.upload([block], [((m, block.shape[1]), torch.uint8)])
+            lane.compute(blk, lambda x, out: run(x, out=out))
+            lane.finish(blk)
+            return block.shape[1], [(lane, whole, blk)]
 
         def drain(up_fut):
-            return feed.drain(up_fut.result())
+            n, parts = up_fut.result()
+            return gather_lanes(parts, (m, n), backend), _time.perf_counter()
 
-        def finish(fut) -> np.ndarray:
-            arr, t_done = fut.result()
-            relay = _time.perf_counter() - t_done
-            if relay > 0:
-                observe_stage(backend, "relay", relay)
-            return arr
+        yield from staged_feed(blocks, upload, drain, depth, backend)
 
-        try:
-            pending: deque = deque()
-            it = iter(blocks)
-            while True:
-                t0 = _time.perf_counter()
-                try:
-                    block = next(it)
-                except StopIteration:
-                    break
-                observe_stage(backend, "pread", _time.perf_counter() - t0)
-                block = np.asarray(block, dtype=np.uint8)
-                if block.shape[1] == 0:
-                    # an empty result still rides the queue: yielding it
-                    # directly would reorder it ahead of pending blocks
-                    f: Future = Future()
-                    f.set_result((np.zeros((m, 0), dtype=np.uint8),
-                                  _time.perf_counter()))
-                    pending.append(f)
-                else:
-                    up = up_ex.submit(feed.upload, block)
-                    pending.append(down_ex.submit(drain, up))
-                while len(pending) >= depth:
-                    yield finish(pending.popleft())
-            while pending:
+
+def staged_feed(blocks, upload, drain, depth: int, backend: str):
+    """The staged pipeline's skeleton, shared by every feed of the port
+    (codec streams, the mesh codec, models/ec_pipeline): the caller
+    thread reads the next block (`pread`, timed around the caller's
+    iterator), an upload thread runs `upload(block)`, a drain thread
+    `drain(future of upload)` -> (result, finish time), and at most
+    `depth` blocks are in flight. `relay` is the time a finished result
+    waited for the consumer. Yields the results in input order."""
+    up_ex = ThreadPoolExecutor(1, thread_name_prefix="ec-h2d")
+    down_ex = ThreadPoolExecutor(1, thread_name_prefix="ec-d2h")
+    pending: deque = deque()
+
+    def finish(fut):
+        result, t_done = fut.result()
+        observe_stage(backend, "relay", _time.perf_counter() - t_done)
+        return result
+
+    it = iter(blocks)
+    try:
+        while True:
+            t0 = _time.perf_counter()
+            try:
+                block = next(it)
+            except StopIteration:
+                break
+            observe_stage(backend, "pread", _time.perf_counter() - t0)
+            pending.append(down_ex.submit(drain, up_ex.submit(upload,
+                                                              block)))
+            while len(pending) >= max(1, int(depth)):
                 yield finish(pending.popleft())
-        finally:
-            # bounded: at most `depth` blocks in flight, and upload tasks
-            # never wait on drain tasks, so this cannot hang
-            up_ex.shutdown(wait=True, cancel_futures=True)
-            down_ex.shutdown(wait=True, cancel_futures=True)
+        while pending:
+            yield finish(pending.popleft())
+    finally:
+        # bounded: at most `depth` blocks in flight, and upload tasks
+        # never wait on drain tasks, so this cannot hang
+        up_ex.shutdown(wait=True, cancel_futures=True)
+        down_ex.shutdown(wait=True, cancel_futures=True)
 
 
-class _HostFeed:
-    """The stream's stages on the CPU: no copies, no streams; each stage
-    is timed on the host clock."""
-
-    def __init__(self, codec: TorchCodec, run, m: int, depth: int,
-                 backend: str):
-        self.run, self.m, self.backend = run, m, backend
-
-    def upload(self, block: np.ndarray):
-        t0 = _time.perf_counter()
-        x = host_tensor(block)
-        out = torch.empty((self.m, x.shape[1]), dtype=torch.uint8)
-        t1 = _time.perf_counter()
-        self.run(x, out=out)
-        t2 = _time.perf_counter()
-        observe_stage(self.backend, "h2d", t1 - t0)
-        return out, t2 - t1
-
-    def drain(self, handle):
-        out, kernel_s = handle
-        t0 = _time.perf_counter()
-        arr = out.numpy()
-        t1 = _time.perf_counter()
-        observe_stage(self.backend, "kernel", kernel_s)
-        observe_stage(self.backend, "d2h", t1 - t0)
-        return arr, t1
+def observe_stages(backend: str, stages: dict[str, float]) -> None:
+    for stage, seconds in stages.items():
+        observe_stage(backend, stage, seconds)
 
 
-class _CudaFeed:
-    """The stream's stages on a GPU: a ring of `depth` pinned staging
-    buffers, and three streams (upload, the codec's compute stream,
-    read-back) ordered by CUDA events."""
+def merge_stages(per_device: list[dict[str, float]]) -> dict[str, float]:
+    """One block's stages over several devices: the host's staging
+    (`pin`) runs device after device on the upload thread, so it adds up;
+    the device stages run side by side, so the slowest device's counts."""
+    out: dict[str, float] = {}
+    for stages in per_device:
+        for stage, seconds in stages.items():
+            out[stage] = (out.get(stage, 0.0) + seconds if stage == "pin"
+                          else max(out.get(stage, 0.0), seconds))
+    return out
 
-    def __init__(self, codec: TorchCodec, run, m: int, depth: int,
-                 backend: str):
-        self.codec, self.run, self.m, self.backend = codec, run, m, backend
-        dev = codec.device
-        self.copy_stream = torch.cuda.Stream(dev)
-        self.compute_stream = codec.stream
-        self.d2h_stream = torch.cuda.Stream(dev)
+
+def gather_lanes(parts: list, shape: tuple[int, ...], backend: str
+                 ) -> np.ndarray:
+    """Wait for one block's pieces, parts = [(lane, index, block)], and
+    gather each piece's first output into one host array of `shape` at
+    its index (a single piece that covers the array is returned as it
+    is). Observes the block's merged stages under `backend`, the host
+    gather counted into `d2h`."""
+    results = [(idx,) + lane.wait(blk) for lane, idx, blk in parts]
+    t0 = _time.perf_counter()
+    if len(results) == 1 and results[0][1][0].shape == tuple(shape):
+        out = results[0][1][0]
+    else:
+        out = np.empty(shape, dtype=np.uint8)
+        for idx, (arr, *_), _ in results:
+            out[idx] = arr
+    stages = merge_stages([st for _, _, st in results])
+    if results:
+        stages["d2h"] += _time.perf_counter() - t0
+    observe_stages(backend, stages)
+    return out
+
+
+class _Block:
+    """One block's state on one lane: device inputs and outputs, the
+    pinned read-back buffers and the stage events (GPU), or the stage
+    seconds measured on the host clock (CPU)."""
+
+    def __init__(self, dev: list, out: list, host: list | None = None,
+                 events: list | None = None):
+        self.dev, self.out, self.host, self.events = dev, out, host, events
+        self.stages: dict[str, float] = {}
+
+
+class DeviceLane:
+    """One device's share of a staged feed.
+
+    On a GPU: a ring of `depth` pinned host staging buffers, an upload
+    stream, the compute stream and a read-back stream, ordered by CUDA
+    events, each device stage timed by its events:
+
+      upload   pin     stage the inputs into the next pinned ring slot
+                       (the slot is refilled only after the event of its
+                       previous upload fired), and allocate the device
+                       inputs, outputs and pinned read-back buffers
+               h2d     copy the inputs to the device, non-blocking
+      compute  kernel  the caller's function on the compute stream,
+                       after the upload's event
+      finish   d2h     read every output back into pinned memory
+
+    Device tensors used on another stream than the one that allocated
+    them are marked with record_stream. On the CPU the same calls make
+    no copies and time `h2d` (wrapping the inputs), `kernel` and `d2h`
+    (the numpy views) on the host clock. upload, compute and finish of a
+    block run on one thread (a feed's upload thread); wait may run on
+    another. Between compute and finish the caller may enqueue more work
+    on the compute stream (a collective over several lanes), which the
+    kernel stage then includes."""
+
+    def __init__(self, device: torch.device, depth: int,
+                 compute_stream: "torch.cuda.Stream | None" = None):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.compute_stream = compute_stream
+        if self.cuda:
+            self.copy_stream = torch.cuda.Stream(device)
+            if compute_stream is None:
+                self.compute_stream = torch.cuda.Stream(device)
+            self.d2h_stream = torch.cuda.Stream(device)
+        depth = max(1, int(depth))
         self.ring: list[torch.Tensor | None] = [None] * depth
         self.ring_free: list[torch.cuda.Event | None] = [None] * depth
         self.next_slot = 0
 
-    def upload(self, block: np.ndarray):
-        """Runs on the upload thread only, one block at a time."""
-        codec = self.codec
+    def upload(self, arrays: list[np.ndarray],
+               out_specs: list[tuple[tuple, torch.dtype]]) -> _Block:
+        """Stage uint8 `arrays` onto the device and allocate outputs of
+        the given (shape, dtype)."""
         t0 = _time.perf_counter()
+        if not self.cuda:
+            blk = _Block([host_tensor(a) for a in arrays],
+                         [torch.empty(s, dtype=d) for s, d in out_specs])
+            blk.stages["h2d"] = _time.perf_counter() - t0
+            return blk
         slot = self.next_slot
         self.next_slot = (slot + 1) % len(self.ring)
         if self.ring_free[slot] is not None:
             # the slot's previous upload must have left the buffer
             self.ring_free[slot].synchronize()
-        k, w = block.shape
+        total = sum(a.nbytes for a in arrays)
         buf = self.ring[slot]
-        if buf is None or buf.numel() < block.nbytes:
-            buf = torch.empty(block.nbytes, dtype=torch.uint8,
-                              pin_memory=True)
+        if buf is None or buf.numel() < total:
+            buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
             self.ring[slot] = buf
-        staged = buf[:block.nbytes].view(k, w)
-        np.copyto(staged.numpy(), block)
+        staged, off = [], 0
+        for a in arrays:
+            view = buf[off:off + a.nbytes].view(a.shape)
+            np.copyto(view.numpy(), a)
+            staged.append(view)
+            off += a.nbytes
         # every allocation before the first event: a first allocation on
         # a stream can call cudaMalloc, which waits on the device, and
         # inside a stage's events it would be billed to that stage
-        with torch.cuda.device(codec.device):
+        with torch.cuda.device(self.device):
             with torch.cuda.stream(self.copy_stream):
-                dev = torch.empty((k, w), dtype=torch.uint8,
-                                  device=codec.device)
+                dev = [torch.empty(a.shape, dtype=torch.uint8,
+                                   device=self.device) for a in arrays]
             with torch.cuda.stream(self.compute_stream):
-                out = torch.empty((self.m, w), dtype=torch.uint8,
-                                  device=codec.device)
-        host_out = torch.empty((self.m, w), dtype=torch.uint8,
-                               pin_memory=True)
-        host_s = _time.perf_counter() - t0
+                out = [torch.empty(s, dtype=d, device=self.device)
+                       for s, d in out_specs]
+        host = [torch.empty(s, dtype=d, pin_memory=True)
+                for s, d in out_specs]
+        pin_s = _time.perf_counter() - t0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        with torch.cuda.device(codec.device):
+        with torch.cuda.device(self.device):
             with torch.cuda.stream(self.copy_stream):
                 ev[0].record()
-                dev.copy_(staged, non_blocking=True)
+                for d, s in zip(dev, staged):
+                    d.copy_(s, non_blocking=True)
                 ev[1].record()
-            self.ring_free[slot] = ev[1]
+        self.ring_free[slot] = ev[1]
+        blk = _Block(dev, out, host, ev)
+        blk.stages["pin"] = pin_s
+        return blk
+
+    def compute(self, blk: _Block, fn) -> None:
+        """fn(*inputs, *outputs) on the compute stream, after the
+        upload."""
+        if not self.cuda:
+            t0 = _time.perf_counter()
+            fn(*blk.dev, *blk.out)
+            blk.stages["kernel"] = _time.perf_counter() - t0
+            return
+        with torch.cuda.device(self.device), \
+                torch.cuda.stream(self.compute_stream):
+            self.compute_stream.wait_event(blk.events[1])
+            for d in blk.dev:
+                d.record_stream(self.compute_stream)
+            blk.events[2].record()
+            fn(*blk.dev, *blk.out)
+
+    def finish(self, blk: _Block) -> None:
+        """End the compute stage and read every output back."""
+        if not self.cuda:
+            return
+        ev = blk.events
+        with torch.cuda.device(self.device):
             with torch.cuda.stream(self.compute_stream):
-                self.compute_stream.wait_event(ev[1])
-                dev.record_stream(self.compute_stream)
-                ev[2].record()
-                self.run(dev, out=out)
                 ev[3].record()
             with torch.cuda.stream(self.d2h_stream):
                 self.d2h_stream.wait_event(ev[3])
-                out.record_stream(self.d2h_stream)
                 ev[4].record()
-                host_out.copy_(out, non_blocking=True)
+                for h, o in zip(blk.host, blk.out):
+                    o.record_stream(self.d2h_stream)
+                    h.copy_(o, non_blocking=True)
                 ev[5].record()
-        return host_out, host_s, ev
 
-    def drain(self, handle):
-        host_out, host_s, ev = handle
+    def wait(self, blk: _Block) -> tuple[list[np.ndarray], dict]:
+        """-> (the outputs as host arrays, the block's stage seconds)."""
+        if not self.cuda:
+            t0 = _time.perf_counter()
+            arrs = [o.numpy() for o in blk.out]
+            blk.stages["d2h"] = _time.perf_counter() - t0
+            return arrs, blk.stages
+        ev = blk.events
         ev[5].synchronize()
-        name = self.backend
-        observe_stage(name, "pin", host_s)
-        observe_stage(name, "h2d", ev[0].elapsed_time(ev[1]) / 1e3)
-        observe_stage(name, "kernel", ev[2].elapsed_time(ev[3]) / 1e3)
-        observe_stage(name, "d2h", ev[4].elapsed_time(ev[5]) / 1e3)
-        # the pinned tensor stays alive as long as the array's base does;
-        # the host allocator recycles it only after the copy's event fired
-        return host_out.numpy(), _time.perf_counter()
+        stages = dict(blk.stages)
+        stages["h2d"] = ev[0].elapsed_time(ev[1]) / 1e3
+        stages["kernel"] = ev[2].elapsed_time(ev[3]) / 1e3
+        stages["d2h"] = ev[4].elapsed_time(ev[5]) / 1e3
+        # the pinned tensors stay alive as long as the arrays' bases do;
+        # the host allocator recycles them only after the copy's event
+        # fired
+        return [h.numpy() for h in blk.host], stages

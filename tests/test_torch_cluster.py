@@ -57,7 +57,7 @@ from seaweedfs_tpu_torch.storage import volume as port_volume
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T0 = 1_760_000_000_123_456_789
-DAT_TARGET = 5_000_000      # needle data on shards 0-4 of the 1 MiB rows
+DAT_TARGET = 2_200_000      # needle data on shards 0-2 of the 1 MiB rows
 
 
 def _digest(path: str) -> str:

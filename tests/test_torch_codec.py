@@ -222,8 +222,8 @@ def test_reed_solomon_matches_reference(kind, spec):
 
 
 def test_registry():
-    assert port_backend.backend_names() == ["auto", "cuda", "native",
-                                            "numpy", "torch"]
+    assert port_backend.backend_names() == ["auto", "cuda", "mesh",
+                                            "native", "numpy", "torch"]
     assert port_backend.get_backend("numpy").name == "numpy"
     with pytest.raises(KeyError):
         port_backend.get_backend("pallas")

@@ -286,6 +286,23 @@ def test_scan_covers_the_server_and_shell_layer(module):
     assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
 
 
+MESH_LAYER = ["parallel/mesh.py", "ops/codec_mesh.py",
+              "models/ec_pipeline.py", "ec/probe.py", "ec/backend.py",
+              "cli.py"]
+
+
+@pytest.mark.parametrize("module", MESH_LAYER)
+def test_scan_covers_the_mesh_layer(module):
+    """The multi-GPU slice's modules are scanned, each has its reference
+    at the same path, and none imports jax, seaweedfs_tpu or anything
+    the card's machine lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
+
+
 STORAGE_LAYER = ["ec/geometry.py", "native/__init__.py", "storage/types.py",
                  "storage/needle.py", "storage/super_block.py",
                  "storage/backend.py", "storage/needle_map.py",
