@@ -96,6 +96,34 @@ Phases, each fatal on failure (exit code 1, no result line):
       one card, the probe's mesh rows beside its single-card rows and
       the router's choice at 1 MiB, 64 MiB and 1 GiB.
 
+9. The self-healing plane: a master and five volume servers over three
+   racks (rA, rA, rB, rB, rC) on "cuda", pulse 0.5 s, the redundancy
+   watchdog's repairs enabled (scan interval 1 s, grace 10 s, which
+   rides out ec.encode's server-by-server mounts). Every repair is the
+   watchdog's own; a failed one, one during ec.encode, or a deficit
+   still open at its deadline, fails the run.
+   a. Phase 7's seeded 1 GiB volume (its writer, its seed) through
+      ec.encode; the 14 shards hashed; the server with the fewest
+      shards (at most m = 4) stopped. Detection seconds (kill ->
+      UnderParity lists the volume) and repair seconds (-> 14 live
+      shards), the kernel's launches during the repair (> 0), the
+      repair metrics; rebuilt shards sha256-equal, every live needle
+      read back over HTTP.
+   b. One byte flipped mid-shard on disk; ec.verify -sample_mb=0
+      -backend=cuda must answer verified false, that shard, quarantined
+      and repair_enqueued; its wall and MB/s over the 14 shards; the
+      watchdog's rebuild launches the kernel (> 0), sha256-equal, and a
+      second ec.verify passes.
+   c. A 256 MiB volume with replication 010; one byte flipped in one
+      needle of one replica's .dat; volume.scrub reports that replica
+      bad, unmounts it and enqueues a repair; the watchdog's
+      volume.fix.replication restores 2 replicas; every needle reads
+      equal from both (host only).
+   d. 30% of c's needles deleted; /vol/vacuum?garbageThreshold=0.2
+      compacts both replicas to exactly their live records, every read
+      equal, every deleted needle 404; after volume.vacuum.disable,
+      /vol/vacuum answers 409.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -943,12 +971,62 @@ def _shard_paths(cluster, vid: int) -> dict[int, str]:
     return out
 
 
+def _fill_volume_http(cluster, env, collection: str, seed: int,
+                      target: int, replication: str = "") -> dict:
+    """Grow one volume of `collection` and fill it with seeded needles
+    through assign + upload over HTTP until its .dat holds `target`
+    bytes (1 KiB - 1 MiB log-uniform; 5% of writes overwrite an earlier
+    id), then delete 2% of the ids. -> vid, the primary's url and
+    Volume, {fid: sha256} of the live needles, the deleted fids, and
+    the counts and seconds of the writes."""
+    from seaweedfs_tpu_torch.operation import verbs
+
+    grown = env.master_get("/vol/grow", collection=collection, count=1,
+                           **({"replication": replication}
+                              if replication else {}))
+    if grown.get("count") != 1:
+        fail(f"/vol/grow answered {grown}")
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(1 << 10), np.log(1 << 20)
+    live: dict[str, str] = {}
+    writes = overwrites = 0
+    vid, vol, url = None, None, None
+    t0 = time.perf_counter()
+    while vol is None or vol.content_size() < target:
+        data = rng.bytes(int(np.exp(rng.uniform(lo, hi))))
+        if live and rng.random() < 0.05:
+            fids = list(live)
+            fid = fids[int(rng.integers(0, len(fids)))]
+            overwrites += 1
+        else:
+            a = verbs.assign(env.master_url, collection=collection,
+                             replication=replication)
+            fid = a.fid
+            if vid is None:
+                vid, url = int(fid.split(",")[0]), a.url
+                vol = next(s.find_volume(vid) for s in cluster.stores
+                           if s.has_volume(vid) and
+                           f"{s.ip}:{s.port}" == url)
+            elif int(fid.split(",")[0]) != vid or a.url != url:
+                fail(f"assign left volume {vid}: {fid} on {a.url}")
+        verbs.upload(f"http://{url}/{fid}", data)
+        live[fid] = hashlib.sha256(data).hexdigest()
+        writes += 1
+    dead = [live_fid for live_fid in rng.choice(
+        sorted(live), len(live) // 50, replace=False)]
+    for fid in dead:
+        verbs.delete(f"http://{url}/{fid}")
+        del live[fid]
+    return {"vid": vid, "url": url, "vol": vol, "live": live,
+            "dead": dead, "writes": writes, "overwrites": overwrites,
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_cluster(card: str) -> dict:
     """Phase 7: the master, three volume servers and the shell over HTTP
     at 1 GiB. -> kernel launches of each shell command."""
     from seaweedfs_tpu_torch.ec import geometry as geo
     from seaweedfs_tpu_torch.ops import codec_cuda
-    from seaweedfs_tpu_torch.operation import verbs
     from seaweedfs_tpu_torch.server.cluster import Cluster
     from seaweedfs_tpu_torch.shell import commands_ec, repl
     from seaweedfs_tpu_torch.shell.env import CommandEnv
@@ -967,41 +1045,10 @@ def phase_cluster(card: str) -> dict:
         log(f"[7] Cluster: master {master}, volume servers "
             f"{[th.address for th in cluster.volume_threads]}, "
             f"ec_backend='cuda', volume size limit {2 * DAT_BYTES} B")
-        grown = env.master_get("/vol/grow", collection="smoke7", count=1)
-        if grown.get("count") != 1:
-            fail(f"/vol/grow answered {grown}")
-
-        # 2. seeded needles through assign + upload over HTTP
-        rng = np.random.default_rng(SEED + 7)
-        lo, hi = np.log(1 << 10), np.log(1 << 20)
-        live: dict[str, str] = {}
-        writes = overwrites = 0
-        vid, vol, url = None, None, None
-        t0 = time.perf_counter()
-        while vol is None or vol.content_size() < DAT_BYTES:
-            data = rng.bytes(int(np.exp(rng.uniform(lo, hi))))
-            if live and rng.random() < 0.05:
-                fids = list(live)
-                fid = fids[int(rng.integers(0, len(fids)))]
-                overwrites += 1
-            else:
-                a = verbs.assign(master, collection="smoke7")
-                fid = a.fid
-                if vid is None:
-                    vid, url = int(fid.split(",")[0]), a.url
-                    vol = next(s.find_volume(vid) for s in cluster.stores
-                               if s.has_volume(vid))
-                elif int(fid.split(",")[0]) != vid or a.url != url:
-                    fail(f"assign left volume {vid}: {fid} on {a.url}")
-            verbs.upload(f"http://{url}/{fid}", data)
-            live[fid] = hashlib.sha256(data).hexdigest()
-            writes += 1
-        dead = [live_fid for live_fid in rng.choice(
-            sorted(live), len(live) // 50, replace=False)]
-        for fid in dead:
-            verbs.delete(f"http://{url}/{fid}")
-            del live[fid]
-        dt = time.perf_counter() - t0
+        w = _fill_volume_http(cluster, env, "smoke7", SEED + 7, DAT_BYTES)
+        vid, url, vol, live, dead = (w["vid"], w["url"], w["vol"],
+                                     w["live"], w["dead"])
+        writes, overwrites, dt = w["writes"], w["overwrites"], w["seconds"]
         dat_path = vol.file_name() + ".dat"
         dat_size = vol.content_size()
         sealed = sha256(dat_path)
@@ -1572,6 +1619,399 @@ def phase_mesh(orig: list[str]) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 9: the self-healing plane (watchdog, scrub, vacuum)
+# ----------------------------------------------------------------------
+HEAL_TOPOLOGY = [("dc1", "rA"), ("dc1", "rA"), ("dc1", "rB"),
+                 ("dc1", "rB"), ("dc1", "rC")]
+HEAL_PULSE = 0.5                 # seconds between heartbeats
+HEAL_INTERVAL = 1.0              # the watchdog's scan interval
+# -repair.grace: ec.encode mounts its shards server by server, and with
+# no grace the watchdog rebuilds the shards not yet mounted (the admin
+# lock is per shell without a filer, so nothing serializes the two);
+# 10 s is twice the longest ec.encode seen on the card
+HEAL_GRACE = 10.0
+HEAL_DEADLINE = 120.0            # longest wait for a deficit to heal
+REPLICA_BYTES = 256 << 20        # 9c's replicated volume
+
+
+def _poll(pred, deadline: float, what: str, step: float = 0.05):
+    """Poll pred() until it returns a true value; fail at the deadline
+    (seconds from now). -> that value."""
+    end = time.monotonic() + deadline
+    while True:
+        out = pred()
+        if out:
+            return out
+        if time.monotonic() > end:
+            fail(f"{what}: not reached in {deadline:.0f} s")
+        time.sleep(step)
+
+
+def _repair_results(env, since: float = 0.0, vid: int = 0,
+                    kind: str = "") -> list[dict]:
+    """The watchdog's results finished after `since` (wall clock), of
+    volume `vid` and `kind` where given, newest first; fail on any
+    result that did not succeed (a failed repair is never passed
+    over)."""
+    rep = env.master_get("/debug/repair")
+    bad = [r for r in rep["recent"] if not r["ok"]]
+    if bad:
+        fail(f"the watchdog recorded a failed repair: {bad[0]}")
+    return [r for r in rep["recent"] if r["finished_at"] >= since
+            and (not vid or r["volume"] == vid)
+            and (not kind or r["kind"] == kind)]
+
+
+def _live_shard_files(cluster, env, vid: int) -> dict[int, str]:
+    """{shard id: file} of the shards the master lists for `vid`, each
+    from the store of its first holder."""
+    by_url = {f"{s.ip}:{s.port}": s for s in cluster.stores}
+    out = {}
+    for sid, urls in env.ec_shard_locations(vid).items():
+        ecv = by_url[urls[0]].ec_volumes.get(vid)
+        if ecv is None or sid not in ecv.shards:
+            fail(f"the master lists shard {sid} on {urls[0]}, which has "
+                 f"no such shard mounted")
+        out[sid] = ecv.shards[sid].path
+    return out
+
+
+def _repair_metrics() -> dict:
+    from seaweedfs_tpu_torch.utils import metrics
+
+    return {
+        "read_partial": metrics.counter_value("repair_read_bytes_total",
+                                              {"mode": "partial"}),
+        "read_full": metrics.counter_value("repair_read_bytes_total",
+                                           {"mode": "full"}),
+        "seconds_sum": {k: metrics.counter_value(
+            "repair_seconds_sum", {"kind": k, "outcome": "ok"})
+            for k in ("ec", "replica")},
+        "seconds_count": {k: metrics.counter_value(
+            "repair_seconds_count", {"kind": k, "outcome": "ok"})
+            for k in ("ec", "replica")},
+    }
+
+
+def _metrics_since(before: dict) -> str:
+    now = _repair_metrics()
+    return (f"repair_read_bytes_total{{mode=partial}} "
+            f"+{now['read_partial'] - before['read_partial']:.0f} B, "
+            f"{{mode=full}} +{now['read_full'] - before['read_full']:.0f} "
+            f"B; repair_seconds{{kind=ec,outcome=ok}} +"
+            f"{now['seconds_count']['ec'] - before['seconds_count']['ec']:.0f}"
+            f" repairs, +"
+            f"{now['seconds_sum']['ec'] - before['seconds_sum']['ec']:.3f} s; "
+            f"{{kind=replica,outcome=ok}} +"
+            f"{now['seconds_count']['replica'] - before['seconds_count']['replica']:.0f}"
+            f" repairs, +"
+            f"{now['seconds_sum']['replica'] - before['seconds_sum']['replica']:.3f} s")
+
+
+def phase_heal(card: str) -> dict:
+    """Phase 9: the self-healing plane on 5 volume servers over 3 racks,
+    with the watchdog's repairs enabled. -> kernel launches of 9a's
+    repair, 9b's verify and 9b's repair."""
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import commands_ec, repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.storage import needle as ndl
+    from seaweedfs_tpu_torch.storage import types as t
+
+    t_phase = time.perf_counter()
+    # None when rehearsed on a host without a card
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke9-")
+    cluster = Cluster(tmp, n_volume_servers=len(HEAL_TOPOLOGY),
+                      max_volumes=8, volume_size_limit=2 * DAT_BYTES,
+                      pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                      topology=HEAL_TOPOLOGY, repair_enabled=True,
+                      repair_interval=HEAL_INTERVAL,
+                      repair_grace=HEAL_GRACE)
+    launches: dict[str, int] = {}
+    try:
+        env = CommandEnv(cluster.master_url)
+        by_url = {f"{s.ip}:{s.port}": i
+                  for i, s in enumerate(cluster.stores)}
+        log(f"[9] {card}")
+        log(f"[9] Cluster: master {cluster.master_url}, volume servers "
+            f"{[(th.address, *HEAL_TOPOLOGY[i]) for i, th in enumerate(cluster.volume_threads)]}"
+            f", ec_backend='cuda', pulse {HEAL_PULSE} s, repair enabled, "
+            f"interval {HEAL_INTERVAL} s, grace {HEAL_GRACE} s")
+
+        # 9a. lose the server with the fewest shards
+        w = _fill_volume_http(cluster, env, "smoke9", SEED + 7, DAT_BYTES)
+        vid, live = w["vid"], w["live"]
+        log(f"[9a] volume {vid} on {w['url']}: {w['writes']} uploads "
+            f"({w['overwrites']} overwrites), {len(w['dead'])} deletes, "
+            f".dat {w['vol'].content_size()} B, {w['seconds']:.3f} s")
+        repl.run_command(env, "lock")
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t0 = time.perf_counter()
+        repl.run_command(env, f"ec.encode -volumeId={vid}")
+        dt = time.perf_counter() - t0
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        if launches["encode"] <= 0:
+            fail("ec.encode launched the kernel no time")
+        if _repair_results(env, since):
+            fail(f"the watchdog repaired during ec.encode: "
+                 f"{_repair_results(env, since)}")
+        paths = _live_shard_files(cluster, env, vid)
+        if sorted(paths) != list(range(14)):
+            fail(f"shards {sorted(paths)} after ec.encode")
+        orig = {sid: sha256(p) for sid, p in paths.items()}
+        shard_size = os.path.getsize(paths[0])
+        locs = env.ec_shard_locations(vid)
+        if any(len(urls) != 1 for urls in locs.values()):
+            fail(f"ec.encode left shards on more than one server: {locs}")
+        held: dict[str, list[int]] = {u: [] for u in by_url}
+        for sid, urls in locs.items():
+            for u in urls:
+                held[u].append(sid)
+        victim = min(held, key=lambda u: (len(held[u]), u))
+        log(f"[9a] ec.encode {dt:.3f} s, {launches['encode']} launches; "
+            f"shards per server "
+            f"{ {u: sorted(s) for u, s in held.items()} }; 14 shards of "
+            f"{shard_size} B hashed")
+        if not 0 < len(held[victim]) <= 4:
+            fail(f"the server with the fewest shards, {victim}, holds "
+                 f"{len(held[victim])}: not 1..m=4")
+        lost = sorted(held[victim])
+        m0 = _repair_metrics()
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t_kill = time.monotonic()
+        cluster.volume_threads[by_url[victim]].stop()
+
+        def deficit():
+            st = env.master_get("/cluster/status")
+            return any(e["volume"] == vid for e in st["UnderParity"])
+
+        _poll(deficit, HEAL_DEADLINE, f"volume {vid} in UnderParity")
+        t_seen = time.monotonic()
+
+        def healed():
+            st = env.master_get("/cluster/status")
+            return not st["UnderParity"] and \
+                len(env.ec_shard_locations(vid)) == 14
+
+        _poll(healed, HEAL_DEADLINE, f"volume {vid} back to 14 shards")
+        t_done = time.monotonic()
+        recent = _poll(lambda: _repair_results(env, since, vid, "ec"),
+                       HEAL_DEADLINE, "the watchdog's EC repair result")
+        launches["9a repair"] = codec_cuda.coded_matmul.launches
+        rec = recent[0]
+        now = _live_shard_files(cluster, env, vid)
+        bad = [sid for sid in range(14) if sha256(now[sid]) != orig[sid]]
+        log(f"[9a] killed {victim} ({HEAL_TOPOLOGY[by_url[victim]]}, "
+            f"shards {lost}): detection {t_seen - t_kill:.3f} s (kill -> "
+            f"UnderParity lists it; 5 silent pulses of {HEAL_PULSE} s), "
+            f"repair {t_done - t_seen:.3f} s (deficit -> 14 live shards; "
+            f"the first {HEAL_GRACE} s are the grace, "
+            f"{t_done - t_seen - HEAL_GRACE:.3f} s after it); "
+            f"the watchdog's repair: reason {rec['reason']!r}, mode "
+            f"{rec['detail'].get('mode')!r}, rebuilt "
+            f"{rec['detail'].get('rebuilt')} on "
+            f"{rec['detail'].get('rebuilder')}, {rec['seconds']} s, "
+            f"{rec['bytes']} B; kernel launches during the repair "
+            f"{launches['9a repair']}; {_metrics_since(m0)}")
+        if rec["reason"] != "watchdog" or \
+                sorted(rec["detail"].get("rebuilt", [])) != lost:
+            fail(f"the watchdog's repair was not the rebuild of {lost}: "
+                 f"{rec}")
+        if launches["9a repair"] <= 0:
+            fail("the watchdog's rebuild launched the kernel no time")
+        if bad:
+            fail(f"rebuilt shards {bad} differ from the originals")
+        reader = env.ec_shard_locations(vid)[0][0]
+        st = _http_read_pass(reader, live, "9a")
+        log(f"[9a] all 14 shards sha256-equal to the originals; GET "
+            f"{len(live)} live needles from {reader}: {st['wall']:.3f} s, "
+            f"{len(live) / st['wall']:.1f} reads/s, p50 "
+            f"{st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms, all equal")
+
+        # 9b. silent corruption in one shard
+        paths = _live_shard_files(cluster, env, vid)
+        sid = 7
+        off = shard_size // 2
+        with open(paths[sid], "r+b") as f:
+            f.seek(off)
+            byte = f.read(1)
+            f.seek(off)
+            f.write(bytes([byte[0] ^ 0x5A]))
+        m0 = _repair_metrics()
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t0 = time.perf_counter()
+        out = commands_ec.ec_verify(env, vid, sample_mb=0, backend="cuda")
+        dt = time.perf_counter() - t0
+        launches["9b verify"] = codec_cuda.coded_matmul.launches
+        log(f"[9b] flipped byte {off} of shard {sid} ({paths[sid]}); "
+            f"ec.verify -sample_mb=0 -backend=cuda: {dt:.3f} s, "
+            f"{14 * shard_size / dt / 1e6:.1f} MB/s over the 14 shards, "
+            f"kernel launches from its start to its return "
+            f"{launches['9b verify']}; {out}")
+        want = {"verified": False, "corrupt_shard": sid,
+                "quarantined": True, "repair_enqueued": True}
+        if {k: out.get(k) for k in want} != want:
+            fail(f"ec.verify answered {out}, wanted {want}")
+        if launches["9b verify"] <= 0:
+            fail("ec.verify -backend=cuda launched the kernel no time")
+        t1 = time.monotonic()
+        done = _poll(lambda: _repair_results(env, since, vid, "ec"),
+                     HEAL_DEADLINE,
+                     "the watchdog's rebuild of the quarantined shard")
+        _poll(lambda: len(env.ec_shard_locations(vid)) == 14,
+              HEAL_DEADLINE, f"shard {sid} registered again")
+        launches["9b repair"] = codec_cuda.coded_matmul.launches - \
+            launches["9b verify"]
+        rec = done[0]
+        now = _live_shard_files(cluster, env, vid)
+        log(f"[9b] the watchdog's repair: reason {rec['reason']!r}, mode "
+            f"{rec['detail'].get('mode')!r}, rebuilt "
+            f"{rec['detail'].get('rebuilt')}, {rec['seconds']} s "
+            f"({time.monotonic() - t1:.3f} s after ec.verify returned); "
+            f"kernel launches after ec.verify returned "
+            f"{launches['9b repair']}; {_metrics_since(m0)}")
+        if rec["reason"] != "scrub" or rec["detail"].get("rebuilt") != [sid]:
+            fail(f"the repair was not the rebuild of shard {sid}: {rec}")
+        if launches["9b repair"] <= 0:
+            fail("the rebuild of the quarantined shard launched the "
+                 "kernel no time")
+        if sha256(now[sid]) != orig[sid]:
+            fail(f"rebuilt shard {sid} differs from the original")
+        t0 = time.perf_counter()
+        again = commands_ec.ec_verify(env, vid, sample_mb=0, backend="cuda")
+        dt = time.perf_counter() - t0
+        log(f"[9b] shard {sid} sha256-equal to the original; ec.verify "
+            f"again: verified {again['verified']}, {dt:.3f} s, "
+            f"{14 * shard_size / dt / 1e6:.1f} MB/s")
+        if again.get("verified") is not True:
+            fail(f"the second ec.verify answered {again}")
+
+        # 9c. scrub of a replicated volume (host only)
+        w = _fill_volume_http(cluster, env, "smoke9c", SEED + 9,
+                              REPLICA_BYTES, replication="010")
+        rvid, rlive = w["vid"], w["live"]
+        holders = env.volume_locations(rvid)
+        if len(holders) != 2:
+            fail(f"volume {rvid} (010) has replicas on {holders}")
+        racks = {HEAL_TOPOLOGY[by_url[u]][1] for u in holders}
+        bad_url = holders[1]
+        v = cluster.stores[by_url[bad_url]].find_volume(rvid)
+        v.sync()
+        key, noff, _size = next(v.nm.live_items())
+        byte_off = t.offset_to_actual(noff) + t.NEEDLE_HEADER_SIZE + 2
+        orig_byte = v.dat.read_at(1, byte_off)
+        v.dat.write_at(bytes([orig_byte[0] ^ 0xFF]), byte_off)
+        log(f"[9c] volume {rvid} (replication 010) on {holders} (racks "
+            f"{sorted(racks)}): {w['writes']} uploads, {len(rlive)} live "
+            f"needles, .dat {v.content_size()} B, {w['seconds']:.3f} s; "
+            f"flipped a data byte of needle {key} in {bad_url}'s .dat")
+        m0 = _repair_metrics()
+        since = time.time()
+        t0 = time.perf_counter()
+        report = repl.run_command(env, f"volume.scrub -volumeId={rvid}")
+        dt = time.perf_counter() - t0
+        rows = {r["server"]: r for r in report}
+        log(f"[9c] volume.scrub: {dt:.3f} s; "
+            f"{ {u: {k: r[k] for k in ('checked', 'bad', 'quarantine') if k in r} for u, r in rows.items()} }")
+        if [b["id"] for b in rows[bad_url]["bad"]] != [key] or \
+                rows[bad_url].get("quarantine") != {
+                    "action": "unmounted", "repair_enqueued": True}:
+            fail(f"volume.scrub did not quarantine {bad_url}: {report}")
+        if any(r["bad"] for u, r in rows.items() if u != bad_url):
+            fail(f"volume.scrub found the healthy replica bad: {report}")
+        t1 = time.monotonic()
+        done = _poll(lambda: _repair_results(env, since, rvid, "replica"),
+                     HEAL_DEADLINE, "the watchdog's re-replication")
+        holders = _poll(lambda: (lambda h: h if len(h) == 2 else None)(
+            env.volume_locations(rvid)), HEAL_DEADLINE, "2 replicas again")
+        rec = done[0]
+        log(f"[9c] the watchdog's volume.fix.replication: reason "
+            f"{rec['reason']!r}, {rec['detail']['fixes']}, "
+            f"{rec['seconds']} s, {rec['bytes']} B "
+            f"({time.monotonic() - t1:.3f} s after the scrub); replicas "
+            f"now {holders}; {_metrics_since(m0)}")
+        if rec["reason"] != "scrub":
+            fail(f"the re-replication was not scrub's request: {rec}")
+        for u in holders:
+            st = _http_read_pass(u, rlive, f"9c {u}")
+            log(f"[9c] GET {len(rlive)} live needles from {u}: "
+                f"{st['wall']:.3f} s, {len(rlive) / st['wall']:.1f} "
+                f"reads/s, all equal")
+
+        # 9d. vacuum
+        rng = np.random.default_rng(SEED + 10)
+        gone = [str(f) for f in rng.choice(sorted(rlive),
+                                           int(len(rlive) * 0.3),
+                                           replace=False)]
+        for fid in gone:
+            verbs.delete(f"http://{holders[0]}/{fid}")
+            del rlive[fid]
+        vols = {u: cluster.stores[by_url[u]].find_volume(rvid)
+                for u in holders}
+        before = {}
+        for u, vv in vols.items():
+            vv.sync()
+            before[u] = os.path.getsize(vv.file_name() + ".dat")
+        t0 = time.perf_counter()
+        r = env.master_get("/vol/vacuum", garbageThreshold="0.2")
+        dt = time.perf_counter() - t0
+        log(f"[9d] deleted {len(gone)} of {len(gone) + len(rlive)} needles "
+            f"(30%); /vol/vacuum?garbageThreshold=0.2: {dt:.3f} s, {r}")
+        compacted = [x for x in r["results"] if x.get("volume") == rvid]
+        if not compacted or sorted(compacted[0]["replicas"]) != \
+                sorted(holders):
+            fail(f"/vol/vacuum did not compact both replicas: {r}")
+        for u, vv in vols.items():
+            vv.sync()
+            after = os.path.getsize(vv.file_name() + ".dat")
+            expect = vv.super_block.block_size + sum(
+                ndl.disk_size(size, vv.version)
+                for _k, _o, size in vv.nm.live_items())
+            log(f"[9d] {u}: .dat {before[u]} -> {after} B; the live "
+                f"records need {expect} B")
+            if after != expect or after >= before[u]:
+                fail(f"{u}: the compacted .dat holds {after} B, the live "
+                     f"records {expect} B")
+            st = _http_read_pass(u, rlive, f"9d {u}")
+            for fid in gone:
+                r = session().get(f"http://{u}/{fid}", timeout=30)
+                if r.status_code != 404:
+                    fail(f"9d: deleted needle {fid} answers "
+                         f"{r.status_code} on {u}")
+            log(f"[9d] GET {len(rlive)} live needles from {u}: "
+                f"{st['wall']:.3f} s, all equal; the {len(gone)} deleted "
+                f"ones answer 404")
+        repl.run_command(env, "volume.vacuum.disable")
+        resp = session().get(f"{cluster.master_url}/vol/vacuum",
+                             timeout=30)
+        log(f"[9d] volume.vacuum.disable; /vol/vacuum answers "
+            f"{resp.status_code} {resp.text.strip()}")
+        if resp.status_code != 409:
+            fail("/vol/vacuum ran while vacuum was disabled")
+        repl.run_command(env, "volume.vacuum.enable")
+        _repair_results(env)
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        log(f"[9] current device before phase 9: {cur}, after: {now_dev}")
+        if now_dev != cur:
+            fail(f"phase 9 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[9] phase 9 took {time.perf_counter() - t_phase:.3f} s; "
+            f"kernel launches {launches}")
+        return launches
+    finally:
+        cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -1587,6 +2027,7 @@ def main() -> int:
     gen_launches, reb_launches = phase_store()
     cluster_launches = phase_cluster(card)
     mesh = phase_mesh(shard_hashes)
+    heal_launches = phase_heal(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -1619,6 +2060,7 @@ def main() -> int:
                          else round(v, 1)
                          for k, v in mesh["batched"].items()},
         "sharded_rebuild_ms": mesh["sharded_rebuild"],
+        "heal_launches": heal_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

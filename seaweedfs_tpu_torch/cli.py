@@ -8,8 +8,10 @@ runs its EC encode and rebuild on: auto (the measured router; needs a
 GPU), cuda (the hand-written kernel; needs a GPU), mesh (the kernel on
 every local card, shaped by `-ec.mesh.devices` / `-ec.mesh.col`),
 native (the AVX2 host codec) or numpy. `-ec.code` sets the code family
-new EC volumes are encoded with. Every other subcommand of the
-reference is not here.
+new EC volumes are encoded with. `-repair.*` configure the master's
+redundancy watchdog and `-admin.scripts` its maintenance timer, on
+`master` and on `server`. Every other subcommand of the reference is
+not here.
 """
 from __future__ import annotations
 
@@ -44,6 +46,72 @@ def _add_ec_flags(p) -> None:
                    help="needle map kind: memory | compact | btree")
 
 
+def _add_master_flags(p) -> None:
+    """The self-healing plane's flags, with the reference's defaults."""
+    p.add_argument("-admin.scripts", dest="admin_scripts",
+                   default="",
+                   help="semicolon-separated shell maintenance commands "
+                        "run periodically by the master, e.g. "
+                        "'volume.vacuum; volume.fix.replication'")
+    p.add_argument("-admin.scriptInterval",
+                   dest="admin_script_interval", type=float,
+                   default=60.0)
+    p.add_argument("-repair.enabled", dest="repair_enabled",
+                   action="store_true",
+                   help="drive automatic repair of under-replicated "
+                        "volumes and under-parity EC volumes from the "
+                        "redundancy watchdog queue (tracking and "
+                        "/debug/repair reporting are always on)")
+    p.add_argument("-repair.interval", dest="repair_interval",
+                   type=float, default=10.0,
+                   help="seconds between watchdog deficit scans; "
+                        "heartbeats and unregistrations also trigger "
+                        "an immediate scan")
+    p.add_argument("-repair.concurrency", dest="repair_concurrency",
+                   type=int, default=2,
+                   help="max repairs (volume re-replications / EC "
+                        "shard rebuilds) running at once")
+    p.add_argument("-repair.maxAttempts", dest="repair_max_attempts",
+                   type=int, default=5,
+                   help="attempts per repair task before giving up; "
+                        "retries back off with the shared full-jitter "
+                        "retry policy")
+    p.add_argument("-repair.grace", dest="repair_grace",
+                   type=float, default=0.0,
+                   help="seconds a deficit must persist before repair "
+                        "starts (0 = repair on first scan)")
+    p.add_argument("-repair.maxBytesPerSec",
+                   dest="repair_max_bytes_per_sec",
+                   type=float, default=0.0,
+                   help="per-node repair byte-rate cap: every repair "
+                        "copy and reconstruction read debits a shared "
+                        "token bucket on its source and destination "
+                        "volume server (0 = unshaped)")
+    p.add_argument("-repair.partialEc", dest="repair_partial_ec",
+                   type=lambda s: s.lower() not in
+                   ("0", "false", "no"),
+                   default=True,
+                   help="rebuild a lost EC shard from only the k shard "
+                        "ranges reconstruction needs, instead of "
+                        "borrowing every surviving shard file (false = "
+                        "always full-stripe)")
+
+
+def _master_kwargs(args) -> dict:
+    return {
+        "admin_scripts": [s.strip() for s in args.admin_scripts.split(";")
+                          if s.strip()],
+        "admin_script_interval": args.admin_script_interval,
+        "repair_enabled": args.repair_enabled,
+        "repair_interval": args.repair_interval,
+        "repair_concurrency": args.repair_concurrency,
+        "repair_max_attempts": args.repair_max_attempts,
+        "repair_grace": args.repair_grace,
+        "repair_max_bytes_per_sec": args.repair_max_bytes_per_sec,
+        "repair_partial_ec": args.repair_partial_ec,
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="seaweedfs-tpu-torch",
@@ -59,6 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
     p.add_argument("-defaultReplication", default="000")
+    _add_master_flags(p)
 
     p = sub.add_parser("volume", help="start a volume server")
     p.add_argument("-port", type=int, default=8080)
@@ -81,6 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=8080)
     p.add_argument("-volumeSizeLimitMB", type=int, default=1024)
     _add_ec_flags(p)
+    _add_master_flags(p)
 
     p = sub.add_parser("shell", help="interactive admin shell")
     p.add_argument("-master", default="http://127.0.0.1:9333")
@@ -126,8 +196,10 @@ def _run_master(args) -> int:
     from .server.master_server import MasterServer
 
     ms = MasterServer(volume_size_limit=args.volumeSizeLimitMB << 20,
-                      default_replication=args.defaultReplication)
+                      default_replication=args.defaultReplication,
+                      **_master_kwargs(args))
     t = ServerThread(ms.app, host=args.ip, port=args.port).start()
+    ms.admin_scripts_url = t.url
     print(f"master listening on {t.url}", flush=True)
     run_apps_forever([t])
     return 0
@@ -167,8 +239,10 @@ def _run_server(args) -> int:
     from .rpc.http import ServerThread, run_apps_forever
     from .server.master_server import MasterServer
 
-    ms = MasterServer(volume_size_limit=args.volumeSizeLimitMB << 20)
+    ms = MasterServer(volume_size_limit=args.volumeSizeLimitMB << 20,
+                      **_master_kwargs(args))
     mt = ServerThread(ms.app, host=args.ip, port=args.master_port).start()
+    ms.admin_scripts_url = mt.url
     print(f"master listening on {mt.url}", flush=True)
     vol_dir = os.path.join(args.dir, "volume")
     os.makedirs(vol_dir, exist_ok=True)

@@ -7,8 +7,12 @@ fixtures and the `weed server` combined command (command/server.go:94-107)
 — used by tests and chip_smoke.py. `ec_backend` takes a backend name or
 a codec instance, as Store does; with "cuda" (and the default "auto")
 every volume server's encode and rebuild run the hand-written kernel,
-and construction raises without a GPU. Not here: filer, S3, broker,
-repair, tiering.
+and construction raises without a GPU. `repair_*` configure the
+master's redundancy watchdog (with `repair_enabled`, lost replicas and
+shards are rebuilt without an operator), `admin_scripts` its
+maintenance timer. `stop()` stops both before the volume servers, so
+the teardown never reads as lost servers. Not here: filer, S3, broker,
+tiering.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import time
 
 from ..ec.backend import CodecBackend
 from ..rpc.http import ServerThread
+from ..rpc.httpclient import session
 from ..storage.store import Store
 from .master_server import MasterServer
 from .volume_server import VolumeServer
@@ -30,14 +35,32 @@ class Cluster:
                  pulse_seconds: float = 0.4,
                  ec_backend: str | CodecBackend = "auto",
                  topology: list[tuple[str, str]] | None = None,
-                 disk_types: list[str] | None = None):
+                 disk_types: list[str] | None = None,
+                 admin_scripts: list[str] | None = None,
+                 admin_script_interval: float = 60.0,
+                 repair_enabled: bool = False,
+                 repair_interval: float = 10.0,
+                 repair_concurrency: int = 2,
+                 repair_max_bytes_per_sec: float = 0.0,
+                 repair_partial_ec: bool = True,
+                 repair_grace: float = 0.0):
         """topology: optional per-server (data_center, rack) labels;
         disk_types: optional per-server disk class (hdd/ssd)."""
         self.base_dir = base_dir
-        self.master = MasterServer(volume_size_limit=volume_size_limit,
-                                   default_replication=default_replication,
-                                   pulse_seconds=pulse_seconds)
+        self.master = MasterServer(
+            volume_size_limit=volume_size_limit,
+            default_replication=default_replication,
+            pulse_seconds=pulse_seconds,
+            admin_scripts=admin_scripts,
+            admin_script_interval=admin_script_interval,
+            repair_enabled=repair_enabled,
+            repair_interval=repair_interval,
+            repair_concurrency=repair_concurrency,
+            repair_max_bytes_per_sec=repair_max_bytes_per_sec,
+            repair_partial_ec=repair_partial_ec,
+            repair_grace=repair_grace)
         self.master_thread = ServerThread(self.master.app).start()
+        self.master.admin_scripts_url = self.master_thread.url
         self.volume_servers: list[VolumeServer] = []
         self.volume_threads: list[ServerThread] = []
         self.stores: list[Store] = []
@@ -74,6 +97,9 @@ class Cluster:
     def master_url(self) -> str:
         return self.master_thread.url
 
+    def volume_url(self, i: int) -> str:
+        return self.volume_threads[i].url
+
     def wait_for_nodes(self, n: int, timeout: float = 15.0) -> None:
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
@@ -84,7 +110,28 @@ class Cluster:
             f"only {len(self.master.topo.nodes)}/{n} volume servers "
             "registered")
 
+    def wait_for_ec_shards(self, vid: int, min_shards: int = 14,
+                           timeout: float = 15.0) -> None:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            shards = self.master.topo.lookup_ec_shards(vid)
+            if sum(len(v) for v in shards.values()) >= min_shards:
+                return
+            time.sleep(0.05)
+        raise TimeoutError(f"ec shards of {vid} not fully registered")
+
+    def admin(self, server_i: int, path: str, body: dict) -> dict:
+        resp = session().post(f"{self.volume_url(server_i)}{path}",
+                              json=body, timeout=120)
+        out = resp.json()
+        if resp.status_code >= 300:
+            raise RuntimeError(f"{path}: {out}")
+        return out
+
     def stop(self) -> None:
+        # the watchdog and the admin scripts first: stopping servers
+        # under a live watchdog starts repairs against dead ports
+        self.master.stop_maintenance()
         for t in self.volume_threads:
             t.stop()
         self.master_thread.stop()

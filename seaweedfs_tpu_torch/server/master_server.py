@@ -15,13 +15,23 @@ reply carries what the master sent back on the stream. A server that
 stays silent for `Topology.dead_nodes`' timeout (5 pulses) is
 unregistered by the reaper thread, in place of the disconnect.
 
-Single master only. Not here: raft and followers, the redundancy
-watchdog, tiering, the collector, the workload aggregator, vacuum, the
-KeepConnected stream (`/ws/keepconnected`; clients re-read the EC map
-by TTL, wdclient/client.py), traces, metrics federation, JWT signing.
+The redundancy watchdog (master/watchdog.py) is poked on every
+heartbeat and every unregistration; /debug/repair shows and feeds its
+queue, and /cluster/status carries its deficit sets. With
+`admin_scripts`, a timer thread runs shell command lines against this
+master every `admin_script_interval` seconds (master_server.go:259-308
+startAdminScripts). /vol/vacuum runs the shell's volume.vacuum; the
+vacuum switch is a plain attribute (the reference commits it through
+raft).
+
+Single master only. Not here: raft and followers, tiering, the
+collector, the workload aggregator, the KeepConnected stream
+(`/ws/keepconnected`; clients re-read the EC map by TTL,
+wdclient/client.py), traces, metrics federation, JWT signing.
 """
 from __future__ import annotations
 
+import json
 import secrets
 import threading
 
@@ -29,11 +39,12 @@ from ..cluster.membership import ClusterMembership
 from ..master.sequence import MemorySequencer
 from ..master.topology import (NoFreeSlots, NoWritableVolume, Topology,
                                VolumeInfo)
+from ..master.watchdog import JOIN_TIMEOUT, RedundancyWatchdog
 from ..rpc.http import (App, Request, Response, debug_index_factory,
-                        json_error, json_ok, json_response)
+                        json_error, json_ok, json_response, text_response)
 from ..rpc.httpclient import session
 from ..storage import types as t
-from ..utils import glog
+from ..utils import glog, metrics
 
 # timeout of one /admin/assign_volume call made by /vol/grow
 GROW_TIMEOUT = (5.0, 60.0)
@@ -42,23 +53,56 @@ GROW_TIMEOUT = (5.0, 60.0)
 class MasterServer:
     def __init__(self, volume_size_limit: int = 30 << 30,
                  default_replication: str = "000",
-                 pulse_seconds: float = 5.0):
+                 pulse_seconds: float = 5.0,
+                 admin_scripts: list[str] | None = None,
+                 admin_script_interval: float = 60.0,
+                 repair_enabled: bool = False,
+                 repair_interval: float = 10.0,
+                 repair_concurrency: int = 2,
+                 repair_max_attempts: int = 5,
+                 repair_grace: float = 0.0,
+                 repair_max_bytes_per_sec: float = 0.0,
+                 repair_partial_ec: bool = True):
         self.topo = Topology(volume_size_limit, pulse_seconds)
         self.default_replication = default_replication
         self.seq = MemorySequencer()
         self.pulse_seconds = pulse_seconds
+        self.vacuum_disabled = False
         self.membership = ClusterMembership(ttl_seconds=pulse_seconds * 3)
         self._grow_lock = threading.Lock()
         self._stop = threading.Event()
         self._reaper: threading.Thread | None = None
+        # periodic maintenance scripts: shell command lines run on a
+        # timer, e.g. ["volume.vacuum", "volume.fix.replication"].
+        # admin_scripts_url is this master's own HTTP address, set by
+        # the runner once the listen socket binds.
+        self.admin_scripts = admin_scripts or []
+        self.admin_script_interval = admin_script_interval
+        self.admin_scripts_url = ""
+        self.admin_script_runs: list[dict] = []
+        self._admin_stop = threading.Event()
+        self._admin_thread: threading.Thread | None = None
+        # redundancy watchdog: deficit tracking always on, repair
+        # driving gated by -repair.enabled (watchdog.py)
+        self.watchdog = RedundancyWatchdog(
+            self, enabled=repair_enabled, interval=repair_interval,
+            concurrency=repair_concurrency,
+            max_attempts=repair_max_attempts, grace=repair_grace,
+            max_bytes_per_sec=repair_max_bytes_per_sec,
+            partial_ec=repair_partial_ec)
         self.app = self._build_app()
 
     def _build_app(self) -> App:
         app = App()
         app.get("/debug", debug_index_factory("master", {
             "/debug/ec": "EC codec router: probe curve + backends",
+            "/debug/repair": "watchdog deficits, queue, history "
+                             "(POST enqueues one repair)",
         }))
         app.get("/debug/ec", self.handle_debug_ec)
+        app.get("/debug/repair", self.handle_debug_repair)
+        app.post("/debug/repair", self.handle_repair_enqueue)
+        app.get("/metrics", self.handle_metrics)
         for method in ("GET", "POST"):
             app.route(method, "/dir/assign", self.handle_assign)
             app.route(method, "/vol/grow", self.handle_grow)
@@ -70,20 +114,43 @@ class MasterServer:
         app.get("/cluster/nodes", self.handle_cluster_nodes)
         app.get("/cluster/ec_shards", self.handle_ec_shards)
         app.post("/heartbeat", self.handle_heartbeat)
+        for method in ("GET", "POST"):
+            app.route(method, "/vol/vacuum", self.handle_vacuum_now)
+        app.post("/vol/vacuum/disable", self.handle_vacuum_toggle)
+        app.post("/vol/vacuum/enable", self.handle_vacuum_toggle)
         app.on_startup.append(self.start)
         app.on_cleanup.append(self.stop)
         return app
 
     # ------------------------------------------------------------------
-    # liveness: unregister servers whose heartbeats stopped
+    # liveness: unregister servers whose heartbeats stopped; the
+    # watchdog and the admin-scripts timer
     # ------------------------------------------------------------------
     def start(self) -> None:
         self._stop.clear()
         self._reaper = threading.Thread(target=self._reap_loop,
                                         name="master-reaper", daemon=True)
         self._reaper.start()
+        self.watchdog.start()
+        if self.admin_scripts:
+            self._admin_stop.clear()
+            self._admin_thread = threading.Thread(
+                target=self._admin_scripts_loop, name="admin-scripts",
+                daemon=True)
+            self._admin_thread.start()
+
+    def stop_maintenance(self) -> None:
+        """Stop the watchdog and the admin-scripts timer: what would
+        start repairs. A cluster stops these before its volume servers,
+        or the teardown itself reads as lost servers."""
+        self._admin_stop.set()
+        if self._admin_thread is not None:
+            self._admin_thread.join(timeout=JOIN_TIMEOUT)
+            self._admin_thread = None
+        self.watchdog.stop()
 
     def stop(self) -> None:
+        self.stop_maintenance()
         self._stop.set()
         if self._reaper is not None:
             self._reaper.join(timeout=10)
@@ -99,7 +166,38 @@ class MasterServer:
             glog.warning("volume server %s silent for 5 pulses: "
                          "unregistered", node_id)
             self.topo.unregister_data_node(node_id)
+        if dead:
+            self.watchdog.poke()
         return dead
+
+    def _admin_scripts_loop(self) -> None:
+        from ..shell.env import CommandEnv
+        from ..shell.repl import run_command
+
+        while not self.admin_scripts_url:
+            if self._admin_stop.wait(0.05):
+                return
+        while not self._admin_stop.wait(self.admin_script_interval):
+            env = CommandEnv(self.admin_scripts_url)
+            runs = []
+            try:
+                env.acquire_lock()
+                for line in self.admin_scripts:
+                    if self.vacuum_disabled and \
+                            line.startswith("volume.vacuum"):
+                        runs.append({"script": line, "ok": False,
+                                     "error": "vacuum disabled"})
+                        continue
+                    try:
+                        run_command(env, line)
+                        runs.append({"script": line, "ok": True})
+                    except Exception as e:  # noqa: BLE001 — recorded
+                        runs.append({"script": line, "ok": False,
+                                     "error": str(e)})
+            finally:
+                env.close()
+            self.admin_script_runs.extend(runs)
+            del self.admin_script_runs[:-100]
 
     # ------------------------------------------------------------------
     # assignment
@@ -258,6 +356,7 @@ class MasterServer:
                        for e in hb["ec_shards"]])
         if "repair_bw" in hb:
             node.repair_bw = hb["repair_bw"]
+        self.watchdog.poke()
         return json_ok({"volume_size_limit": self.topo.volume_size_limit,
                         "pulse_seconds": self.pulse_seconds})
 
@@ -265,13 +364,103 @@ class MasterServer:
     # status / introspection
     # ------------------------------------------------------------------
     def handle_cluster_status(self, req: Request) -> Response:
+        wd = self.watchdog
         return json_ok({
             "IsLeader": True,
             "Leader": "",
             "Peers": [],
+            "VacuumDisabled": self.vacuum_disabled,
             "Topology": self.topo.to_dict(),
             "EcRouter": _ec_router_snapshot(),
+            "UnderReplicated": wd.under_replicated,
+            "UnderParity": wd.under_parity,
+            "RepairQueueDepth": wd.queue_depth(),
+            "RepairEnabled": wd.enabled,
+            "RepairMaxBytesPerSec": wd.max_bytes_per_sec,
+            "RepairPlacementViolations": wd.placement_violations,
+            # per-node repair bucket fill/debt as last heartbeated
+            "RepairBandwidth": self._repair_bandwidth(),
         })
+
+    def _repair_bandwidth(self) -> dict:
+        with self.topo.lock:
+            return {n.url: n.repair_bw
+                    for n in self.topo.nodes.values()
+                    if n.repair_bw is not None}
+
+    def handle_debug_repair(self, req: Request) -> Response:
+        """Watchdog state: deficit sets, queue, in-flight and recent
+        repairs."""
+        return json_ok(self.watchdog.snapshot())
+
+    def handle_repair_enqueue(self, req: Request) -> Response:
+        """Enqueue one repair (scrub wiring + operator hook):
+        {"volume": vid, "kind": "replica"|"ec", "reason": "..."}.
+        Every malformed input is a 400 with a JSON error — never a 500
+        and never a silent accept."""
+        try:
+            body = json.loads(req.read())
+        except ValueError:
+            return json_error("repair enqueue body must be JSON",
+                              status=400)
+        if not isinstance(body, dict):
+            return json_error("repair enqueue body must be a JSON "
+                              "object", status=400)
+        try:
+            vid = int(body["volume"])
+        except (KeyError, TypeError, ValueError):
+            return json_error("repair enqueue requires an integer "
+                              "volume id", status=400)
+        if vid <= 0:
+            return json_error(f"volume id must be positive, got {vid}",
+                              status=400)
+        kind = body.get("kind", "replica")
+        if kind not in ("replica", "ec"):
+            return json_error(f"unknown repair kind {kind!r}", status=400)
+        accepted = self.watchdog.enqueue(
+            vid, kind, str(body.get("reason", "operator")),
+            collection=str(body.get("collection", "")))
+        return json_ok({"accepted": accepted,
+                        "enabled": self.watchdog.enabled})
+
+    def handle_vacuum_now(self, req: Request) -> Response:
+        """/vol/vacuum?garbageThreshold=0.3 — the on-demand cluster
+        vacuum (master_server.go:141 volumeVacuumHandler): the same
+        volume_vacuum the shell verb and the admin scripts run."""
+        if self.vacuum_disabled:
+            return json_error("vacuum disabled", status=409)
+        gc = req.query.get("garbageThreshold", "")
+        try:
+            threshold = float(gc) if gc else 0.3
+        except ValueError:
+            return json_error(
+                f"garbageThreshold {gc!r} is not a valid float",
+                status=406)
+        from ..shell.commands_volume import volume_vacuum
+        from ..shell.env import CommandEnv, ShellError
+
+        env = CommandEnv(self.admin_scripts_url)
+        try:
+            results = volume_vacuum(env, garbage_threshold=threshold)
+        except ShellError as e:
+            # e.g. vacuum disabled between our check and the verb's
+            # own re-check: keep the JSON error contract
+            return json_error(str(e), status=409)
+        finally:
+            env.close()
+        return json_ok({"garbageThreshold": threshold,
+                        "results": results})
+
+    def handle_vacuum_toggle(self, req: Request) -> Response:
+        """volume.vacuum.disable / enable (command_volume_vacuum_disable
+        .go): a master-side switch the admin scripts and the shell's
+        vacuum both consult."""
+        self.vacuum_disabled = req.path.endswith("/disable")
+        return json_ok({"vacuum_disabled": self.vacuum_disabled})
+
+    def handle_metrics(self, req: Request) -> Response:
+        return text_response(metrics.render(),
+                             content_type="text/plain; version=0.0.4")
 
     def handle_cluster_announce(self, req: Request) -> Response:
         """Filer/broker liveness beat (cluster.go membership)."""

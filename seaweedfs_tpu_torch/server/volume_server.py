@@ -33,10 +33,20 @@ subscription.
 A write or delete on a replicated volume fans out to the replicas the
 master lists (store_replicate.go:24) before it is acknowledged, and
 `volume_copy` pulls a replica's .dat/.idx for volume.fix.replication.
+Peers come from a lookup cache (LOOKUP_TTL); a delete that a peer
+answers with 404 looks the peers up again and reaches any new replica,
+where the reference counts the 404 as done and a replica repaired
+within the TTL keeps the needle.
+
+The volume admin routes of the self-healing plane: volume_scrub (the
+per-volume arm of cluster scrub), vacuum_check / vacuum_compact,
+volume_mount / volume_unmount, volume_info, leave (stop heartbeating),
+and the needle-level routes volume.check.disk and volume.fsck call
+(needle_ids / needle_read / needle_write / needle_delete).
 
 Not here: JWT guard, multipart uploads, chunk manifests, compression
 on write, multi-range replies, the native data plane, the commit
-scheduler, query, tiering, tail / sync, vacuum, scrub.
+scheduler, query, tiering, tail / sync.
 """
 from __future__ import annotations
 
@@ -125,8 +135,19 @@ class VolumeServer:
         app.post("/admin/mark_readonly", self.handle_mark_readonly)
         app.post("/admin/mark_writable", self.handle_mark_writable)
         app.post("/admin/volume_copy", self.handle_volume_copy)
+        app.post("/admin/volume_mount", self.handle_volume_mount)
+        app.post("/admin/volume_unmount", self.handle_volume_unmount)
+        app.get("/admin/needle_ids", self.handle_needle_ids)
+        app.get("/admin/needle_read", self.handle_needle_read)
+        app.post("/admin/needle_write", self.handle_needle_write)
+        app.post("/admin/needle_delete", self.handle_needle_delete)
+        app.post("/admin/leave", self.handle_leave)
         app.post("/admin/volume_replication",
                  self.handle_volume_replication)
+        app.post("/admin/volume_scrub", self.handle_volume_scrub)
+        app.post("/admin/vacuum_check", self.handle_vacuum_check)
+        app.post("/admin/vacuum_compact", self.handle_vacuum_compact)
+        app.get("/admin/volume_info", self.handle_volume_info)
         app.post("/admin/ec/generate", self.handle_ec_generate)
         app.post("/admin/ec/rebuild", self.handle_ec_rebuild)
         app.post("/admin/ec/rebuild_partial",
@@ -432,23 +453,41 @@ class VolumeServer:
         budget = retry.remaining(default=REPLICATE_TIMEOUT) or \
             REPLICATE_TIMEOUT
         timeout = (5.0, max(0.1, min(REPLICATE_TIMEOUT, budget)))
-        for peer in peers:
-            url = f"http://{peer}/{fid}"
-            try:
-                if method == "POST":
-                    r = session().post(url, params=params, data=data,
-                                       headers=headers, timeout=timeout)
-                    failed = r.status_code >= 300
-                else:
-                    r = session().delete(url, params=params,
-                                         headers=headers, timeout=timeout)
-                    failed = r.status_code >= 300 and r.status_code != 404
-            except RequestException as e:
+        done: set[str] = set()
+        for fresh in (False, True):
+            if fresh:
+                # a peer answered a delete with 404: the needle is gone
+                # there, or the cached peer no longer holds the volume
+                # (a replica moved or was repaired elsewhere). Look the
+                # peers up again and fan out to the new ones, so a
+                # repaired replica never misses a delete.
                 self._mc.invalidate(vid)
-                return f"replicate to {peer}: {e}"
-            if failed:
-                self._mc.invalidate(vid)
-                return f"replicate to {peer}: {r.status_code}"
+                peers = [loc["url"] for loc in
+                         self._mc.lookup(vid, LOOKUP_TTL)
+                         if loc["url"] != me and loc["url"] not in done]
+            not_found = False
+            for peer in peers:
+                url = f"http://{peer}/{fid}"
+                try:
+                    if method == "POST":
+                        r = session().post(url, params=params, data=data,
+                                           headers=headers,
+                                           timeout=timeout)
+                    else:
+                        r = session().delete(url, params=params,
+                                             headers=headers,
+                                             timeout=timeout)
+                except RequestException as e:
+                    self._mc.invalidate(vid)
+                    return f"replicate to {peer}: {e}"
+                if method != "POST" and r.status_code == 404:
+                    not_found = True
+                elif r.status_code >= 300:
+                    self._mc.invalidate(vid)
+                    return f"replicate to {peer}: {r.status_code}"
+                done.add(peer)
+            if not not_found:
+                break
         return None
 
     # ------------------------------------------------------------------
@@ -527,6 +566,133 @@ class VolumeServer:
         self.poke_heartbeat(wait=True)
         return json_response({"volume": vid, "bytes": copied})
 
+    def handle_volume_unmount(self, req: Request) -> Response:
+        """VolumeUnmount (volume_grpc_admin.go): close and forget a
+        volume, keeping its files — the offline half of volume.move and
+        scrub's quarantine."""
+        body = req.json()
+        try:
+            self.store.unmount_volume(int(body["volume"]))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        self.poke_heartbeat(wait=True)
+        return json_response({})
+
+    def handle_volume_mount(self, req: Request) -> Response:
+        body = req.json()
+        try:
+            self.store.mount_volume(int(body["volume"]))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        self.poke_heartbeat(wait=True)
+        return json_response({})
+
+    def handle_leave(self, req: Request) -> Response:
+        """volume.server.leave (VolumeServerLeave): stop heartbeating so
+        the master drops this node; reads go on being served until the
+        server is shut down."""
+        self._stop.set()
+        self._hb_wake.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=10)
+            self._hb_thread = None
+        return json_response({"left": True})
+
+    # ------------------------------------------------------------------
+    # admin: needle level (volume.check.disk, volume.fsck)
+    # ------------------------------------------------------------------
+    def handle_needle_read(self, req: Request) -> Response:
+        """Raw needle record for replica sync (volume.check.disk)."""
+        try:
+            blob = self.store.read_raw_needle(int(req.query["volume"]),
+                                              int(req.query["key"]))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        return Response(blob, content_type="application/octet-stream")
+
+    def handle_needle_write(self, req: Request) -> Response:
+        """Append a raw needle record pulled from a peer replica.
+        ?force=1 overwrites an existing live needle (content-divergence
+        repair where the newer record wins)."""
+        try:
+            key = self.store.append_raw_needle(
+                int(req.query["volume"]), req.read(),
+                req.query.get("force") == "1")
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        except (ValueError, PermissionError) as e:
+            return json_response({"error": str(e)}, status=400)
+        return json_response({"key": key})
+
+    def handle_needle_delete(self, req: Request) -> Response:
+        """Tombstone a needle by key without cookie check or replica
+        fan-out — tombstone propagation for volume.check.disk."""
+        body = req.json()
+        try:
+            self.store.delete_needle(int(body["volume"]), int(body["key"]))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        except PermissionError as e:
+            return json_response({"error": str(e)}, status=403)
+        return json_response({})
+
+    def handle_needle_ids(self, req: Request) -> Response:
+        """Live needle-id census of one volume — the server side of
+        volume.fsck / volume.check.disk."""
+        vid = int(req.query["volume"])
+        try:
+            live, deleted = self.store.needle_ids(vid)
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        return json_response(
+            {"volume": vid, "needles": [[k, s] for k, s in live],
+             "deleted": deleted})
+
+    # ------------------------------------------------------------------
+    # admin: scrub and vacuum
+    # ------------------------------------------------------------------
+    def handle_volume_scrub(self, req: Request) -> Response:
+        """Full-read needle verification of one local volume (the
+        per-volume arm of cluster scrub)."""
+        body = req.json()
+        vid = int(body["volume"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return text_response(f"volume {vid}", status=404)
+        return json_response(v.scrub(int(body.get("limit", 0))))
+
+    def handle_vacuum_check(self, req: Request) -> Response:
+        body = req.json()
+        v = self.store.find_volume(int(body["volume"]))
+        if v is None:
+            return json_response({"error": "not found"}, status=404)
+        return json_response({"garbage_ratio": v.garbage_ratio()})
+
+    def handle_vacuum_compact(self, req: Request) -> Response:
+        body = req.json()
+        v = self.store.find_volume(int(body["volume"]))
+        if v is None:
+            return json_response({"error": "not found"}, status=404)
+        v.compact()
+        self.poke_heartbeat(wait=True)
+        return json_response({"size": v.content_size()})
+
+    def handle_volume_info(self, req: Request) -> Response:
+        vid = int(req.query["volume"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return json_response({"error": "not found"}, status=404)
+        # a .vif naming a remote .dat does not load in the port, so a
+        # mounted volume is always local
+        return json_response({
+            "volume": vid, "size": v.content_size(),
+            "file_count": v.nm.file_count,
+            "deleted_bytes": v.nm.deleted_bytes,
+            "garbage_ratio": v.garbage_ratio(),
+            "read_only": v.read_only,
+            "remote": None,
+        })
+
     def handle_volume_replication(self, req: Request) -> Response:
         """The replica placement of a volume — rewritten in the super
         block when the body carries `replication` (VolumeConfigure,
@@ -536,8 +702,11 @@ class VolumeServer:
         if v is None:
             return json_response({"error": "not found"}, status=404)
         if "replication" in body:
-            v.super_block.replica_placement = \
-                ReplicaPlacement.parse(body["replication"])
+            try:
+                rp = ReplicaPlacement.parse(body["replication"])
+            except ValueError as e:
+                return json_response({"error": str(e)}, status=400)
+            v.super_block.replica_placement = rp
             v.dat.write_at(v.super_block.to_bytes(), 0)
             self.poke_heartbeat(wait=True)
         return json_response(

@@ -272,9 +272,10 @@ def ec_verify(env: CommandEnv, volume_id: int, sample_mb: int = 4,
 
     With ``quarantine`` (default), a parity mismatch that pinpoints to
     exactly one corrupt shard deletes that shard on its holder and
-    asks the master's repair queue for a rebuild (the port's master
-    has no repair queue, so `repair_enqueued` is False and the
-    operator runs ec.rebuild)."""
+    asks the master's repair queue for a rebuild (POST /debug/repair;
+    `repair_enqueued` says whether the master took it). With
+    -repair.enabled the watchdog then rebuilds the shard through the
+    volume servers' codec."""
     import numpy as np
 
     from ..ec.backend import ReedSolomon

@@ -2,9 +2,10 @@
 counterpart of seaweedfs_tpu/shell/env.py.
 
 Equivalent of SeaweedFS weed/shell/commands.go:41-78 (command interface
-+ CommandEnv.confirmIsLocked). Without a filer the admin lock is held
-in this process (single-operator mode), as the reference does when it
-knows no filer. Not here: the filer DLM path (cluster/lock_manager).
++ CommandEnv.confirmIsLocked). The admin lock is held in this process
+(single-operator mode), as the reference does when it knows no filer.
+`filer_url` only names the filer whose namespace volume.fsck walks.
+Not here: the filer DLM path (cluster/lock_manager).
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ class ShellError(Exception):
 
 
 class CommandEnv:
-    def __init__(self, master_url: str):
+    def __init__(self, master_url: str, filer_url: str = ""):
         self.master_url = master_url.rstrip("/")
+        self.filer_url = filer_url.rstrip("/")
         self.locked = False
 
     # -- master helpers -------------------------------------------------

@@ -223,6 +223,11 @@ def _outside_the_card(name: str) -> bool:
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_python_files()
     assert len(files) >= 15, files
+    rel = {os.path.relpath(p, REPO) for p in files}
+    # the walk reaches every module, the self-healing plane's included
+    assert {"seaweedfs_tpu_torch/master/watchdog.py",
+            "seaweedfs_tpu_torch/shell/commands_volume.py",
+            "seaweedfs_tpu_torch/server/master_server.py"} <= rel
     bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
            for path in files for line, n in _imports(path) if _forbidden(n)]
     assert not bad, bad
