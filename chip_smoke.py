@@ -124,6 +124,35 @@ Phases, each fatal on failure (exit code 1, no result line):
       equal, every deleted needle 404; after volume.vacuum.disable,
       /vol/vacuum answers 409.
 
+10. S3 objects through the filer into erasure-coded volumes: the same
+   five servers over three racks with a sqlite filer and the S3 gateway
+   in the process, pulse 0.5 s, the watchdog's repairs enabled at grace
+   0 (interval 1 s). A failed repair other than a refused lock, a
+   repair during ec.encode, or a deficit open at its deadline fails
+   the run.
+   a. SigV4-signed PUTs of 80 objects of 10 MiB (warp's default size,
+      two 8 MiB filer chunks each), one 160 MiB object by multipart
+      (10 x 16 MiB parts) and 4,096 objects of 1-64 KiB (every 8th
+      seeded .json text, stored gzipped), at least 1 GiB in all; MB/s,
+      objects/s, p50 / p99; the large objects read back from the plain
+      volumes.
+   b. A shell with the filer takes `lock` through the filer's DLM, runs
+      ec.encode on every volume of the bucket's collection under the
+      live watchdog, then `unlock`: no rebuild during the encodes, each
+      shard listed once, launches equal to the encodes' own, and the
+      repair attempts the lock refused; ec.verify -sample_mb=0
+      -backend=cuda of every volume clean.
+   c. The server holding the fewest shards stopped: detection and
+      repair seconds (deficit -> 14 live shards everywhere, grace 0),
+      the watchdog's rebuilds through the kernel (launches > 0), and a
+      seeded sample of objects read through S3 from the kill on
+      (degraded reads; reads/s, p50 / p99).
+   d. Every object read back through S3 over the EC shards, md5 and
+      ETag as at PUT (the multipart one's as CompleteMultipartUpload
+      gave it); seeded Range GETs of the multipart object;
+      ListObjectsV2 by pages gives exactly the key set; DeleteObjects
+      of a seeded tenth, and the listing drops exactly those.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -136,7 +165,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import torch
@@ -2012,6 +2043,541 @@ def phase_heal(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 10: S3 objects through the filer, erasure-coded and healed
+# ----------------------------------------------------------------------
+S3_BUCKET = "smoke10"
+S3_BIG = 80                       # warp's default object: 10 MiB
+S3_BIG_BYTES = 10 << 20
+S3_PARTS = 10                     # one multipart object, 10 x 16 MiB
+S3_PART_BYTES = 16 << 20
+S3_SMALL = 4096                   # 1-64 KiB, uniform
+S3_SMALL_LO, S3_SMALL_HI = 1 << 10, 64 << 10
+S3_JSON_EVERY = 8                 # every 8th small object is .json text
+S3_THREADS = 8                    # client threads of the PUT / GET passes
+S3_VOLUME_LIMIT = DAT_BYTES       # the bucket's volumes fill to 1 GiB
+S3_DEGRADED_SAMPLE = 512          # objects GET while a server is down
+S3_RANGES = 64                    # seeded Range GETs on the multipart one
+S3_KEY, S3_SECRET = "SMOKE10ACCESS", "smoke10-secret-key"
+S3_CONFIG = {"identities": [{
+    "name": "smoke", "actions": ["Admin"],
+    "credentials": [{"accessKey": S3_KEY, "secretKey": S3_SECRET}]}]}
+
+
+def _s3_object(i: int) -> tuple[str, bytes]:
+    """Object i of the bucket: (key, bytes), regenerated from the seed
+    on demand so no pass holds the bucket in memory. i < S3_BIG: 10 MiB;
+    i == S3_BIG: the multipart object; above: the small ones."""
+    rng = np.random.default_rng([SEED, 10, i])
+    if i < S3_BIG:
+        return f"big/obj-{i:03d}.bin", rng.bytes(S3_BIG_BYTES)
+    if i == S3_BIG:
+        return "multipart/object.bin", rng.bytes(S3_PARTS * S3_PART_BYTES)
+    j = i - S3_BIG - 1
+    size = int(rng.integers(S3_SMALL_LO, S3_SMALL_HI + 1))
+    if j % S3_JSON_EVERY == 0:
+        words = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta"]
+        rows, n = [], 0
+        while n < size:
+            row = json.dumps({"id": int(rng.integers(1 << 30)),
+                              "tag": words[int(rng.integers(6))],
+                              "value": float(rng.random())})
+            rows.append(row)
+            n += len(row) + 2
+        return f"small/{j:05d}.json", ("[" + ",\n".join(rows) + "]") \
+            .encode()[:max(size, 2)]
+    return f"small/{j:05d}.bin", rng.bytes(size)
+
+
+class _S3Client:
+    """SigV4-signed requests to the gateway, one pooled session per
+    thread."""
+
+    def __init__(self, url: str):
+        self.url = url
+
+    def __call__(self, method: str, path: str, data: bytes = b"",
+                 headers: dict | None = None, stream: bool = False):
+        from seaweedfs_tpu_torch.rpc.httpclient import session
+        from seaweedfs_tpu_torch.s3.auth import sign_request
+
+        url = self.url + path
+        hdrs = sign_request(method, url, S3_KEY, S3_SECRET, payload=data,
+                            extra_headers=headers)
+        return session().request(method, url, data=data or None,
+                                 headers=hdrs, timeout=(5.0, 300.0),
+                                 stream=stream)
+
+
+def _pool_map(fn, items, threads: int = S3_THREADS) -> list:
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(fn, items))
+
+
+def _lat(lat: list[float]) -> str:
+    p50, p99 = np.percentile(np.array(lat), [50, 99]) * 1e3
+    return f"p50 {p50:.3f} ms p99 {p99:.3f} ms"
+
+
+def _bucket_vids(env, collection: str) -> list[int]:
+    vids = set()
+    for n in env.data_nodes():
+        for vid, col in n.get("collections", {}).items():
+            if col == collection:
+                vids.add(int(vid))
+    return sorted(vids)
+
+
+def _encode_launches(dat_size: int) -> int:
+    """Kernel launches ec.encode makes for a .dat of this size: below
+    one large row (10 GiB) every stripe row is 10 x 1 MiB, and
+    encoder.DEFAULT_CHUNK groups 32 rows into one launch."""
+    from seaweedfs_tpu_torch.ec import encoder
+    from seaweedfs_tpu_torch.ec import geometry as geo
+
+    if dat_size >= geo.DATA_SHARDS * geo.LARGE_BLOCK:
+        fail(f"a {dat_size} B volume has large rows; the launch count "
+             "below assumes small rows only")
+    rows = -(-dat_size // (geo.DATA_SHARDS * geo.SMALL_BLOCK))
+    per = max(1, encoder.DEFAULT_CHUNK // geo.SMALL_BLOCK)
+    return -(-rows // per)
+
+
+def _gzipped_json(cluster, want: dict) -> int:
+    """How many .json objects' needles the volume servers stored with
+    FLAG_IS_COMPRESSED (read straight from the stores)."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.storage import types as t
+
+    n = 0
+    for key in want:
+        if not key.endswith(".json"):
+            continue
+        meta = session().get(f"{cluster.filer_url}/buckets/{S3_BUCKET}/"
+                             f"{key}", params={"meta": "1"}, timeout=30)
+        for c in meta.json().get("chunks", []):
+            vid, nid, cookie = t.parse_file_id(c["fid"])
+            for s in cluster.stores:
+                if s.has_volume(vid):
+                    n += bool(s.read_needle(vid, nid, cookie).is_compressed)
+                    break
+    return n
+
+
+def phase_s3(card: str) -> dict:
+    """Phase 10: S3 objects through the filer into erasure-coded
+    volumes, ec.encode under a live watchdog at grace 0 behind the
+    filer's DLM lock, a lost server healed by the watchdog, every
+    object read back through S3. -> kernel launches of its steps."""
+    from seaweedfs_tpu_torch.cluster.lock_manager import DlmClient
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import commands_ec, repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke10-")
+    cluster = Cluster(tmp, n_volume_servers=len(HEAL_TOPOLOGY),
+                      max_volumes=8, volume_size_limit=S3_VOLUME_LIMIT,
+                      pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                      topology=HEAL_TOPOLOGY, repair_enabled=True,
+                      repair_interval=HEAL_INTERVAL, repair_grace=0.0,
+                      with_filer=True, filer_store="sqlite",
+                      with_s3=True, s3_config=S3_CONFIG)
+    launches: dict[str, int] = {}
+    env = None
+    try:
+        s3 = _S3Client(cluster.s3_url)
+        env = CommandEnv(cluster.master_url, filer_url=cluster.filer_url)
+        by_url = {f"{s.ip}:{s.port}": i
+                  for i, s in enumerate(cluster.stores)}
+        log(f"[10] {card}")
+        log(f"[10] Cluster: master {cluster.master_url}, volume servers "
+            f"{[(th.address, *HEAL_TOPOLOGY[i]) for i, th in enumerate(cluster.volume_threads)]}"
+            f", filer {cluster.filer_url} (sqlite), s3 {cluster.s3_url}; "
+            f"ec_backend='cuda', pulse {HEAL_PULSE} s, repair enabled, "
+            f"interval {HEAL_INTERVAL} s, grace 0 s, volume limit "
+            f"{S3_VOLUME_LIMIT} B")
+
+        # 10a. PUT everything
+        r = s3("PUT", f"/{S3_BUCKET}")
+        if r.status_code != 200:
+            fail(f"CreateBucket answered {r.status_code}: {r.text}")
+        want: dict[str, tuple[str, str]] = {}   # key -> (md5, etag)
+
+        def put_one(i: int) -> tuple[str, float, int]:
+            key, data = _s3_object(i)
+            t0 = time.perf_counter()
+            resp = s3("PUT", f"/{S3_BUCKET}/{key}", data)
+            dt = time.perf_counter() - t0
+            md5 = hashlib.md5(data).hexdigest()
+            if resp.status_code != 200 or \
+                    resp.headers.get("ETag") != f'"{md5}"':
+                fail(f"PUT {key}: {resp.status_code} ETag "
+                     f"{resp.headers.get('ETag')} for md5 {md5}")
+            want[key] = (md5, md5)
+            return key, dt, len(data)
+
+        def check_one(i: int) -> tuple[float, int]:
+            k, _d = _s3_object(i) if i != S3_BIG else (
+                "multipart/object.bin", b"")
+            r0 = time.perf_counter()
+            resp = s3("GET", f"/{S3_BUCKET}/{k}", stream=True)
+            md5 = hashlib.md5()
+            n = 0
+            for piece in resp.iter_content(1 << 20):
+                md5.update(piece)
+                n += len(piece)
+            dt = time.perf_counter() - r0
+            if resp.status_code != 200 or md5.hexdigest() != want[k][0] \
+                    or resp.headers.get("ETag") != f'"{want[k][1]}"':
+                fail(f"GET {k}: {resp.status_code}, ETag "
+                     f"{resp.headers.get('ETag')} for {want[k]}")
+            return dt, n
+
+        t0 = time.perf_counter()
+        big = _pool_map(put_one, range(S3_BIG), threads=4)
+        t_big = time.perf_counter() - t0
+        big_bytes = sum(n for _, _, n in big)
+        log(f"[10a] PUT {S3_BIG} objects of {S3_BIG_BYTES} B (2 filer "
+            f"chunks each, 4 client threads): {t_big:.3f} s, "
+            f"{big_bytes / t_big / 1e6:.1f} MB/s, "
+            f"{S3_BIG / t_big:.2f} objects/s, "
+            f"{_lat([dt for _, dt, _ in big])}")
+
+        key, data = _s3_object(S3_BIG)
+        t0 = time.perf_counter()
+        r = s3("POST", f"/{S3_BUCKET}/{key}?uploads")
+        upload_id = ET.fromstring(r.content).find(
+            "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+        part_md5 = []
+
+        def put_part(n: int) -> str:
+            piece = data[(n - 1) * S3_PART_BYTES:n * S3_PART_BYTES]
+            resp = s3("PUT", f"/{S3_BUCKET}/{key}?partNumber={n}"
+                      f"&uploadId={upload_id}", piece)
+            md5 = hashlib.md5(piece).hexdigest()
+            if resp.status_code != 200 or \
+                    resp.headers.get("ETag") != f'"{md5}"':
+                fail(f"UploadPart {n}: {resp.status_code} "
+                     f"{resp.headers.get('ETag')}")
+            return md5
+
+        part_md5 = _pool_map(put_part, range(1, S3_PARTS + 1), threads=4)
+        body = "<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{n}</PartNumber><ETag>\"{m}\"</ETag></Part>"
+            for n, m in enumerate(part_md5, 1)) + \
+            "</CompleteMultipartUpload>"
+        r = s3("POST", f"/{S3_BUCKET}/{key}?uploadId={upload_id}",
+               body.encode())
+        mp_etag = hashlib.md5(b"".join(
+            bytes.fromhex(m) for m in part_md5)).hexdigest() + \
+            f"-{S3_PARTS}"
+        t_mp = time.perf_counter() - t0
+        if r.status_code != 200 or f'"{mp_etag}"' not in r.text:
+            fail(f"CompleteMultipartUpload: {r.status_code} {r.text}")
+        want[key] = (hashlib.md5(data).hexdigest(), mp_etag)
+        log(f"[10a] multipart {key}: {S3_PARTS} parts of "
+            f"{S3_PART_BYTES} B, initiate -> complete {t_mp:.3f} s, "
+            f"{len(data) / t_mp / 1e6:.1f} MB/s; ETag {mp_etag}")
+        del data
+
+        t0 = time.perf_counter()
+        small = _pool_map(put_one, range(S3_BIG + 1, S3_BIG + 1 + S3_SMALL))
+        t_small = time.perf_counter() - t0
+        small_bytes = sum(n for _, _, n in small)
+        n_json = sum(1 for k, _, _ in small if k.endswith(".json"))
+        log(f"[10a] PUT {S3_SMALL} small objects ({S3_SMALL_LO}-"
+            f"{S3_SMALL_HI} B, {n_json} .json), {S3_THREADS} client "
+            f"threads: {t_small:.3f} s, {S3_SMALL / t_small:.1f} objects/s, "
+            f"{small_bytes / t_small / 1e6:.2f} MB/s, "
+            f"{_lat([dt for _, dt, _ in small])}")
+        total = big_bytes + S3_PARTS * S3_PART_BYTES + small_bytes
+        log(f"[10a] the bucket holds {len(want)} objects, {total} B "
+            f"({total / (1 << 30):.3f} GiB)")
+        if total < DAT_BYTES:
+            fail(f"the bucket holds {total} B, under {DAT_BYTES} B")
+
+        # the large objects read back from the plain volumes: the
+        # yardstick 10d's reads over EC shards are held against
+        t0 = time.perf_counter()
+        healthy = _pool_map(check_one, range(S3_BIG + 1), threads=4)
+        dt = time.perf_counter() - t0
+        nbytes = sum(n for _, n in healthy)
+        log(f"[10a] GET the {S3_BIG + 1} large objects back before "
+            f"ec.encode (plain volumes, 4 client threads): {dt:.3f} s, "
+            f"{nbytes / dt / 1e6:.1f} MB/s, "
+            f"{_lat([x for x, _ in healthy])}; every md5 and ETag equal")
+
+        # 10b. ec.encode every volume of the bucket under the DLM lock
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        vids = _bucket_vids(env, S3_BUCKET)
+        sizes = {}
+        for vid in vids:
+            for s in cluster.stores:
+                v = s.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    sizes[vid] = v.content_size()
+        n_gz = _gzipped_json(cluster, want)
+        repl.run_command(env, "lock")
+        holder = DlmClient(cluster.filer_url).find_owner("admin")
+        log(f"[10b] volumes of collection {S3_BUCKET}: {sizes} (.dat "
+            f"bytes); {n_gz} of the .json objects' needles stored gzipped "
+            f"(FLAG_IS_COMPRESSED); `lock` through the filer DLM: owner "
+            f"{holder!r}")
+        if not n_gz:
+            fail("no .json object was stored gzipped")
+        if holder != "shell":
+            fail(f"the filer's DLM names {holder!r} as the admin lock's "
+                 "owner, not the shell")
+        err0 = metrics.counter_value("repair_seconds_count",
+                                     {"kind": "ec", "outcome": "error"})
+        ok0 = metrics.counter_value("repair_seconds_count",
+                                    {"kind": "ec", "outcome": "ok"})
+        bytes0 = metrics.counter_value("repair_bytes_total",
+                                       {"kind": "ec"})
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t0 = time.perf_counter()
+        walls = {}
+        for vid in vids:
+            t1 = time.perf_counter()
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+            walls[vid] = round(time.perf_counter() - t1, 3)
+        dt = time.perf_counter() - t0
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        rep = env.master_get("/debug/repair")
+        repl.run_command(env, "unlock")
+        until = time.time()
+        own = sum(_encode_launches(sizes[v]) for v in vids)
+        window = [x for x in rep["recent"]
+                  if since <= x["finished_at"] <= until]
+        rebuilt = [x for x in window if x["ok"] and
+                   x["detail"].get("rebuilt")]
+        refused = [x for x in window if not x["ok"]]
+        other = [x for x in refused
+                 if "cannot acquire admin lock" not in x["error"]]
+        n_refused = metrics.counter_value(
+            "repair_seconds_count", {"kind": "ec", "outcome": "error"}) \
+            - err0
+        n_ok = metrics.counter_value(
+            "repair_seconds_count", {"kind": "ec", "outcome": "ok"}) - ok0
+        rbytes = metrics.counter_value("repair_bytes_total",
+                                       {"kind": "ec"}) - bytes0
+        log(f"[10b] ec.encode of {len(vids)} volumes {dt:.3f} s "
+            f"({walls}), {launches['encode']} launches (the encodes' own: "
+            f"{own}); the watchdog meanwhile: {n_refused:.0f} repair "
+            f"attempts refused the lock, {n_ok:.0f} succeeded with "
+            f"{rbytes:.0f} B rebuilt; e.g. "
+            f"{refused[0]['error'] if refused else None!r}")
+        if rebuilt or rbytes or other:
+            fail(f"the watchdog repaired during ec.encode: "
+                 f"{rebuilt or other}, {rbytes} B")
+        if launches["encode"] != own:
+            fail(f"{launches['encode']} launches during ec.encode, the "
+                 f"encodes' own are {own}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)) or \
+                    any(len(u) != 1 for u in locs.values()):
+                fail(f"volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        for vid in vids:
+            out = commands_ec.ec_verify(env, vid, sample_mb=0,
+                                        backend="cuda")
+            if out.get("verified") is not True:
+                fail(f"ec.verify of volume {vid}: {out}")
+        dt = time.perf_counter() - t0
+        launches["verify"] = codec_cuda.coded_matmul.launches
+        log(f"[10b] ec.verify -sample_mb=0 -backend=cuda of every volume "
+            f"clean: {dt:.3f} s, {launches['verify']} launches; shards per "
+            f"server { {u: len(s) for u, s in held.items()} }")
+
+        # 10c. lose the server holding the fewest shards
+        victim = min((u for u in held if held[u]),
+                     key=lambda u: (len(held[u]), u))
+        lost = sorted(held[victim])
+        per_vid = {vid: [s for v, s in lost if v == vid] for vid in vids}
+        if any(len(s) > 4 for s in per_vid.values()):
+            fail(f"{victim} holds more than m=4 shards of a volume: "
+                 f"{per_vid}")
+        m0 = _repair_metrics()
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t_kill = time.monotonic()
+        cluster.volume_threads[by_url[victim]].stop()
+        rng = np.random.default_rng(SEED + 11)
+        sample = [int(i) for i in rng.choice(
+            np.arange(S3_BIG + 1, S3_BIG + 1 + S3_SMALL),
+            S3_DEGRADED_SAMPLE, replace=False)]
+        degraded: dict[str, object] = {}
+
+        def get_one(i: int) -> tuple[float, float]:
+            k, _d = _s3_object(i)
+            r0 = time.perf_counter()
+            resp = s3("GET", f"/{S3_BUCKET}/{k}")
+            if resp.status_code != 200 or \
+                    hashlib.md5(resp.content).hexdigest() != want[k][0]:
+                fail(f"GET {k} during the deficit: {resp.status_code}")
+            return time.perf_counter() - r0, time.monotonic()
+
+        def degraded_pass() -> None:
+            t1 = time.perf_counter()
+            try:
+                degraded["lat"] = _pool_map(get_one, sample)
+            except BaseException as e:  # noqa: BLE001 — failed below
+                degraded["error"] = e
+            degraded["wall"] = time.perf_counter() - t1
+
+        reader = threading.Thread(target=degraded_pass)
+        reader.start()
+
+        def deficit():
+            st = env.master_get("/cluster/status")
+            return any(e["volume"] in vids for e in st["UnderParity"])
+
+        _poll(deficit, HEAL_DEADLINE, "a bucket volume in UnderParity")
+        t_seen = time.monotonic()
+
+        def healed():
+            st = env.master_get("/cluster/status")
+            return not st["UnderParity"] and all(
+                len(env.ec_shard_locations(v)) == 14 for v in vids)
+
+        _poll(healed, HEAL_DEADLINE, "every bucket volume back to 14 "
+              "shards")
+        t_done = time.monotonic()
+        reader.join()
+        if "error" in degraded:
+            fail(f"degraded GETs: {degraded['error']}")
+        want_vids = sorted(v for v, s in per_vid.items() if s)
+        rep = env.master_get("/debug/repair")
+        recs = [x for x in rep["recent"] if x["finished_at"] >= since
+                and x["kind"] == "ec" and x["ok"]
+                and x["detail"].get("rebuilt")]
+        launches["repair"] = codec_cuda.coded_matmul.launches
+        got = {x["volume"]: sorted(x["detail"]["rebuilt"]) for x in recs}
+        lat = [x[0] for x in degraded["lat"]]
+        before_heal = sum(1 for x in degraded["lat"] if x[1] <= t_done)
+        log(f"[10c] killed {victim} ({HEAL_TOPOLOGY[by_url[victim]]}, "
+            f"shards {per_vid}): detection {t_seen - t_kill:.3f} s (kill "
+            f"-> UnderParity lists it), repair {t_done - t_seen:.3f} s "
+            f"(deficit -> 14 live shards on every volume, grace 0); the "
+            f"watchdog's rebuilds: "
+            f"{[(x['volume'], x['detail'].get('rebuilt'), x['detail'].get('mode'), x['seconds']) for x in recs]}"
+            f"; kernel launches during the repair {launches['repair']}; "
+            f"{_metrics_since(m0)}")
+        log(f"[10c] degraded GETs through S3 from the kill on: "
+            f"{len(lat)} objects in {degraded['wall']:.3f} s, "
+            f"{len(lat) / degraded['wall']:.1f} reads/s, {_lat(lat)}; "
+            f"{before_heal} finished before the heal, all equal")
+        if got != {v: per_vid[v] for v in want_vids}:
+            fail(f"the watchdog rebuilt {got}, wanted {per_vid}")
+        if launches["repair"] <= 0:
+            fail("the watchdog's rebuild launched the kernel no time")
+
+        # 10d. every object back through S3, ranges, listing, deletes
+        t0 = time.perf_counter()
+        got_big = _pool_map(check_one, range(S3_BIG + 1), threads=4)
+        t1 = time.perf_counter()
+        got_small = _pool_map(check_one, range(S3_BIG + 1,
+                                               S3_BIG + 1 + S3_SMALL))
+        t2 = time.perf_counter()
+        nbig = sum(n for _, n in got_big)
+        nsmall = sum(n for _, n in got_small)
+        log(f"[10d] GET all {len(got_big) + len(got_small)} objects "
+            f"through S3 after the repair (EC shards), every md5 and ETag "
+            f"equal: the {len(got_big)} large ones (4 client threads) "
+            f"{t1 - t0:.3f} s, {nbig / (t1 - t0) / 1e6:.1f} MB/s, "
+            f"{_lat([x for x, _ in got_big])}; the {len(got_small)} small "
+            f"ones ({S3_THREADS} threads) {t2 - t1:.3f} s, "
+            f"{len(got_small) / (t2 - t1):.1f} objects/s, "
+            f"{nsmall / (t2 - t1) / 1e6:.2f} MB/s, "
+            f"{_lat([x for x, _ in got_small])}")
+        key, data = _s3_object(S3_BIG)
+        rng = np.random.default_rng(SEED + 12)
+        t0 = time.perf_counter()
+        for _ in range(S3_RANGES):
+            a = int(rng.integers(0, len(data) - 1))
+            b = min(len(data) - 1, a + int(rng.integers(1, 24 << 20)))
+            resp = s3("GET", f"/{S3_BUCKET}/{key}",
+                      headers={"Range": f"bytes={a}-{b}"})
+            if resp.status_code != 206 or resp.content != data[a:b + 1] \
+                    or resp.headers.get("Content-Range") != \
+                    f"bytes {a}-{b}/{len(data)}":
+                fail(f"Range bytes={a}-{b} of {key}: "
+                     f"{resp.status_code}")
+        log(f"[10d] {S3_RANGES} seeded Range GETs of {key} (up to 24 MiB, "
+            f"across part and chunk edges): {time.perf_counter() - t0:.3f}"
+            f" s, all equal")
+        del data
+
+        def list_keys() -> list[str]:
+            keys, token = [], ""
+            while True:
+                q = "?list-type=2&max-keys=1000" + (
+                    f"&continuation-token={token}" if token else "")
+                resp = s3("GET", f"/{S3_BUCKET}{q}")
+                root = ET.fromstring(resp.content)
+                ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+                keys += [c.find(ns + "Key").text
+                         for c in root.findall(ns + "Contents")]
+                nxt = root.find(ns + "NextContinuationToken")
+                if nxt is None:
+                    return keys
+                token = nxt.text
+
+        t0 = time.perf_counter()
+        listed = list_keys()
+        dt = time.perf_counter() - t0
+        if listed != sorted(want):
+            fail(f"ListObjectsV2 gave {len(listed)} keys, "
+                 f"{len(set(listed) ^ set(want))} off the PUT set")
+        gone = sorted(str(k) for k in np.random.default_rng(
+            SEED + 13).choice(sorted(want), len(want) // 10,
+                              replace=False))
+        t1 = time.perf_counter()
+        for at in range(0, len(gone), 1000):
+            body = "<Delete>" + "".join(
+                f"<Object><Key>{k}</Key></Object>"
+                for k in gone[at:at + 1000]) + "</Delete>"
+            resp = s3("POST", f"/{S3_BUCKET}?delete", body.encode())
+            if resp.status_code != 200 or "<Error>" in resp.text:
+                fail(f"DeleteObjects: {resp.status_code} {resp.text[:200]}")
+        t_del = time.perf_counter() - t1
+        after = list_keys()
+        if after != sorted(set(want) - set(gone)):
+            fail(f"after DeleteObjects the listing holds {len(after)} "
+                 f"keys, wanted {len(want) - len(gone)}")
+        log(f"[10d] ListObjectsV2 by pages of 1000: {len(listed)} keys in "
+            f"{dt:.3f} s, exactly the PUT set; DeleteObjects of a seeded "
+            f"tenth ({len(gone)} keys): {t_del:.3f} s; the listing drops "
+            f"exactly those")
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        log(f"[10] current device before phase 10: {cur}, after: {now_dev}")
+        if now_dev != cur:
+            fail(f"phase 10 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[10] phase 10 took {time.perf_counter() - t_phase:.3f} s; "
+            f"kernel launches {launches}; {card}")
+        return launches
+    finally:
+        if env is not None:
+            env.close()
+        cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2028,6 +2594,7 @@ def main() -> int:
     cluster_launches = phase_cluster(card)
     mesh = phase_mesh(shard_hashes)
     heal_launches = phase_heal(card)
+    s3_launches = phase_s3(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -2061,6 +2628,7 @@ def main() -> int:
                          for k, v in mesh["batched"].items()},
         "sharded_rebuild_ms": mesh["sharded_rebuild"],
         "heal_launches": heal_launches,
+        "s3_launches": s3_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

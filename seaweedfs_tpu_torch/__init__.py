@@ -29,16 +29,25 @@ Layout:
                 (httpclient)
     master/     topology, placement and the file-id sequencer
     server/     the master, the volume server (data plane by fid, EC
-                admin routes, heartbeat) and the in-process Cluster
+                admin routes, heartbeat), the filer server (namespace,
+                KV, DLM routes) and the in-process Cluster
+    filer/      entries, chunk algebra, the memory and sqlite metadata
+                stores, the event log, per-path rules, the Filer and
+                chunked reads over the volume servers
+    s3/         the S3 gateway over the filer: SigV4 / V2 auth,
+                aws-chunked bodies, buckets, objects and multipart
     wdclient/   the client-side volume and EC-shard location cache
     operation/  client verbs: assign, upload, download, delete
     shell/      the admin shell: ec.encode / ec.rebuild / ec.decode /
                 ec.balance / ec.verify, volume.list, the REPL
-    cluster/    filer / broker membership the master tracks
-    cli.py      `python -m seaweedfs_tpu_torch master|volume|server|shell`
+    cluster/    filer / broker membership the master tracks, and the
+                distributed lock manager the filers host
+    cli.py      `python -m seaweedfs_tpu_torch
+                master|volume|filer|s3|server|shell`
     utils/      metrics registry, tracing spans, glog, workload
                 sketches, device selection, retry and deadlines, the
-                repair token bucket, HTTP range parsing
+                repair token bucket, HTTP range parsing, upload
+                compression, header armor
 
 Entry points run on the GPU (device "cuda") unless the caller asks for
 the CPU; without a GPU they raise instead of falling back.

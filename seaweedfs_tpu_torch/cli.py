@@ -2,16 +2,19 @@
 counterpart of seaweedfs_tpu/cli.py. Run as
 `python -m seaweedfs_tpu_torch <cmd>`.
 
-Subcommands: master, volume, server (master + one volume server in
-one process) and shell. `-ec.backend` picks the codec a volume server
+Subcommands: master, volume, filer, s3, server (master + one volume
+server in one process, `-filer` and `-s3` adding a filer and the S3
+gateway) and shell (`-filer` takes the admin lock through the filer's
+DLM). `-ec.backend` picks the codec a volume server
 runs its EC encode and rebuild on: auto (the measured router; needs a
 GPU), cuda (the hand-written kernel; needs a GPU), mesh (the kernel on
 every local card, shaped by `-ec.mesh.devices` / `-ec.mesh.col`),
 native (the AVX2 host codec) or numpy. `-ec.code` sets the code family
 new EC volumes are encoded with. `-repair.*` configure the master's
 redundancy watchdog and `-admin.scripts` its maintenance timer, on
-`master` and on `server`. Every other subcommand of the reference is
-not here.
+`master` and on `server`. The filer's stores are memory and sqlite
+(`-filer.store`, the reference's default sqlite on `server`). Every
+other subcommand of the reference is not here.
 """
 from __future__ import annotations
 
@@ -141,19 +144,55 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disk class of this server (hdd | ssd)")
     _add_ec_flags(p)
 
-    p = sub.add_parser("server", help="combined master + volume server")
+    p = sub.add_parser("filer", help="start a filer server")
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-store", default="memory",
+                   help="metadata store: memory | sqlite")
+    p.add_argument("-store.path", dest="store_path", default=":memory:")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-maxMB", dest="max_mb", type=int, default=8,
+                   help="split uploads into chunks of this many MiB")
+    p.add_argument("-saveToFilerLimit", dest="save_to_filer_limit",
+                   type=int, default=0,
+                   help="files smaller than this many bytes are stored "
+                        "inside the filer metadata entry (no volume "
+                        "round trip); per-request ?saveInside=true "
+                        "forces it")
+
+    p = sub.add_parser("s3", help="start an S3 gateway")
+    p.add_argument("-port", type=int, default=8333)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-config", default="",
+                   help="json file with s3 identities")
+
+    p = sub.add_parser("server",
+                       help="combined master + volume (+ filer + s3)")
     p.add_argument("-dir", default="./data")
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-master.port", dest="master_port", type=int,
                    default=9333)
     p.add_argument("-volume.port", dest="volume_port", type=int,
                    default=8080)
+    p.add_argument("-filer", action="store_true")
+    p.add_argument("-filer.port", dest="filer_port", type=int, default=8888)
+    p.add_argument("-filer.store", dest="filer_store", default="sqlite",
+                   help="metadata store: memory | sqlite")
+    p.add_argument("-s3", action="store_true")
+    p.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
+    p.add_argument("-s3.config", dest="s3_config", default="",
+                   help="json file with s3 identities")
     p.add_argument("-volumeSizeLimitMB", type=int, default=1024)
     _add_ec_flags(p)
     _add_master_flags(p)
 
     p = sub.add_parser("shell", help="interactive admin shell")
     p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-filer", default="",
+                   help="filer address for the cluster-wide admin lock")
     return parser
 
 
@@ -169,9 +208,14 @@ def main(argv: list[str] | None = None) -> int:
         return _run_volume(args)
     if args.cmd == "server":
         return _run_server(args)
+    if args.cmd == "filer":
+        return _run_filer(args)
+    if args.cmd == "s3":
+        return _run_s3(args)
     from .shell.repl import run_shell
 
-    return run_shell(args.master)
+    return run_shell(args.master, filer_url=_http(args.filer)
+                     if args.filer else "")
 
 
 def apply_env_flags(args) -> None:
@@ -251,5 +295,70 @@ def _run_server(args) -> int:
     except BaseException:
         mt.stop()
         raise
-    run_apps_forever([vt, mt])
+    threads = [vt, mt]
+    if args.filer or args.s3:
+        filer_dir = os.path.join(args.dir, "filer")
+        os.makedirs(filer_dir, exist_ok=True)
+        ft = _start_filer(args, mt.url, args.filer_port,
+                          store=args.filer_store,
+                          store_path=os.path.join(filer_dir, "filer.db"))
+        threads.insert(0, ft)
+        if args.s3:
+            threads.insert(0, _start_s3(args, ft.url, args.s3_port,
+                                        args.s3_config))
+    run_apps_forever(threads)
+    return 0
+
+
+def _http(url: str) -> str:
+    return url if url.startswith("http") else f"http://{url}"
+
+
+def _start_filer(args, master: str, port: int, store: str,
+                 store_path: str, **kwargs):
+    from .rpc.http import ServerThread
+    from .server.filer_server import FilerServer
+
+    fs = FilerServer(_http(master), store=store, store_path=store_path,
+                     **kwargs)
+    t = ServerThread(fs.app, host=args.ip, port=port).start()
+    fs.address = t.address
+    print(f"filer listening on {t.url} (store={store})", flush=True)
+    return t
+
+
+def _start_s3(args, filer: str, port: int, config_path: str):
+    import json
+
+    from .rpc.http import ServerThread
+    from .s3.server import S3ApiServer
+
+    config = None
+    if config_path:
+        with open(config_path) as f:
+            config = json.load(f)
+    s3 = S3ApiServer(_http(filer), iam_config=config)
+    t = ServerThread(s3.app, host=args.ip, port=port).start()
+    print(f"s3 gateway listening on {t.url}", flush=True)
+    return t
+
+
+def _run_filer(args) -> int:
+    from .rpc.http import run_apps_forever
+
+    t = _start_filer(args, args.master, args.port, store=args.store,
+                     store_path=args.store_path,
+                     collection=args.collection,
+                     replication=args.replication,
+                     chunk_size=args.max_mb << 20,
+                     save_to_filer_limit=args.save_to_filer_limit)
+    run_apps_forever([t])
+    return 0
+
+
+def _run_s3(args) -> int:
+    from .rpc.http import run_apps_forever
+
+    t = _start_s3(args, args.filer, args.port, args.config)
+    run_apps_forever([t])
     return 0

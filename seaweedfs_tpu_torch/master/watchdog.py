@@ -344,14 +344,18 @@ class RedundancyWatchdog:
     def _repair_one(self, task: RepairTask) -> tuple[dict, int]:
         """One repair: targeted volume.fix.replication for lost
         replicas, ec.rebuild (through the volume servers' codec) for
-        lost shards. Takes the admin lock, as the admin-scripts timer
-        does; without a filer that lock is process-local, as in the
-        reference."""
+        lost shards. Takes the cluster admin lock, as the admin-scripts
+        timer does: through a live filer's DLM, so a repair never runs
+        while an operator shell (ec.encode mounting shards server by
+        server) holds it — the refusal fails this attempt and the task
+        is requeued with backoff. Without a filer the lock is
+        process-local, as in the reference."""
         from ..shell.commands_ec import ec_rebuild
         from ..shell.commands_volume import volume_fix_replication
         from ..shell.env import CommandEnv
 
-        env = CommandEnv(self.master.admin_scripts_url)
+        env = CommandEnv(self.master.admin_scripts_url,
+                         filer_url=self.master.live_filer_url())
         try:
             env.acquire_lock()
             if task.kind == "replica":

@@ -31,7 +31,7 @@ import socket
 import threading
 import time
 import traceback
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 from urllib.parse import parse_qsl, unquote
 
 from ..utils import glog, retry
@@ -41,13 +41,18 @@ IDLE_TIMEOUT = 120.0
 # bytes per write of a streamed file response
 FILE_PIECE = 1 << 20
 
+# statuses whose replies carry no body (RFC 9110 §15.3.5, §15.4.5): a
+# handler's body for them is dropped, as aiohttp drops it
+_NO_BODY = (204, 304)
+
 # paths that skip the deadline check (the reference's _SKIP_PATHS)
 _NO_DEADLINE = frozenset({"/metrics", "/status", "/healthz"})
 
 
 class Request:
     """One parsed request: method, path, query, headers, match info
-    and the body, read at most once."""
+    and the body, read whole once (`read`) or in pieces
+    (`read_exactly`, for bodies too large to hold)."""
 
     def __init__(self, method: str, path: str, query_string: str,
                  headers, rfile, match_info: dict | None = None):
@@ -58,6 +63,11 @@ class Request:
         self.match_info = match_info or {}
         self._rfile = rfile
         self._body: bytes | None = None
+        self._chunked = "chunked" in (headers.get("Transfer-Encoding")
+                                      or "").lower()
+        self._left = 0 if self._chunked else (self.content_length or 0)
+        self._chunk_left = 0            # bytes left of the current chunk
+        self._eof = False
         query: dict[str, str] = {}
         for k, v in parse_qsl(query_string, keep_blank_values=True):
             query.setdefault(k, v)      # first value wins, as aiohttp
@@ -74,44 +84,75 @@ class Request:
             .strip()
 
     def read(self) -> bytes:
+        """The whole body (what is left of it after read_exactly)."""
         if self._body is None:
-            if "chunked" in (self.headers.get("Transfer-Encoding")
-                             or "").lower():
-                self._body = _read_chunked(self._rfile)
-            else:
-                n = self.content_length or 0
-                self._body = self._rfile.read(n) if n > 0 else b""
-                if len(self._body) != n:
-                    raise ConnectionError("request body cut short")
+            out = bytearray()
+            while True:
+                piece = self._read_some(1 << 20)
+                if not piece:
+                    break
+                out += piece
+            self._body = bytes(out)
         return self._body
+
+    def read_exactly(self, n: int) -> bytes:
+        """The next n bytes of the body, fewer only at its end."""
+        out = bytearray()
+        while len(out) < n:
+            piece = self._read_some(n - len(out))
+            if not piece:
+                break
+            out += piece
+        return bytes(out)
+
+    def _read_some(self, n: int) -> bytes:
+        if self._eof:
+            return b""
+        if not self._chunked:
+            if self._left <= 0:
+                self._eof = True
+                return b""
+            piece = self._rfile.read(min(n, self._left))
+            if not piece:
+                raise ConnectionError("request body cut short")
+            self._left -= len(piece)
+            return piece
+        if self._chunk_left == 0:
+            line = self._rfile.readline(1 << 16)
+            size = int(line.split(b";", 1)[0].strip() or b"0", 16)
+            if size == 0:
+                while self._rfile.readline(1 << 16) not in (b"\r\n", b"\n",
+                                                            b""):
+                    pass                # trailers
+                self._eof = True
+                return b""
+            self._chunk_left = size
+        piece = self._rfile.read(min(n, self._chunk_left))
+        if not piece:
+            raise ConnectionError("request body cut short")
+        self._chunk_left -= len(piece)
+        if self._chunk_left == 0:
+            self._rfile.readline(1 << 16)   # the chunk's CRLF
+        return piece
 
     def json(self) -> Any:
         return json.loads(self.read() or b"null")
 
 
-def _read_chunked(rfile) -> bytes:
-    out = bytearray()
-    while True:
-        line = rfile.readline(1 << 16)
-        size = int(line.split(b";", 1)[0].strip() or b"0", 16)
-        if size == 0:
-            while rfile.readline(1 << 16) not in (b"\r\n", b"\n", b""):
-                pass                    # trailers
-            return bytes(out)
-        out += rfile.read(size)
-        rfile.readline(1 << 16)         # the chunk's CRLF
-
-
 class Response:
-    """A reply: status, headers and either bytes or a byte range of a
+    """A reply: status, headers and one of: bytes, a byte range of a
     file (streamed in FILE_PIECE writes; `pace(n)` is called before
-    each write when set, for the repair token bucket)."""
+    each write when set, for the repair token bucket), or `stream`, an
+    iterable of byte pieces whose total is `length` (sent with that
+    Content-Length; its `close()` is called once the reply is done)."""
 
     def __init__(self, body: bytes = b"", status: int = 200,
                  headers: dict | None = None,
                  content_type: str | None = None,
                  file: tuple[str, int, int] | None = None,
-                 pace: Callable[[int], None] | None = None):
+                 pace: Callable[[int], None] | None = None,
+                 stream: Iterable[bytes] | None = None,
+                 length: int | None = None):
         self.body = body
         self.status = status
         self.headers = dict(headers or {})
@@ -119,9 +160,13 @@ class Response:
             self.headers["Content-Type"] = content_type
         self.file = file
         self.pace = pace
+        self.stream = stream
+        self._length = length
 
     @property
     def length(self) -> int:
+        if self.stream is not None:
+            return self._length or 0
         return self.file[2] if self.file is not None else len(self.body)
 
 
@@ -270,12 +315,19 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.close_connection = True
         self.send_response(resp.status)
         sent = {k.lower() for k in resp.headers}
+        no_body = resp.status in _NO_BODY
         for k, v in resp.headers.items():
+            if no_body and k.lower() == "content-length":
+                continue
             self.send_header(k, str(v))
-        if "content-length" not in sent:
+        if "content-length" not in sent and not no_body:
             self.send_header("Content-Length", str(resp.length))
         self.end_headers()
-        if self.command == "HEAD":
+        if self.command == "HEAD" or no_body:
+            _close_stream(resp)
+            return
+        if resp.stream is not None:
+            self._send_stream(resp)
             return
         if resp.file is None:
             if resp.body:
@@ -295,7 +347,35 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 self.wfile.write(piece)
                 length -= len(piece)
 
+    def _send_stream(self, resp: Response) -> None:
+        """Write a streamed body. The status is already sent, so a
+        source that fails or comes up short mid-body ends the
+        connection: the client sees a cut body, never a wrong one."""
+        left = resp.length
+        try:
+            for piece in resp.stream:
+                if len(piece) > left:
+                    raise IOError(f"stream gave {len(piece) - left} B more "
+                                  f"than its {resp.length} B")
+                self.wfile.write(piece)
+                left -= len(piece)
+            if left:
+                raise IOError(f"stream ended {left} B short of its "
+                              f"{resp.length} B")
+        except Exception as e:  # noqa: BLE001 — the status is sent
+            glog.warning("%s %s: streamed reply cut: %s", self.command,
+                         self.path, e)
+            self.close_connection = True
+        finally:
+            _close_stream(resp)
+
     do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _dispatch
+
+
+def _close_stream(resp: Response) -> None:
+    close = getattr(resp.stream, "close", None)
+    if close is not None:
+        close()
 
 
 class _Server(http.server.ThreadingHTTPServer):

@@ -11,8 +11,12 @@ and construction raises without a GPU. `repair_*` configure the
 master's redundancy watchdog (with `repair_enabled`, lost replicas and
 shards are rebuilt without an operator), `admin_scripts` its
 maintenance timer. `stop()` stops both before the volume servers, so
-the teardown never reads as lost servers. Not here: filer, S3, broker,
-tiering.
+the teardown never reads as lost servers. `with_filer` adds a filer
+(`filer_store` memory or sqlite) and `with_s3` the S3 gateway over it
+(`s3_config` its identities), as the reference's harness; the filer
+announces itself every pulse, so the master's watchdog and admin
+scripts always find it and take its DLM lock. Not here: the native
+fronts, the broker, tiering.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from ..ec.backend import CodecBackend
 from ..rpc.http import ServerThread
 from ..rpc.httpclient import session
 from ..storage.store import Store
+from .filer_server import FilerServer
 from .master_server import MasterServer
 from .volume_server import VolumeServer
 
@@ -43,7 +48,11 @@ class Cluster:
                  repair_concurrency: int = 2,
                  repair_max_bytes_per_sec: float = 0.0,
                  repair_partial_ec: bool = True,
-                 repair_grace: float = 0.0):
+                 repair_grace: float = 0.0,
+                 with_filer: bool = False,
+                 filer_store: str = "memory",
+                 with_s3: bool = False,
+                 s3_config: dict | None = None):
         """topology: optional per-server (data_center, rack) labels;
         disk_types: optional per-server disk class (hdd/ssd)."""
         self.base_dir = base_dir
@@ -64,6 +73,7 @@ class Cluster:
         self.volume_servers: list[VolumeServer] = []
         self.volume_threads: list[ServerThread] = []
         self.stores: list[Store] = []
+        self.filer_thread = self.s3_thread = None
         try:
             for i in range(n_volume_servers):
                 dirs = []
@@ -88,7 +98,30 @@ class Cluster:
                 self.volume_servers.append(vs)
                 self.volume_threads.append(thread)
                 self.stores.append(store)
+            self.filer: FilerServer | None = None
+            self.filer_thread: ServerThread | None = None
+            if with_filer or with_s3:
+                store_path = os.path.join(base_dir, "filer.db") \
+                    if filer_store == "sqlite" else ":memory:"
+                # announce every pulse: the master forgets a member
+                # after 3 silent pulses, and a filer it forgot leaves
+                # the watchdog with a process-local lock
+                self.filer = FilerServer(self.master_url,
+                                         store=filer_store,
+                                         store_path=store_path,
+                                         announce_pulse=pulse_seconds)
+                self.filer_thread = ServerThread(self.filer.app).start()
+                self.filer.address = self.filer_thread.address
+            self.s3 = None
+            self.s3_thread: ServerThread | None = None
+            if with_s3:
+                from ..s3.server import S3ApiServer
+
+                self.s3 = S3ApiServer(self.filer_url, iam_config=s3_config)
+                self.s3_thread = ServerThread(self.s3.app).start()
             self.wait_for_nodes(n_volume_servers)
+            if self.filer is not None:
+                self.wait_for_filer()
         except BaseException:
             self.stop()
             raise
@@ -120,6 +153,29 @@ class Cluster:
             time.sleep(0.05)
         raise TimeoutError(f"ec shards of {vid} not fully registered")
 
+    @property
+    def filer_url(self) -> str:
+        if self.filer_thread is None:
+            raise RuntimeError("cluster started without a filer")
+        return self.filer_thread.url
+
+    @property
+    def s3_url(self) -> str:
+        if self.s3_thread is None:
+            raise RuntimeError("cluster started without s3")
+        return self.s3_thread.url
+
+    def wait_for_filer(self, timeout: float = 15.0) -> None:
+        """Until the master lists the filer and its lock ring holds it
+        (its first announce), so the admin lock goes through its DLM."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.master.live_filer_url() and \
+                    self.filer.dlm.ring.servers():
+                return
+            time.sleep(0.02)
+        raise TimeoutError("the filer never announced itself")
+
     def admin(self, server_i: int, path: str, body: dict) -> dict:
         resp = session().post(f"{self.volume_url(server_i)}{path}",
                               json=body, timeout=120)
@@ -132,6 +188,9 @@ class Cluster:
         # the watchdog and the admin scripts first: stopping servers
         # under a live watchdog starts repairs against dead ports
         self.master.stop_maintenance()
+        for t in (self.s3_thread, self.filer_thread):
+            if t is not None:
+                t.stop()
         for t in self.volume_threads:
             t.stop()
         self.master_thread.stop()

@@ -20,7 +20,10 @@ heartbeat and every unregistration; /debug/repair shows and feeds its
 queue, and /cluster/status carries its deficit sets. With
 `admin_scripts`, a timer thread runs shell command lines against this
 master every `admin_script_interval` seconds (master_server.go:259-308
-startAdminScripts). /vol/vacuum runs the shell's volume.vacuum; the
+startAdminScripts). The timer and the watchdog's repairs take the
+admin lock through a live filer's DLM (`live_filer_url`, from the
+filers' membership announces), so they serialize against operator
+shells; without a filer the lock is process-local. /vol/vacuum runs the shell's volume.vacuum; the
 vacuum switch is a plain attribute (the reference commits it through
 raft).
 
@@ -170,18 +173,31 @@ class MasterServer:
             self.watchdog.poke()
         return dead
 
+    def live_filer_url(self) -> str:
+        """A live filer's url from the membership announces, or "" (the
+        admin lock is then process-local, as without a filer)."""
+        filers = self.membership.list_nodes("filer")
+        return f"http://{filers[0].address}" if filers else ""
+
     def _admin_scripts_loop(self) -> None:
-        from ..shell.env import CommandEnv
+        from ..shell.env import CommandEnv, ShellError
         from ..shell.repl import run_command
 
         while not self.admin_scripts_url:
             if self._admin_stop.wait(0.05):
                 return
         while not self._admin_stop.wait(self.admin_script_interval):
-            env = CommandEnv(self.admin_scripts_url)
+            # the cluster-wide admin lock lives in the filer DLM: find
+            # a live filer so maintenance serializes against operator
+            # shells (commands.go:78 confirmIsLocked)
+            env = CommandEnv(self.admin_scripts_url,
+                             filer_url=self.live_filer_url())
             runs = []
             try:
-                env.acquire_lock()
+                try:
+                    env.acquire_lock()
+                except ShellError:
+                    continue        # lock contention: retry next tick
                 for line in self.admin_scripts:
                     if self.vacuum_disabled and \
                             line.startswith("volume.vacuum"):

@@ -44,8 +44,12 @@ volume_mount / volume_unmount, volume_info, leave (stop heartbeating),
 and the needle-level routes volume.check.disk and volume.fsck call
 (needle_ids / needle_read / needle_write / needle_delete).
 
-Not here: JWT guard, multipart uploads, chunk manifests, compression
-on write, multi-range replies, the native data plane, the commit
+A write whose name or mime is compressible (utils/compression) is
+stored gzipped with FLAG_IS_COMPRESSED when that saves 10%, as the
+reference; the filer passes the name for such chunks.
+
+Not here: JWT guard, multipart uploads, chunk manifests, multi-range
+replies, the native data plane, the commit
 scheduler, query, tiering, tail / sync.
 """
 from __future__ import annotations
@@ -70,7 +74,7 @@ from ..storage import types as t
 from ..storage.store import Store
 from ..storage.super_block import ReplicaPlacement
 from ..storage.volume import Volume
-from ..utils import glog, httprange, metrics, ratelimit, retry
+from ..utils import compression, glog, httprange, metrics, ratelimit, retry
 from ..wdclient.client import MasterClient
 
 # timeout of one heartbeat POST beyond the pulse it covers
@@ -381,6 +385,24 @@ class VolumeServer:
         if pairs:
             n.pairs = json.dumps(pairs, separators=(",", ":")).encode()
             n.flags |= ndl.FLAG_HAS_PAIRS
+        # transparent compression (needle_parse_upload.go): compressible
+        # names and mimes are stored gzipped when that saves >= 10%
+        if req.query.get("compressed") == "1" and \
+                compression.is_gzipped(n.data):
+            # replica fan-out ships the primary's stored bytes verbatim
+            # (gzip magic required: the param is client-forgeable and a
+            # false flag would make the needle unreadable forever)
+            n.flags |= ndl.FLAG_IS_COMPRESSED
+        elif "gzip" in (req.headers.get("Content-Encoding") or "") and \
+                compression.is_gzipped(n.data):
+            n.flags |= ndl.FLAG_IS_COMPRESSED
+        elif compression.is_compressible(
+                n.mime.decode("utf-8", "replace"),
+                n.name.decode("utf-8", "replace")):
+            body, did = compression.maybe_gzip(n.data)
+            if did:
+                n.data = body
+                n.flags |= ndl.FLAG_IS_COMPRESSED
         try:
             self.store.write_needle(vid, n)
         except KeyError:
@@ -450,6 +472,10 @@ class VolumeServer:
                 headers.update({k: str(val) for k, val in
                                 json.loads(needle.pairs).items()
                                 if k.lower().startswith("seaweed-")})
+            if needle.is_compressed:
+                # marker param, not Content-Encoding: the replica
+                # appends these bytes verbatim
+                params["compressed"] = "1"
         budget = retry.remaining(default=REPLICATE_TIMEOUT) or \
             REPLICATE_TIMEOUT
         timeout = (5.0, max(0.1, min(REPLICATE_TIMEOUT, budget)))

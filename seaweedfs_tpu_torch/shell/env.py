@@ -2,10 +2,13 @@
 counterpart of seaweedfs_tpu/shell/env.py.
 
 Equivalent of SeaweedFS weed/shell/commands.go:41-78 (command interface
-+ CommandEnv.confirmIsLocked). The admin lock is held in this process
-(single-operator mode), as the reference does when it knows no filer.
-`filer_url` only names the filer whose namespace volume.fsck walks.
-Not here: the filer DLM path (cluster/lock_manager).
++ CommandEnv.confirmIsLocked). With a filer (`filer_url`), the admin
+lock is the filer DLM's `admin` lock (cluster/lock_manager.DlmClient):
+cluster-wide, renewed in the background while held, refused at once to
+a second holder; the master's watchdog and admin scripts take the same
+lock, so their repairs serialize against an operator shell. Without a
+filer it is held in this process (single-operator mode), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ class CommandEnv:
         self.master_url = master_url.rstrip("/")
         self.filer_url = filer_url.rstrip("/")
         self.locked = False
+        self._dlm = None
+
+    ADMIN_LOCK = "admin"  # cluster-wide exclusive shell lock name
 
     # -- master helpers -------------------------------------------------
     def master_get(self, path: str, **params) -> dict:
@@ -110,22 +116,46 @@ class CommandEnv:
         return out
 
     # -- admin lock (commands.go:78 confirmIsLocked) --------------------
+    # Cluster-wide exclusive via the filer DLM when a filer is known;
+    # process-local otherwise (single-operator mode).
     def confirm_locked(self) -> None:
         if not self.locked:
             raise ShellError(
                 "lock is required: run `lock` before cluster-mutating "
                 "commands")
+        if self._dlm is not None and not self._dlm.is_held(self.ADMIN_LOCK):
+            self.locked = False
+            raise ShellError(
+                "admin lock lost (renewal failed); run `lock` again")
 
     def acquire_lock(self) -> None:
+        if self.filer_url:
+            from ..cluster.lock_manager import DlmClient
+
+            if self._dlm is None:
+                self._dlm = DlmClient(self.filer_url, owner="shell")
+            try:
+                self._dlm.lock(self.ADMIN_LOCK)
+            except RuntimeError as e:
+                raise ShellError(f"cannot acquire admin lock: {e}")
         self.locked = True
 
     def release_lock(self) -> None:
+        if self._dlm is not None:
+            try:
+                self._dlm.unlock(self.ADMIN_LOCK)
+            except RuntimeError:
+                pass
         self.locked = False
 
     def close(self) -> None:
-        """Release the admin lock on shell exit."""
+        """Release the admin lock and stop the renewer on shell exit —
+        otherwise the cluster-wide lock stays wedged until TTL."""
         if self.locked:
             self.release_lock()
+        if self._dlm is not None:
+            self._dlm.close()
+            self._dlm = None
 
     def wait_for_ec_registration(self, vid: int, min_shards: int,
                                  timeout: float = 20.0) -> None:

@@ -174,8 +174,8 @@ def run_command(env: CommandEnv, line: str) -> object:
     raise ShellError(f"unknown command {cmd!r} (try `help`)")
 
 
-def run_shell(master_url: str) -> int:
-    env = CommandEnv(master_url)
+def run_shell(master_url: str, filer_url: str = "") -> int:
+    env = CommandEnv(master_url, filer_url=filer_url)
     print(f"seaweedfs-tpu-torch shell connected to {master_url}")
     print("type `help` for commands, `exit` to quit")
     try:

@@ -1,8 +1,9 @@
-"""HTTP byte-range parsing (RFC 7233); the counterpart of
-seaweedfs_tpu/utils/httprange.py without its multipart/byteranges
-assembly: the port's volume server answers one range with a 206 and
-serves several as the full body (200), which RFC 7233 allows. Parsing
-as in SeaweedFS weed/server/common.go processRangeRequest:306-383:
+"""HTTP byte-range parsing and multipart/byteranges assembly (RFC
+7233); the counterpart of seaweedfs_tpu/utils/httprange.py. The port's
+volume server answers one range with a 206 and serves several as the
+full body (200), which RFC 7233 allows; the filer answers several with
+multipart/byteranges, as the reference. Parsing as in SeaweedFS
+weed/server/common.go processRangeRequest:306-383:
 
 - header absent / non-"bytes" unit: no range (serve 200 full) —
   RFC 7233 §3.1 lets a server ignore units it doesn't recognize
@@ -12,8 +13,11 @@ as in SeaweedFS weed/server/common.go processRangeRequest:306-383:
 - sum of range lengths > total size: probably an attack or a dumb
   client — ignore the header, serve 200 full (common.go:312-318)
 - one satisfiable range: plain 206 with Content-Range
+- several: 206 multipart/byteranges, one MIME part per range
 """
 from __future__ import annotations
+
+import secrets
 
 MALFORMED = "malformed"
 UNSATISFIABLE = "unsatisfiable"
@@ -74,3 +78,21 @@ def parse_range_header(spec: str, size: int):
 
 def content_range(start: int, length: int, size: int) -> str:
     return f"bytes {start}-{start + length - 1}/{size}"
+
+
+def multipart_byteranges(parts: list[tuple[int, int, bytes]],
+                         mime: str, size: int) -> tuple[bytes, str]:
+    """Assemble the multipart/byteranges body for `parts` of
+    (start, length, data). -> (body, Content-Type header value)."""
+    boundary = secrets.token_hex(16)
+    out: list[bytes] = []
+    for start, length, data in parts:
+        head = (f"--{boundary}\r\n"
+                + (f"Content-Type: {mime}\r\n" if mime else "")
+                + f"Content-Range: {content_range(start, length, size)}"
+                + "\r\n\r\n")
+        out.append(head.encode())
+        out.append(data)
+        out.append(b"\r\n")
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), f"multipart/byteranges; boundary={boundary}"

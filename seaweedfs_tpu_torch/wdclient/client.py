@@ -8,6 +8,8 @@ the master's KeepConnected websocket (`subscribe=True`); the port has
 no such stream, so entries live for the caller's `max_age` and a caller
 that finds an entry stale (a holder that no longer has the shard)
 drops it with `invalidate(vid)` and reads the master again.
+`lookup_file_id_urls` turns a fid into the urls the filer reads it
+from.
 """
 from __future__ import annotations
 
@@ -99,3 +101,19 @@ class MasterClient:
             self._cache_time.pop(vid, None)
             self._ec_cache.pop(vid, None)
             self._ec_cache_time.pop(vid, None)
+
+    def lookup_file_id_urls(self, fid: str,
+                            max_age: float = 600.0) -> list[str]:
+        """All urls for a fid (every replica, or every holder of an EC
+        volume's shards) — callers iterate for failover, or hedge the
+        second. Without the reference's circuit breakers, in the
+        master's order."""
+        vid = int(fid.split(",")[0])
+        locs = self.lookup(vid, max_age=max_age)
+        if not locs:
+            raise LookupError(f"volume {vid} has no locations")
+        return [f"http://{loc['url']}/{fid}" for loc in locs]
+
+    def lookup_file_id(self, fid: str, max_age: float = 600.0) -> str:
+        """fid -> full url (GetLookupFileIdFunction equivalent)."""
+        return self.lookup_file_id_urls(fid, max_age=max_age)[0]

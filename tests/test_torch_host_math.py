@@ -291,6 +291,28 @@ def test_scan_covers_the_server_and_shell_layer(module):
     assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
 
 
+FILER_AND_S3 = ["utils/compression.py", "utils/extheaders.py",
+                "filer/__init__.py", "filer/entry.py",
+                "filer/filechunks.py", "filer/filerstore.py",
+                "filer/event_log.py", "filer/filer_conf.py",
+                "filer/filer.py", "filer/stream.py",
+                "cluster/lock_manager.py", "server/filer_server.py",
+                "s3/__init__.py", "s3/auth.py", "s3/chunked.py",
+                "s3/server.py"]
+
+
+@pytest.mark.parametrize("module", FILER_AND_S3)
+def test_scan_covers_the_filer_and_s3_layer(module):
+    """The filer / DLM / S3 slice's modules are scanned, each has its
+    reference at the same path, and none imports jax, seaweedfs_tpu,
+    aiohttp, requests or anything the card's machine lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
+
+
 MESH_LAYER = ["parallel/mesh.py", "ops/codec_mesh.py",
               "models/ec_pipeline.py", "ec/probe.py", "ec/backend.py",
               "cli.py"]

@@ -11,6 +11,7 @@ The port has no filer, so volume.fsck walks a stub filer: a tiny HTTP
 app serving the filer's JSON listing (entries with chunk fids), which
 the reference's walker reads the same way.
 """
+import functools
 import hashlib
 import random
 import threading
@@ -26,12 +27,14 @@ from seaweedfs_tpu.server import master_server as ref_ms
 from seaweedfs_tpu.shell import commands_volume as ref_cmd_vol
 from seaweedfs_tpu.shell.env import CommandEnv as RefEnv
 from seaweedfs_tpu.storage import volume as ref_volume
+from seaweedfs_tpu_torch.cluster.lock_manager import DistributedLockManager
 from seaweedfs_tpu_torch.operation import verbs
 from seaweedfs_tpu_torch.ops.codec_cuda import CudaCodec
 from seaweedfs_tpu_torch.rpc.http import App, ServerThread, json_response
 from seaweedfs_tpu_torch.rpc.httpclient import session
 from seaweedfs_tpu_torch.server import master_server as port_ms
 from seaweedfs_tpu_torch.server.cluster import Cluster
+from seaweedfs_tpu_torch.server.filer_server import FilerServer
 from seaweedfs_tpu_torch.shell import commands_volume, repl
 from seaweedfs_tpu_torch.shell.env import CommandEnv, ShellError
 from seaweedfs_tpu_torch.storage import volume as port_volume
@@ -51,12 +54,19 @@ def _digest(path: str) -> str:
 
 class StubFiler:
     """The filer's JSON listing over HTTP: {dir: {name: [fids]}}, each
-    file entry with one chunk per fid."""
+    file entry with one chunk per fid; and the filer's DLM routes (the
+    FilerServer's own handlers over a one-filer ring), which a shell
+    with a filer takes its admin lock through."""
 
     def __init__(self):
         self.dirs: dict[str, dict[str, list[str]]] = {}
         self._lock = threading.Lock()
+        self.dlm = DistributedLockManager("stub")
+        self.dlm.ring.set_servers(["stub"])
         app = App()
+        for verb in ("lock", "unlock", "find"):
+            app.post(f"/dlm/{verb}", functools.partial(
+                getattr(FilerServer, f"handle_dlm_{verb}"), self))
         app.get("/", self._list)
         app.route("GET", "/{path:.+}", self._list)
         self.thread = ServerThread(app).start()
