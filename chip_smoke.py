@@ -153,6 +153,33 @@ Phases, each fatal on failure (exit code 1, no result line):
       ListObjectsV2 by pages gives exactly the key set; DeleteObjects
       of a seeded tenth, and the listing drops exactly those.
 
+11. Raft-replicated masters and a leader failover, in the layout of
+   k8s/seaweedfs-tpu.yaml: three masters, each a process of `python -m
+   seaweedfs_tpu_torch master -peers A,B,C -raftDir D` (pulse 0.5 s,
+   volume limit 1 GiB, the watchdog's repairs enabled at grace 0,
+   interval 1 s); in this process five volume servers over three racks
+   on "cuda" with every master in -mserver, and a sqlite filer.
+   a. Seconds to one stable leader.
+   b. A 1 GiB volume filled over HTTP with every /vol/grow and
+      /dir/assign sent to a follower (307 to the leader), then ec.encode
+      from a shell whose master list names the follower first, under
+      the filer's DLM lock: launches > 0, no repair during the encode.
+   c. The leader SIGKILLed: seconds to a new leader, seconds until it
+      lists the five servers and the 14 shards; the repairs it queued
+      and the kernel's launches from the kill through its repair hold
+      (5 pulses) must both be 0, and every heartbeat goes to it.
+   d. The server with the fewest shards stopped: the new leader's
+      watchdog rebuilds them (detection and repair seconds, launches
+      > 0), sha256-equal; every needle read back over HTTP from a holder
+      located through a master list that names the dead leader first.
+   e. /vol/grow gives a volume id above every master's mark before the
+      kill; no needle key assigned after the failover (64 single, 8
+      batches of 128) equals one assigned before; the killed master,
+      restarted from its -raftDir, is a follower with the leader's max
+      volume id; a `master.follower` process answers /dir/lookup for the
+      EC volume by volume id and by fid from its KeepConnected cache.
+   f. The current device is what it was before phase 11.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -2578,6 +2605,422 @@ def phase_s3(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 11: raft-replicated masters, a leader failover, and the new
+# leader's watchdog rebuilding EC shards through the kernel
+# ----------------------------------------------------------------------
+HA_MASTERS = 3                   # k8s/seaweedfs-tpu.yaml: replicas: 3
+HA_DEADLINE = 60.0               # longest wait for a failover step
+HA_BATCHES = 8                   # assigns of count=128 after the failover
+
+
+def _get_json(url: str, timeout: float = 3.0, **params):
+    """GET url -> its JSON, or None when the server does not answer."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    try:
+        return session().get(url, params=params or None,
+                             timeout=timeout).json()
+    except (OSError, ValueError):
+        return None
+
+
+def _raft_leader(urls: list[str]) -> str | None:
+    """The url of the one master every live master names as leader."""
+    states = {u: _get_json(f"{u}/raft/status") for u in urls}
+    live = {u: st for u, st in states.items() if st}
+    leaders = [u for u, st in live.items() if st["state"] == "leader"]
+    if len(leaders) != 1:
+        return None
+    me = live[leaders[0]]["me"]
+    if all(st["leader"] == me for st in live.values()):
+        return leaders[0]
+    return None
+
+
+def _spawn(args: list[str], log_path: str) -> subprocess.Popen:
+    """A process of the port's CLI, from the repository root, without a
+    card (the masters and the follower run no codec)."""
+    out = open(log_path, "ab")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=out, stderr=subprocess.STDOUT)
+    finally:
+        out.close()
+
+
+def _tail(path: str, n: int = 2000) -> str:
+    try:
+        with open(path, "rb") as f:
+            return f.read()[-n:].decode("utf-8", "replace")
+    except OSError:
+        return ""
+
+
+def _raft_events(paths: list[str]) -> str:
+    """The raft lines of the masters' logs (elections, leaders)."""
+    out = []
+    for i, path in enumerate(paths):
+        out += [f"  master {i}: {line.strip()}" for line in
+                _tail(path, 1 << 20).splitlines() if "raft " in line]
+    return "\n".join(out[-40:])
+
+
+def _fid_keys(fids) -> set[int]:
+    from seaweedfs_tpu_torch.storage import types as t
+
+    return {t.parse_file_id(f)[1] for f in fids}
+
+
+def phase_ha(card: str) -> int:
+    """Phase 11: three raft masters (processes of the port's CLI), five
+    volume servers and a sqlite filer in this process; a 1 GiB volume
+    filled through a follower and erasure-coded from a shell that lists
+    the follower first; the leader SIGKILLed; the new leader's
+    registry, its repair hold, its watchdog's rebuild of a lost server
+    through the kernel; ids and the max volume id after the failover; the
+    killed master back as a follower; a master.follower's lookups.
+    -> kernel launches of the phase."""
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.wdclient.client import MasterClient
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke11-")
+    ports = free_ports(HA_MASTERS + 1)
+    peers = [f"127.0.0.1:{p}" for p in ports[:HA_MASTERS]]
+    urls = [f"http://{p}" for p in peers]
+    logs = [os.path.join(tmp, f"master{i}.log") for i in range(HA_MASTERS)]
+
+    def master_args(i: int) -> list[str]:
+        return ["master", "-ip", "127.0.0.1", "-port", str(ports[i]),
+                "-peers", ",".join(peers),
+                "-raftDir", os.path.join(tmp, f"m{i}"),
+                "-pulseSeconds", str(HEAL_PULSE),
+                "-volumeSizeLimitMB", str(max(1, DAT_BYTES >> 20)),
+                "-repair.enabled", "-repair.interval", str(HEAL_INTERVAL),
+                "-repair.grace", "0"]
+
+    procs: dict[str, subprocess.Popen] = {}
+    cluster = env = None
+    launches: dict[str, int] = {}
+
+    def wait(pred, what: str, deadline: float = HA_DEADLINE):
+        end = time.monotonic() + deadline
+        while True:
+            out = pred()
+            if out:
+                return out
+            if time.monotonic() > end:
+                for i, path in enumerate(logs):
+                    log(f"[11] master {i} log tail:\n{_tail(path)}")
+                fail(f"{what}: not reached in {deadline:.0f} s")
+            time.sleep(0.05)
+
+    try:
+        log(f"[11] {card}")
+        t0 = time.monotonic()
+        for i in range(HA_MASTERS):
+            procs[urls[i]] = _spawn(master_args(i), logs[i])
+        # 11a. one stable leader
+        leader = wait(lambda: _raft_leader(urls), "one stable raft leader")
+        t_lead = time.monotonic() - t0
+        follower = next(u for u in urls if u != leader)
+        log(f"[11a] masters {peers} (processes of `python -m "
+            f"seaweedfs_tpu_torch master -peers ... -raftDir ...`, pulse "
+            f"{HEAL_PULSE} s, volume limit {DAT_BYTES} B, repair enabled, "
+            f"interval {HEAL_INTERVAL} s, grace 0): leader {leader} "
+            f"{t_lead:.3f} s from the start of the processes; {card}")
+        cluster = Cluster(tmp, n_volume_servers=len(HEAL_TOPOLOGY),
+                          max_volumes=8, pulse_seconds=HEAL_PULSE,
+                          ec_backend="cuda", topology=HEAL_TOPOLOGY,
+                          with_filer=True, filer_store="sqlite",
+                          external_masters=urls)
+        by_url = {f"{s.ip}:{s.port}": i
+                  for i, s in enumerate(cluster.stores)}
+        log(f"[11a] volume servers "
+            f"{[(th.address, *HEAL_TOPOLOGY[i]) for i, th in enumerate(cluster.volume_threads)]}"
+            f" with -mserver {','.join(peers)}, ec_backend='cuda'; filer "
+            f"{cluster.filer_url} (sqlite); all registered at the leader "
+            f"{time.monotonic() - t0:.3f} s from the start")
+
+        # 11b. fill through the follower, ec.encode from a shell that
+        # lists the follower first
+        via_follower = CommandEnv(follower)
+        w = _fill_volume_http(cluster, via_follower, "smoke11", SEED + 14,
+                              DAT_BYTES)
+        vid, live = w["vid"], w["live"]
+        log(f"[11b] volume {vid} on {w['url']} filled through the follower "
+            f"{follower} (every /vol/grow and /dir/assign 307'd to the "
+            f"leader): {w['writes']} uploads ({w['overwrites']} "
+            f"overwrites), {len(w['dead'])} deletes, .dat "
+            f"{w['vol'].content_size()} B, {w['seconds']:.3f} s")
+        env = CommandEnv(",".join([follower] + [u for u in urls
+                                                if u != follower]),
+                         filer_url=cluster.filer_url)
+        leader = wait(lambda: _raft_leader(urls), "one stable raft leader")
+        if env.master_url != leader:
+            fail(f"the shell found {env.master_url}, the leader is {leader}")
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry the final size
+        repl.run_command(env, "lock")
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t1 = time.perf_counter()
+        repl.run_command(env, f"ec.encode -volumeId={vid}")
+        dt = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        rep = env.master_get("/debug/repair")
+        repl.run_command(env, "unlock")
+        window = [x for x in rep["recent"] if x["finished_at"] >= since]
+        rebuilt = [x for x in window if x["ok"]]
+        other = [x for x in window if not x["ok"] and
+                 "cannot acquire admin lock" not in x["error"]]
+        log(f"[11b] ec.encode -volumeId={vid} from a shell listing "
+            f"{follower} first: {dt:.3f} s, {launches['encode']} kernel "
+            f"launches; the leader's watchdog meanwhile: {len(rebuilt)} "
+            f"repairs, {len(window) - len(rebuilt)} attempts refused the "
+            f"admin lock")
+        if launches["encode"] <= 0:
+            fail("ec.encode launched the kernel no time")
+        if rebuilt or other:
+            fail(f"the watchdog repaired during ec.encode: "
+                 f"{rebuilt or other}")
+        paths = _live_shard_files(cluster, env, vid)
+        if sorted(paths) != list(range(14)):
+            fail(f"shards {sorted(paths)} after ec.encode")
+        orig = {sid: sha256(p) for sid, p in paths.items()}
+
+        # 11c. SIGKILL the leader
+        leader = wait(lambda: _raft_leader(urls), "one stable raft leader")
+        terms = {u: (_get_json(f"{u}/raft/status") or {}).get("term")
+                 for u in urls}
+        log(f"[11c] raft terms before the kill {terms}; the masters' raft "
+            f"events so far:\n{_raft_events(logs[:HA_MASTERS])}")
+        max_before = max(st["max_volume_id"] for st in
+                         (_get_json(f"{u}/raft/status") for u in urls) if st)
+        fids_before = list(live) + list(w["dead"])
+        codec_cuda.coded_matmul.launches = 0
+        dead = leader
+        t_kill = time.monotonic()
+        procs[dead].kill()
+        procs[dead].wait(timeout=30)
+        rest = [u for u in urls if u != dead]
+        leader = wait(lambda: _raft_leader(rest), "a new raft leader")
+        t_new = time.monotonic() - t_kill
+        seen: list[dict] = []
+
+        def sample_repairs() -> str | None:
+            """Record what the current leader has queued; -> its url."""
+            now = _raft_leader(rest)
+            rep = _get_json(f"{now}/debug/repair") if now else None
+            if rep is None:
+                return None
+            seen.extend(rep["recent"] + rep["in_flight"])
+            if rep["queue_depth"]:
+                seen.append({"queue_depth": rep["queue_depth"]})
+            return now
+
+        def registered() -> bool:
+            now = sample_repairs()
+            if now is None:
+                return False
+            st = _get_json(f"{now}/cluster/status")
+            ec = _get_json(f"{now}/cluster/ec_shards", volumeId=vid)
+            if not st or not ec:
+                return False
+            nodes = sum(len(r["nodes"]) for dc in
+                        st["Topology"]["datacenters"] for r in dc["racks"])
+            return nodes == len(HEAL_TOPOLOGY) and \
+                sum(len(h) for h in ec["shards"].values()) == 14
+
+        wait(registered, "the new leader's registry whole")
+        t_reg = time.monotonic() - t_kill
+        in_window = list(seen)
+        l_window = codec_cuda.coded_matmul.launches
+        # on through the fresh leader's repair hold (5 pulses) and two
+        # more scans
+        hold_end = t_kill + t_new + 5 * HEAL_PULSE + 2 * HEAL_INTERVAL
+        while time.monotonic() < hold_end:
+            sample_repairs()
+            time.sleep(0.1)
+        launches["failover"] = codec_cuda.coded_matmul.launches
+        leader = wait(lambda: _raft_leader(rest), "one stable raft leader")
+        homes = {vs.master_url for vs in cluster.volume_servers}
+        log(f"[11c] SIGKILLed the leader {dead}: new leader {leader} after "
+            f"{t_new:.3f} s; it lists all {len(HEAL_TOPOLOGY)} volume "
+            f"servers and all 14 shards of volume {vid} {t_reg:.3f} s after "
+            f"the kill; repairs the new leader queued in that window "
+            f"{len(in_window)}, through its repair hold "
+            f"{len(seen)}; kernel launches in the window {l_window}, "
+            f"through the hold {launches['failover']}; heartbeats now go "
+            f"to {sorted(homes)}; {card}")
+        if in_window or seen:
+            fail(f"the fresh leader queued repairs: {seen}")
+        if l_window or launches["failover"]:
+            fail("the kernel launched during the failover")
+        if homes != {leader}:
+            fail(f"heartbeats go to {homes}, not the leader {leader}")
+
+        # 11d. lose a volume server under the new leader
+        locs = env.ec_shard_locations(vid)
+        held: dict[str, list[int]] = {u: [] for u in by_url}
+        for sid, hosts in locs.items():
+            held[hosts[0]].append(sid)
+        victim = min(held, key=lambda u: (len(held[u]), u))
+        lost = sorted(held[victim])
+        if not 0 < len(lost) <= 4:
+            fail(f"the server with the fewest shards, {victim}, holds "
+                 f"{lost}: not 1..m=4")
+        m0 = _repair_metrics()
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t_stop = time.monotonic()
+        cluster.volume_threads[by_url[victim]].stop()
+
+        def deficit():
+            st = env.master_get("/cluster/status")
+            return any(e["volume"] == vid for e in st["UnderParity"])
+
+        wait(deficit, f"volume {vid} in UnderParity", HEAL_DEADLINE)
+        t_seen = time.monotonic()
+
+        def healed():
+            st = env.master_get("/cluster/status")
+            return not st["UnderParity"] and \
+                len(env.ec_shard_locations(vid)) == 14
+
+        wait(healed, f"volume {vid} back to 14 shards", HEAL_DEADLINE)
+        t_done = time.monotonic()
+        rec = wait(lambda: _repair_results(env, since, vid, "ec"),
+                   "the new leader's EC repair result")[0]
+        launches["repair"] = codec_cuda.coded_matmul.launches
+        now_paths = _live_shard_files(cluster, env, vid)
+        bad = [sid for sid in range(14)
+               if sha256(now_paths[sid]) != orig[sid]]
+        log(f"[11d] stopped {victim} ({HEAL_TOPOLOGY[by_url[victim]]}, "
+            f"shards {lost}): detection {t_seen - t_stop:.3f} s, repair "
+            f"{t_done - t_seen:.3f} s by the new leader's watchdog (mode "
+            f"{rec['detail'].get('mode')!r}, rebuilt "
+            f"{rec['detail'].get('rebuilt')} on "
+            f"{rec['detail'].get('rebuilder')}, {rec['seconds']} s, "
+            f"{rec['bytes']} B); kernel launches {launches['repair']}; "
+            f"the volume servers' repair_read_bytes_total{{mode=partial}} "
+            f"+{_repair_metrics()['read_partial'] - m0['read_partial']:.0f}"
+            f" B, {{mode=full}} "
+            f"+{_repair_metrics()['read_full'] - m0['read_full']:.0f} B; "
+            f"{card}")
+        if sorted(rec["detail"].get("rebuilt", [])) != lost:
+            fail(f"the repair was not the rebuild of {lost}: {rec}")
+        if launches["repair"] <= 0:
+            fail("the new leader's rebuild launched the kernel no time")
+        if bad:
+            fail(f"rebuilt shards {bad} differ from the originals")
+        reader_mc = MasterClient(",".join([dead] + rest))
+        reader = reader_mc.lookup(vid)[0]["url"]
+        st = _http_read_pass(reader, live, "11d")
+        log(f"[11d] all 14 shards sha256-equal to the originals; GET "
+            f"{len(live)} live needles from {reader} (located through "
+            f"{reader_mc.masters}, the dead leader first): "
+            f"{st['wall']:.3f} s, {len(live) / st['wall']:.1f} reads/s, "
+            f"p50 {st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms, all "
+            f"equal")
+
+        # 11e. the state after the failover
+        leader = wait(lambda: _raft_leader(rest), "one stable raft leader")
+        grown = env.master_get("/vol/grow", collection="smoke11g")
+        max_after = _get_json(f"{leader}/raft/status")["max_volume_id"]
+        keys_after = _fid_keys(
+            verbs.assign(follower, collection="smoke11g").fid
+            for _ in range(64))
+        for _ in range(HA_BATCHES):
+            a = verbs.assign(leader, count=128, collection="smoke11g")
+            first = min(_fid_keys([a.fid]))
+            keys_after |= set(range(first, first + 128))
+        reused = keys_after & _fid_keys(fids_before)
+        log(f"[11e] /vol/grow after the failover: {grown}, max volume id "
+            f"{max_after} (every master's mark before the kill: at most "
+            f"{max_before}); {len(keys_after)} needle keys assigned after "
+            f"the failover (64 single, {HA_BATCHES} batches of 128), "
+            f"{len(reused)} equal to one of the {len(fids_before)} before")
+        if grown.get("count") != 1 or max_after <= max_before:
+            fail(f"the grown volume id {max_after} is not above "
+                 f"{max_before}")
+        if reused:
+            fail(f"needle keys reused across the failover: {sorted(reused)[:5]}")
+        t2 = time.monotonic()
+        procs[dead] = _spawn(master_args(urls.index(dead)),
+                             logs[urls.index(dead)])
+
+        def caught_up():
+            st = _get_json(f"{dead}/raft/status")
+            return st if st and st["state"] == "follower" and \
+                st["leader"] == leader.split("//", 1)[1] and \
+                st["max_volume_id"] == max_after else None
+
+        back = wait(caught_up, "the restarted master caught up")
+        log(f"[11e] {dead} restarted from its -raftDir: a follower of "
+            f"{back['leader']} with max volume id {back['max_volume_id']} "
+            f"(term {back['term']}, commit {back['commit_index']}) "
+            f"{time.monotonic() - t2:.3f} s after the restart")
+        fport = ports[HA_MASTERS]
+        t3 = time.monotonic()
+        flog = os.path.join(tmp, "follower.log")
+        logs.append(flog)
+        procs["follower"] = _spawn(
+            ["master.follower", "-ip", "127.0.0.1", "-port", str(fport),
+             "-masters", ",".join(urls)], flog)
+        furl = f"http://127.0.0.1:{fport}"
+        wait(lambda: (_get_json(f"{furl}/status") or {}).get(
+            "cachedVolumes", 0) >= 2, "the master follower's stream cache")
+        t_warm = time.monotonic() - t3
+        by_vid = _get_json(f"{furl}/dir/lookup", volumeId=vid)
+        fid = next(iter(live))
+        by_fid = _get_json(f"{furl}/dir/lookup", fileId=fid)
+        truth = _get_json(f"{leader}/dir/lookup", volumeId=vid)
+        log(f"[11e] master.follower {furl}, its cache warm "
+            f"{t_warm:.3f} s after its start: /status "
+            f"{_get_json(f'{furl}/status')}; /dir/lookup?volumeId={vid} "
+            f"{len((by_vid or {}).get('locations', []))} holders, "
+            f"?fileId={fid} the same: "
+            f"{by_fid == by_vid}")
+        if not by_vid or not by_vid.get("locations") or by_fid != by_vid \
+                or sorted(l["url"] for l in by_vid["locations"]) != \
+                sorted(l["url"] for l in truth["locations"]):
+            fail(f"master.follower lookups {by_vid} / {by_fid}, the "
+                 f"leader's {truth}")
+
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        log(f"[11f] the masters' raft events:\n"
+            f"{_raft_events(logs[:HA_MASTERS])}")
+        log(f"[11f] current device before phase 11: {cur}, after: "
+            f"{now_dev}")
+        if now_dev != cur:
+            fail(f"phase 11 moved the current device from {cur} to "
+                 f"{now_dev}")
+        total = sum(launches.values())
+        log(f"[11] phase 11 took {time.perf_counter() - t_phase:.3f} s; "
+            f"kernel launches {launches} ({total}); {card}")
+        return total
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+        if env is not None:
+            env.close()
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2595,6 +3038,7 @@ def main() -> int:
     mesh = phase_mesh(shard_hashes)
     heal_launches = phase_heal(card)
     s3_launches = phase_s3(card)
+    ha_launches = phase_ha(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -2629,6 +3073,7 @@ def main() -> int:
         "sharded_rebuild_ms": mesh["sharded_rebuild"],
         "heal_launches": heal_launches,
         "s3_launches": s3_launches,
+        "ha_launches": ha_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

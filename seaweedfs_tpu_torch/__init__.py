@@ -25,12 +25,17 @@ Layout:
                 rebuild shards, the degraded-read ladder)
     models/     the batched encode + scrub step
     rpc/        the HTTP transport on the standard library: route
-                table and threaded server (http), pooled client
-                (httpclient)
-    master/     topology, placement and the file-id sequencer
-    server/     the master, the volume server (data plane by fid, EC
-                admin routes, heartbeat), the filer server (namespace,
-                KV, DLM routes) and the in-process Cluster
+                table and threaded server (http), pooled client that
+                follows an HA follower's 307 (httpclient), and the
+                websocket of the KeepConnected stream (websocket)
+    master/     topology, placement, the file-id sequencers (memory,
+                snowflake), raft for HA masters, and the redundancy
+                watchdog
+    server/     the master (raft-replicated with -peers), the read-only
+                master follower, the volume server (data plane by fid,
+                EC admin routes, heartbeat to the leader), the filer
+                server (namespace, KV, DLM routes) and the in-process
+                Cluster
     filer/      entries, chunk algebra, the memory and sqlite metadata
                 stores, the event log, per-path rules, the Filer and
                 chunked reads over the volume servers
@@ -39,11 +44,12 @@ Layout:
     wdclient/   the client-side volume and EC-shard location cache
     operation/  client verbs: assign, upload, download, delete
     shell/      the admin shell: ec.encode / ec.rebuild / ec.decode /
-                ec.balance / ec.verify, volume.list, the REPL
+                ec.balance / ec.verify, the volume.* commands,
+                cluster.ps and cluster.raft.*, the REPL
     cluster/    filer / broker membership the master tracks, and the
                 distributed lock manager the filers host
     cli.py      `python -m seaweedfs_tpu_torch
-                master|volume|filer|s3|server|shell`
+                master|master.follower|volume|filer|s3|server|shell`
     utils/      metrics registry, tracing spans, glog, workload
                 sketches, device selection, retry and deadlines, the
                 repair token bucket, HTTP range parsing, upload

@@ -2,14 +2,18 @@
 counterpart of seaweedfs_tpu/cli.py. Run as
 `python -m seaweedfs_tpu_torch <cmd>`.
 
-Subcommands: master, volume, filer, s3, server (master + one volume
-server in one process, `-filer` and `-s3` adding a filer and the S3
-gateway) and shell (`-filer` takes the admin lock through the filer's
-DLM). `-ec.backend` picks the codec a volume server
-runs its EC encode and rebuild on: auto (the measured router; needs a
-GPU), cuda (the hand-written kernel; needs a GPU), mesh (the kernel on
-every local card, shaped by `-ec.mesh.devices` / `-ec.mesh.col`),
-native (the AVX2 host codec) or numpy. `-ec.code` sets the code family
+Subcommands: master (`-peers` and `-raftDir` for raft-replicated HA
+masters), master.follower (a read-only lookup service fed by the
+masters' KeepConnected stream), volume (`-mserver` lists every master),
+filer, s3, server (master + one volume server in one process, `-filer`
+and `-s3` adding a filer and the S3 gateway) and shell (`-filer` takes
+the admin lock through the filer's DLM; `-master` may list every
+master, and the shell talks to the leader). `-ec.backend` picks the
+codec a volume server runs its EC encode and rebuild on: auto (the
+measured router; needs a GPU), cuda (the hand-written kernel; needs a
+GPU), mesh (the kernel on every local card, shaped by
+`-ec.mesh.devices` / `-ec.mesh.col`), native (the AVX2 host codec) or
+numpy. `-ec.code` sets the code family
 new EC volumes are encoded with. `-repair.*` configure the master's
 redundancy watchdog and `-admin.scripts` its maintenance timer, on
 `master` and on `server`. The filer's stores are memory and sqlite
@@ -130,14 +134,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
     p.add_argument("-defaultReplication", default="000")
+    p.add_argument("-peers", default="",
+                   help="comma-separated ip:port of all masters (HA mode)")
+    p.add_argument("-raftDir", dest="raft_dir", default="",
+                   help="raft log/term persistence dir")
+    p.add_argument("-sequencer", default="memory",
+                   choices=["memory", "snowflake"],
+                   help="file-id sequencer (HA masters force "
+                        "snowflake)")
+    p.add_argument("-pulseSeconds", dest="pulse_seconds", type=float,
+                   default=5.0,
+                   help="seconds between the volume servers' heartbeats; "
+                        "a server silent for 5 pulses is unregistered")
     _add_master_flags(p)
+
+    p = sub.add_parser("master.follower",
+                       help="read-only master follower for lookup traffic")
+    p.add_argument("-port", type=int, default=9334)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-masters", default="http://127.0.0.1:9333",
+                   help="comma-separated master urls to follow")
 
     p = sub.add_parser("volume", help="start a volume server")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-dir", default="./data", help="comma-separated dirs")
     p.add_argument("-max", type=int, default=8)
-    p.add_argument("-mserver", default="127.0.0.1:9333")
+    p.add_argument("-mserver", default="127.0.0.1:9333",
+                   help="comma-separated masters; heartbeats go to the "
+                        "raft leader among them")
     p.add_argument("-dataCenter", default="DefaultDataCenter")
     p.add_argument("-rack", default="DefaultRack")
     p.add_argument("-disk", default="hdd",
@@ -147,7 +172,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("filer", help="start a filer server")
     p.add_argument("-port", type=int, default=8888)
     p.add_argument("-ip", default="127.0.0.1")
-    p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-master", default="http://127.0.0.1:9333",
+                   help="comma-separated masters")
     p.add_argument("-store", default="memory",
                    help="metadata store: memory | sqlite")
     p.add_argument("-store.path", dest="store_path", default=":memory:")
@@ -190,7 +216,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_master_flags(p)
 
     p = sub.add_parser("shell", help="interactive admin shell")
-    p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-master", default="http://127.0.0.1:9333",
+                   help="comma-separated masters; the shell talks to "
+                        "the raft leader among them")
     p.add_argument("-filer", default="",
                    help="filer address for the cluster-wide admin lock")
     return parser
@@ -204,6 +232,8 @@ def main(argv: list[str] | None = None) -> int:
     apply_env_flags(args)
     if args.cmd == "master":
         return _run_master(args)
+    if args.cmd == "master.follower":
+        return _run_master_follower(args)
     if args.cmd == "volume":
         return _run_volume(args)
     if args.cmd == "server":
@@ -239,12 +269,38 @@ def _run_master(args) -> int:
     from .rpc.http import ServerThread, run_apps_forever
     from .server.master_server import MasterServer
 
+    peers = [p.strip() for p in args.peers.split(",") if p.strip()]
+    raft_dir = args.raft_dir
+    if peers and not raft_dir:
+        # raft safety needs a durable term, vote and log: a master that
+        # restarts without them could vote twice in one term
+        raft_dir = os.path.join(os.path.expanduser("~"),
+                                ".seaweedfs_tpu", "raft")
+        print(f"-raftDir not set; persisting raft state to {raft_dir}")
+    if raft_dir:
+        os.makedirs(raft_dir, exist_ok=True)
     ms = MasterServer(volume_size_limit=args.volumeSizeLimitMB << 20,
                       default_replication=args.defaultReplication,
+                      pulse_seconds=args.pulse_seconds,
+                      sequencer=args.sequencer,
+                      me=f"{args.ip}:{args.port}", peers=peers,
+                      raft_state_dir=raft_dir or None,
                       **_master_kwargs(args))
     t = ServerThread(ms.app, host=args.ip, port=args.port).start()
     ms.admin_scripts_url = t.url
     print(f"master listening on {t.url}", flush=True)
+    run_apps_forever([t])
+    return 0
+
+
+def _run_master_follower(args) -> int:
+    from .rpc.http import ServerThread, run_apps_forever
+    from .server.master_follower import MasterFollower
+
+    mf = MasterFollower(args.masters)
+    t = ServerThread(mf.app, host=args.ip, port=args.port).start()
+    print(f"master follower listening on {t.url}, following "
+          f"{mf.client.masters}", flush=True)
     run_apps_forever([t])
     return 0
 

@@ -17,7 +17,20 @@ asyncio's single thread; here one lock guards all three, and neither it
 nor the topology's lock is held across a repair. A repair runs the
 shell's volume.fix.replication or ec.rebuild over HTTP against this
 master, so an EC rebuild goes through the volume servers' codec (with
-"cuda", the hand-written kernel). Single master: no follower branch.
+"cuda", the hand-written kernel).
+
+With raft masters only the leader scans; a follower owns no topology
+and shows empty deficit sets (as the reference, :225-230). A fresh
+leader's topology fills one heartbeat at a time, so an EC volume whose
+servers have only partly re-registered looks like it is missing shards
+that are not lost. The reference drives repairs as soon as it leads;
+here a leader tracks deficits at once but queues no repair until a
+full reaper window (REAP_PULSES pulses) has passed since it took
+leadership: by then every live server has heartbeated, and a silent one
+is one the reaper would unregister anyway. That holds after a partition
+too: an old leader cut off from the other masters steps down within an
+election window (raft.py's check-quorum) and refuses heartbeats, so its
+servers re-home here.
 """
 from __future__ import annotations
 
@@ -34,6 +47,9 @@ from ..utils import retry as _retry
 
 # how long stop() waits for each thread
 JOIN_TIMEOUT = 10.0
+# silent pulses before the master unregisters a volume server
+# (Topology.dead_nodes), and so a fresh leader's repair hold
+REAP_PULSES = 5.0
 
 
 @dataclass
@@ -238,13 +254,30 @@ class RedundancyWatchdog:
             self._poke.clear()
             if self._stop.is_set():
                 return
+            raft = self.master.raft
+            if raft is not None and not raft.is_leader():
+                # followers own no topology; drop stale deficit views
+                with self._lock:
+                    self.under_replicated = []
+                    self.under_parity = []
+                continue
             try:
                 self._scan_once()
             except Exception as e:  # noqa: BLE001 — the loop goes on
                 glog.warning("repair watchdog scan failed: %s", e)
 
+    def repair_hold(self) -> float:
+        """Seconds before a fresh raft leader may queue repairs (0 on a
+        single master or a leader past its first reaper window)."""
+        raft = self.master.raft
+        if raft is None:
+            return 0.0
+        window = REAP_PULSES * self.master.topo.pulse_seconds
+        return max(0.0, raft.leader_since + window - time.monotonic())
+
     def _scan_once(self) -> None:
         ur, up = self.scan()
+        held = self.repair_hold() > 0
         now = time.monotonic()
         with self._lock:
             self.under_replicated = ur
@@ -273,7 +306,7 @@ class RedundancyWatchdog:
                         self._tracked[key].reason == "watchdog" and \
                         key not in self._queued:
                     self._tracked.pop(key)
-            if self.enabled:
+            if self.enabled and not held:
                 for key, task in list(self._tracked.items()):
                     if key in self._queued or key in self._inflight:
                         continue

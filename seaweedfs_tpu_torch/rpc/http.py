@@ -144,7 +144,10 @@ class Response:
     file (streamed in FILE_PIECE writes; `pace(n)` is called before
     each write when set, for the repair token bucket), or `stream`, an
     iterable of byte pieces whose total is `length` (sent with that
-    Content-Length; its `close()` is called once the reply is done)."""
+    Content-Length; its `close()` is called once the reply is done).
+    A 101 reply with `upgrade` hands the connection, once the reply
+    head is sent, to `upgrade(ws)` as an rpc/websocket.WebSocket, on
+    the request's thread; the connection ends when it returns."""
 
     def __init__(self, body: bytes = b"", status: int = 200,
                  headers: dict | None = None,
@@ -152,8 +155,10 @@ class Response:
                  file: tuple[str, int, int] | None = None,
                  pace: Callable[[int], None] | None = None,
                  stream: Iterable[bytes] | None = None,
-                 length: int | None = None):
+                 length: int | None = None,
+                 upgrade: Callable | None = None):
         self.body = body
+        self.upgrade = upgrade
         self.status = status
         self.headers = dict(headers or {})
         if content_type is not None:
@@ -313,6 +318,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             req.read()                  # drain what the handler left
         except (ConnectionError, ValueError):
             self.close_connection = True
+        if resp.upgrade is not None:
+            self._upgrade(resp)
+            return
         self.send_response(resp.status)
         sent = {k.lower() for k in resp.headers}
         no_body = resp.status in _NO_BODY
@@ -346,6 +354,26 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 resp.pace(len(piece))
                 self.wfile.write(piece)
                 length -= len(piece)
+
+    def _upgrade(self, resp: Response) -> None:
+        """Answer 101 and serve the websocket until its handler returns;
+        reads block without the idle timeout (a stopping server shuts
+        the socket down, which ends them)."""
+        from .websocket import WebSocket
+
+        self.close_connection = True
+        self.send_response(resp.status)
+        for k, v in resp.headers.items():
+            self.send_header(k, str(v))
+        self.end_headers()
+        self.wfile.flush()
+        self.connection.settimeout(None)
+        ws = WebSocket(self.connection, lambda: self.rfile.read1(1 << 16),
+                       client=False)
+        try:
+            resp.upgrade(ws)
+        finally:
+            ws.close()
 
     def _send_stream(self, resp: Response) -> None:
         """Write a streamed body. The status is already sent, so a

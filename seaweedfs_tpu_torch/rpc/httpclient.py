@@ -17,6 +17,11 @@ A pooled connection the server closed while idle is detected before
 reuse, and a reused connection that fails before any response byte is
 retried once on a fresh one. A read timeout is never replayed.
 
+A 307 or 308 is followed (up to MAX_REDIRECTS hops) with the same
+method, body and headers, as `requests` does: HA master followers
+answer mutating and topology routes with a 307 to the raft leader.
+The final response lists the hops in `history`.
+
 The response mirrors what the call sites used of `requests`:
 `status_code`, `headers` (case-insensitive), `content`, `text`,
 `json()`, and with `stream=True` `iter_content(n)` / `close()`.
@@ -29,7 +34,7 @@ import select
 import socket
 import threading
 import time
-from urllib.parse import urlencode, urlsplit
+from urllib.parse import urlencode, urljoin, urlsplit
 
 from ..utils import retry, tracing
 
@@ -37,6 +42,8 @@ from ..utils import retry, tracing
 # black-holed peer fails in seconds while long reads still stream
 DEFAULT_TIMEOUT = (5.0, 60.0)
 _POOL_PER_HOST = 32
+# 307 / 308 hops one call follows (an HA follower names its leader)
+MAX_REDIRECTS = 5
 
 _local = threading.local()
 
@@ -71,6 +78,7 @@ class Response:
         self._conn = conn
         self._release = release
         self._content: bytes | None = None
+        self.history: list[Response] = []
 
     def _done(self, reusable: bool) -> None:
         if self._conn is not None:
@@ -200,6 +208,25 @@ class Session:
                 data: bytes | str | None = None, json=None,
                 headers: dict | None = None, timeout=None,
                 stream: bool = False) -> Response:
+        history: list[Response] = []
+        while True:
+            resp = self._request_once(method, url, params, data, json,
+                                      headers, timeout, stream)
+            loc = resp.headers.get("Location")
+            if loc is None or resp.status_code not in (307, 308):
+                resp.history = history
+                return resp
+            if len(history) >= MAX_REDIRECTS:
+                resp.close()
+                raise ConnectionError(f"{method} {url}: more than "
+                                      f"{MAX_REDIRECTS} redirects")
+            resp.content  # noqa: B018 — drain, give the conn back
+            history.append(resp)
+            # the Location carries the query; params went into it
+            url, params = urljoin(resp.url, loc), None
+
+    def _request_once(self, method: str, url: str, params, data, json,
+                      headers, timeout, stream: bool) -> Response:
         method = method.upper()
         parts = urlsplit(url)
         if parts.scheme != "http":

@@ -15,18 +15,31 @@ the teardown never reads as lost servers. `with_filer` adds a filer
 (`filer_store` memory or sqlite) and `with_s3` the S3 gateway over it
 (`s3_config` its identities), as the reference's harness; the filer
 announces itself every pulse, so the master's watchdog and admin
-scripts always find it and take its DLM lock. Not here: the native
-fronts, the broker, tiering.
+scripts always find it and take its DLM lock.
+
+HA layouts: `n_masters=3` starts three raft masters in the process (on
+free ports, each with its raft state under `base_dir/raft_<i>`, raft
+timing scaled by `raft_tick`), and `external_masters` takes the urls of
+masters the caller runs (as processes, say) and starts none. Every
+volume server and the filer are then given the whole master list;
+`master_url` is the current leader's url and `master_urls` the list,
+`leader_index()` names the in-process master that leads, and
+`stop_master(i)` stops one as a lost process would. The wait helpers
+read the leader over HTTP in every layout; `master` and
+`master_thread` exist only for in-process masters. Not here: the
+native fronts, the broker, tiering.
 """
 from __future__ import annotations
 
 import os
+import socket
 import time
 
 from ..ec.backend import CodecBackend
 from ..rpc.http import ServerThread
 from ..rpc.httpclient import session
 from ..storage.store import Store
+from ..wdclient.client import find_leader
 from .filer_server import FilerServer
 from .master_server import MasterServer
 from .volume_server import VolumeServer
@@ -52,11 +65,20 @@ class Cluster:
                  with_filer: bool = False,
                  filer_store: str = "memory",
                  with_s3: bool = False,
-                 s3_config: dict | None = None):
+                 s3_config: dict | None = None,
+                 n_masters: int = 1,
+                 raft_tick: float = 1.0,
+                 external_masters: list[str] | None = None):
         """topology: optional per-server (data_center, rack) labels;
         disk_types: optional per-server disk class (hdd/ssd)."""
         self.base_dir = base_dir
-        self.master = MasterServer(
+        self.masters: list[MasterServer] = []
+        self.master_threads: list[ServerThread] = []
+        self._stopped_masters: set[int] = set()
+        self.external_masters = [
+            m if m.startswith("http") else f"http://{m}"
+            for m in (external_masters or [])]
+        kwargs = dict(
             volume_size_limit=volume_size_limit,
             default_replication=default_replication,
             pulse_seconds=pulse_seconds,
@@ -68,8 +90,23 @@ class Cluster:
             repair_max_bytes_per_sec=repair_max_bytes_per_sec,
             repair_partial_ec=repair_partial_ec,
             repair_grace=repair_grace)
-        self.master_thread = ServerThread(self.master.app).start()
-        self.master.admin_scripts_url = self.master_thread.url
+        if not self.external_masters:
+            ports = free_ports(n_masters) if n_masters > 1 else [0]
+            peers = [f"127.0.0.1:{p}" for p in ports] \
+                if n_masters > 1 else None
+            for i, port in enumerate(ports):
+                raft = {}
+                if peers:
+                    raft_dir = os.path.join(base_dir, f"raft_{i}")
+                    os.makedirs(raft_dir, exist_ok=True)
+                    raft = dict(me=peers[i], peers=peers,
+                                raft_state_dir=raft_dir,
+                                raft_tick=raft_tick)
+                m = MasterServer(**kwargs, **raft)
+                t = ServerThread(m.app, port=port).start()
+                m.admin_scripts_url = t.url
+                self.masters.append(m)
+                self.master_threads.append(t)
         self.volume_servers: list[VolumeServer] = []
         self.volume_threads: list[ServerThread] = []
         self.stores: list[Store] = []
@@ -87,7 +124,7 @@ class Cluster:
                     loc.max_volumes = max_volumes
                 dc, rack = (topology[i] if topology else
                             ("DefaultDataCenter", "DefaultRack"))
-                vs = VolumeServer(store, self.master_url, data_center=dc,
+                vs = VolumeServer(store, self.master_urls, data_center=dc,
                                   rack=rack, pulse_seconds=pulse_seconds,
                                   disk_type=(disk_types[i] if disk_types
                                              and i < len(disk_types)
@@ -106,7 +143,7 @@ class Cluster:
                 # announce every pulse: the master forgets a member
                 # after 3 silent pulses, and a filer it forgot leaves
                 # the watchdog with a process-local lock
-                self.filer = FilerServer(self.master_url,
+                self.filer = FilerServer(self.master_urls,
                                          store=filer_store,
                                          store_path=store_path,
                                          announce_pulse=pulse_seconds)
@@ -126,28 +163,82 @@ class Cluster:
             self.stop()
             raise
 
+    # -- masters ----------------------------------------------------------
+    @property
+    def master_urls(self) -> str:
+        """Every master, comma-separated (what servers are given)."""
+        return ",".join(self.external_masters or
+                        [t.url for t in self.master_threads])
+
+    @property
+    def master_thread(self) -> ServerThread:
+        return self.master_threads[self.leader_index()]
+
+    @property
+    def master(self) -> MasterServer:
+        """The in-process master that leads (the one master, without
+        HA)."""
+        return self.masters[self.leader_index()]
+
+    def leader_index(self, timeout: float = 15.0) -> int:
+        """Index of the in-process master that leads, once one does."""
+        if not self.masters:
+            raise RuntimeError("the masters run outside this process "
+                               "(external_masters): use master_url")
+        if len(self.masters) == 1:
+            return 0
+        deadline = time.monotonic() + timeout
+        while True:
+            for i, m in enumerate(self.masters):
+                if i not in self._stopped_masters and m.is_leader():
+                    return i
+            if time.monotonic() > deadline:
+                raise TimeoutError("no raft leader among the masters")
+            time.sleep(0.02)
+
     @property
     def master_url(self) -> str:
-        return self.master_thread.url
+        """The leading master's url."""
+        if not self.external_masters:
+            return self.master_thread.url
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline:
+            leader = find_leader(self.external_masters)
+            if leader:
+                return leader
+            time.sleep(0.05)
+        raise TimeoutError("no raft leader among the masters")
+
+    def stop_master(self, i: int) -> None:
+        """Stop in-process master i, as a lost process."""
+        self._stopped_masters.add(i)
+        self.masters[i].stop_maintenance()
+        self.master_threads[i].stop()
+
+    def _get(self, path: str, **params) -> dict:
+        return session().get(f"{self.master_url}{path}", params=params,
+                             timeout=10).json()
 
     def volume_url(self, i: int) -> str:
         return self.volume_threads[i].url
 
     def wait_for_nodes(self, n: int, timeout: float = 15.0) -> None:
         deadline = time.monotonic() + timeout
+        have = 0
         while time.monotonic() < deadline:
-            if len(self.master.topo.nodes) >= n:
+            topo = self._get("/dir/status")["Topology"]
+            have = sum(len(r["nodes"]) for dc in topo["datacenters"]
+                       for r in dc["racks"])
+            if have >= n:
                 return
             time.sleep(0.05)
-        raise TimeoutError(
-            f"only {len(self.master.topo.nodes)}/{n} volume servers "
-            "registered")
+        raise TimeoutError(f"only {have}/{n} volume servers registered")
 
     def wait_for_ec_shards(self, vid: int, min_shards: int = 14,
                            timeout: float = 15.0) -> None:
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            shards = self.master.topo.lookup_ec_shards(vid)
+            shards = self._get("/cluster/ec_shards", volumeId=vid)["shards"]
             if sum(len(v) for v in shards.values()) >= min_shards:
                 return
             time.sleep(0.05)
@@ -170,8 +261,10 @@ class Cluster:
         (its first announce), so the admin lock goes through its DLM."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            if self.master.live_filer_url() and \
-                    self.filer.dlm.ring.servers():
+            listed = any(n.get("address") == self.filer.address
+                         for n in self._get("/cluster/nodes",
+                                            type="filer")["nodes"])
+            if listed and self.filer.dlm.ring.servers():
                 return
             time.sleep(0.02)
         raise TimeoutError("the filer never announced itself")
@@ -187,10 +280,28 @@ class Cluster:
     def stop(self) -> None:
         # the watchdog and the admin scripts first: stopping servers
         # under a live watchdog starts repairs against dead ports
-        self.master.stop_maintenance()
+        live = [i for i in range(len(self.masters))
+                if i not in self._stopped_masters]
+        for i in live:
+            self.masters[i].stop_maintenance()
         for t in (self.s3_thread, self.filer_thread):
             if t is not None:
                 t.stop()
         for t in self.volume_threads:
             t.stop()
-        self.master_thread.stop()
+        for i in live:
+            self.master_threads[i].stop()
+
+
+def free_ports(n: int) -> list[int]:
+    """n distinct free localhost ports (raft peers must know every
+    address before any master starts)."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports

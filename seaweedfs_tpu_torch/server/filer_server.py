@@ -22,7 +22,13 @@ A membership thread announces this filer to the master every
 `announce_pulse` seconds and rebuilds the DLM's lock ring from the
 master's live filer list, as the reference's loop (`:261`); the master's
 watchdog and admin scripts find this filer through the same list and
-take its `admin` lock.
+take its `admin` lock. With HA masters (`master_url` a comma list) the
+announce, the filer list and the assigns follow the raft leader: a
+follower 307s them to it, and a master that does not answer rotates to
+the next. A new leader's membership starts empty, so a shrunken filer
+list is adopted into the lock ring only once it has held for
+RING_SHRINK_PULSES announces; otherwise two filers could both claim a
+lock's home.
 
 Threads take the place of the reference's asyncio tasks: the handlers
 run on their connection's thread, the chunk uploads of a PUT on a
@@ -69,6 +75,8 @@ UPLOAD_WINDOW = 3  # chunk uploads of one PUT in flight (<= 24 MiB held)
 LOOKUP_TTL = 10.0
 # how long stop waits for each background thread
 JOIN_TIMEOUT = 10.0
+# announces a smaller filer list must hold before the ring shrinks
+RING_SHRINK_PULSES = 3
 
 Handler = Callable[[Request], Response]
 
@@ -111,8 +119,7 @@ class FilerServer:
                  signature: int = 0,
                  announce_pulse: float = 3.0,
                  save_to_filer_limit: int = 0):
-        self.master_url = master_url.rstrip("/")
-        self.masters = MasterClient(self.master_url)
+        self.masters = MasterClient(master_url)
         self.collection = collection
         self.replication = replication
         self.chunk_size = chunk_size
@@ -139,6 +146,12 @@ class FilerServer:
         self.app = self._build_app()
         self.app.on_startup.append(self._start_background)
         self.app.on_cleanup.append(self._stop_background)
+
+    @property
+    def master_url(self) -> str:
+        """The master this filer talks to now (the leader, once a
+        follower's 307 or an unreachable master moved it on)."""
+        return self.masters.master_url
 
     # -- lifecycle ------------------------------------------------------
     def _start_background(self) -> None:
@@ -204,12 +217,15 @@ class FilerServer:
                     # stable: collapsing the ring early would let two
                     # filers both claim lock homes
                     shrink_streak += 1
-                    if shrink_streak >= 3:
+                    if shrink_streak >= RING_SHRINK_PULSES:
                         self.dlm.ring.set_servers(sorted(servers))
                         shrink_streak = 0
             except (OSError, ValueError, KeyError) as e:
-                # master unreachable: keep serving with the last ring
-                glog.v(1, "filer: announce failed: %s", e)
+                # master unreachable: keep serving with the last ring,
+                # and try the next master
+                glog.v(1, "filer: announce to %s failed: %s",
+                       self.master_url, e)
+                self.masters.failover()
             if self._stop.wait(self.announce_pulse):
                 return
 
@@ -298,11 +314,19 @@ class FilerServer:
                 pool.clear()
             elif pool:
                 return pool.popleft()
-        a = verbs.assign(self.master_url,
-                         count=1 if fresh else self.ASSIGN_BATCH,
-                         collection=collection, replication=replication,
-                         ttl=ttl, disk_type=disk_type,
-                         data_center=data_center)
+        for left in range(len(self.masters.masters) - 1, -1, -1):
+            try:
+                a = verbs.assign(self.master_url,
+                                 count=1 if fresh else self.ASSIGN_BATCH,
+                                 collection=collection,
+                                 replication=replication, ttl=ttl,
+                                 disk_type=disk_type,
+                                 data_center=data_center)
+                break
+            except OSError:
+                if not left:
+                    raise
+                self.masters.failover()     # that master is down
         # slot fids share the base fid's volume and cookie
         # (ParsePath:121-141)
         with self._fid_lock:

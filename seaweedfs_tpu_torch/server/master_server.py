@@ -5,8 +5,9 @@ Equivalent of SeaweedFS weed/server/master_server.go (HTTP routes
 :135-149) and master_grpc_server*.go: /dir/assign (Assign,
 master_grpc_server_assign.go:37), /dir/lookup, /vol/grow
 (ProcessGrowRequest, master_grpc_server_volume.go:21-77), the
-heartbeat (SendHeartbeat, master_grpc_server.go:61), and the status
-and EC-registry views the shell reads.
+heartbeat (SendHeartbeat, master_grpc_server.go:61), KeepConnected
+(/ws/keepconnected, :250-330), and the status and EC-registry views the
+shell reads.
 
 The heartbeat: the reference keeps one websocket per volume server and
 unregisters the server when the stream drops. Here every pulse is one
@@ -14,6 +15,19 @@ unregisters the server when the stream drops. Here every pulse is one
 reply carries what the master sent back on the stream. A server that
 stays silent for `Topology.dead_nodes`' timeout (5 pulses) is
 unregistered by the reaper thread, in place of the disconnect.
+KeepConnected is a websocket (rpc/websocket.py): a full location and
+EC-shard snapshot on connect, then deltas on every heartbeat, grow and
+unregistration.
+
+HA: with `peers`, the masters run raft (master/raft.py) on threads and
+the leader alone owns the topology. A follower answers the mutating and
+topology routes with a 307 to the leader (503 while none is elected),
+refuses a heartbeat with a reply that names the leader (the reference
+drops the websocket), and answers KeepConnected with `{"leader": ...}`.
+/vol/grow takes a raft barrier and commits the new max volume id before
+handing it out; the vacuum switch is committed through the log, so
+every master reports it and it survives a failover. `peers` forces the
+snowflake sequencer, so needle keys stay unique across failovers.
 
 The redundancy watchdog (master/watchdog.py) is poked on every
 heartbeat and every unregistration; /debug/repair shows and feeds its
@@ -23,34 +37,89 @@ master every `admin_script_interval` seconds (master_server.go:259-308
 startAdminScripts). The timer and the watchdog's repairs take the
 admin lock through a live filer's DLM (`live_filer_url`, from the
 filers' membership announces), so they serialize against operator
-shells; without a filer the lock is process-local. /vol/vacuum runs the shell's volume.vacuum; the
-vacuum switch is a plain attribute (the reference commits it through
-raft).
+shells; without a filer the lock is process-local. Only the raft
+leader reaps silent servers, runs the admin scripts and drives repairs,
+and a fresh leader holds repairs for one reaper window (5 pulses)
+while the volume servers re-register (watchdog.py).
 
-Single master only. Not here: raft and followers, tiering, the
-collector, the workload aggregator, the KeepConnected stream
-(`/ws/keepconnected`; clients re-read the EC map by TTL,
-wdclient/client.py), traces, metrics federation, JWT signing.
+Not here: JWT signing, tiering, the span collector and metrics
+federation, the workload aggregator, traces.
 """
 from __future__ import annotations
 
+import collections
 import json
 import secrets
 import threading
+import zlib
 
 from ..cluster.membership import ClusterMembership
-from ..master.sequence import MemorySequencer
+from ..master.raft import HTTPTransport, RaftNode
+from ..master.sequence import MemorySequencer, SnowflakeSequencer
 from ..master.topology import (NoFreeSlots, NoWritableVolume, Topology,
                                VolumeInfo)
 from ..master.watchdog import JOIN_TIMEOUT, RedundancyWatchdog
 from ..rpc.http import (App, Request, Response, debug_index_factory,
                         json_error, json_ok, json_response, text_response)
 from ..rpc.httpclient import session
+from ..rpc.websocket import WebSocket, upgrade
 from ..storage import types as t
 from ..utils import glog, metrics
 
 # timeout of one /admin/assign_volume call made by /vol/grow
 GROW_TIMEOUT = (5.0, 60.0)
+# KeepConnected messages one subscriber may have waiting; one that falls
+# this far behind is dropped, and reconnects for a fresh snapshot
+KEEPCONNECTED_BACKLOG = 256
+
+
+class _Subscriber:
+    """One KeepConnected stream. Broadcasts only queue here, so the
+    heartbeat, grow and reaper threads never write to a socket; the
+    connection's own thread writes the queue out. A subscriber that
+    stops reading blocks only that thread, and once its backlog is full
+    its socket is shut down, which ends that write too."""
+
+    def __init__(self, ws: WebSocket):
+        self.ws = ws
+        self._queue: collections.deque[dict] = collections.deque()
+        self._cond = threading.Condition()
+        self._ended = False
+
+    def offer(self, msg: dict) -> bool:
+        """Queue msg; False once the stream has ended or was dropped."""
+        with self._cond:
+            if self._ended:
+                return False
+            if len(self._queue) < KEEPCONNECTED_BACKLOG:
+                self._queue.append(msg)
+                self._cond.notify()
+                return True
+            self._ended = True
+            self._cond.notify()
+        glog.warning("KeepConnected subscriber %d messages behind: "
+                     "dropped", KEEPCONNECTED_BACKLOG)
+        self.ws.abort()
+        return False
+
+    def end(self) -> None:
+        with self._cond:
+            self._ended = True
+            self._cond.notify()
+
+    def run(self) -> None:
+        """Write queued messages until the stream ends."""
+        while True:
+            with self._cond:
+                while not self._queue and not self._ended:
+                    self._cond.wait()
+                if self._ended:
+                    return
+                msg = self._queue.popleft()
+            try:
+                self.ws.send_json(msg)
+            except OSError:
+                return
 
 
 class MasterServer:
@@ -65,13 +134,31 @@ class MasterServer:
                  repair_max_attempts: int = 5,
                  repair_grace: float = 0.0,
                  repair_max_bytes_per_sec: float = 0.0,
-                 repair_partial_ec: bool = True):
+                 repair_partial_ec: bool = True,
+                 sequencer: str = "memory",
+                 me: str = "",
+                 peers: list[str] | None = None,
+                 raft_state_dir: str | None = None,
+                 raft_tick: float = 1.0):
         self.topo = Topology(volume_size_limit, pulse_seconds)
         self.default_replication = default_replication
-        self.seq = MemorySequencer()
+        if sequencer == "memory" and peers:
+            # a per-process counter would re-issue, after a failover,
+            # keys the old leader already handed out
+            sequencer = "snowflake"
+        self.seq = (SnowflakeSequencer(node_id=zlib.crc32(me.encode()))
+                    if sequencer == "snowflake" else MemorySequencer())
         self.pulse_seconds = pulse_seconds
         self.vacuum_disabled = False
         self.membership = ClusterMembership(ttl_seconds=pulse_seconds * 3)
+        self.raft: RaftNode | None = None
+        if peers:
+            self.raft = RaftNode(me, peers, HTTPTransport(),
+                                 state_dir=raft_state_dir, tick=raft_tick,
+                                 on_apply=self._on_raft_apply)
+        # KeepConnected subscribers
+        self._clients: set[_Subscriber] = set()
+        self._clients_lock = threading.Lock()
         self._grow_lock = threading.Lock()
         self._stop = threading.Event()
         self._reaper: threading.Thread | None = None
@@ -110,6 +197,10 @@ class MasterServer:
             app.route(method, "/dir/assign", self.handle_assign)
             app.route(method, "/vol/grow", self.handle_grow)
         app.get("/dir/lookup", self.handle_lookup)
+        app.get("/cluster/leader", self.handle_cluster_leader)
+        app.post("/cluster/raft/add", self.handle_raft_membership)
+        app.post("/cluster/raft/remove", self.handle_raft_membership)
+        app.get("/ws/keepconnected", self.handle_keepconnected)
         app.get("/vol/status", self.handle_vol_status)
         app.get("/dir/status", self.handle_dir_status)
         app.get("/cluster/status", self.handle_cluster_status)
@@ -121,9 +212,69 @@ class MasterServer:
             app.route(method, "/vol/vacuum", self.handle_vacuum_now)
         app.post("/vol/vacuum/disable", self.handle_vacuum_toggle)
         app.post("/vol/vacuum/enable", self.handle_vacuum_toggle)
+        if self.raft is not None:
+            self.raft.http_routes(app)
         app.on_startup.append(self.start)
         app.on_cleanup.append(self.stop)
         return app
+
+    # ------------------------------------------------------------------
+    # leadership (master_server.go:167,219)
+    # ------------------------------------------------------------------
+    def is_leader(self) -> bool:
+        return self.raft is None or self.raft.is_leader()
+
+    def _on_raft_apply(self, cmd: dict) -> None:
+        """Committed entries drive the topology's volume-id high-water
+        mark on every master (raft_server.go:72); the vacuum switch
+        rides the same log. Runs under the raft lock."""
+        if cmd.get("op") == "max_volume_id":
+            with self.topo.lock:
+                self.topo.max_volume_id = max(self.topo.max_volume_id,
+                                              int(cmd["value"]))
+        elif cmd.get("op") == "vacuum_disabled":
+            self.vacuum_disabled = bool(cmd["value"])
+
+    def _leader_redirect(self, req: Request) -> Response | None:
+        """None on the leader (or a single master); else a 307 to the
+        raft leader, or 503 while none is elected."""
+        if self.is_leader():
+            return None
+        leader = self.raft.leader()
+        if not leader or leader == self.raft.me:
+            return json_error("no raft leader elected yet", status=503)
+        url = f"http://{leader}{req.path}"
+        if req.query_string:
+            url += f"?{req.query_string}"
+        return Response(status=307, headers={"Location": url})
+
+    def handle_cluster_leader(self, req: Request) -> Response:
+        """Leadership probe without serializing the topology (what a
+        volume server asks before it heartbeats)."""
+        return json_ok({
+            "IsLeader": self.is_leader(),
+            "Leader": (self.raft.leader() or "") if self.raft else "",
+        })
+
+    def handle_raft_membership(self, req: Request) -> Response:
+        """cluster.raft.add / remove (command_cluster_raft_server_add.go
+        / _remove.go): a single-server change committed through the
+        log."""
+        if self.raft is None:
+            return json_error("raft is not enabled on this master",
+                              status=400)
+        redirect = self._leader_redirect(req)
+        if redirect is not None:
+            return redirect
+        peer = req.query.get("peer", "")
+        if not peer:
+            return json_error("missing ?peer=host:port", status=400)
+        ok = (self.raft.add_peer(peer) if req.path.endswith("/add")
+              else self.raft.remove_peer(peer))
+        if not ok:
+            return json_error("membership change did not commit "
+                              "(no quorum or not leader)", status=503)
+        return json_ok({"peers": self.raft.peers})
 
     # ------------------------------------------------------------------
     # liveness: unregister servers whose heartbeats stopped; the
@@ -131,6 +282,12 @@ class MasterServer:
     # ------------------------------------------------------------------
     def start(self) -> None:
         self._stop.clear()
+        if self.raft is not None:
+            # the first /cluster/status imports the mesh module (torch
+            # under it): seconds holding the GIL, which would starve a
+            # leader's heartbeats and depose it. Pay it before joining.
+            _ec_router_snapshot()
+            self.raft.start()
         self._reaper = threading.Thread(target=self._reap_loop,
                                         name="master-reaper", daemon=True)
         self._reaper.start()
@@ -158,10 +315,19 @@ class MasterServer:
         if self._reaper is not None:
             self._reaper.join(timeout=10)
             self._reaper = None
+        if self.raft is not None:
+            self.raft.stop()
+        self._close_clients()
 
     def _reap_loop(self) -> None:
+        """Every pulse: the leader unregisters silent servers; a master
+        that is not the leader ends its KeepConnected streams, whose
+        clients then find the leader."""
         while not self._stop.wait(self.pulse_seconds):
-            self.reap_dead_nodes()
+            if self.is_leader():
+                self.reap_dead_nodes()
+            else:
+                self._close_clients()
 
     def reap_dead_nodes(self) -> list[str]:
         dead = self.topo.dead_nodes()
@@ -171,6 +337,7 @@ class MasterServer:
             self.topo.unregister_data_node(node_id)
         if dead:
             self.watchdog.poke()
+            self._broadcast_all_locations()
         return dead
 
     def live_filer_url(self) -> str:
@@ -187,6 +354,8 @@ class MasterServer:
             if self._admin_stop.wait(0.05):
                 return
         while not self._admin_stop.wait(self.admin_script_interval):
+            if not self.is_leader():
+                continue    # only the leader runs maintenance
             # the cluster-wide admin lock lives in the filer DLM: find
             # a live filer so maintenance serializes against operator
             # shells (commands.go:78 confirmIsLocked)
@@ -219,6 +388,9 @@ class MasterServer:
     # assignment
     # ------------------------------------------------------------------
     def handle_assign(self, req: Request) -> Response:
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         q = req.query
         count = int(q.get("count", 1))
         collection = q.get("collection", "")
@@ -262,6 +434,10 @@ class MasterServer:
         })
 
     def handle_lookup(self, req: Request) -> Response:
+        # topology lives on the raft leader; followers redirect
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         vid_s = req.query.get("volumeId", "")
         vid = int(vid_s.split(",")[0]) if vid_s else 0
         nodes = self.topo.lookup(vid)
@@ -274,6 +450,9 @@ class MasterServer:
         })
 
     def handle_grow(self, req: Request) -> Response:
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         q = req.query
         count = int(q.get("count", 1))
         collection = q.get("collection", "")
@@ -314,7 +493,18 @@ class MasterServer:
                                                disk_type=disk_type,
                                                preferred_rack=rack,
                                                preferred_node=data_node)
+            if self.raft is not None:
+                # a fresh leader applies prior terms' high-water marks
+                # before it mints an id, or it could re-issue one
+                if not self.raft.barrier():
+                    raise NoFreeSlots("raft leader not ready")
             vid = self.topo.next_volume_id()
+            if self.raft is not None:
+                # the new mark commits on a majority before the id is
+                # handed out (raft_server.go:72)
+                if not self.raft.propose({"op": "max_volume_id",
+                                          "value": vid}):
+                    raise NoFreeSlots("lost raft leadership mid-grow")
             for node in nodes:
                 resp = session().post(
                     f"http://{node.url}/admin/assign_volume",
@@ -332,12 +522,22 @@ class MasterServer:
                                replica_placement=replication, ttl=ttl)
                 node.volumes[vid] = v
                 self.topo._register_volume(v, node)
+            self._send_to_clients({"updates": {str(vid): [
+                {"url": n.url, "publicUrl": n.public_url}
+                for n in nodes]}})
             return vid
 
     # ------------------------------------------------------------------
     # heartbeat (master_grpc_server.go:61 SendHeartbeat, one pulse)
     # ------------------------------------------------------------------
     def handle_heartbeat(self, req: Request) -> Response:
+        if not self.is_leader():
+            # only the leader owns topology: the reply names it, and the
+            # volume server heartbeats there (the reference drops the
+            # stream and the server finds the leader again)
+            return json_response({"error": "not the raft leader",
+                                  "leader": self.raft.leader() or ""},
+                                 status=503)
         hb = req.json()
         node_id = f"{hb['ip']}:{hb['port']}"
         node = self.topo.register_node(
@@ -373,6 +573,7 @@ class MasterServer:
         if "repair_bw" in hb:
             node.repair_bw = hb["repair_bw"]
         self.watchdog.poke()
+        self._broadcast_node_update(node)
         return json_ok({"volume_size_limit": self.topo.volume_size_limit,
                         "pulse_seconds": self.pulse_seconds})
 
@@ -382,9 +583,9 @@ class MasterServer:
     def handle_cluster_status(self, req: Request) -> Response:
         wd = self.watchdog
         return json_ok({
-            "IsLeader": True,
-            "Leader": "",
-            "Peers": [],
+            "IsLeader": self.is_leader(),
+            "Leader": (self.raft.leader() or "") if self.raft else "",
+            "Peers": list(self.raft.peers) if self.raft else [],
             "VacuumDisabled": self.vacuum_disabled,
             "Topology": self.topo.to_dict(),
             "EcRouter": _ec_router_snapshot(),
@@ -414,6 +615,9 @@ class MasterServer:
         {"volume": vid, "kind": "replica"|"ec", "reason": "..."}.
         Every malformed input is a 400 with a JSON error — never a 500
         and never a silent accept."""
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         try:
             body = json.loads(req.read())
         except ValueError:
@@ -443,6 +647,9 @@ class MasterServer:
         """/vol/vacuum?garbageThreshold=0.3 — the on-demand cluster
         vacuum (master_server.go:141 volumeVacuumHandler): the same
         volume_vacuum the shell verb and the admin scripts run."""
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         if self.vacuum_disabled:
             return json_error("vacuum disabled", status=409)
         gc = req.query.get("garbageThreshold", "")
@@ -470,8 +677,19 @@ class MasterServer:
     def handle_vacuum_toggle(self, req: Request) -> Response:
         """volume.vacuum.disable / enable (command_volume_vacuum_disable
         .go): a master-side switch the admin scripts and the shell's
-        vacuum both consult."""
-        self.vacuum_disabled = req.path.endswith("/disable")
+        vacuum both consult; with raft it is committed through the
+        log."""
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
+        disabled = req.path.endswith("/disable")
+        if self.raft is not None:
+            if not self.raft.propose({"op": "vacuum_disabled",
+                                      "value": disabled}):
+                return json_error("vacuum toggle did not commit "
+                                  "(no quorum)", status=503)
+        else:
+            self.vacuum_disabled = disabled
         return json_ok({"vacuum_disabled": self.vacuum_disabled})
 
     def handle_metrics(self, req: Request) -> Response:
@@ -480,6 +698,9 @@ class MasterServer:
 
     def handle_cluster_announce(self, req: Request) -> Response:
         """Filer/broker liveness beat (cluster.go membership)."""
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         d = req.json()
         address, node_type = d.get("address"), d.get("type")
         if not address or not node_type:
@@ -494,6 +715,9 @@ class MasterServer:
         return json_ok({"ok": True})
 
     def handle_cluster_nodes(self, req: Request) -> Response:
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         node_type = req.query.get("type", "")
         return json_ok({"nodes": self.membership.to_dict(node_type)})
 
@@ -504,6 +728,10 @@ class MasterServer:
         return json_ok({"Volumes": self.topo.to_dict()})
 
     def handle_ec_shards(self, req: Request) -> Response:
+        # the EC registry lives on the leader, as /dir/lookup's map
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
         vid = int(req.query.get("volumeId", 0))
         shards = self.topo.lookup_ec_shards(vid)
         return json_ok({
@@ -516,6 +744,107 @@ class MasterServer:
 
     def handle_debug_ec(self, req: Request) -> Response:
         return json_response(_ec_router_snapshot())
+
+    # ------------------------------------------------------------------
+    # KeepConnected (master_grpc_server.go:250): a full snapshot on
+    # connect, location and EC deltas after
+    # ------------------------------------------------------------------
+    def handle_keepconnected(self, req: Request) -> Response:
+        def serve(ws: WebSocket) -> None:
+            if not self.is_leader():
+                ws.send_json({"leader": self.raft.leader() or ""})
+                return
+            sub = _Subscriber(ws)
+            with self._clients_lock:
+                self._clients.add(sub)
+            # registered first: a delta queued before the snapshot is
+            # one the snapshot already holds
+            sub.offer({"snapshot": self._location_snapshot(),
+                       "ec_snapshot": self._ec_shard_snapshot()})
+
+            def read() -> None:
+                while ws.receive() is not None:
+                    pass
+                sub.end()
+
+            threading.Thread(target=read, name="keepconnected-read",
+                             daemon=True).start()
+            try:
+                sub.run()
+            finally:
+                with self._clients_lock:
+                    self._clients.discard(sub)
+        return upgrade(req, serve)
+
+    def _location_snapshot(self) -> dict:
+        out: dict[str, list[dict]] = {}
+        with self.topo.lock:
+            for layout in self.topo.layouts.values():
+                for vid, nodes in layout.locations.items():
+                    out[str(vid)] = [
+                        {"url": n.url, "publicUrl": n.public_url}
+                        for n in nodes]
+            for vid in self.topo.ec_locations:
+                out[str(vid)] = [
+                    {"url": n.url, "publicUrl": n.public_url, "ec": True}
+                    for n in self.topo.lookup(vid)]
+        return out
+
+    def _ec_shard_snapshot(self) -> dict:
+        """{vid: {sid: [urls]}}: the per-shard map clients cache
+        (vid_map.go:169-236 ecVidMap)."""
+        out: dict[str, dict] = {}
+        with self.topo.lock:
+            for vid in self.topo.ec_locations:
+                out[str(vid)] = {
+                    str(sid): [n.url for n in nodes]
+                    for sid, nodes in self.topo.lookup_ec_shards(vid)
+                    .items()}
+        return out
+
+    def _broadcast_node_update(self, node) -> None:
+        if not self._clients:
+            return
+        updates: dict = {}
+        ec_updates: dict = {}
+        with self.topo.lock:
+            for vid in node.volumes:
+                updates[str(vid)] = [
+                    {"url": n.url, "publicUrl": n.public_url}
+                    for n in self.topo.lookup(vid)]
+            for vid in node.ec_shards:
+                updates[str(vid)] = [
+                    {"url": n.url, "publicUrl": n.public_url, "ec": True}
+                    for n in self.topo.lookup(vid)]
+                ec_updates[str(vid)] = {
+                    str(sid): [n.url for n in nodes]
+                    for sid, nodes in self.topo.lookup_ec_shards(vid)
+                    .items()}
+        if updates or ec_updates:
+            msg: dict = {"updates": updates}
+            if ec_updates:
+                msg["ec_updates"] = ec_updates
+            self._send_to_clients(msg)
+
+    def _broadcast_all_locations(self) -> None:
+        if self._clients:
+            self._send_to_clients({
+                "snapshot": self._location_snapshot(),
+                "ec_snapshot": self._ec_shard_snapshot()})
+
+    def _send_to_clients(self, msg: dict) -> None:
+        with self._clients_lock:
+            subs = list(self._clients)
+        for sub in subs:
+            if not sub.offer(msg):
+                with self._clients_lock:
+                    self._clients.discard(sub)
+
+    def _close_clients(self) -> None:
+        with self._clients_lock:
+            subs, self._clients = list(self._clients), set()
+        for sub in subs:
+            sub.end()
 
 
 def _ec_router_snapshot() -> dict:

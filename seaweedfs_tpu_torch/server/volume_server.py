@@ -21,9 +21,14 @@ ShellError. A degraded GET reconstructs its interval on the CPU codec
 
 The heartbeat is a thread that POSTs the Store's full report to the
 master's /heartbeat every pulse, and at once when `poke_heartbeat`
-wakes it; network errors retry forever, as the reference's loop. An
-admin route that changes what the master knows (volumes, mounted
-shards) replies once the master has acknowledged the new report. The
+wakes it; network errors retry forever, as the reference's loop. With
+several masters (`master_url` a comma list) it first asks them
+/cluster/leader for the raft leader (`_find_leader`, the reference's
+:401-416) and heartbeats there; a failed beat, or one a follower
+refuses (its reply names the leader), sends it to find the leader
+again. An admin route that changes what the master knows (volumes,
+mounted shards) replies once the leader has acknowledged the new
+report. The
 EC holder map that remote shard reads use comes from the master's
 /cluster/ec_shards through a MasterClient cache (EC_HOLDERS_TTL); a
 fan-out that comes back short reads the map again unless it is under
@@ -75,7 +80,7 @@ from ..storage.store import Store
 from ..storage.super_block import ReplicaPlacement
 from ..storage.volume import Volume
 from ..utils import compression, glog, httprange, metrics, ratelimit, retry
-from ..wdclient.client import MasterClient
+from ..wdclient.client import MasterClient, find_leader
 
 # timeout of one heartbeat POST beyond the pulse it covers
 HEARTBEAT_TIMEOUT = 5.0
@@ -88,6 +93,14 @@ SYNC_HEARTBEAT_TIMEOUT = 5.0
 REPLICATE_TIMEOUT = 30.0
 # age limit of a cached volume lookup (replica peers, redirects)
 LOOKUP_TTL = 10.0
+
+
+def _named_leader(resp) -> str:
+    """The leader a follower's refusal names, or ""."""
+    try:
+        return str(resp.json().get("leader") or "")
+    except (ValueError, AttributeError):
+        return ""
 
 
 class VolumeServer:
@@ -196,6 +209,12 @@ class VolumeServer:
     # ------------------------------------------------------------------
     # heartbeat (volume_grpc_client_to_master.go:50 doHeartbeat)
     # ------------------------------------------------------------------
+    def _find_leader(self) -> str:
+        """The raft leader among self.masters, or the first master."""
+        if len(self.masters) == 1:
+            return self.masters[0]
+        return find_leader(self.masters) or self.masters[0]
+
     def heartbeat_payload(self) -> dict:
         hb = self.store.collect_heartbeat()
         hb["data_center"] = self.data_center
@@ -215,6 +234,8 @@ class VolumeServer:
             self._stop.wait(0.02)
         timeout = (HEARTBEAT_TIMEOUT,
                    HEARTBEAT_TIMEOUT + 4 * self.pulse_seconds)
+        self.master_url = self._find_leader()
+        redirected = False
         while not self._stop.is_set():
             # cleared, and the generation read, BEFORE the report is
             # taken: a poke that lands after this point sends another
@@ -227,13 +248,24 @@ class VolumeServer:
                                       json=self.heartbeat_payload(),
                                       timeout=timeout)
                 if resp.status_code != 200:
+                    leader = _named_leader(resp)
+                    if leader and not redirected:
+                        # a follower refused the beat and named the
+                        # leader: go there at once (once in a row)
+                        self.master_url = f"http://{leader}"
+                        redirected = True
+                        continue
                     raise RequestException(
                         f"heartbeat: {resp.status_code} {resp.text}")
             except Exception as e:  # noqa: BLE001 — retry forever
                 glog.v(1, "heartbeat to %s failed: %s; retrying",
                        self.master_url, e)
                 self._stop.wait(min(1.0, self.pulse_seconds))
+                if not self._stop.is_set():
+                    self.master_url = self._find_leader()
+                redirected = False
                 continue
+            redirected = False
             with self._hb_cond:
                 self._hb_acked = max(self._hb_acked, gen)
                 self._hb_cond.notify_all()

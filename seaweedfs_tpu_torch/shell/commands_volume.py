@@ -552,7 +552,7 @@ def volume_vacuum_toggle(env: CommandEnv, disable: bool) -> dict:
     scripts and the manual vacuum consult."""
     env.confirm_locked()
     path = "/vol/vacuum/disable" if disable else "/vol/vacuum/enable"
-    resp = session().post(f"{env.master_url}{path}", timeout=30)
+    resp = env.master_request("POST", path, timeout=30)
     if resp.status_code >= 300:
         raise ShellError(f"{path}: {resp.text}")
     return resp.json()
@@ -649,11 +649,11 @@ def enqueue_repair(env: CommandEnv, vid: int, kind: str, reason: str,
     /debug/repair); False when the master is unreachable — the
     watchdog's own deficit scan still picks the loss up."""
     try:
-        resp = session().post(f"{env.master_url}/debug/repair",
-                              json={"volume": vid, "kind": kind,
-                                    "reason": reason,
-                                    "collection": collection},
-                              timeout=30)
+        resp = env.master_request("POST", "/debug/repair",
+                                  json={"volume": vid, "kind": kind,
+                                        "reason": reason,
+                                        "collection": collection},
+                                  timeout=30)
     except RequestException:
         return False
     return resp.status_code < 300

@@ -9,13 +9,23 @@ a second holder; the master's watchdog and admin scripts take the same
 lock, so their repairs serialize against an operator shell. Without a
 filer it is held in this process (single-operator mode), as in the
 reference.
+
+`master_url` may list several masters (comma-separated). The shell then
+talks to the raft leader: it asks the masters /cluster/leader before
+its first request, and finds the leader again when a master stops
+answering or has none elected (503), for up to MASTER_FAILOVER_SECONDS.
+A follower reads an empty topology, so the shell never reads one.
 """
 from __future__ import annotations
 
 import time
 
 from ..ec import geometry as geo
-from ..rpc.httpclient import session
+from ..rpc.httpclient import RequestException, session
+from ..wdclient.client import find_leader
+
+# how long a request keeps looking for a raft leader
+MASTER_FAILOVER_SECONDS = 15.0
 
 
 class ShellError(Exception):
@@ -24,7 +34,10 @@ class ShellError(Exception):
 
 class CommandEnv:
     def __init__(self, master_url: str, filer_url: str = ""):
-        self.master_url = master_url.rstrip("/")
+        self.masters = [m if m.startswith("http") else f"http://{m}"
+                        for m in (u.strip().rstrip("/")
+                                  for u in master_url.split(",")) if m]
+        self._leader = self.masters[0] if len(self.masters) == 1 else ""
         self.filer_url = filer_url.rstrip("/")
         self.locked = False
         self._dlm = None
@@ -32,9 +45,35 @@ class CommandEnv:
     ADMIN_LOCK = "admin"  # cluster-wide exclusive shell lock name
 
     # -- master helpers -------------------------------------------------
+    @property
+    def master_url(self) -> str:
+        """The raft leader's url (the one master, without HA)."""
+        if not self._leader:
+            self._leader = find_leader(self.masters) or self.masters[0]
+        return self._leader
+
+    def master_request(self, method: str, path: str, **kw):
+        """One request to the leader. With several masters, a
+        connection failure or a 503 (no leader elected) finds the
+        leader again and retries, up to MASTER_FAILOVER_SECONDS."""
+        if len(self.masters) == 1:
+            return session().request(method, f"{self.master_url}{path}",
+                                     **kw)
+        end = time.monotonic() + MASTER_FAILOVER_SECONDS
+        while True:
+            try:
+                resp = session().request(
+                    method, f"{self.master_url}{path}", **kw)
+                if resp.status_code != 503 or time.monotonic() > end:
+                    return resp
+            except RequestException:
+                if time.monotonic() > end:
+                    raise
+            self._leader = ""
+            time.sleep(0.2)
+
     def master_get(self, path: str, **params) -> dict:
-        resp = session().get(f"{self.master_url}{path}", params=params,
-                             timeout=60)
+        resp = self.master_request("GET", path, params=params, timeout=60)
         # status first: a 502/500 from a proxy carries an HTML body
         # that would raise JSONDecodeError past ShellError-only callers
         if resp.status_code >= 300:

@@ -2,24 +2,28 @@
 
 Equivalent of SeaweedFS weed/shell/shell_liner.go: a line-based REPL
 over the command registry, with the admin lock (commands.go:78). The
-port's registry holds lock / unlock, cluster.check, the collection.*
-and volume.* commands (scrub, vacuum, replication, mount, move, ...)
-and the ec.* commands. The volume.tier.* commands wait for the remote
-tier and raise a ShellError that says so; every other command of the
-reference (fs.*, remote.*, s3.*, mq.*, cluster.ps / raft) is not
-ported and answers "unknown command".
+port's registry holds lock / unlock, cluster.check, cluster.ps and the
+cluster.raft.* commands, the collection.* and volume.* commands (scrub,
+vacuum, replication, mount, move, ...) and the ec.* commands. The
+volume.tier.* commands wait for the remote tier and raise a ShellError
+that says so; every other command of the reference (fs.*, remote.*,
+s3.*, mq.*) is not ported and answers "unknown command".
 """
 from __future__ import annotations
 
 import json
 import shlex
 
-from . import commands_ec, commands_volume
+from . import commands_cluster, commands_ec, commands_volume
 from .env import CommandEnv, ShellError
 
 HELP = """commands:
   lock / unlock                     acquire/release the admin lock
   cluster.check                     cluster health summary
+  cluster.ps                        list masters/filers/volume servers
+  cluster.raft.ps                   raft peer status
+  cluster.raft.add -peer=H:P        add a master to the raft quorum
+  cluster.raft.remove -peer=H:P     remove a master from the quorum
   collection.list                   list collections
   collection.delete <name>          delete all volumes of a collection
   volume.list                       list volumes and ec shards
@@ -87,6 +91,13 @@ def run_command(env: CommandEnv, line: str) -> object:
     # -- cluster / collection ------------------------------------------
     if cmd == "cluster.check":
         return commands_volume.cluster_check(env)
+    if cmd == "cluster.ps":
+        return commands_cluster.cluster_ps(env)
+    if cmd == "cluster.raft.ps":
+        return commands_cluster.cluster_raft_ps(env)
+    if cmd in ("cluster.raft.add", "cluster.raft.remove"):
+        return commands_cluster.cluster_raft_change(
+            env, opts.get("peer", ""), add=cmd.endswith(".add"))
     if cmd == "collection.list":
         return commands_volume.collection_list(env)
     if cmd == "collection.delete":

@@ -224,10 +224,15 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = _port_python_files()
     assert len(files) >= 15, files
     rel = {os.path.relpath(p, REPO) for p in files}
-    # the walk reaches every module, the self-healing plane's included
+    # the walk reaches every module, the self-healing plane's and the
+    # HA control plane's included
     assert {"seaweedfs_tpu_torch/master/watchdog.py",
             "seaweedfs_tpu_torch/shell/commands_volume.py",
-            "seaweedfs_tpu_torch/server/master_server.py"} <= rel
+            "seaweedfs_tpu_torch/server/master_server.py",
+            "seaweedfs_tpu_torch/master/raft.py",
+            "seaweedfs_tpu_torch/rpc/websocket.py",
+            "seaweedfs_tpu_torch/server/master_follower.py",
+            "seaweedfs_tpu_torch/shell/commands_cluster.py"} <= rel
     bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
            for path in files for line, n in _imports(path) if _forbidden(n)]
     assert not bad, bad

@@ -141,9 +141,14 @@ def healed(tmp_path_factory):
         t_unlock = time.time()
         _wait(lambda: len(env.ec_shard_locations(vid)) == 14,
               msg="shard 5 rebuilt after unlock")
-        rec["after_unlock"] = [
-            r for r in env.master_get("/debug/repair")["recent"]
-            if r["finished_at"] >= t_unlock and r["ok"]]
+        # the master lists the rebuilt shard (the volume server replies
+        # once its heartbeat is acknowledged) just before the watchdog's
+        # worker records its result: wait for the result too, or it
+        # lands in the lost-server window below
+        rec["after_unlock"] = _wait(
+            lambda: [r for r in env.master_get("/debug/repair")["recent"]
+                     if r["finished_at"] >= t_unlock and r["ok"]
+                     and r["volume"] == vid], msg="the result after unlock")
 
         # a lost server, healed by the watchdog
         held = {}
