@@ -180,11 +180,53 @@ Phases, each fatal on failure (exit code 1, no result line):
       EC volume by volume id and by fid from its KeepConnected cache.
    f. The current device is what it was before phase 11.
 
+12. The tiered-storage lifecycle, driven by the master's tiering
+   controller. The cold tier is a second port cluster in this process
+   (a master, one volume server, a sqlite filer and its S3 gateway,
+   bucket `cold`, no tiering), standing in for the S3 endpoint a
+   deployment offloads to. The main cluster: phase 9's five volume
+   servers over three racks on "cuda", a sqlite filer (the DLM), the
+   watchdog's repairs at grace 0, -tier.enabled, -tier.interval=1,
+   -tier.sealAfterIdle=5, -tier.offloadAfterIdle=5,
+   -tier.recallReads=1000, -tier.recallWindow=120, -tier.remote the
+   SigV4 s3 conf of `cold`, -tier.stateDir, and tier_backends
+   {"s3.default": cold}. Each step is fatal on failure, as is any
+   transition the controller fails:
+   a. Phase 9's seeded needles fill one collection's volume to the
+      1 GiB limit.
+   b. The controller seals the idle volume: seconds from the last write
+      to `ec` in /debug/tiering, its ec.encode's wall, kernel launches
+      (> 0), repairs during the seal (must be 0).
+   c. It offloads the shard bytes: `remote` within 60 s; `cold` holds
+      exactly the 14 objects tier-ec/<col>/<vid>/NN.ec, each
+      sha256-equal to the shard it replaced; no local .ecNN, the .ecx
+      kept; /cluster/status Tiering.BytesMoved.offload > 0; seconds,
+      MB/s and the process's peak RSS.
+   d. 512 seeded needles read cold (ranged SigV4 GETs of the cold
+      gateway), all equal: reads/s, p50 / p99.
+   e. The server with the fewest shards stopped: the watchdog rebuilds
+      them through the kernel (launches > 0) from the remote-backed
+      survivors; detection and repair seconds; rebuilt shards
+      sha256-equal; 256 needles equal; then the controller adopts `ec`,
+      offloads the rebuilt shards onto the same keys and the volume is
+      `remote` again (the tier state tests/test_torch_tiering.py shows
+      the reference reaching): seconds from the stop.
+   f. Reads (4 threads) until the controller recalls the volume to
+      `hot`: the recall's seconds, MB/s, its decode's launches and the
+      peak RSS; every needle equal from the plain volume, no object of
+      the volume in `cold`, no .rsm left.
+   g. With the controller stopped (it would seal the hot volume
+      again), volume.tier.upload of the .dat to s3.default, 256 needles
+      through ranged GETs, volume.tier.download: the object gone, every
+      needle equal; each wall.
+   h. The current device is what it was before phase 12.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import glob
 import hashlib
 import json
 import os
@@ -3021,6 +3063,475 @@ def phase_ha(card: str) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 12: the tiered-storage lifecycle (hot -> ec -> remote -> hot)
+# ----------------------------------------------------------------------
+TIER_INTERVAL = 1.0              # -tier.interval
+TIER_IDLE = 5.0                  # -tier.sealAfterIdle, -tier.offloadAfterIdle
+TIER_RECALL_READS = 1000         # -tier.recallReads
+TIER_RECALL_WINDOW = 120.0       # -tier.recallWindow
+TIER_COLD_READS = 512            # 12d's cold reads
+TIER_SAMPLE = 256                # 12e's and 12g's samples
+TIER_THREADS = 8                 # client threads of the full read passes
+TIER_DEADLINE = 90.0             # longest wait for a transition
+TIER_BUCKET = "cold"              # signed with phase 10's identity
+
+
+class _RssPeak:
+    """Samples this process's resident set (VmRSS) every 0.1 s on a
+    thread; peak(label) is the largest sample since mark(label)."""
+
+    def __init__(self):
+        self._peaks: dict[str, int] = {}
+        self._base: dict[str, int] = {}
+        self._label = ""
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) << 10
+        return 0
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.1):
+            label = self._label
+            if label:
+                self._peaks[label] = max(self._peaks.get(label, 0),
+                                         self.rss())
+
+    def mark(self, label: str) -> None:
+        self._base[label] = self._peaks[label] = self.rss()
+        self._label = label
+
+    def peak(self, label: str) -> str:
+        return (f"{self._peaks.get(label, 0) / 2**30:.2f} GiB (from "
+                f"{self._base.get(label, 0) / 2**30:.2f} GiB at its start)")
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _tier_snapshot(env) -> dict:
+    return env.master_get("/debug/tiering")
+
+
+def _tier_results(env, vid: int, transition: str) -> list[dict]:
+    """The controller's results for `vid` and `transition`, newest
+    first; fail on any that did not succeed (a transition that failed
+    or gave up is never passed over)."""
+    out = []
+    for r in _tier_snapshot(env)["recent"]:
+        if r["volume"] != vid:
+            continue
+        if not r["ok"]:
+            fail(f"the tiering controller's {r['transition']} of volume "
+                 f"{vid} failed (attempt {r['attempts']}): {r['error']}")
+        if r["transition"] == transition:
+            out.append(r)
+    return out
+
+
+def _tier_state(env, vid: int) -> str | None:
+    return _tier_snapshot(env)["volumes"].get(str(vid), {}).get("state")
+
+
+def _get_pass(fids: list, where, live: dict, label: str,
+              threads: int = 1) -> dict:
+    """GET each fid over HTTP from where(fid) (host:port), each read
+    sha256-equal to `live`, or fail. -> wall, bytes, latencies."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    def one(fid):
+        r0 = time.perf_counter()
+        r = session().get(f"http://{where(fid)}/{fid}", timeout=(5.0, 60.0))
+        body = r.content
+        dt = time.perf_counter() - r0
+        if r.status_code != 200 or \
+                hashlib.sha256(body).hexdigest() != live[fid]:
+            fail(f"{label}: GET {fid} from {where(fid)} gave status "
+                 f"{r.status_code} and other bytes")
+        return dt, len(body)
+
+    t0 = time.perf_counter()
+    out = _pool_map(one, fids, threads=threads) if threads > 1 else \
+        [one(f) for f in fids]
+    wall = time.perf_counter() - t0
+    lat = [dt for dt, _ in out]
+    return {"wall": wall, "bytes": sum(n for _, n in out), "n": len(out),
+            "lat": _lat(lat), "rate": len(out) / wall}
+
+
+def _cold_objects(client, prefix: str) -> dict[str, int]:
+    return {o.key: o.size for o in client.list_objects(prefix)}
+
+
+def phase_tier(card: str) -> dict:
+    """Phase 12: the tiered-storage lifecycle at 1 GiB, driven by the
+    master's tiering controller; the cold tier is a second port cluster
+    behind its S3 gateway. -> kernel launches of its steps."""
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.s3.client import S3Client
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.storage import store as store_mod
+    from seaweedfs_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke12-")
+    launches: dict[str, int] = {}
+    cold = cluster = env = None
+    col = "smoke12"
+    rss = _RssPeak()
+    try:
+        # the cold tier: a port cluster of its own, one volume server,
+        # a sqlite filer and the S3 gateway, bucket "cold", no tiering
+        cold = Cluster(os.path.join(tmp, "cold"), n_volume_servers=1,
+                       max_volumes=16, volume_size_limit=DAT_BYTES,
+                       pulse_seconds=HEAL_PULSE, ec_backend="native",
+                       with_filer=True, filer_store="sqlite",
+                       with_s3=True, s3_config=S3_CONFIG)
+        s3 = _S3Client(cold.s3_url)
+        r = s3("PUT", f"/{TIER_BUCKET}")
+        if r.status_code != 200:
+            fail(f"CreateBucket {TIER_BUCKET}: {r.status_code} {r.text}")
+        conf = {"endpoint": cold.s3_url, "bucket": TIER_BUCKET,
+                "access_key": S3_KEY, "secret_key": S3_SECRET}
+        remote = {"type": "s3", **conf}
+        bucket = S3Client(**conf)
+        cluster = Cluster(os.path.join(tmp, "main"),
+                          n_volume_servers=len(HEAL_TOPOLOGY),
+                          max_volumes=8, volume_size_limit=DAT_BYTES,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                          topology=HEAL_TOPOLOGY, repair_enabled=True,
+                          repair_interval=HEAL_INTERVAL, repair_grace=0.0,
+                          with_filer=True, filer_store="sqlite",
+                          tier_enabled=True, tier_interval=TIER_INTERVAL,
+                          tier_seal_after_idle=TIER_IDLE,
+                          tier_offload_after_idle=TIER_IDLE,
+                          tier_recall_reads=TIER_RECALL_READS,
+                          tier_recall_window=TIER_RECALL_WINDOW,
+                          tier_remote=remote,
+                          tier_state_dir=os.path.join(tmp, "tierstate"),
+                          tier_backends={"s3.default": conf})
+        env = CommandEnv(cluster.master_url, filer_url=cluster.filer_url)
+        by_url = {f"{s.ip}:{s.port}": i
+                  for i, s in enumerate(cluster.stores)}
+        log(f"[12] {card}")
+        log(f"[12] cold tier: master {cold.master_url}, one volume "
+            f"server, sqlite filer, s3 {cold.s3_url}, bucket "
+            f"{TIER_BUCKET!r}; main: master {cluster.master_url}, volume "
+            f"servers {[(th.address, *HEAL_TOPOLOGY[i]) for i, th in enumerate(cluster.volume_threads)]}"
+            f", sqlite filer {cluster.filer_url}; ec_backend='cuda', "
+            f"pulse {HEAL_PULSE} s, repair at grace 0; -tier.enabled "
+            f"-tier.interval={TIER_INTERVAL} -tier.sealAfterIdle="
+            f"{TIER_IDLE} -tier.offloadAfterIdle={TIER_IDLE} "
+            f"-tier.recallReads={TIER_RECALL_READS} -tier.recallWindow="
+            f"{TIER_RECALL_WINDOW} -tier.remote=<s3 conf of "
+            f"{TIER_BUCKET!r}>, tier_backends s3.default = the same")
+
+        # 12a. fill one collection's volume to the 1 GiB limit
+        w = _fill_volume_http(cluster, env, col, SEED + 7, DAT_BYTES)
+        vid, live = w["vid"], w["live"]
+        t_last = time.time()
+        log(f"[12a] volume {vid} on {w['url']}: {w['writes']} uploads "
+            f"({w['overwrites']} overwrites), {len(w['dead'])} deletes, "
+            f".dat {w['vol'].content_size()} B, {w['seconds']:.3f} s")
+
+        # 12b. the controller seals the idle volume
+        codec_cuda.coded_matmul.launches = 0
+        rep0 = env.master_get("/debug/repair")["recent"]
+        ec_at = _poll(lambda: _tier_state(env, vid) in
+                      ("ec", "offloading", "remote") and time.time(),
+                      TIER_DEADLINE, f"volume {vid} sealed", step=0.05)
+        launches["seal"] = codec_cuda.coded_matmul.launches
+        seal = _poll(lambda: _tier_results(env, vid, "seal"),
+                     TIER_DEADLINE, "the seal's result")[0]
+        until = time.time()
+        paths = _live_shard_files(cluster, env, vid)
+        if sorted(paths) != list(range(14)):
+            fail(f"shards {sorted(paths)} after the seal")
+        orig = {sid: sha256(p) for sid, p in paths.items()}
+        shard_size = os.path.getsize(paths[0])
+        window = [x for x in env.master_get("/debug/repair")["recent"]
+                  if x not in rep0 and t_last <= x["finished_at"] <= until]
+        rebuilt = [x for x in window if x["ok"]]
+        refused = [x for x in window if not x["ok"]]
+        other = [x for x in refused
+                 if "cannot acquire admin lock" not in x["error"]]
+        log(f"[12b] sealed: ec in /debug/tiering {ec_at - t_last:.3f} s "
+            f"after the last write (-tier.sealAfterIdle={TIER_IDLE}); "
+            f"the controller's ec.encode {seal['seconds']} s, reason "
+            f"{seal['reason']!r}; kernel launches {launches['seal']}; "
+            f"repairs during the seal {len(rebuilt)} (attempts the lock "
+            f"refused: {len(refused)}); 14 shards of {shard_size} B hashed")
+        if launches["seal"] <= 0:
+            fail("the controller's seal launched the kernel no time")
+        if rebuilt or other:
+            fail(f"the watchdog repaired during the seal: "
+                 f"{rebuilt or other}")
+
+        # 12c. the controller offloads the shard bytes to the cold tier
+        rss.mark("12c")
+        off0 = metrics.counter_value("tier_bytes_moved_total",
+                                     {"dir": "offload"})
+        remote_at = _poll(lambda: _tier_state(env, vid) == "remote" and
+                          time.time(), 60.0,
+                          f"volume {vid} remote", step=0.05)
+        off = _poll(lambda: _tier_results(env, vid, "offload"),
+                    TIER_DEADLINE, "the offload's result")[0]
+        moved = metrics.counter_value(
+            "tier_bytes_moved_total", {"dir": "offload"}) - off0
+        prefix = f"tier-ec/{col}/{vid}/"
+        objs = _cold_objects(bucket, prefix)
+        want = {store_mod.tier_shard_key(col, vid, sid) for sid in range(14)}
+        if set(objs) != want:
+            fail(f"the cold bucket holds {sorted(objs)} under {prefix}, "
+                 f"not the 14 shard keys")
+        bad = []
+        for sid in range(14):
+            blob = bucket.get_object(store_mod.tier_shard_key(col, vid, sid))
+            if hashlib.sha256(blob).hexdigest() != orig[sid]:
+                bad.append(sid)
+        if bad:
+            fail(f"cold objects of shards {bad} differ from the shards")
+        left = glob.glob(os.path.join(tmp, "main", "*",
+                                      f"{col}_{vid}.ec[0-9][0-9]"))
+        ecx = glob.glob(os.path.join(tmp, "main", "*", f"{col}_{vid}.ecx"))
+        if left or not ecx:
+            fail(f"after the offload: local shards {left}, .ecx {ecx}")
+        peak_c = rss.peak("12c")
+        offloaded = _poll(lambda: env.master_get("/cluster/status")[
+            "Tiering"]["BytesMoved"].get("offload", 0), 30.0,
+            "BytesMoved.offload in /cluster/status")
+        log(f"[12c] remote {remote_at - ec_at:.3f} s after ec "
+            f"(-tier.offloadAfterIdle={TIER_IDLE}); the controller's "
+            f"offload {off['seconds']} s, {off['bytes']} B, "
+            f"{off['bytes'] / off['seconds'] / 1e6:.1f} MB/s "
+            f"(tier_bytes_moved_total{{dir=offload}} +{moved:.0f} B); "
+            f"{TIER_BUCKET!r} holds the 14 objects under {prefix}, each "
+            f"sha256-equal to its shard; no local .ecNN, .ecx on "
+            f"{len(ecx)} servers; peak RSS of this process (both "
+            f"clusters) through the offload {peak_c}; /cluster/status Tiering.BytesMoved."
+            f"offload {offloaded:.0f} (the federated sum over every "
+            f"scraped server of this one process, each rendering the "
+            f"same registry)")
+
+        # 12d. cold reads
+        rng = np.random.default_rng(SEED + 12)
+        fids = sorted(live)
+        holder = env.ec_shard_locations(vid)[0][0]
+        sample = [fids[i] for i in rng.choice(
+            len(fids), min(TIER_COLD_READS, len(fids)), replace=False)]
+        st = _get_pass(sample, lambda f: holder, live, "12d")
+        log(f"[12d] GET {st['n']} needles from {holder} (remote-backed "
+            f"shards: each interval a ranged SigV4 GET of the cold "
+            f"gateway -> filer -> its volume server): {st['wall']:.3f} s, "
+            f"{st['rate']:.1f} reads/s, {st['lat']}, all equal")
+
+        # 12e. lose the cold holder with the fewest shards
+        locs = env.ec_shard_locations(vid)
+        held: dict[str, list[int]] = {u: [] for u in by_url}
+        for sid, urls in locs.items():
+            for u in urls:
+                held[u].append(sid)
+        victim = min((u for u in held if held[u]),
+                     key=lambda u: (len(held[u]), u))
+        lost = sorted(held[victim])
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t_kill = time.monotonic()
+        cluster.volume_threads[by_url[victim]].stop()
+
+        def deficit():
+            st = env.master_get("/cluster/status")
+            return any(e["volume"] == vid for e in st["UnderParity"])
+
+        _poll(deficit, HEAL_DEADLINE, f"volume {vid} in UnderParity")
+        t_seen = time.monotonic()
+        _poll(lambda: not env.master_get("/cluster/status")["UnderParity"]
+              and len(env.ec_shard_locations(vid)) == 14,
+              HEAL_DEADLINE, f"volume {vid} back to 14 shards")
+        t_done = time.monotonic()
+
+        def repaired():
+            # attempts the admin lock refused are retried; any other
+            # failed repair fails the run
+            recent = [x for x in env.master_get("/debug/repair")["recent"]
+                      if x["finished_at"] >= since]
+            other = [x for x in recent if not x["ok"] and
+                     "cannot acquire admin lock" not in x["error"]]
+            if other:
+                fail(f"the watchdog recorded a failed repair: {other[0]}")
+            return [x for x in recent if x["ok"] and x["volume"] == vid
+                    and x["kind"] == "ec"]
+
+        rec = _poll(repaired, HEAL_DEADLINE,
+                    "the watchdog's EC repair result")[0]
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        if rec["reason"] != "watchdog" or \
+                sorted(rec["detail"].get("rebuilt", [])) != lost:
+            fail(f"the watchdog's repair was not the rebuild of {lost}: "
+                 f"{rec}")
+        if launches["rebuild"] <= 0:
+            fail("the watchdog's rebuild launched the kernel no time")
+        locs = env.ec_shard_locations(vid)
+        for sid in lost:
+            store = cluster.stores[by_url[locs[sid][0]]]
+            shard = store.ec_volumes[vid].shards[sid]
+            if shard.remote or sha256(shard.path) != orig[sid]:
+                fail(f"rebuilt shard {sid} is remote or differs from "
+                     f"the original")
+        sample = [fids[i] for i in rng.choice(
+            len(fids), min(TIER_SAMPLE, len(fids)), replace=False)]
+        reader = env.ec_shard_locations(vid)[lost[0]][0]
+        st = _get_pass(sample, lambda f: reader, live, "12e")
+        log(f"[12e] stopped {victim} (shards {lost}): detection "
+            f"{t_seen - t_kill:.3f} s, repair {t_done - t_seen:.3f} s "
+            f"(-> 14 live shards); the watchdog's rebuild {rec['seconds']} "
+            f"s, {rec['bytes']} B, mode {rec['detail'].get('mode')!r} on "
+            f"{rec['detail'].get('rebuilder')}, every survivor's byte "
+            f"read from the cold tier; kernel launches "
+            f"{launches['rebuild']}; rebuilt shards sha256-equal; GET "
+            f"{st['n']} needles from {reader}: {st['rate']:.1f} reads/s, "
+            f"{st['lat']}, all equal")
+        states = []
+
+        def remote_again():
+            s = _tier_state(env, vid)
+            if not states or states[-1] != s:
+                states.append(s)
+            return s == "remote" and \
+                len(_tier_results(env, vid, "offload")) == 2
+
+        _poll(remote_again, TIER_DEADLINE, f"volume {vid} remote again",
+              step=0.05)
+        t_remote = time.monotonic()
+        off2 = _tier_results(env, vid, "offload")[0]
+        objs = _cold_objects(bucket, prefix)
+        if set(objs) != want:
+            fail(f"after the second offload the bucket holds "
+                 f"{sorted(objs)}")
+        for sid in lost:
+            blob = bucket.get_object(store_mod.tier_shard_key(col, vid, sid))
+            if hashlib.sha256(blob).hexdigest() != orig[sid]:
+                fail(f"the re-offloaded object of shard {sid} differs")
+        log(f"[12e] tier states after the rebuild {states}: the rebuilt "
+            f"shards are local, the controller adopted 'ec' and "
+            f"offloaded them again onto the same keys "
+            f"({off2['seconds']} s, {off2['bytes']} B); remote again "
+            f"{t_remote - t_kill:.3f} s after the stop; still exactly "
+            f"14 objects, the re-offloaded ones sha256-equal")
+
+        # 12f. reads until the controller recalls the volume to hot
+        codec_cuda.coded_matmul.launches = 0
+        rss.mark("12f")
+        holder = env.ec_shard_locations(vid)[0][0]
+        n_reads = [0]
+        t0 = time.monotonic()
+
+        def read_until_recall(i: int) -> int:
+            n = 0
+            r = np.random.default_rng([SEED, 12, i])
+            while _tier_state(env, vid) == "remote" and \
+                    time.monotonic() - t0 < TIER_RECALL_WINDOW:
+                batch = [fids[j] for j in r.choice(len(fids), 16)]
+                n += _get_pass(batch, lambda f: holder, live, "12f")["n"]
+            return n
+
+        n_reads[0] = sum(_pool_map(read_until_recall, range(4), threads=4))
+        t_stop = time.monotonic()
+        _poll(lambda: _tier_state(env, vid) == "hot", TIER_DEADLINE,
+              f"volume {vid} recalled to hot", step=0.05)
+        t_hot = time.monotonic()
+        recall = _poll(lambda: _tier_results(env, vid, "recall"),
+                       TIER_DEADLINE, "the recall's result")[0]
+        peak_f = rss.peak("12f")
+        launches["decode"] = codec_cuda.coded_matmul.launches
+        objs = _cold_objects(bucket, prefix)
+        # the stopped server's disk keeps its stale files: live servers
+        dead = {l.dir for l in cluster.stores[by_url[victim]].locations}
+        rsm = [p for p in glob.glob(os.path.join(
+            tmp, "main", "*", f"{col}_{vid}.rsm"))
+            if os.path.dirname(p) not in dead]
+        if objs or rsm:
+            fail(f"after the recall: objects {sorted(objs)}, .rsm {rsm}")
+        locs = env.volume_locations(vid)
+        st = _get_pass(fids, lambda f: locs[0], live, "12f",
+                       threads=TIER_THREADS)
+        log(f"[12f] {n_reads[0]} reads in {t_stop - t0:.3f} s (4 "
+            f"threads) until the recall began; hot {t_hot - t_stop:.3f} s "
+            f"later; the controller's recall {recall['seconds']} s, "
+            f"{recall['bytes']} B down, "
+            f"{recall['bytes'] / recall['seconds'] / 1e6:.1f} MB/s "
+            f"(download + ec.decode), decode launches "
+            f"{launches['decode']}; peak RSS through the reads and the "
+            f"recall {peak_f}; the cold bucket holds no object of "
+            f"volume {vid}, no .rsm left; GET all {st['n']} needles from "
+            f"the plain volume on {locs}: {st['rate']:.1f} reads/s "
+            f"({TIER_THREADS} threads), all equal")
+
+        # 12g. the .dat to the cold tier and back (operator verbs)
+        cluster.master.tiering.stop()
+        rss.mark("12g")
+        repl.run_command(env, "lock")
+        t0 = time.perf_counter()
+        up = repl.run_command(env, f"volume.tier.upload -volumeId={vid}")
+        t_up = time.perf_counter() - t0
+        key = up[0]["key"]
+        head = bucket.head_object(key)
+        dat_size = up[0]["file_size"]
+        if head is None or head.size != dat_size:
+            fail(f"volume.tier.upload: {up}, the object {head}")
+        sample = [fids[i] for i in rng.choice(
+            len(fids), min(TIER_SAMPLE, len(fids)), replace=False)]
+        st = _get_pass(sample, lambda f: locs[0], live, "12g")
+        t0 = time.perf_counter()
+        down = repl.run_command(env, f"volume.tier.download -volumeId={vid}")
+        t_down = time.perf_counter() - t0
+        if bucket.head_object(key) is not None:
+            fail(f"the object {key} is still in {TIER_BUCKET!r}")
+        peak_g = rss.peak("12g")
+        st2 = _get_pass(fids, lambda f: locs[0], live, "12g",
+                        threads=TIER_THREADS)
+        repl.run_command(env, "unlock")
+        log(f"[12g] (the controller stopped first: it would seal the "
+            f"hot volume after {TIER_IDLE} idle s) volume.tier.upload "
+            f"of the {dat_size} B .dat to s3.default: {t_up:.3f} s, "
+            f"{dat_size / t_up / 1e6:.1f} MB/s, key {key!r}; GET "
+            f"{st['n']} needles through ranged GETs: {st['rate']:.1f} "
+            f"reads/s, {st['lat']}; volume.tier.download {t_down:.3f} s, "
+            f"{dat_size / t_down / 1e6:.1f} MB/s ({down}); peak RSS "
+            f"through the upload and download {peak_g}; the object "
+            f"gone, all {st2['n']} needles equal")
+
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        log(f"[12h] current device before phase 12: {cur}, after: "
+            f"{now_dev}")
+        if now_dev != cur:
+            fail(f"phase 12 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[12] phase 12 took {time.perf_counter() - t_phase:.3f} s; "
+            f"kernel launches {launches}; {card}")
+        return launches
+    finally:
+        rss.stop()
+        if env is not None:
+            env.close()
+        for c in (cluster, cold):
+            if c is not None:
+                c.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3039,6 +3550,7 @@ def main() -> int:
     heal_launches = phase_heal(card)
     s3_launches = phase_s3(card)
     ha_launches = phase_ha(card)
+    tier_launches = phase_tier(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -3074,6 +3586,8 @@ def main() -> int:
         "heal_launches": heal_launches,
         "s3_launches": s3_launches,
         "ha_launches": ha_launches,
+        "tier_launches": sum(tier_launches.values()),
+        "tier_launches_by_step": tier_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

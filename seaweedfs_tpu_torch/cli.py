@@ -16,7 +16,10 @@ GPU), mesh (the kernel on every local card, shaped by
 numpy. `-ec.code` sets the code family
 new EC volumes are encoded with. `-repair.*` configure the master's
 redundancy watchdog and `-admin.scripts` its maintenance timer, on
-`master` and on `server`. The filer's stores are memory and sqlite
+`master` and on `server`; `-tier.*` (on `master` only, as the
+reference's) its tiering controller, `-tier.remote` the cold tier as
+JSON (`{"type": "s3", "endpoint": ..., "bucket": ...}`) or
+`local:<root>`. The filer's stores are memory and sqlite
 (`-filer.store`, the reference's default sqlite on `server`). Every
 other subcommand of the reference is not here.
 """
@@ -104,6 +107,86 @@ def _add_master_flags(p) -> None:
                         "always full-stripe)")
 
 
+def _add_tier_flags(p) -> None:
+    """The tiering controller's flags (master only, as the
+    reference's), with the reference's defaults."""
+    p.add_argument("-tier.enabled", dest="tier_enabled",
+                   action="store_true",
+                   help="drive the tiered-storage lifecycle (hot -> "
+                        "warm EC -> cold remote) from the master "
+                        "tiering controller; heat tracking and "
+                        "/debug/tiering reporting are always on")
+    p.add_argument("-tier.interval", dest="tier_interval",
+                   type=float, default=30.0,
+                   help="seconds between tiering heat scans; "
+                        "heartbeats also trigger an immediate scan")
+    p.add_argument("-tier.concurrency", dest="tier_concurrency",
+                   type=int, default=1,
+                   help="max tier transitions (seal/offload/recall) "
+                        "running at once")
+    p.add_argument("-tier.sealAfterIdle", dest="tier_seal_after_idle",
+                   type=float, default=3600.0,
+                   help="seconds a plain volume must be idle (no "
+                        "reads or writes) before it is sealed and "
+                        "erasure-coded into the warm tier")
+    p.add_argument("-tier.offloadAfterIdle",
+                   dest="tier_offload_after_idle",
+                   type=float, default=7200.0,
+                   help="seconds an EC volume must go unread before "
+                        "its shard bytes are offloaded to the remote "
+                        "cold tier (indexes stay local)")
+    p.add_argument("-tier.recallReads", dest="tier_recall_reads",
+                   type=int, default=3,
+                   help="reads within -tier.recallWindow that recall "
+                        "a remote volume back to the hot tier")
+    p.add_argument("-tier.recallWindow", dest="tier_recall_window",
+                   type=float, default=300.0,
+                   help="trailing window (seconds) over which "
+                        "-tier.recallReads is counted")
+    p.add_argument("-tier.maxAttempts", dest="tier_max_attempts",
+                   type=int, default=5,
+                   help="attempts per tier transition before giving "
+                        "up; retries back off with the shared "
+                        "-retry.* full-jitter policy")
+    p.add_argument("-tier.maxBytesPerSec",
+                   dest="tier_max_bytes_per_sec",
+                   type=float, default=0.0,
+                   help="per-node tier byte-rate cap: every offload "
+                        "upload and recall download debits a shared "
+                        "token bucket on its volume server, so bulk "
+                        "tier movement cannot saturate the data "
+                        "plane (fill/debt live in /cluster/status; "
+                        "0 = unshaped)")
+    p.add_argument("-tier.remote", dest="tier_remote", default="",
+                   help="cold-tier destination: JSON client conf "
+                        "('{\"type\": \"s3\", ...}') or the "
+                        "local:<root> shorthand; offload stays off "
+                        "until set")
+    p.add_argument("-tier.stateDir", dest="tier_state_dir", default="",
+                   help="dir persisting the per-volume tier state "
+                        "machine so transitions resume across master "
+                        "restarts (empty = in-memory only)")
+
+
+def _tier_kwargs(args) -> dict:
+    from .remote_storage.client import parse_remote_spec
+
+    return {
+        "tier_enabled": args.tier_enabled,
+        "tier_interval": args.tier_interval,
+        "tier_concurrency": args.tier_concurrency,
+        "tier_seal_after_idle": args.tier_seal_after_idle,
+        "tier_offload_after_idle": args.tier_offload_after_idle,
+        "tier_recall_reads": args.tier_recall_reads,
+        "tier_recall_window": args.tier_recall_window,
+        "tier_max_attempts": args.tier_max_attempts,
+        "tier_max_bytes_per_sec": args.tier_max_bytes_per_sec,
+        "tier_remote": (parse_remote_spec(args.tier_remote)
+                        if args.tier_remote else None),
+        "tier_state_dir": args.tier_state_dir,
+    }
+
+
 def _master_kwargs(args) -> dict:
     return {
         "admin_scripts": [s.strip() for s in args.admin_scripts.split(";")
@@ -147,6 +230,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between the volume servers' heartbeats; "
                         "a server silent for 5 pulses is unregistered")
     _add_master_flags(p)
+    _add_tier_flags(p)
 
     p = sub.add_parser("master.follower",
                        help="read-only master follower for lookup traffic")
@@ -285,7 +369,7 @@ def _run_master(args) -> int:
                       sequencer=args.sequencer,
                       me=f"{args.ip}:{args.port}", peers=peers,
                       raft_state_dir=raft_dir or None,
-                      **_master_kwargs(args))
+                      **_master_kwargs(args), **_tier_kwargs(args))
     t = ServerThread(ms.app, host=args.ip, port=args.port).start()
     ms.admin_scripts_url = t.url
     print(f"master listening on {t.url}", flush=True)

@@ -22,6 +22,12 @@ method, body and headers, as `requests` does: HA master followers
 answer mutating and topology routes with a 307 to the raft leader.
 The final response lists the hops in `history`.
 
+A body is bytes, a str, or a file-like object with `read(n)` whose
+length `len(body)` (or the caller's Content-Length) gives: it is sent
+in BODY_BLOCK pieces with that Content-Length (S3 refuses chunked
+bodies without a streaming signature), always on a fresh connection,
+and never replayed once a byte of it went out.
+
 The response mirrors what the call sites used of `requests`:
 `status_code`, `headers` (case-insensitive), `content`, `text`,
 `json()`, and with `stream=True` `iter_content(n)` / `close()`.
@@ -44,6 +50,9 @@ DEFAULT_TIMEOUT = (5.0, 60.0)
 _POOL_PER_HOST = 32
 # 307 / 308 hops one call follows (an HA follower names its leader)
 MAX_REDIRECTS = 5
+# bytes per socket write of a file-like body (http.client's default is
+# 8 KiB, which makes a GiB upload crawl)
+BODY_BLOCK = 1 << 20
 
 _local = threading.local()
 
@@ -192,7 +201,8 @@ class Session:
     @staticmethod
     def _connect(host: str, port: int, conn_to: float,
                  read_to: float) -> http.client.HTTPConnection:
-        conn = http.client.HTTPConnection(host, port, timeout=conn_to)
+        conn = http.client.HTTPConnection(host, port, timeout=conn_to,
+                                          blocksize=BODY_BLOCK)
         conn.connect()
         conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         conn.sock.settimeout(read_to)
@@ -205,7 +215,7 @@ class Session:
         self._pools.clear()
 
     def request(self, method: str, url: str, params: dict | None = None,
-                data: bytes | str | None = None, json=None,
+                data=None, json=None,
                 headers: dict | None = None, timeout=None,
                 stream: bool = False) -> Response:
         history: list[Response] = []
@@ -213,7 +223,9 @@ class Session:
             resp = self._request_once(method, url, params, data, json,
                                       headers, timeout, stream)
             loc = resp.headers.get("Location")
-            if loc is None or resp.status_code not in (307, 308):
+            # a file-like body is spent: its 307 goes back to the caller
+            if loc is None or resp.status_code not in (307, 308) or \
+                    hasattr(data, "read"):
                 resp.history = history
                 return resp
             if len(history) >= MAX_REDIRECTS:
@@ -247,6 +259,9 @@ class Session:
             hdrs.setdefault("Content-Type", "application/json")
         if body is None and method in ("POST", "PUT"):
             body = b""
+        if hasattr(body, "read") and not any(
+                k.lower() == "content-length" for k in hdrs):
+            hdrs["Content-Length"] = str(len(body))
         retry.inject(hdrs)
         conn_to, read_to = _split_timeout(timeout)
         if tracing.current() is None:
@@ -266,12 +281,15 @@ class Session:
         pol = retry.policy()
         release = self._release(host, port)
         last_exc: Exception | None = None
+        # a file-like body is read as it is sent: it goes out once, on
+        # a connection of its own
+        streamed = hasattr(body, "read")
         attempt = 0
         while attempt < pol.max_attempts:
             if attempt:
                 time.sleep(pol.backoff(attempt))
             retry.check_deadline()
-            conn = self._take(host, port)
+            conn = None if streamed else self._take(host, port)
             reused = conn is not None
             if conn is None:
                 try:
@@ -306,7 +324,7 @@ class Session:
             retryable = (resp.status_code == 503 and
                          retry.RETRYABLE_HEADER in resp.headers)
             if (retryable or resp.status_code in (502, 503, 504)) and \
-                    pol.should_retry(attempt, method,
+                    not streamed and pol.should_retry(attempt, method,
                                      status=resp.status_code,
                                      retryable_response=retryable):
                 resp.close()
@@ -325,6 +343,9 @@ class Session:
 
     def post(self, url: str, **kw) -> Response:
         return self.request("POST", url, **kw)
+
+    def put(self, url: str, **kw) -> Response:
+        return self.request("PUT", url, **kw)
 
     def delete(self, url: str, **kw) -> Response:
         return self.request("DELETE", url, **kw)

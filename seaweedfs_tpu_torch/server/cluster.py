@@ -26,8 +26,16 @@ volume server and the filer are then given the whole master list;
 `leader_index()` names the in-process master that leads, and
 `stop_master(i)` stops one as a lost process would. The wait helpers
 read the leader over HTTP in every layout; `master` and
-`master_thread` exist only for in-process masters. Not here: the
-native fronts, the broker, tiering.
+`master_thread` exist only for in-process masters.
+
+`tier_*` configure the masters' tiering controller (with
+`tier_enabled`, idle volumes are sealed into EC, offloaded to
+`tier_remote` and recalled on re-access; with several masters each
+keeps its state under `tier_state_dir/master_<i>`), and
+`tier_backends` the backend storages every volume server can upload a
+volume's .dat to (`{"s3.default": {"endpoint": ..., "bucket": ...}}`).
+`stop()` stops the controller with the watchdog. Not here: the native
+fronts, the broker.
 """
 from __future__ import annotations
 
@@ -68,7 +76,18 @@ class Cluster:
                  s3_config: dict | None = None,
                  n_masters: int = 1,
                  raft_tick: float = 1.0,
-                 external_masters: list[str] | None = None):
+                 external_masters: list[str] | None = None,
+                 tier_backends: dict[str, dict] | None = None,
+                 tier_enabled: bool = False,
+                 tier_interval: float = 30.0,
+                 tier_concurrency: int = 1,
+                 tier_seal_after_idle: float = 3600.0,
+                 tier_offload_after_idle: float = 7200.0,
+                 tier_recall_reads: int = 3,
+                 tier_recall_window: float = 300.0,
+                 tier_max_bytes_per_sec: float = 0.0,
+                 tier_remote: dict | None = None,
+                 tier_state_dir: str = ""):
         """topology: optional per-server (data_center, rack) labels;
         disk_types: optional per-server disk class (hdd/ssd)."""
         self.base_dir = base_dir
@@ -89,7 +108,16 @@ class Cluster:
             repair_concurrency=repair_concurrency,
             repair_max_bytes_per_sec=repair_max_bytes_per_sec,
             repair_partial_ec=repair_partial_ec,
-            repair_grace=repair_grace)
+            repair_grace=repair_grace,
+            tier_enabled=tier_enabled,
+            tier_interval=tier_interval,
+            tier_concurrency=tier_concurrency,
+            tier_seal_after_idle=tier_seal_after_idle,
+            tier_offload_after_idle=tier_offload_after_idle,
+            tier_recall_reads=tier_recall_reads,
+            tier_recall_window=tier_recall_window,
+            tier_max_bytes_per_sec=tier_max_bytes_per_sec,
+            tier_remote=tier_remote)
         if not self.external_masters:
             ports = free_ports(n_masters) if n_masters > 1 else [0]
             peers = [f"127.0.0.1:{p}" for p in ports] \
@@ -102,7 +130,11 @@ class Cluster:
                     raft = dict(me=peers[i], peers=peers,
                                 raft_state_dir=raft_dir,
                                 raft_tick=raft_tick)
-                m = MasterServer(**kwargs, **raft)
+                state_dir = tier_state_dir
+                if state_dir and peers:
+                    state_dir = os.path.join(state_dir, f"master_{i}")
+                m = MasterServer(**kwargs, **raft,
+                                 tier_state_dir=state_dir)
                 t = ServerThread(m.app, port=port).start()
                 m.admin_scripts_url = t.url
                 self.masters.append(m)
@@ -128,7 +160,8 @@ class Cluster:
                                   rack=rack, pulse_seconds=pulse_seconds,
                                   disk_type=(disk_types[i] if disk_types
                                              and i < len(disk_types)
-                                             else "hdd"))
+                                             else "hdd"),
+                                  tier_backends=tier_backends)
                 thread = ServerThread(vs.app).start()
                 store.port = thread.port
                 store.public_url = thread.address
@@ -278,8 +311,9 @@ class Cluster:
         return out
 
     def stop(self) -> None:
-        # the watchdog and the admin scripts first: stopping servers
-        # under a live watchdog starts repairs against dead ports
+        # the watchdog, the tiering controller and the admin scripts
+        # first: stopping servers under them starts repairs and
+        # transitions against dead ports
         live = [i for i in range(len(self.masters))
                 if i not in self._stopped_masters]
         for i in live:

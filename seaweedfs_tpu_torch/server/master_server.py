@@ -42,22 +42,37 @@ leader reaps silent servers, runs the admin scripts and drives repairs,
 and a fresh leader holds repairs for one reaper window (5 pulses)
 while the volume servers re-register (watchdog.py).
 
-Not here: JWT signing, tiering, the span collector and metrics
-federation, the workload aggregator, traces.
+The tiering controller (master/tiering.py) moves volumes through hot →
+ec → remote → hot: heat bookkeeping always, transitions with
+`tier_enabled`; it is poked on every heartbeat and unregistration,
+/debug/tiering shows its states and queue (POST forces one
+transition), and a fresh leader holds its transitions as the watchdog
+holds repairs. The metrics federator (master/collector.py) scrapes
+every volume server's and filer's /metrics on a thread; /cluster/metrics
+serves the merged, instance-labeled corpus, and /cluster/status folds
+the tier states, the `tier_bw` buckets the heartbeats carry and the
+scraped `tier_bytes_moved_total` into `Tiering`, and the scrape's
+health into `Observability.Federation`.
+
+Not here: JWT signing, the span collector and traces, the workload
+aggregator.
 """
 from __future__ import annotations
 
 import collections
 import json
+import re
 import secrets
 import threading
 import zlib
 
 from ..cluster.membership import ClusterMembership
+from ..master.collector import MetricsFederator
 from ..master.raft import HTTPTransport, RaftNode
 from ..master.sequence import MemorySequencer, SnowflakeSequencer
 from ..master.topology import (NoFreeSlots, NoWritableVolume, Topology,
                                VolumeInfo)
+from ..master.tiering import TieringController
 from ..master.watchdog import JOIN_TIMEOUT, RedundancyWatchdog
 from ..rpc.http import (App, Request, Response, debug_index_factory,
                         json_error, json_ok, json_response, text_response)
@@ -139,7 +154,19 @@ class MasterServer:
                  me: str = "",
                  peers: list[str] | None = None,
                  raft_state_dir: str | None = None,
-                 raft_tick: float = 1.0):
+                 raft_tick: float = 1.0,
+                 tier_enabled: bool = False,
+                 tier_interval: float = 30.0,
+                 tier_concurrency: int = 1,
+                 tier_seal_after_idle: float = 3600.0,
+                 tier_offload_after_idle: float = 7200.0,
+                 tier_recall_reads: int = 3,
+                 tier_recall_window: float = 300.0,
+                 tier_max_attempts: int = 5,
+                 tier_max_bytes_per_sec: float = 0.0,
+                 tier_remote: dict | None = None,
+                 tier_state_dir: str = "",
+                 scrape_interval: float = 10.0):
         self.topo = Topology(volume_size_limit, pulse_seconds)
         self.default_replication = default_replication
         if sequencer == "memory" and peers:
@@ -180,6 +207,23 @@ class MasterServer:
             max_attempts=repair_max_attempts, grace=repair_grace,
             max_bytes_per_sec=repair_max_bytes_per_sec,
             partial_ec=repair_partial_ec)
+        # tiering lifecycle controller: heat/tier bookkeeping always
+        # on, data movement gated by -tier.enabled (tiering.py)
+        self.tiering = TieringController(
+            self, enabled=tier_enabled, interval=tier_interval,
+            concurrency=tier_concurrency,
+            seal_after_idle=tier_seal_after_idle,
+            offload_after_idle=tier_offload_after_idle,
+            recall_reads=tier_recall_reads,
+            recall_window=tier_recall_window,
+            max_attempts=tier_max_attempts,
+            max_bytes_per_sec=tier_max_bytes_per_sec,
+            remote=tier_remote, state_dir=tier_state_dir)
+        # metrics federation (collector.py): a scrape thread over every
+        # registered node's /metrics
+        self.federator = MetricsFederator(self, interval=scrape_interval)
+        self._fed_stop = threading.Event()
+        self._fed_thread: threading.Thread | None = None
         self.app = self._build_app()
 
     def _build_app(self) -> App:
@@ -188,11 +232,16 @@ class MasterServer:
             "/debug/ec": "EC codec router: probe curve + backends",
             "/debug/repair": "watchdog deficits, queue, history "
                              "(POST enqueues one repair)",
+            "/debug/tiering": "tier states and transitions (POST "
+                              "forces one)",
         }))
         app.get("/debug/ec", self.handle_debug_ec)
         app.get("/debug/repair", self.handle_debug_repair)
         app.post("/debug/repair", self.handle_repair_enqueue)
+        app.get("/debug/tiering", self.handle_debug_tiering)
+        app.post("/debug/tiering", self.handle_tier_enqueue)
         app.get("/metrics", self.handle_metrics)
+        app.get("/cluster/metrics", self.handle_cluster_metrics)
         for method in ("GET", "POST"):
             app.route(method, "/dir/assign", self.handle_assign)
             app.route(method, "/vol/grow", self.handle_grow)
@@ -292,6 +341,12 @@ class MasterServer:
                                         name="master-reaper", daemon=True)
         self._reaper.start()
         self.watchdog.start()
+        self.tiering.start()
+        self._fed_stop.clear()
+        self._fed_thread = threading.Thread(
+            target=self.federator.run, args=(self._fed_stop,),
+            name="metrics-federation", daemon=True)
+        self._fed_thread.start()
         if self.admin_scripts:
             self._admin_stop.clear()
             self._admin_thread = threading.Thread(
@@ -300,17 +355,23 @@ class MasterServer:
             self._admin_thread.start()
 
     def stop_maintenance(self) -> None:
-        """Stop the watchdog and the admin-scripts timer: what would
-        start repairs. A cluster stops these before its volume servers,
-        or the teardown itself reads as lost servers."""
+        """Stop the watchdog, the tiering controller and the
+        admin-scripts timer: what would start repairs and transitions.
+        A cluster stops these before its volume servers, or the
+        teardown itself reads as lost servers."""
         self._admin_stop.set()
         if self._admin_thread is not None:
             self._admin_thread.join(timeout=JOIN_TIMEOUT)
             self._admin_thread = None
         self.watchdog.stop()
+        self.tiering.stop()
 
     def stop(self) -> None:
         self.stop_maintenance()
+        self._fed_stop.set()
+        if self._fed_thread is not None:
+            self._fed_thread.join(timeout=JOIN_TIMEOUT)
+            self._fed_thread = None
         self._stop.set()
         if self._reaper is not None:
             self._reaper.join(timeout=10)
@@ -337,6 +398,7 @@ class MasterServer:
             self.topo.unregister_data_node(node_id)
         if dead:
             self.watchdog.poke()
+            self.tiering.poke()
             self._broadcast_all_locations()
         return dead
 
@@ -570,9 +632,14 @@ class MasterServer:
                          "last_read_at": e.get("last_read_at", 0.0),
                          "read_count": e.get("read_count", 0)})
                        for e in hb["ec_shards"]])
+        # live repair/tier-bucket fill/debt piggybacked on the
+        # heartbeat -> visible in /cluster/status per node
         if "repair_bw" in hb:
             node.repair_bw = hb["repair_bw"]
+        if "tier_bw" in hb:
+            node.tier_bw = hb["tier_bw"]
         self.watchdog.poke()
+        self.tiering.poke()
         self._broadcast_node_update(node)
         return json_ok({"volume_size_limit": self.topo.volume_size_limit,
                         "pulse_seconds": self.pulse_seconds})
@@ -597,7 +664,67 @@ class MasterServer:
             "RepairPlacementViolations": wd.placement_violations,
             # per-node repair bucket fill/debt as last heartbeated
             "RepairBandwidth": self._repair_bandwidth(),
+            # tiering lifecycle: per-tier volume counts, queue depth,
+            # per-node tier bucket state, cluster-wide bytes moved
+            "Tiering": self._tiering_summary(),
+            "Observability": {
+                "Federation": self.federator.observability(),
+            },
         })
+
+    _TIER_BYTES_SERIES = re.compile(
+        r'^tier_bytes_moved_total\{([^}]*)\}\s+([0-9.eE+-]+)\s*$')
+
+    def _tiering_summary(self) -> dict:
+        """The /cluster/status tiering fold: controller state plus
+        cluster-wide offload/recall byte totals summed from the last
+        federated scrape of each volume server (the movement happens
+        node-side, so the master's view is the scraped corpus)."""
+        snap = self.tiering.snapshot()
+        with self.topo.lock:
+            tier_bw = {n.url: n.tier_bw
+                       for n in self.topo.nodes.values()
+                       if n.tier_bw is not None}
+        moved: dict[str, float] = {}
+        for text in self.federator.scraped_texts():
+            for line in text.splitlines():
+                m = self._TIER_BYTES_SERIES.match(line.strip())
+                if not m:
+                    continue
+                rawlab, val = m.groups()
+                labels = dict(
+                    p.split("=", 1) for p in rawlab.split(",") if "=" in p)
+                d = labels.get("dir", "").strip('"')
+                if d:
+                    moved[d] = moved.get(d, 0) + float(val)
+        return {
+            "Enabled": snap["enabled"],
+            "TierCounts": snap["tier_counts"],
+            "QueueDepth": snap["queue_depth"],
+            "RemoteConfigured": snap["remote_configured"],
+            "MaxBytesPerSec": snap["max_bytes_per_sec"],
+            "TierBandwidth": tier_bw,
+            "BytesMoved": moved,
+        }
+
+    def _self_instance(self) -> str:
+        """This master's instance label (host:port once the runner has
+        bound the listen socket, a stable placeholder before that)."""
+        url = self.admin_scripts_url
+        if url:
+            return url.split("://", 1)[-1].rstrip("/")
+        return "master"
+
+    def handle_cluster_metrics(self, req: Request) -> Response:
+        """GET /cluster/metrics — the federated, instance-labeled
+        exposition of every registered node plus this master."""
+        # first-hit freshness: a target the loop has not scraped yet
+        # gets one sweep now, so a new node shows up immediately
+        if self.federator.missing():
+            self.federator.scrape_once()
+        return text_response(
+            self.federator.merged(self_instance=self._self_instance()),
+            content_type="text/plain")
 
     def _repair_bandwidth(self) -> dict:
         with self.topo.lock:
@@ -642,6 +769,44 @@ class MasterServer:
             collection=str(body.get("collection", "")))
         return json_ok({"accepted": accepted,
                         "enabled": self.watchdog.enabled})
+
+    def handle_debug_tiering(self, req: Request) -> Response:
+        """Tiering controller state: per-volume tier states, pending
+        wants, in-flight transitions and recent results."""
+        return json_ok(self.tiering.snapshot())
+
+    def handle_tier_enqueue(self, req: Request) -> Response:
+        """Operator hook: force one tier transition.
+        {"volume": vid, "transition": "seal"|"offload"|"recall"}.
+        Malformed input is always a 400 with a JSON error."""
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
+        try:
+            body = json.loads(req.read())
+        except ValueError:
+            return json_error("tiering enqueue body must be JSON",
+                              status=400)
+        if not isinstance(body, dict):
+            return json_error("tiering enqueue body must be a JSON "
+                              "object", status=400)
+        try:
+            vid = int(body["volume"])
+        except (KeyError, TypeError, ValueError):
+            return json_error("tiering enqueue requires an integer "
+                              "volume id", status=400)
+        if vid <= 0:
+            return json_error(f"volume id must be positive, got {vid}",
+                              status=400)
+        try:
+            accepted = self.tiering.enqueue(
+                vid, str(body.get("transition", "")),
+                reason=str(body.get("reason", "operator")),
+                collection=str(body.get("collection", "")))
+        except ValueError as e:
+            return json_error(str(e), status=400)
+        return json_ok({"accepted": accepted,
+                        "enabled": self.tiering.enabled})
 
     def handle_vacuum_now(self, req: Request) -> Response:
         """/vol/vacuum?garbageThreshold=0.3 — the on-demand cluster

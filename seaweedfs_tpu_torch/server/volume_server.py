@@ -53,9 +53,22 @@ A write whose name or mime is compressible (utils/compression) is
 stored gzipped with FLAG_IS_COMPRESSED when that saves 10%, as the
 reference; the filer passes the name for such chunks.
 
+The remote tier: `tier_backends` configures the backend storages a
+volume's .dat can be uploaded to (`tier_upload` / `tier_download`, the
+shell's volume.tier.upload / download), and `tier_offload` /
+`tier_recall` move this server's shards of an EC volume to and from a
+cold remote_storage client (the tiering controller's offload and
+recall arms, volume.tier.offload / recall). Bulk tier bytes debit the
+node-wide "tier" token bucket and count in
+`tier_bytes_moved_total{dir}`; the bucket's fill and debt ride the
+heartbeat as `tier_bw`. A GET runs on its connection's own thread
+here, so a remote-backed volume's ranged reads never block another
+request: the reference's guard that keeps them off its inline fast
+path has no fast path to guard.
+
 Not here: JWT guard, multipart uploads, chunk manifests, multi-range
 replies, the native data plane, the commit
-scheduler, query, tiering, tail / sync.
+scheduler, query, tail / sync.
 """
 from __future__ import annotations
 
@@ -74,8 +87,10 @@ from ..ec.decoder import find_dat_size, write_dat_file, write_idx_from_ecx
 from ..rpc.http import (App, Request, Response, debug_index_factory,
                         file_response, json_response, text_response)
 from ..rpc.httpclient import RequestException, session
+from ..storage import backend
 from ..storage import needle as ndl
 from ..storage import types as t
+from ..storage import volume_info as vinfo
 from ..storage.store import Store
 from ..storage.super_block import ReplicaPlacement
 from ..storage.volume import Volume
@@ -113,7 +128,8 @@ class VolumeServer:
                  data_center: str = "DefaultDataCenter",
                  rack: str = "DefaultRack",
                  pulse_seconds: float = 5.0,
-                 disk_type: str = "hdd"):
+                 disk_type: str = "hdd",
+                 tier_backends: dict[str, dict] | None = None):
         self.store = store
         self.disk_type = disk_type
         self.masters = [
@@ -136,6 +152,11 @@ class VolumeServer:
         self._fetch_pool: ThreadPoolExecutor | None = None
         self._pool_lock = threading.Lock()
         self.store.remote_shards_fetcher = self._remote_shards_fetch_sync
+        # tier destinations, e.g. {"s3.default": {"endpoint":..,"bucket":..}}
+        # (the reference receives these from master.toml [storage.backend]
+        # via the heartbeat response, volume_grpc_client_to_master.go)
+        for name, conf in (tier_backends or {}).items():
+            backend.configure_storage(name, **conf)
         self.app = self._build_app()
 
     def _build_app(self) -> App:
@@ -143,6 +164,7 @@ class VolumeServer:
         app = App(bad_request=(json.JSONDecodeError, KeyError, ValueError,
                                TypeError))
         app.get("/status", self.handle_status)
+        app.get("/metrics", self.handle_metrics)
         app.get("/debug", debug_index_factory("volume", {
             "/debug/ec": "EC codec router: probe curve + backends",
         }))
@@ -165,6 +187,10 @@ class VolumeServer:
         app.post("/admin/vacuum_check", self.handle_vacuum_check)
         app.post("/admin/vacuum_compact", self.handle_vacuum_compact)
         app.get("/admin/volume_info", self.handle_volume_info)
+        app.post("/admin/tier_upload", self.handle_tier_upload)
+        app.post("/admin/tier_download", self.handle_tier_download)
+        app.post("/admin/tier_offload", self.handle_tier_offload)
+        app.post("/admin/tier_recall", self.handle_tier_recall)
         app.post("/admin/ec/generate", self.handle_ec_generate)
         app.post("/admin/ec/rebuild", self.handle_ec_rebuild)
         app.post("/admin/ec/rebuild_partial",
@@ -225,6 +251,11 @@ class VolumeServer:
             hb["repair_bw"] = bw
             metrics.gauge_set("repair_bw_fill_bytes", bw["fill"])
             metrics.gauge_set("repair_bw_debt_bytes", bw["debt"])
+        tbw = ratelimit.snapshot().get("tier")
+        if tbw is not None:
+            hb["tier_bw"] = tbw
+            metrics.gauge_set("tier_bw_fill_bytes", tbw["fill"])
+            metrics.gauge_set("tier_bw_debt_bytes", tbw["debt"])
         return hb
 
     def _heartbeat_loop(self) -> None:
@@ -740,16 +771,115 @@ class VolumeServer:
         v = self.store.find_volume(vid)
         if v is None:
             return json_response({"error": "not found"}, status=404)
-        # a .vif naming a remote .dat does not load in the port, so a
-        # mounted volume is always local
+        remote = v.volume_info.remote_file() if v.volume_info else None
         return json_response({
             "volume": vid, "size": v.content_size(),
             "file_count": v.nm.file_count,
             "deleted_bytes": v.nm.deleted_bytes,
             "garbage_ratio": v.garbage_ratio(),
             "read_only": v.read_only,
-            "remote": None,
+            "remote": ({"backend": remote.backend_name, "key": remote.key,
+                        "file_size": remote.file_size}
+                       if remote else None),
         })
+
+    # ------------------------------------------------------------------
+    # admin: tiering (volume_grpc_tier_upload.go / _download.go)
+    # ------------------------------------------------------------------
+    def handle_tier_upload(self, req: Request) -> Response:
+        body = req.json()
+        v = self.store.find_volume(int(body["volume"]))
+        if v is None:
+            return json_response({"error": "not found"}, status=404)
+        keep = bool(body.get("keepLocalDatFile", False))
+        try:
+            adopt = body.get("adopt")
+            if adopt:
+                # another replica already uploaded the object: just
+                # record it and drop the local copy
+                rf = vinfo.RemoteFile(**adopt)
+                v.tier_adopt(rf, keep)
+            else:
+                storage = backend.get_storage(
+                    body.get("dest", "s3.default"))
+                rf = v.tier_upload(storage, keep)
+        except (KeyError, ValueError) as e:
+            return json_response({"error": str(e)}, status=400)
+        self.poke_heartbeat(wait=True)
+        return json_response({
+            "volume": v.vid, "backend": rf.backend_name, "key": rf.key,
+            "backend_type": rf.backend_type, "backend_id": rf.backend_id,
+            "file_size": rf.file_size, "modified_time": rf.modified_time})
+
+    def handle_tier_download(self, req: Request) -> Response:
+        body = req.json()
+        v = self.store.find_volume(int(body["volume"]))
+        if v is None:
+            return json_response({"error": "not found"}, status=404)
+        try:
+            v.tier_download(bool(body.get("deleteRemote", True)))
+        except (ValueError, KeyError) as e:
+            return json_response({"error": str(e)}, status=400)
+        self.poke_heartbeat(wait=True)
+        return json_response({"volume": v.vid, "size": v.content_size()})
+
+    # ------------------------------------------------------------------
+    # admin: EC-shard cold tier (master/tiering.py offload/recall arms)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _tier_throttle_sync(max_bps: float, direction: str):
+        """Per-shard shaping hook for bulk tier movement: debit the
+        node-wide "tier" token bucket (so overlapping offloads and
+        recalls share one cap) and account the bytes by direction."""
+        def throttle(n: int) -> None:
+            if n <= 0:
+                return
+            metrics.counter_add("tier_bytes_moved_total", n,
+                                {"dir": direction})
+            if max_bps and max_bps > 0:
+                ratelimit.bucket("tier", max_bps).acquire(n)
+        return throttle
+
+    def handle_tier_offload(self, req: Request) -> Response:
+        """Move this server's local shards of one EC volume to the
+        remote tier named by `remote` (a remote_storage client conf);
+        reads keep flowing through the remote-backed shard objects."""
+        body = req.json()
+        vid = int(body["volume"])
+        remote_conf = body["remote"]
+        if not isinstance(remote_conf, dict) or "type" not in remote_conf:
+            return json_response(
+                {"error": "remote must be a client conf with a type"},
+                status=400)
+        max_bps = float(body.get("max_bps", 0) or 0)
+        try:
+            result = self.store.tier_offload_ec(
+                vid, remote_conf, self._tier_throttle_sync(max_bps,
+                                                           "offload"))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        except (ValueError, OSError) as e:
+            return json_response({"error": str(e)}, status=502)
+        self.poke_heartbeat(wait=True)
+        return json_response(result)
+
+    def handle_tier_recall(self, req: Request) -> Response:
+        """Bring this server's offloaded shards back to local disk
+        (the first half of a recall; the controller then runs
+        ec.decode to re-materialize the plain volume)."""
+        body = req.json()
+        vid = int(body["volume"])
+        max_bps = float(body.get("max_bps", 0) or 0)
+        try:
+            result = self.store.tier_recall_ec(
+                vid, self._tier_throttle_sync(max_bps, "recall"),
+                bool(body.get("deleteRemote", True)))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        except (ValueError, OSError) as e:
+            return json_response({"error": str(e)}, status=502)
+        self.poke_heartbeat(wait=True)
+        return json_response(result)
 
     def handle_volume_replication(self, req: Request) -> Response:
         """The replica placement of a volume — rewritten in the super
@@ -1310,6 +1440,41 @@ class VolumeServer:
             }
         snap["volumes"] = vols
         return json_response(snap)
+
+    def handle_metrics(self, req: Request) -> Response:
+        """Prometheus exposition, the master federator's scrape target;
+        the disk gauges are recomputed at scrape time (the reference's
+        volume/EC size gauges, stats/metrics.go + store_ec.go:41)."""
+        by_col: dict[str, dict] = {}
+        for loc in self.store.locations:
+            for v in list(loc.volumes.values()):
+                s = by_col.setdefault(v.collection,
+                                      {"n": 0, "bytes": 0, "files": 0})
+                s["n"] += 1
+                s["bytes"] += v.content_size()
+                s["files"] += v.nm.file_count
+        for col, s in by_col.items():
+            lab = {"collection": col or "default"}
+            metrics.gauge_set("volume_server_volumes", s["n"], lab)
+            metrics.gauge_set("volume_server_total_disk_size",
+                              s["bytes"], lab)
+            metrics.gauge_set("volume_server_file_count", s["files"], lab)
+        ec_by_col: dict[str, dict] = {}
+        for ecv in list(self.store.ec_volumes.values()):
+            s = ec_by_col.setdefault(ecv.collection,
+                                     {"shards": 0, "bytes": 0})
+            n = ecv.shard_bits().count()
+            s["shards"] += n
+            if n:
+                s["bytes"] += n * ecv.shard_size
+        for col, s in ec_by_col.items():
+            lab = {"collection": col or "default"}
+            metrics.gauge_set("volume_server_ec_shards", s["shards"], lab)
+            metrics.gauge_set("volume_server_ec_bytes", s["bytes"], lab)
+        metrics.gauge_set(
+            "volume_server_max_volumes",
+            sum(l.max_volumes for l in self.store.locations))
+        return text_response(metrics.render())
 
     def handle_status(self, req: Request) -> Response:
         return json_response({"Version": "seaweedfs-tpu-torch",

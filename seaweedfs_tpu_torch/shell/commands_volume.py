@@ -5,8 +5,11 @@ Equivalents of SeaweedFS weed/shell/command_volume_fix_replication.go,
 command_volume_balance.go, command_volume_vacuum.go (the vacuum pass
 of topology_vacuum.go:20-216), command_volume_list.go and the rest of the
 volume.* / collection.* family, with volume.scrub and its quarantine:
-the self-healing plane's operator verbs. Not here: the remote tier
-(volume.tier.upload / download / offload / recall, volume.tier.move).
+the self-healing plane's operator verbs, and the remote tier:
+volume.tier.upload / download (a volume's .dat to a backend storage
+and back), volume.tier.offload / recall (an EC volume's shard bytes to
+the cold tier and back, the tiering controller's arms) and
+volume.tier.move (volumes onto servers of another disk type).
 """
 from __future__ import annotations
 
@@ -545,6 +548,155 @@ def volume_server_leave(env: CommandEnv, server: str) -> dict:
     (command_volume_server_leave.go); it serves on until shut down."""
     env.confirm_locked()
     return env.vs_post(server, "/admin/leave", {})
+
+
+def volume_tier_upload(env: CommandEnv, vid: int,
+                       dest: str = "s3.default",
+                       keep_local: bool = False) -> list[dict]:
+    """Move a volume's .dat to a backend storage (s3) on every replica
+    (command_volume_tier_upload.go doVolumeTierUpload): mark readonly
+    first, then upload + write .vif."""
+    env.confirm_locked()
+    urls = env.volume_locations(vid)
+    if not urls:
+        raise ShellError(f"volume {vid} not found")
+    # remember which replicas were writable so a failed upload can
+    # restore them instead of leaving the volume wedged read-only
+    was_writable = []
+    for url in urls:
+        info = session().get(f"http://{url}/admin/volume_info",
+                            params={"volume": vid}, timeout=60).json()
+        if not info.get("read_only"):
+            was_writable.append(url)
+    for url in urls:
+        env.vs_post(url, "/admin/mark_readonly", {"volume": vid})
+    # upload the bytes once, from the first replica; the others just
+    # adopt the uploaded object into their .vif
+    try:
+        first = env.vs_post(urls[0], "/admin/tier_upload", {
+            "volume": vid, "dest": dest, "keepLocalDatFile": keep_local})
+    except Exception:
+        for url in was_writable:
+            env.vs_post(url, "/admin/mark_writable", {"volume": vid})
+        raise
+    out = [first]
+    adopt = {"backend_type": first["backend_type"],
+             "backend_id": first["backend_id"], "key": first["key"],
+             "file_size": first["file_size"],
+             "modified_time": first["modified_time"]}
+    for url in urls[1:]:
+        out.append(env.vs_post(url, "/admin/tier_upload", {
+            "volume": vid, "adopt": adopt,
+            "keepLocalDatFile": keep_local}))
+    return out
+
+
+def volume_tier_download(env: CommandEnv, vid: int) -> list[dict]:
+    """Bring a tiered volume's .dat back to local disk on every replica
+    (command_volume_tier_download.go). All replicas share one remote
+    object, so it is deleted only with the LAST replica's restore."""
+    env.confirm_locked()
+    urls = env.volume_locations(vid)
+    if not urls:
+        raise ShellError(f"volume {vid} not found")
+    return [env.vs_post(url, "/admin/tier_download",
+                        {"volume": vid,
+                         "deleteRemote": i == len(urls) - 1})
+            for i, url in enumerate(urls)]
+
+
+def volume_tier_offload(env: CommandEnv, vid: int, remote_conf: dict,
+                        max_bps: float = 0.0) -> list[dict]:
+    """Offload an EC volume's shard bytes to a cold remote tier on
+    every holder (the warm→cold arm of the master tiering controller).
+    Each server uploads ITS OWN local shards and swaps in remote-backed
+    shard objects, so reads keep flowing through the degraded-read
+    guard; .ecx/.ecj indexes stay local. Idempotent per server —
+    re-running after a partial failure resumes where it stopped."""
+    env.confirm_locked()
+    locations = env.ec_shard_locations(vid)
+    if not locations:
+        raise ShellError(f"ec volume {vid} not found")
+    servers: list[str] = []
+    for urls in locations.values():
+        for u in urls:
+            if u not in servers:
+                servers.append(u)
+    return [{"server": u,
+             **env.vs_post(u, "/admin/tier_offload",
+                           {"volume": vid, "remote": remote_conf,
+                            "max_bps": max_bps})}
+            for u in servers]
+
+
+def volume_tier_recall(env: CommandEnv, vid: int,
+                       max_bps: float = 0.0,
+                       decode: bool = True) -> dict:
+    """Bring an offloaded EC volume's shard bytes back to local disk
+    on every holder, then (decode=True) re-materialize the plain
+    volume via ec.decode — the cold→hot recall arm of the tiering
+    controller. Each server deletes its remote objects only after its
+    shards are local again, so a crash mid-recall loses nothing."""
+    env.confirm_locked()
+    locations = env.ec_shard_locations(vid)
+    if not locations:
+        raise ShellError(f"ec volume {vid} not found")
+    servers: list[str] = []
+    for urls in locations.values():
+        for u in urls:
+            if u not in servers:
+                servers.append(u)
+    recalled = [{"server": u,
+                 **env.vs_post(u, "/admin/tier_recall",
+                               {"volume": vid, "max_bps": max_bps})}
+                for u in servers]
+    out = {"volume": vid, "recalled": recalled}
+    if decode:
+        from .commands_ec import ec_decode
+
+        out["decoded"] = ec_decode(env, vid)
+    return out
+
+
+def volume_tier_move(env: CommandEnv, to_disk_type: str,
+                     collection: str = "",
+                     from_disk_type: str = "") -> list[dict]:
+    """Move volumes from servers of one disk type onto servers of
+    another (command_volume_tier_move.go): pick each matching volume,
+    copy it to the least-loaded target-tier server, delete the source
+    copy."""
+    env.confirm_locked()
+    nodes = env.data_nodes()
+    targets = [n for n in nodes if n.get("disk_type", "hdd")
+               == to_disk_type]
+    if not targets:
+        raise ShellError(f"no volume servers with disk type "
+                         f"{to_disk_type!r}")
+    moved = []
+    for n in nodes:
+        src_type = n.get("disk_type", "hdd")
+        if src_type == to_disk_type:
+            continue
+        if from_disk_type and src_type != from_disk_type:
+            continue
+        for vid in n["volumes"]:
+            if collection and \
+                    n.get("collections", {}).get(str(vid)) != collection:
+                continue
+            held = {t["url"] for t in targets
+                    if vid in t["volumes"]}
+            candidates = [t for t in targets
+                          if t["url"] not in held
+                          and len(t["volumes"]) < t["max_volumes"]]
+            if not candidates:
+                continue
+            target = min(candidates, key=lambda t: len(t["volumes"]))
+            volume_move(env, vid, n["url"], target["url"])
+            target["volumes"].append(vid)
+            moved.append({"volume": vid, "from": n["url"],
+                          "to": target["url"],
+                          "tier": f"{src_type}->{to_disk_type}"})
+    return moved
 
 
 def volume_vacuum_toggle(env: CommandEnv, disable: bool) -> dict:

@@ -4,16 +4,16 @@ Equivalent of SeaweedFS weed/shell/shell_liner.go: a line-based REPL
 over the command registry, with the admin lock (commands.go:78). The
 port's registry holds lock / unlock, cluster.check, cluster.ps and the
 cluster.raft.* commands, the collection.* and volume.* commands (scrub,
-vacuum, replication, mount, move, ...) and the ec.* commands. The
-volume.tier.* commands wait for the remote tier and raise a ShellError
-that says so; every other command of the reference (fs.*, remote.*,
-s3.*, mq.*) is not ported and answers "unknown command".
+vacuum, replication, mount, move, the volume.tier.* remote tier, ...)
+and the ec.* commands; every other command of the reference (fs.*,
+remote.*, s3.*, mq.*) is not ported and answers "unknown command".
 """
 from __future__ import annotations
 
 import json
 import shlex
 
+from ..remote_storage.client import parse_remote_spec
 from . import commands_cluster, commands_ec, commands_volume
 from .env import CommandEnv, ShellError
 
@@ -33,6 +33,7 @@ HELP = """commands:
   volume.configure.replication -volumeId=N -replication=xyz
   volume.deleteEmpty [-quietFor=86400] [-force]
   volume.server.leave -server=H     stop a server's heartbeats
+  volume.tier.move -toDiskType=ssd [-fromDiskType=] [-collection=]
   volume.balance                    even out volume counts
   volume.fix.replication            re-replicate under-replicated volumes
   volume.copy -volumeId=N -source=H -target=H
@@ -45,6 +46,11 @@ HELP = """commands:
   volume.fsck                       filer chunks vs volume needles
   volume.scrub [-volumeId=N] [-collection=C] [-limit=N]
                                     full-read CRC verification
+  volume.tier.upload -volumeId=N [-dest=s3.default] [-keepLocalDatFile]
+  volume.tier.download -volumeId=N  bring a tiered .dat back to disk
+  volume.tier.offload -volumeId=N -remote='{"type":...}' [-maxBps=0]
+                                    offload EC shard bytes to cold tier
+  volume.tier.recall -volumeId=N [-maxBps=0] [-noDecode]
   ec.encode -volumeId=N [-codec=k.m]  erasure-code a volume (wide tier)
   ec.verify -volumeId=N [-sampleMB=4] [-backend=numpy|native|torch|cuda]
                                     parity-check spread shards
@@ -54,11 +60,6 @@ HELP = """commands:
   help / exit
 """
 
-
-# the reference's remote-tier commands, which need the remote tier
-TIER_COMMANDS = frozenset({"volume.tier.move", "volume.tier.upload",
-                           "volume.tier.download", "volume.tier.offload",
-                           "volume.tier.recall"})
 
 
 def run_command(env: CommandEnv, line: str) -> object:
@@ -126,6 +127,10 @@ def run_command(env: CommandEnv, line: str) -> object:
             force="force" in opts)
     if cmd == "volume.server.leave":
         return commands_volume.volume_server_leave(env, opts["server"])
+    if cmd == "volume.tier.move":
+        return commands_volume.volume_tier_move(
+            env, opts["toDiskType"], opts.get("collection", ""),
+            opts.get("fromDiskType", ""))
     if cmd == "volume.balance":
         return commands_volume.volume_balance(env)
     if cmd == "volume.fix.replication":
@@ -159,9 +164,23 @@ def run_command(env: CommandEnv, line: str) -> object:
         return commands_volume.volume_scrub(
             env, int(opts.get("volumeId", 0)),
             opts.get("collection", ""), int(opts.get("limit", 0)))
-    if cmd in TIER_COMMANDS:
-        raise ShellError(f"{cmd} is not yet ported: it waits for the "
-                         f"remote tier")
+    if cmd == "volume.tier.upload":
+        return commands_volume.volume_tier_upload(
+            env, int(opts["volumeId"]), opts.get("dest", "s3.default"),
+            keep_local="keepLocalDatFile" in opts)
+    if cmd == "volume.tier.download":
+        return commands_volume.volume_tier_download(
+            env, int(opts["volumeId"]))
+    if cmd == "volume.tier.offload":
+        return commands_volume.volume_tier_offload(
+            env, int(opts["volumeId"]),
+            parse_remote_spec(opts["remote"]),
+            max_bps=float(opts.get("maxBps", 0) or 0))
+    if cmd == "volume.tier.recall":
+        return commands_volume.volume_tier_recall(
+            env, int(opts["volumeId"]),
+            max_bps=float(opts.get("maxBps", 0) or 0),
+            decode="noDecode" not in opts)
     # -- erasure coding -------------------------------------------------
     if cmd == "ec.encode":
         return commands_ec.ec_encode(env, int(opts["volumeId"]),

@@ -5,9 +5,11 @@ Mirrors the reference's plugin pattern (weed/storage/backend/
 backend.go:15-45): a `StorageFile` is the random-access byte store a
 volume's .dat lives on; factories are registered by type string so
 more backends can be added without touching the engine. Here: disk,
-memory, mmap and the gated rclone placeholder. The remote tier
-(S3RangeFile, S3BackendStorage and the configured-storage registry)
-is not in this package yet.
+memory, mmap, the gated rclone placeholder, and the remote tier: a
+tiered volume's .dat as a read-only S3RangeFile (ranged GETs) of one
+S3BackendStorage, kept in the configured-storage registry
+(`configure_storage` / `get_storage` / `storage_names`, keyed
+"s3.<id>").
 """
 from __future__ import annotations
 
@@ -159,6 +161,107 @@ class MemoryFile:
         pass
 
 
+class S3RangeFile:
+    """Read-only view of a tiered volume's .dat living in an
+    S3-compatible bucket (backend/s3_backend/s3_backend.go
+    S3BackendStorageFile): reads become ranged GETs; writes are
+    forbidden — tiered volumes are read-only by construction
+    (shell/command_volume_tier_upload.go marks them so first)."""
+
+    remote = True  # every read is a network round trip
+
+    def __init__(self, storage: "S3BackendStorage", key: str, size: int):
+        self._storage = storage
+        self._key = key
+        self._size = size
+
+    @property
+    def name(self) -> str:
+        return f"s3://{self._storage.bucket}/{self._key}"
+
+    def read_at(self, size: int, offset: int) -> bytes:
+        if offset >= self._size or size <= 0:
+            return b""
+        end = min(offset + size, self._size) - 1
+        return self._storage.get_range(self._key, offset, end)
+
+    def write_at(self, data: bytes, offset: int) -> int:
+        raise PermissionError("tiered volume is read-only")
+
+    def append(self, data: bytes) -> int:
+        raise PermissionError("tiered volume is read-only")
+
+    def truncate(self, size: int) -> None:
+        raise PermissionError("tiered volume is read-only")
+
+    def size(self) -> int:
+        return self._size
+
+    def flush(self) -> None:
+        pass
+
+    def sync(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class S3BackendStorage:
+    """One configured S3-compatible tier destination
+    (backend/s3_backend/s3_backend.go S3BackendStorage): uploads a
+    volume's .dat as one object, serves ranged reads back, deletes on
+    un-tier. HTTP mechanics live in the shared s3.client.S3Client."""
+
+    def __init__(self, id: str = "default", prefix: str = "", **conf):
+        from ..s3.client import S3Client
+        self.id = id
+        self.prefix = prefix.strip("/")
+        self._c = S3Client(**conf)
+        self.bucket = self._c.bucket
+
+    @property
+    def name(self) -> str:
+        return f"s3.{self.id}"
+
+    def object_key(self, filename: str) -> str:
+        base = os.path.basename(filename)
+        return f"{self.prefix}/{base}" if self.prefix else base
+
+    def upload_file(self, f: StorageFile, key: str,
+                    chunk: int = 64 << 20) -> int:
+        """Move the .dat into the bucket; small files in one signed
+        PUT, larger ones as a streamed PUT (the reference
+        multipart-uploads via s3manager)."""
+        total = f.size()
+        if total <= chunk:
+            self._c.put_object(key, f.read_at(total, 0))
+            return total
+
+        class _R:
+            off = 0
+
+            def read(self, n: int) -> bytes:
+                blob = f.read_at(min(n, chunk), self.off)
+                self.off += len(blob)
+                return blob
+
+        return self._c.put_stream(key, _R(), total)
+
+    def get_range(self, key: str, start: int, end: int) -> bytes:
+        return self._c.get_object(key, offset=start,
+                                  size=end - start + 1)
+
+    def download_to(self, key: str, dest_path: str) -> int:
+        return self._c.download_to(key, dest_path)
+
+    def delete(self, key: str) -> None:
+        self._c.delete_object(key)
+
+    def open_file(self, key: str, size: int) -> S3RangeFile:
+        return S3RangeFile(self, key, size)
+
+
 class MmapFile:
     remote = False
 
@@ -275,7 +378,8 @@ class RcloneFile:
 
     available = False
     unavailable_reason = ("needs the rclone binary on PATH, which this "
-                          "build does not ship")
+                          "build does not ship; tier to s3 instead "
+                          "(backend 's3')")
 
     def __init__(self, *a, **kw):
         raise RuntimeError(
@@ -289,6 +393,10 @@ _factories: dict[str, Callable[..., StorageFile]] = {
     "mmap": MmapFile,
     "rclone": RcloneFile,
 }
+
+# configured tier destinations keyed "type.id" ("s3.default"), the
+# BackendStorages registry of backend.go:44
+_storages: dict[str, S3BackendStorage] = {}
 
 
 def register(name: str, factory: Callable[..., StorageFile]) -> None:
@@ -307,3 +415,26 @@ def create(kind: str, *args, **kwargs) -> StorageFile:
             f"backend {kind!r} not available in this build: "
             f"{getattr(factory, 'unavailable_reason', 'unavailable')}")
     return factory(*args, **kwargs)
+
+
+def configure_storage(name: str, **conf) -> S3BackendStorage:
+    """Configure a tier destination; `name` is "s3.<id>"
+    (LoadConfiguration, backend.go:50-70)."""
+    btype, _, bid = name.partition(".")
+    if btype != "s3":
+        raise KeyError(f"unknown backend storage type {btype!r}")
+    s = S3BackendStorage(id=bid or "default", **conf)
+    _storages[s.name] = s
+    return s
+
+
+def get_storage(name: str) -> S3BackendStorage:
+    try:
+        return _storages[name]
+    except KeyError:
+        raise KeyError(f"backend storage {name!r} not configured; "
+                       f"known: {sorted(_storages)}") from None
+
+
+def storage_names() -> list[str]:
+    return sorted(_storages)

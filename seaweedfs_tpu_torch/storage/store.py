@@ -25,12 +25,18 @@ Where the codecs run:
   fallback: the device is never tried for it, because a dispatch and
   its transfers are latency with no throughput to gain at that size.
 
-Not here yet: the remote tier (`remote_client_for`, `tier_offload_ec`,
-`tier_recall_ec`, `ec_remote_shards` and the `.rsm` manifest that
-re-mounts offloaded shards on start).
+The cold tier (the master's tiering controller's offload and recall
+arms): `tier_offload_ec` moves this server's local shards of an EC
+volume to a remote_storage client under deterministic keys
+(`tier_shard_key`) and mounts remote-backed shards in their place;
+`tier_recall_ec` brings them back. The `.rsm` manifest records every
+offloaded shard (atomic tmp + fsync + rename after each one), so both
+resume after a crash without duplicate objects, and a restarted store
+re-mounts the offloaded shards remote-backed.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -55,6 +61,35 @@ RemoteShardReader = Callable[[int, int, int, int], "bytes | None"]
 # -> {sid: bytes}; returns as soon as `need` shards arrive (first-k-wins)
 RemoteShardsFetcher = Callable[[int, list, int, int, int, float],
                                "dict[int, bytes]"]
+
+# byte-rate shaping hook for bulk tier movement: fn(n_bytes) blocks
+# until the bytes are admitted (volume server wires the "tier" bucket)
+TierThrottle = Callable[[int], None]
+
+
+def tier_shard_key(collection: str, vid: int, sid: int) -> str:
+    """Deterministic remote object key for one offloaded EC shard.
+    Determinism is the no-duplicate-objects guarantee: a transition
+    retried after a crash overwrites the same key instead of minting a
+    new object."""
+    return f"tier-ec/{collection or 'default'}/{vid}/{sid:02d}.ec"
+
+
+# one remote client per distinct config, process-wide (clients are
+# stateless wrappers; S3 ones hold a signing-key cache worth sharing)
+_remote_clients: dict[str, object] = {}
+_remote_lock = threading.Lock()
+
+
+def remote_client_for(conf: dict):
+    from ..remote_storage.client import make_client
+
+    key = json.dumps(conf, sort_keys=True)
+    with _remote_lock:
+        c = _remote_clients.get(key)
+        if c is None:
+            c = _remote_clients[key] = make_client(conf)
+        return c
 
 
 class Store:
@@ -105,6 +140,13 @@ class Store:
                             ecv.base_name() + geo.shard_ext(sid)):
                         ecv.mount_shard(sid)
                 self.ec_volumes[vid] = ecv
+                # shards offloaded to the cold tier re-mount
+                # remote-backed from the manifest (restart survival)
+                try:
+                    self._mount_manifest_shards(ecv)
+                except Exception as e:
+                    loc.load_errors.append(
+                        (vid, f"remote shards: {type(e).__name__}: {e}"))
 
     # -- volume management --------------------------------------------
     def find_volume(self, vid: int):
@@ -606,6 +648,144 @@ class Store:
             rs = cache[(code.spec, backend)] = ReedSolomon(
                 ecv.k, ecv.m, backend=backend, code=code)
         return rs
+
+    # -- cold-tier offload / recall (remote_storage clients) -------------
+    def _manifest_path(self, ecv: EcVolume) -> str:
+        return ecv.base_name() + ".rsm"
+
+    def _load_manifest(self, ecv: EcVolume) -> dict | None:
+        try:
+            with open(self._manifest_path(ecv), encoding="utf-8") as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return None
+
+    def _save_manifest(self, ecv: EcVolume, man: dict) -> None:
+        """Atomic write: a crash mid-offload must leave either the old
+        or the new shard inventory, never a torn one."""
+        path = self._manifest_path(ecv)
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(man, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def _mount_manifest_shards(self, ecv: EcVolume) -> None:
+        """Re-mount remote-backed shards recorded in the manifest
+        (volume-server restart while the volume is cold)."""
+        man = self._load_manifest(ecv)
+        if man is None:
+            return
+        client = remote_client_for(man["remote"])
+        for sid_s, ent in man.get("shards", {}).items():
+            sid = int(sid_s)
+            prev = ecv.shards.get(sid)
+            if prev is not None and not prev.remote:
+                continue  # local file won a race with the manifest
+            ecv.mount_remote_shard(sid, ent["key"], int(ent["size"]),
+                                   client.read_file)
+
+    def tier_offload_ec(self, vid: int, remote_conf: dict,
+                        throttle: TierThrottle | None = None) -> dict:
+        """Move this server's local shards of one EC volume to a
+        remote tier; reads keep working through the remote-backed
+        shard objects (degraded-read guard intact). Idempotent: shards
+        already offloaded are skipped, keys are deterministic, and the
+        manifest is persisted after every shard — a crash mid-offload
+        resumes without duplicate remote objects or lost bytes."""
+        ecv = self.ec_volumes.get(vid)
+        if ecv is None:
+            raise KeyError(f"ec volume {vid} not found")
+        client = remote_client_for(remote_conf)
+        man = self._load_manifest(ecv) or {
+            "volume": vid, "collection": ecv.collection,
+            "remote": remote_conf, "shards": {}}
+        moved = 0
+        offloaded: list[int] = []
+        for sid in sorted(ecv.shards):
+            shard = ecv.shards[sid]
+            if shard.remote:
+                continue  # already cold (resume after crash)
+            key = tier_shard_key(ecv.collection, vid, sid)
+            size = shard.size
+            if throttle is not None:
+                throttle(size)
+            data = shard.read_at(0, size)
+            client.write_file(key, data)
+            # manifest BEFORE deleting the local file: worst case after
+            # a crash is a re-upload over the same key, never data loss
+            man["shards"][str(sid)] = {"key": key, "size": size}
+            self._save_manifest(ecv, man)
+            path = getattr(shard, "path", "")
+            ecv.mount_remote_shard(sid, key, size, client.read_file)
+            if path:
+                try:
+                    os.remove(path)
+                except FileNotFoundError:
+                    pass
+            moved += size
+            offloaded.append(sid)
+        return {"volume": vid, "moved_bytes": moved,
+                "offloaded": offloaded,
+                "remote_shards": sorted(int(s) for s in man["shards"])}
+
+    def tier_recall_ec(self, vid: int,
+                       throttle: TierThrottle | None = None,
+                       delete_remote: bool = True) -> dict:
+        """Bring this server's offloaded shards back to local disk.
+        Idempotent mirror of tier_offload_ec: already-local shards are
+        skipped, downloads land via tmp+rename, and the remote objects
+        plus manifest are removed only once every shard is local."""
+        ecv = self.ec_volumes.get(vid)
+        if ecv is None:
+            raise KeyError(f"ec volume {vid} not found")
+        man = self._load_manifest(ecv)
+        if man is None:
+            return {"volume": vid, "moved_bytes": 0, "recalled": []}
+        client = remote_client_for(man["remote"])
+        base = ecv.base_name()
+        moved = 0
+        recalled: list[int] = []
+        for sid_s, ent in sorted(man.get("shards", {}).items()):
+            sid = int(sid_s)
+            shard = ecv.shards.get(sid)
+            if shard is not None and not shard.remote:
+                continue  # already recalled (resume after crash)
+            size = int(ent["size"])
+            if throttle is not None:
+                throttle(size)
+            data = client.read_file(ent["key"])
+            path = base + geo.shard_ext(sid)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            if shard is not None:
+                ecv.unmount_shard(sid)
+            ecv.mount_shard(sid)
+            for loc in self.locations:
+                if loc.dir == ecv.dir:
+                    loc.add_ec_shard(ecv.collection, vid, sid)
+            moved += len(data)
+            recalled.append(sid)
+        if delete_remote:
+            for ent in man.get("shards", {}).values():
+                client.delete_file(ent["key"])
+        try:
+            os.remove(self._manifest_path(ecv))
+        except FileNotFoundError:
+            pass
+        return {"volume": vid, "moved_bytes": moved,
+                "recalled": recalled}
+
+    def ec_remote_shards(self, vid: int) -> list[int]:
+        ecv = self.ec_volumes.get(vid)
+        if ecv is None:
+            return []
+        return sorted(sid for sid, s in ecv.shards.items() if s.remote)
 
     # -- heartbeat -------------------------------------------------------
     def collect_heartbeat(self) -> dict:

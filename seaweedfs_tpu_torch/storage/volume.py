@@ -11,11 +11,15 @@ Differences from the reference are deliberate simplifications, not
 omissions: no async write queue (the server layer batches), and the
 needle map is one of storage.needle_map's three kinds.
 
+The remote tier: a .dat the .vif records as uploaded to a backend
+storage (storage/backend.py S3BackendStorage) opens as a read-only
+S3RangeFile, so reads become ranged GETs (`tier_upload` /
+`tier_adopt` / `tier_download` move it there and back; compaction
+refuses a remote .dat, and `destroy` deletes the remote object).
+
 Not here yet: the native data-plane delegation (`attach_native` /
-`detach_native`, which hand the hot path to native/dataplane.cc), the
-remote tier (`tier_upload` / `tier_adopt` / `tier_download`, and
-opening a .dat recorded as tiered in the .vif, which raises), and the
-group-commit step `commit_batch` of storage/commit.py. `rebuild_index`
+`detach_native`, which hand the hot path to native/dataplane.cc) and
+the group-commit step `commit_batch` of storage/commit.py. `rebuild_index`
 scans an on-disk .dat with the native record walker
 (`native.dat_scan`) and an in-memory one with the Python loop; a
 native library that does not build raises.
@@ -59,16 +63,24 @@ class Volume:
         exists = os.path.exists(base + ".dat")
         self.volume_info = vinfo.maybe_load_volume_info(base + ".vif")
         remote = self.volume_info.remote_file() if self.volume_info else None
-        if remote is not None:
-            raise ValueError(
-                f"volume {vid}: its .dat is tiered to {remote.backend_name}"
-                "; the remote tier is not in seaweedfs_tpu_torch")
-        if backend_kind in ("disk", "mmap"):
+        if remote is not None and not exists:
+            # .dat tiered off to a backend storage: open the remote copy
+            # (disk_location.go loadVolumeInfo → s3 BackendStorageFile)
+            storage = bk.get_storage(remote.backend_name)
+            self.dat = storage.open_file(remote.key, remote.file_size)
+            self.read_only = True
+        elif remote is not None:
+            # tiered with keepLocalDatFile: serve from the local copy
+            # but stay read-only — appends would silently diverge from
+            # the remote object recorded in the .vif
+            self.dat = bk.DiskFile(base + ".dat")
+            self.read_only = True
+        elif backend_kind in ("disk", "mmap"):
             self.dat = bk.create(backend_kind, base + ".dat",
                                  create=create or not exists)
         else:
             self.dat = bk.create(backend_kind, base + ".dat")
-        if exists and self.dat.size() >= 8:
+        if (exists or remote is not None) and self.dat.size() >= 8:
             self.super_block = self._read_super_block()
         else:
             self.super_block = SuperBlock(
@@ -642,10 +654,91 @@ class Volume:
                 "last_append_at_ns": self.last_append_at_ns,
                 "read_only": self.read_only}
 
+    # -- tiering -------------------------------------------------------
+    @property
+    def is_remote(self) -> bool:
+        """True when the .dat lives on a backend storage (tiered)."""
+        return isinstance(self.dat, bk.S3RangeFile)
+
+    def tier_upload(self, storage: "bk.S3BackendStorage",
+                    keep_local: bool = False) -> vinfo.RemoteFile:
+        """Move the .dat to a backend storage and record it in .vif
+        (VolumeTierMoveDatToRemote, volume_grpc_tier_upload.go;
+        shell command_volume_tier_upload.go). The volume becomes
+        read-only; the .idx stays local."""
+        if self.is_remote or (self.volume_info and
+                              self.volume_info.remote_file()):
+            raise ValueError(f"volume {self.vid} is already tiered")
+        base = self.file_name()
+        was_read_only = self.read_only
+        self.read_only = True
+        self.sync()
+        key = storage.object_key(base + ".dat")
+        try:
+            size = storage.upload_file(self.dat, key)
+        except Exception:
+            # a failed upload must not wedge the volume read-only
+            self.read_only = was_read_only
+            raise
+        rf = vinfo.RemoteFile(
+            backend_type="s3", backend_id=storage.id, key=key,
+            file_size=size, modified_time=int(time.time()))
+        self._adopt_remote(rf, keep_local, storage)
+        return rf
+
+    def tier_adopt(self, rf: vinfo.RemoteFile, keep_local: bool = False) \
+            -> None:
+        """Record an already-uploaded remote copy in the .vif and drop
+        the local .dat — used by replicas after one of them did the
+        actual upload, so an N-replica tier.upload transfers the bytes
+        once, not N times."""
+        if self.is_remote:
+            raise ValueError(f"volume {self.vid} is already tiered")
+        self.read_only = True
+        self.sync()
+        self._adopt_remote(rf, keep_local, bk.get_storage(rf.backend_name))
+
+    def _adopt_remote(self, rf: vinfo.RemoteFile, keep_local: bool,
+                      storage: "bk.S3BackendStorage") -> None:
+        base = self.file_name()
+        self.volume_info = vinfo.VolumeInfo(
+            version=self.version,
+            replication=str(self.super_block.replica_placement),
+            files=[rf])
+        vinfo.save_volume_info(base + ".vif", self.volume_info)
+        if not keep_local:
+            self.dat.close()
+            os.remove(base + ".dat")
+            self.dat = storage.open_file(rf.key, rf.file_size)
+
+    def tier_download(self, delete_remote: bool = True) -> None:
+        """Bring a tiered .dat back to local disk
+        (VolumeTierMoveDatFromRemote, volume_grpc_tier_download.go)."""
+        remote = self.volume_info.remote_file() if self.volume_info else None
+        if remote is None:
+            raise ValueError(f"volume {self.vid} is not tiered")
+        storage = bk.get_storage(remote.backend_name)
+        base = self.file_name()
+        if not os.path.exists(base + ".dat"):
+            storage.download_to(remote.key, base + ".dat")
+        self.dat.close()
+        self.dat = bk.DiskFile(base + ".dat")
+        self.volume_info = None
+        try:
+            os.remove(base + ".vif")
+        except FileNotFoundError:
+            pass
+        if delete_remote:
+            storage.delete(remote.key)
+        self.read_only = False
+
     def compact(self) -> None:
         """Two-phase vacuum: write surviving live needles to .cpd/.cpx,
         then atomically swap (Compact2 + CommitCompact,
         volume_vacuum.go:67,102)."""
+        if self.is_remote:
+            raise PermissionError(
+                f"volume {self.vid} is tiered; download before compacting")
         base = self.file_name()
         cpd, cpx = base + ".cpd", base + ".cpx"
         new_sb = SuperBlock(
@@ -748,7 +841,13 @@ class Volume:
                 self.nm.close()
 
     def destroy(self) -> None:
+        remote = self.volume_info.remote_file() if self.volume_info else None
         self.close()
+        if remote is not None:
+            try:
+                bk.get_storage(remote.backend_name).delete(remote.key)
+            except KeyError:
+                pass  # backend no longer configured; leave the object
         base = self.file_name()
         exts = [".dat", ".idx"]
         # ec.encode deletes the source volume AFTER generating shards:

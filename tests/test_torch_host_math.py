@@ -232,7 +232,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "seaweedfs_tpu_torch/master/raft.py",
             "seaweedfs_tpu_torch/rpc/websocket.py",
             "seaweedfs_tpu_torch/server/master_follower.py",
-            "seaweedfs_tpu_torch/shell/commands_cluster.py"} <= rel
+            "seaweedfs_tpu_torch/shell/commands_cluster.py",
+            "seaweedfs_tpu_torch/master/tiering.py",
+            "seaweedfs_tpu_torch/master/collector.py",
+            "seaweedfs_tpu_torch/remote_storage/client.py",
+            "seaweedfs_tpu_torch/s3/client.py"} <= rel
     bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
            for path in files for line, n in _imports(path) if _forbidden(n)]
     assert not bad, bad
@@ -328,6 +332,29 @@ def test_scan_covers_the_mesh_layer(module):
     """The multi-GPU slice's modules are scanned, each has its reference
     at the same path, and none imports jax, seaweedfs_tpu or anything
     the card's machine lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
+
+
+TIER_LAYER = ["s3/sigv4_client.py", "s3/client.py",
+              "remote_storage/__init__.py", "remote_storage/client.py",
+              "storage/backend.py", "storage/volume.py",
+              "storage/disk_location.py", "storage/store.py",
+              "ec/volume.py", "server/volume_server.py",
+              "shell/commands_volume.py", "shell/repl.py",
+              "master/tiering.py", "master/collector.py",
+              "server/master_server.py", "server/cluster.py", "cli.py",
+              "rpc/httpclient.py"]
+
+
+@pytest.mark.parametrize("module", TIER_LAYER)
+def test_scan_covers_the_tier_layer(module):
+    """The tiered-storage slice's modules are scanned, each has its
+    reference at the same path, and none imports jax, seaweedfs_tpu,
+    aiohttp, requests or anything the card's machine lacks."""
     path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
     assert path in _port_python_files()
     assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))

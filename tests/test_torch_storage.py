@@ -583,12 +583,23 @@ def test_volume_read_only_and_destroy(tmp_path, pinned_clock):
 
 
 def test_volume_refuses_a_tiered_dat(tmp_path):
+    """A .vif naming a remote .dat on a backend storage this process has
+    not configured: both packages refuse to open the volume with the
+    same KeyError. (Since the remote tier was ported, a configured one
+    opens read-only through ranged GETs: tests/test_torch_remote_tier.py.)"""
+    from seaweedfs_tpu.storage import volume as ref_volume
     from seaweedfs_tpu_torch.storage import volume_info as vinfo
 
     vinfo.save_volume_info(str(tmp_path / "4.vif"), vinfo.VolumeInfo(
-        files=[vinfo.RemoteFile(key="k", file_size=8)]))
-    with pytest.raises(ValueError, match="tiered"):
-        volume_mod.Volume(str(tmp_path), "", 4)
+        files=[vinfo.RemoteFile(backend_id="nosuchtier", key="k",
+                                file_size=8)]))
+    errs = []
+    for mod in (ref_volume, volume_mod):
+        with pytest.raises(KeyError, match="not configured") as ei:
+            mod.Volume(str(tmp_path), "", 4)
+        errs.append(str(ei.value).split("; known")[0])
+    assert errs[1] == errs[0]
+    assert os.listdir(tmp_path) == ["4.vif"]
 
 
 # -- workload sketches -------------------------------------------------------
