@@ -221,11 +221,51 @@ Phases, each fatal on failure (exit code 1, no result line):
       needle equal; each wall.
    h. The current device is what it was before phase 12.
 
+13. The robustness and observability layer under the reference's
+   seeded chaos spec (tests/test_chaos_deterministic.py:
+   volume:*:error=0.05, filer:*:error=0.05, 30 ms delays on both, seed
+   20240817, 5 attempts per hop). The master is a process of `python
+   -m seaweedfs_tpu_torch -fault.spec ... -fault.seed ... -trace.sample
+   1 -retry.maxAttempts 5 master` (pulse 0.5 s, the watchdog at grace
+   0, -tier.enabled, -master.scrapeInterval 0.5); phase 9's five volume servers over three racks on "cuda", a
+   sqlite filer (the DLM) and the S3 gateway run here, with one span
+   pusher to the master. Each step is fatal on failure:
+   a. No faults: phase 9's seeded needles fill a 1 GiB volume; 512
+      seeded reads and 200 S3 PUT/GET cycles (the reference chaos
+      test's objects) are the baseline; a copy of the .dat is encoded
+      with the native codec.
+   b. Faults on, in this process (the master has them from its flags).
+   c. The tiering controller's seal (POST /debug/tiering): one
+      attempt, exactly ec.encode's launches (4 at 1 GiB), no repair
+      during it, 14 shards sha256-equal to the fault-free encode.
+   d. The server with the fewest shards stopped: the master's breaker
+      for it reads open in its topology dump and at /debug/breakers
+      (its federation scrape trips it); the watchdog's partial rebuild
+      in one attempt with one launch per 4 MiB chunk of a shard (26 at
+      1 GiB), 14 live shards, rebuilt ones sha256-equal; 512 degraded
+      reads run meanwhile; the server restarted at its address (an
+      empty disk) re-registers and the master's breaker reads closed.
+   e. 200 S3 PUT/GET cycles: md5 and ETag equal, the listing exact, one
+      needle per PUT in the bucket's volumes.
+   f. /cluster/traces holds the seal's trace (the controller's `tier
+      seal` span, the volume server's handle_ec_generate span and its
+      ec.write_ec_files span) and the rebuild's (the watchdog's `repair
+      ec` span, its client span over the rebuilder's
+      handle_ec_rebuild_partial span), each across both processes, no
+      span_id twice, as many spans in ?format=otlp, none at the
+      collector's 512-span guard; no pusher dropped a span; faults fired on the volume and filer hops. Printed: each
+      operation's root and server span beside the launches' CUDA-event
+      time.
+   g. /debug/workload: cluster.read_size.count > 0.
+   h. The master answers a 1 MiB + 1 body with 413.
+   i. The current device is what it was before phase 13.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import glob
 import hashlib
 import json
@@ -3532,6 +3572,571 @@ def phase_tier(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+CHAOS_SPEC = ("volume:*:error=0.05,filer:*:error=0.05,"
+              "volume:*:delay=30ms,filer:*:delay=30ms")
+CHAOS_SEED = 20240817            # tests/test_chaos_deterministic.py
+CHAOS_ATTEMPTS = 5               # its retry budget
+CHAOS_CYCLES = 200               # its S3 PUT/GET cycles
+CHAOS_READS = 512                # needle reads, before and under faults
+CHAOS_SCRAPE = 0.5               # -master.scrapeInterval
+REBUILD_CHUNK = 4 << 20          # ec/rebuild_partial's default chunk
+
+
+class _KernelEvents:
+    """CUDA events around each launch of the kernel while active: the
+    wrapper stands in for codec_cuda.coded_matmul (the launch counts
+    stay on the function the kernel's own code increments), and
+    `ms()` is the sum of the launches' device times."""
+
+    def __init__(self):
+        self.pairs: list = []
+
+    def __enter__(self):
+        from seaweedfs_tpu_torch.ops import codec_cuda
+
+        orig = codec_cuda.coded_matmul
+        pairs = self.pairs
+
+        def timed(tables, x, m, out=None):
+            if x.device.type != "cuda":
+                return orig(tables, x, m, out=out)
+            stream = torch.cuda.current_stream(x.device)
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            s.record(stream)
+            r = orig(tables, x, m, out=out)
+            e.record(stream)
+            pairs.append((s, e))
+            return r
+
+        timed.launches = orig.launches
+        timed.launches_by_device = orig.launches_by_device
+        self._orig, self._timed = orig, timed
+        codec_cuda.coded_matmul = timed
+        return self
+
+    def __exit__(self, *exc):
+        from seaweedfs_tpu_torch.ops import codec_cuda
+
+        codec_cuda.coded_matmul = self._orig
+        self._orig.launches = self._timed.launches
+        self._orig.launches_by_device = self._timed.launches_by_device
+        return False
+
+    def ms(self) -> float:
+        if not self.pairs:
+            return 0.0
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def _s3_cycles(s3, bucket: str, label: str) -> dict:
+    """The reference chaos test's cycles: PUT then GET of object i
+    (100 + i bytes), each equal, ETag = md5. -> wall, latencies."""
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(CHAOS_CYCLES):
+        body = (f"chaos-{i}-".encode() * 8)[:100 + i]
+        key = f"/{bucket}/obj-{i:03d}"
+        r0 = time.perf_counter()
+        p = s3("PUT", key, data=body)
+        if p.status_code != 200 or \
+                p.headers.get("ETag", "").strip('"') != \
+                hashlib.md5(body).hexdigest():
+            fail(f"{label}: PUT {key}: {p.status_code} "
+                 f"{p.headers.get('ETag')} {p.text[:200]}")
+        g = s3("GET", key)
+        if g.status_code != 200 or g.content != body or \
+                g.headers.get("ETag", "").strip('"') != \
+                hashlib.md5(body).hexdigest():
+            fail(f"{label}: GET {key}: {g.status_code}, other bytes or "
+                 f"ETag")
+        lat.append(time.perf_counter() - r0)
+    wall = time.perf_counter() - t0
+    r = s3("GET", f"/{bucket}?list-type=2&max-keys=1000")
+    keys = [seg.split("</Key>")[0] for seg in r.text.split("<Key>")[1:]]
+    if r.status_code != 200 or \
+            keys != [f"obj-{i:03d}" for i in range(CHAOS_CYCLES)]:
+        fail(f"{label}: the listing of {bucket} is not exactly the "
+             f"{CHAOS_CYCLES} keys: {r.status_code} {keys[:5]}...")
+    return {"wall": wall, "rate": CHAOS_CYCLES / wall, "lat": _lat(lat)}
+
+
+def _needle_records(cluster, env, collection: str) -> int:
+    """Needle records appended to the .dat files of `collection`'s
+    volumes (each server's copy counted once per volume)."""
+    seen = set()
+    total = 0
+    for vid in _bucket_vids(env, collection):
+        for store in cluster.stores:
+            v = store.find_volume(vid)
+            if v is None or vid in seen:
+                continue
+            seen.add(vid)
+            v.sync()
+            total += len(_records(v.file_name() + ".dat", 8,
+                                  v.content_size()))
+    return total
+
+
+def _diff_chunks(path: str, ref: str, chunk: int, label: str) -> None:
+    """Log which `chunk`-sized pieces of `path` differ from `ref`."""
+    bad = []
+    with open(path, "rb") as a, open(ref, "rb") as b:
+        i = 0
+        while True:
+            x, y = a.read(chunk), b.read(chunk)
+            if not x and not y:
+                break
+            if x != y:
+                n = min(len(x), len(y))
+                diff = np.flatnonzero(np.frombuffer(x[:n], np.uint8) !=
+                                      np.frombuffer(y[:n], np.uint8))
+                bad.append((i, len(x), len(y), int(diff.size),
+                            int(diff[0]) if diff.size else -1))
+            i += 1
+    log(f"{label}: {os.path.getsize(path)} B vs {os.path.getsize(ref)} B;"
+        f" differing chunks of {chunk} B (index, sizes, bytes differing,"
+        f" first offset): {bad[:20]} of {len(bad)}")
+
+
+def _find_trace(master_url: str, want: set[str]) -> dict | None:
+    """The newest stitched trace whose span names hold every name in
+    `want`, from the master's /cluster/traces. Fatal: a trace of the
+    master and the volume servers that reached the collector's
+    per-trace guard (the spans past it were dropped)."""
+    from seaweedfs_tpu_torch.master.collector import MAX_SPANS_PER_TRACE
+
+    body = _get_json(f"{master_url}/cluster/traces", timeout=30.0,
+                     limit=4096) or {}
+    for summary in body.get("traces", []):
+        services = set(summary["services"])
+        if summary["spans"] < len(want) or "s3" in services or \
+                not {"master", "volume"} <= services:
+            continue
+        tree = _get_json(f"{master_url}/cluster/traces", timeout=30.0,
+                         trace_id=summary["trace_id"])
+        flat = []
+        todo = list((tree or {}).get("tree", []))
+        while todo:
+            s = todo.pop()
+            flat.append(s)
+            todo += s.get("children", [])
+        if summary["spans"] >= MAX_SPANS_PER_TRACE:
+            names = collections.Counter(s["name"] for s in flat)
+            fail(f"trace {summary['trace_id']} reached the collector's "
+                 f"{MAX_SPANS_PER_TRACE}-span guard (spans past it "
+                 f"dropped): {summary['spans']} spans, "
+                 f"{dict(names.most_common(8))}")
+        if want <= {s["name"] for s in flat}:
+            return {"summary": summary, "tree": tree, "flat": flat}
+    return None
+
+
+def phase_chaos(card: str) -> dict:
+    """Phase 13: the robustness and observability layer at 1 GiB. The
+    master is a process of the port's CLI with the reference's chaos
+    spec; five volume servers, a sqlite filer and the S3 gateway run
+    here with one span pusher. A fault-free baseline, then under
+    seeded faults the controller's seal and a watchdog rebuild through
+    the kernel, a dead peer's breaker, S3 cycles, and both operations'
+    traces stitched across the two processes. -> kernel launches of the
+    seal and the rebuild."""
+    from seaweedfs_tpu_torch.ec import encoder
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.http import ServerThread
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.rpc.trace_push import SpanPusher
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.utils import faults, retry, tracing
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke13-")
+    col = "smoke13"
+    (port,) = free_ports(1)
+    master = f"http://127.0.0.1:{port}"
+    mlog = os.path.join(tmp, "master.log")
+    proc = cluster = pusher = None
+    launches: dict[str, int] = {}
+    tracing.configure(sample_rate=1.0)
+    try:
+        proc = _spawn(["-fault.spec", CHAOS_SPEC, "-fault.seed",
+                       str(CHAOS_SEED), "-trace.sample", "1",
+                       "-retry.maxAttempts", str(CHAOS_ATTEMPTS),
+                       "master", "-ip", "127.0.0.1", "-port", str(port),
+                       "-pulseSeconds", str(HEAL_PULSE),
+                       "-volumeSizeLimitMB", str(max(1, DAT_BYTES >> 20)),
+                       "-repair.enabled", "-repair.interval",
+                       str(HEAL_INTERVAL), "-repair.grace", "0",
+                       "-tier.enabled", "-tier.interval",
+                       str(TIER_INTERVAL),
+                       "-master.scrapeInterval", str(CHAOS_SCRAPE)], mlog)
+        _poll(lambda: _get_json(f"{master}/cluster/status"), 60.0,
+              f"the master process at {master} answering")
+        cluster = Cluster(os.path.join(tmp, "main"),
+                          n_volume_servers=len(HEAL_TOPOLOGY),
+                          max_volumes=8, pulse_seconds=HEAL_PULSE,
+                          ec_backend="cuda", topology=HEAL_TOPOLOGY,
+                          with_filer=True, filer_store="sqlite",
+                          with_s3=True, s3_config=S3_CONFIG,
+                          external_masters=[master])
+        # one pusher for this process's servers, as the CLI starts one
+        # per server process
+        pusher = SpanPusher(master, "cluster",
+                            cluster.volume_threads[0].address)
+        pusher.start()
+        env = CommandEnv(master, filer_url=cluster.filer_url)
+        s3 = _S3Client(cluster.s3_url)
+        by_url = {f"{s.ip}:{s.port}": i
+                  for i, s in enumerate(cluster.stores)}
+        log(f"[13] {card}")
+        log(f"[13] master {master}: a process of `python -m "
+            f"seaweedfs_tpu_torch -fault.spec {CHAOS_SPEC} -fault.seed "
+            f"{CHAOS_SEED} -trace.sample 1 -retry.maxAttempts "
+            f"{CHAOS_ATTEMPTS} master -pulseSeconds {HEAL_PULSE} "
+            f"-repair.enabled -repair.grace 0 -tier.enabled "
+            f"-master.scrapeInterval {CHAOS_SCRAPE}`; here: volume servers "
+            f"{[(th.address, *HEAL_TOPOLOGY[i]) for i, th in enumerate(cluster.volume_threads)]}"
+            f" on 'cuda', sqlite filer {cluster.filer_url}, s3 "
+            f"{cluster.s3_url}, one span pusher to the master")
+
+        # 13a. the fault-free baseline
+        w = _fill_volume_http(cluster, env, col, SEED + 13, DAT_BYTES)
+        vid, live = w["vid"], w["live"]
+        rng = np.random.default_rng(SEED + 13)
+        fids = sorted(live)
+        sample = [fids[i] for i in rng.choice(
+            len(fids), min(CHAOS_READS, len(fids)), replace=False)]
+        base_reads = _get_pass(sample, lambda f: w["url"], live, "13a")
+        if s3("PUT", "/chaos-base").status_code != 200 or \
+                s3("PUT", "/chaos").status_code != 200:
+            fail("CreateBucket chaos-base / chaos failed")
+        base_s3 = _s3_cycles(s3, "chaos-base", "13a")
+        log(f"[13a] no faults: volume {vid} filled over HTTP "
+            f"({w['writes']} uploads, {w['seconds']:.3f} s); "
+            f"{base_reads['n']} reads {base_reads['rate']:.1f} reads/s "
+            f"{base_reads['lat']}; {CHAOS_CYCLES} S3 PUT/GET cycles "
+            f"{base_s3['rate']:.1f} cycles/s {base_s3['lat']}")
+        # the fault-free encode to hold the seal against
+        w["vol"].sync()
+        ref_base = os.path.join(tmp, "ref", "ref")
+        os.makedirs(os.path.dirname(ref_base))
+        shutil.copyfile(w["vol"].file_name() + ".dat", ref_base + ".dat")
+        encoder.write_ec_files(ref_base, backend="native")
+        ref_hashes = {sid: sha256(f"{ref_base}.ec{sid:02d}")
+                      for sid in range(14)}
+
+        # 13b. faults on, here and (from its flags) in the master
+        faults.configure(CHAOS_SPEC, seed=CHAOS_SEED)
+        retry.configure(max_attempts=CHAOS_ATTEMPTS)
+
+        # 13c. the tiering controller's seal, under faults
+        codec_cuda.coded_matmul.launches = 0
+        rep0 = env.master_get("/debug/repair")["recent"]
+        t0 = time.time()
+        with _KernelEvents() as seal_ev:
+            r = env.master_request("POST", "/debug/tiering", json={
+                "volume": vid, "transition": "seal"}, timeout=30)
+            if r.status_code != 200 or not r.json().get("accepted"):
+                fail(f"POST /debug/tiering seal: {r.status_code} {r.text}")
+            seal = _poll(lambda: _tier_results(env, vid, "seal"),
+                         TIER_DEADLINE, "the controller's seal")[0]
+        launches["seal"] = codec_cuda.coded_matmul.launches
+        until = time.time()
+        paths = _live_shard_files(cluster, env, vid)
+        if sorted(paths) != list(range(14)):
+            fail(f"shards {sorted(paths)} after the seal")
+        orig = {sid: sha256(p) for sid, p in paths.items()}
+        if orig != ref_hashes:
+            fail(f"sealed shards {[s for s in orig if orig[s] != ref_hashes[s]]}"
+                 f" differ from a fault-free encode of the same .dat")
+        shard_size = os.path.getsize(paths[0])
+        window = [x for x in env.master_get("/debug/repair")["recent"]
+                  if x not in rep0 and t0 <= x["finished_at"] <= until]
+        # attempts the admin lock refused touch nothing
+        rebuilt = [x for x in window if x["ok"] or
+                   "cannot acquire admin lock" not in x["error"]]
+        want_seal = _encode_launches(os.path.getsize(ref_base + ".dat"))
+        log(f"[13c] under faults: the controller's seal (ec.encode) "
+            f"{seal['seconds']} s in {seal['attempts']} attempt(s); "
+            f"kernel launches {launches['seal']} (events "
+            f"{seal_ev.ms():.3f} ms in all); repairs during it "
+            f"{len(rebuilt)} (attempts the lock refused: "
+            f"{len(window) - len(rebuilt)}); 14 shards of {shard_size} B "
+            f"sha256-equal to the fault-free native encode")
+        if launches["seal"] != want_seal or seal["attempts"] != 1:
+            fail(f"the seal made {launches['seal']} launches in "
+                 f"{seal['attempts']} attempts, not {want_seal} in one")
+        if rebuilt:
+            fail(f"the watchdog repaired during the seal: {rebuilt}")
+
+        # 13d. lose the holder with the fewest shards, under faults
+        locs = env.ec_shard_locations(vid)
+        held: dict[str, list[int]] = {u: [] for u in by_url}
+        for sid, urls in locs.items():
+            for u in urls:
+                held[u].append(sid)
+        victim = min((u for u in held if held[u]),
+                     key=lambda u: (len(held[u]), u))
+        lost = sorted(held[victim])
+        reader = next(u for u in held if held[u] and u != victim)
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t_kill = time.monotonic()
+        vi = by_url[victim]
+        cluster.volume_threads[vi].stop()
+        degraded = {}
+
+        def read_degraded():
+            degraded.update(_get_pass(sample, lambda f: reader, live,
+                                      "13e degraded", threads=TIER_THREADS))
+        reads_thread = threading.Thread(target=read_degraded, daemon=True)
+        with _KernelEvents() as rebuild_ev:
+            reads_thread.start()
+            # the master's federation scrape (every CHAOS_SCRAPE s)
+            # trips its breaker for the dead peer while it is still
+            # registered (5 pulses)
+            seen = {}
+
+            def breaker_open():
+                st = _get_json(f"{master}/dir/status") or {}
+                nodes = [n for dc in st.get("Topology", {}).get(
+                    "datacenters", []) for rk in dc["racks"]
+                    for n in rk["nodes"] if n["url"] == victim]
+                if nodes and nodes[0].get("breaker") == retry.OPEN:
+                    seen.setdefault("topology", time.monotonic() - t_kill)
+                brs = (_get_json(f"{master}/debug/breakers") or {}).get(
+                    "breakers", [])
+                if any(b["peer"] == victim and b["state"] == retry.OPEN
+                       for b in brs):
+                    seen.setdefault("debug", time.monotonic() - t_kill)
+                if not nodes and "topology" not in seen:
+                    fail(f"{victim} unregistered before the master's "
+                         f"breaker read open in its topology dump")
+                return len(seen) == 2
+            _poll(breaker_open, HEAL_DEADLINE,
+                  f"the master's breaker for {victim} open", step=0.02)
+
+            def deficit():
+                st = env.master_get("/cluster/status")
+                return any(e["volume"] == vid for e in st["UnderParity"])
+            _poll(deficit, HEAL_DEADLINE, f"volume {vid} in UnderParity")
+            t_seen = time.monotonic()
+            _poll(lambda: not env.master_get("/cluster/status")[
+                "UnderParity"] and len(env.ec_shard_locations(vid)) == 14,
+                HEAL_DEADLINE, f"volume {vid} back to 14 shards")
+            t_done = time.monotonic()
+
+            def repaired():
+                recent = [x for x in env.master_get("/debug/repair")[
+                    "recent"] if x["finished_at"] >= since]
+                bad = [x for x in recent if not x["ok"] and
+                       "cannot acquire admin lock" not in x["error"]]
+                if bad:
+                    fail(f"a repair failed under faults (no retry around "
+                         f"the kernel): {bad[0]}")
+                return [x for x in recent if x["ok"] and
+                        x["volume"] == vid and x["kind"] == "ec"]
+            rec = _poll(repaired, HEAL_DEADLINE,
+                        "the watchdog's EC repair result")[0]
+            reads_thread.join(timeout=HEAL_DEADLINE)
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        want_rebuild = -(-shard_size // REBUILD_CHUNK)
+        if rec["reason"] != "watchdog" or \
+                sorted(rec["detail"].get("rebuilt", [])) != lost:
+            fail(f"the watchdog's repair was not the rebuild of {lost}: "
+                 f"{rec}")
+        if launches["rebuild"] != want_rebuild:
+            fail(f"the rebuild made {launches['rebuild']} launches, not "
+                 f"{want_rebuild}")
+        locs = env.ec_shard_locations(vid)
+        if len(locs) != 14:
+            fail(f"{len(locs)} live shards after the rebuild")
+        for sid in lost:
+            store = cluster.stores[by_url[locs[sid][0]]]
+            path = store.ec_volumes[vid].shards[sid].path
+            if sha256(path) != orig[sid]:
+                _diff_chunks(path, f"{ref_base}.ec{sid:02d}",
+                             REBUILD_CHUNK, f"rebuilt shard {sid}")
+                fail(f"rebuilt shard {sid} differs from the original")
+        if reads_thread.is_alive() or not degraded:
+            fail("the degraded reads did not finish")
+        here = {b["peer"]: b for b in session().get(
+            f"{cluster.volume_url(0 if vi else 1)}/debug/breakers",
+            timeout=10).json()["breakers"]}
+        log(f"[13d] stopped {victim} (shards {lost}): the master's "
+            f"breaker read open in its topology dump "
+            f"{seen['topology']:.3f} s and at /debug/breakers "
+            f"{seen['debug']:.3f} s after the stop; this process's "
+            f"breaker {here.get(victim, {}).get('state')!r} (trips "
+            f"{here.get(victim, {}).get('trips')}); detection "
+            f"{t_seen - t_kill:.3f} s, repair {t_done - t_seen:.3f} s; "
+            f"the watchdog's rebuild {rec['seconds']} s (attempt "
+            f"{rec['attempts']}), {rec['detail'].get('mode')!r} "
+            f"on {rec['detail'].get('rebuilder')}; kernel launches "
+            f"{launches['rebuild']} (events {rebuild_ev.ms():.3f} ms in "
+            f"all); 14 live shards, rebuilt ones sha256-equal")
+        # the stopped server comes back at its address (an empty disk):
+        # its registration resets the master's breaker
+        old = cluster.volume_servers[vi]
+        fresh = os.path.join(tmp, "main", f"vol{vi}_back")
+        os.makedirs(fresh)
+        vport = int(victim.rsplit(":", 1)[1])
+        store = Store([fresh], ip="127.0.0.1", port=vport,
+                      ec_backend="cuda")
+        for loc in store.locations:
+            loc.max_volumes = 8
+        vs = VolumeServer(store, master, data_center=old.data_center,
+                          rack=old.rack, pulse_seconds=HEAL_PULSE)
+        th = ServerThread(vs.app, port=vport).start()
+        store.public_url = th.address
+        cluster.volume_servers[vi] = vs
+        cluster.volume_threads[vi] = th
+        cluster.stores[vi] = store
+
+        def reset():
+            st = _get_json(f"{master}/dir/status") or {}
+            nodes = [n for dc in st.get("Topology", {}).get(
+                "datacenters", []) for rk in dc["racks"]
+                for n in rk["nodes"] if n["url"] == victim]
+            brs = (_get_json(f"{master}/debug/breakers") or {}).get(
+                "breakers", [])
+            return nodes and nodes[0]["breaker"] == retry.CLOSED and \
+                not any(b["peer"] == victim and b["state"] != retry.CLOSED
+                        for b in brs)
+        _poll(reset, HEAL_DEADLINE, f"{victim} re-registered, its breaker "
+              "reset")
+        log(f"[13d] {victim} restarted and re-registered: the master's "
+            f"breaker for it reads closed in the topology dump and "
+            f"/debug/breakers")
+
+        # 13e. S3 cycles and the degraded reads, under faults; this
+        # process's breaker for the restarted peer (opened by the reads
+        # that met it dead) first lets its half-open probe through
+        _poll(lambda: retry.breaker_for(victim).state != retry.OPEN,
+              HEAL_DEADLINE, f"this process's breaker for {victim} past "
+              "open")
+        chaos_s3 = _s3_cycles(s3, "chaos", "13e")
+        records = _needle_records(cluster, env, "chaos")
+        if records != CHAOS_CYCLES:
+            fail(f"{records} needles in the chaos bucket's volumes for "
+                 f"{CHAOS_CYCLES} PUTs: duplicate or lost writes")
+        log(f"[13e] under faults: {CHAOS_CYCLES} S3 PUT/GET cycles "
+            f"{chaos_s3['rate']:.1f} cycles/s {chaos_s3['lat']}, every "
+            f"object md5- and ETag-equal, the listing exact, "
+            f"{records} needles for {CHAOS_CYCLES} PUTs; "
+            f"{degraded['n']} degraded reads from {reader} on "
+            f"{TIER_THREADS} threads while the peer was down (through the "
+            f"CPU codec) {degraded['rate']:.1f} reads/s {degraded['lat']}"
+            f", all equal")
+
+        # 13f. both operations' traces, stitched across two processes
+        found = {}
+        for name, want in (("seal", {"tier seal", "handle_ec_generate",
+                                     "ec.write_ec_files"}),
+                           ("rebuild", {"repair ec",
+                                        "handle_ec_rebuild_partial"})):
+            found[name] = _poll(lambda: _find_trace(master, want), 30.0,
+                                f"the {name}'s trace at /cluster/traces",
+                                step=0.5)
+        for name, tr in found.items():
+            flat = tr["flat"]
+            ids = [s["span_id"] for s in flat]
+            insts = {s.get("instance") for s in flat}
+            if len(ids) != len(set(ids)):
+                fail(f"the {name}'s trace holds a span_id twice")
+            if len(insts) < 2:
+                fail(f"the {name}'s trace spans {insts}, one process")
+            otlp = _get_json(f"{master}/cluster/traces", timeout=30.0,
+                             trace_id=tr["summary"]["trace_id"],
+                             format="otlp")
+            n_otlp = sum(len(ss["spans"]) for rs in otlp["resourceSpans"]
+                         for ss in rs["scopeSpans"])
+            if n_otlp != len(flat) or n_otlp != tr["tree"]["spans"]:
+                fail(f"the {name}'s trace: {len(flat)} spans stitched, "
+                     f"{n_otlp} in OTLP")
+            tr["n"] = len(flat)
+            tr["insts"] = sorted(insts)
+        rebuild_flat = found["rebuild"]["flat"]
+        client = [s for s in rebuild_flat if s["kind"] == "client" and
+                  s["name"].startswith("POST ") and
+                  any(c["name"] == "handle_ec_rebuild_partial"
+                      for c in s.get("children", []))]
+        if not client:
+            fail("the rebuild's trace has no client span of the master's "
+                 "watchdog over the rebuilder's server span")
+        obs = env.master_get("/cluster/status")["Observability"]
+        dropped = {i: p["SpansDropped"] for i, p in obs["Pushers"].items()}
+        if any(dropped.values()):
+            fail(f"spans dropped on the way to the collector: {dropped}")
+        counts = faults.counts()
+        if counts.get("volume:error", 0) <= 0 or \
+                counts.get("filer:error", 0) <= 0:
+            fail(f"the faults did not fire on both hop classes: {counts}")
+        trips = sum(b["trips"] for b in session().get(
+            f"{cluster.volume_url(0)}/debug/breakers",
+            timeout=10).json()["breakers"])
+
+        def walls(name, root):
+            tr = found[name]["flat"]
+            top = next(s for s in tr if s["name"] == root)
+            srv = next(s for s in tr if s["name"] ==
+                       ("handle_ec_generate" if name == "seal" else
+                        "handle_ec_rebuild_partial"))
+            return (f"{name}: root span {top['duration']:.3f} s, the volume "
+                    f"server's span {srv['duration']:.3f} s, spans "
+                    f"{found[name]['n']} over {found[name]['insts']} "
+                    f"(sum of their durations "
+                    f"{sum(s['duration'] for s in tr):.3f} s)")
+        log(f"[13f] /cluster/traces: {walls('seal', 'tier seal')}; "
+            f"{walls('rebuild', 'repair ec')}; no span_id twice, OTLP span "
+            f"counts equal; pushers {obs['Pushers']} (SpansDropped 0); "
+            f"injected here {counts} (each injected 503 one replay); "
+            f"breaker trips seen from this process {trips}")
+
+        # 13g. the workload aggregator
+        wl = _poll(lambda: (lambda b: b["cluster"]["read_size"]["count"]
+                            > 0 and b)(env.master_get("/debug/workload")),
+                   30.0, "/debug/workload cluster.read_size.count > 0")
+        log(f"[13g] /debug/workload: {len(wl['nodes'])} nodes, "
+            f"read_size {wl['cluster']['read_size']}")
+
+        # 13h. the master's 1 MiB body cap
+        r = session().post(f"{master}/cluster/announce",
+                           data=b"{" + b" " * (1 << 20),
+                           headers={"Content-Type": "application/json"},
+                           timeout=30)
+        if r.status_code != 413:
+            fail(f"the master answered a 1 MiB + 1 body with "
+                 f"{r.status_code}, not 413")
+        log(f"[13h] the master answers a 1 MiB + 1 body with 413")
+    finally:
+        faults.configure(spec=None)
+        retry.configure(max_attempts=3)
+        if pusher is not None:
+            pusher.stop()
+        if cluster is not None:
+            cluster.stop()
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cur is not None and torch.cuda.current_device() != cur:
+        fail(f"phase 13 left the current device "
+             f"{torch.cuda.current_device()}, not {cur}")
+    log(f"[13] done: launches {launches} (the seal's and the rebuild's);"
+        f" no faults {base_reads['rate']:.1f} reads/s "
+        f"{base_reads['lat']}, {base_s3['rate']:.1f} S3 cycles/s; under "
+        f"faults {degraded['rate']:.1f} degraded reads/s "
+        f"{degraded['lat']}, {chaos_s3['rate']:.1f} S3 cycles/s; the "
+        f"current device unchanged; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3551,6 +4156,7 @@ def main() -> int:
     s3_launches = phase_s3(card)
     ha_launches = phase_ha(card)
     tier_launches = phase_tier(card)
+    chaos_launches = phase_chaos(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -3588,6 +4194,8 @@ def main() -> int:
         "ha_launches": ha_launches,
         "tier_launches": sum(tier_launches.values()),
         "tier_launches_by_step": tier_launches,
+        "chaos_launches": sum(chaos_launches.values()),
+        "chaos_launches_by_step": chaos_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

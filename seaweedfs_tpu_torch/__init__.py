@@ -25,12 +25,16 @@ Layout:
                 rebuild shards, the degraded-read ladder)
     models/     the batched encode + scrub step
     rpc/        the HTTP transport on the standard library: route
-                table and threaded server (http), pooled client that
-                follows an HA follower's 307 (httpclient), and the
-                websocket of the KeepConnected stream (websocket)
+                table, middlewares and threaded server (http), pooled
+                client that follows an HA follower's 307 and consults
+                the peers' breakers (httpclient), the span pusher
+                (trace_push), and the websocket of the KeepConnected
+                stream (websocket)
     master/     topology, placement, the file-id sequencers (memory,
-                snowflake), raft for HA masters, and the redundancy
-                watchdog
+                snowflake), raft for HA masters, the redundancy
+                watchdog, the tiering controller, the span collector
+                and metrics federation (collector) and the workload
+                aggregator (workload)
     server/     the master (raft-replicated with -peers), the read-only
                 master follower, the volume server (data plane by fid,
                 EC admin routes, heartbeat to the leader), the filer
@@ -51,9 +55,10 @@ Layout:
     cli.py      `python -m seaweedfs_tpu_torch
                 master|master.follower|volume|filer|s3|server|shell`
     utils/      metrics registry, tracing spans, glog, workload
-                sketches, device selection, retry and deadlines, the
-                repair token bucket, HTTP range parsing, upload
-                compression, header armor
+                sketches, device selection, retry, deadlines and
+                circuit breakers, seeded fault injection, the repair
+                token bucket, HTTP range parsing, upload compression,
+                header armor
 
 Entry points run on the GPU (device "cuda") unless the caller asks for
 the CPU; without a GPU they raise instead of falling back.

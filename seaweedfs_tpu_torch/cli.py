@@ -20,8 +20,20 @@ redundancy watchdog and `-admin.scripts` its maintenance timer, on
 reference's) its tiering controller, `-tier.remote` the cold tier as
 JSON (`{"type": "s3", "endpoint": ..., "bucket": ...}`) or
 `local:<root>`. The filer's stores are memory and sqlite
-(`-filer.store`, the reference's default sqlite on `server`). Every
-other subcommand of the reference is not here.
+(`-filer.store`, the reference's default sqlite on `server`).
+
+The global flags, placed before the subcommand, are the reference's:
+`-trace.slowThreshold|bufferSize|sample|otlpUrl` (tracing, the span
+pushers' sampling, and the master's OTLP push), `-fault.spec` /
+`-fault.seed` (seeded fault injection on every server and the client),
+`-retry.maxAttempts|baseDelay|maxDelay|edgeBudget` and
+`-breaker.failures|reset`. Each volume, filer and s3 process pushes
+its spans to the master's collector (rpc/trace_push.SpanPusher; the s3
+gateway finds the master through its filer); `server` runs everything
+in the master's process, whose collector sees every span directly.
+`-master.traceStore`, `-master.scrapeInterval` and `-advisor.*` size
+the master's collector, federation and workload advisors. Every other
+subcommand of the reference is not here.
 """
 from __future__ import annotations
 
@@ -210,6 +222,70 @@ def build_parser() -> argparse.ArgumentParser:
         "-v", dest="verbosity", type=int, default=0,
         help="log verbosity for glog.v() messages; place BEFORE the "
              "subcommand")
+    parser.add_argument(
+        "-trace.slowThreshold", dest="trace_slow_threshold", type=float,
+        default=1.0,
+        help="emit one structured glog line with the full span tree "
+             "for root requests slower than this many seconds "
+             "(<= 0 disables); place BEFORE the subcommand")
+    parser.add_argument(
+        "-trace.bufferSize", dest="trace_buffer_size", type=int,
+        default=1024,
+        help="spans kept in the in-process ring served at "
+             "/debug/traces; place BEFORE the subcommand")
+    parser.add_argument(
+        "-trace.sample", dest="trace_sample", type=float, default=1.0,
+        help="head-sampling fraction (0..1) of traces shipped to the "
+             "master's span collector; the verdict hashes the trace-id "
+             "so every process keeps the same traces; place BEFORE "
+             "the subcommand")
+    parser.add_argument(
+        "-trace.otlpUrl", dest="trace_otlp_url", default="",
+        help="master only: push collected traces as OTLP/JSON to this "
+             "HTTP endpoint (e.g. a Jaeger/Tempo collector's "
+             "/v1/traces); place BEFORE the subcommand")
+    parser.add_argument(
+        "-fault.spec", dest="fault_spec", default="",
+        help="deterministic fault injection for internal hops, e.g. "
+             "'volume:read:error=0.05,filer:*:delay=30ms' "
+             "(service:op:kind=value, comma-separated; also via "
+             "SEAWEEDFS_TPU_FAULT_SPEC); place BEFORE the subcommand")
+    parser.add_argument(
+        "-fault.seed", dest="fault_seed", type=int, default=0,
+        help="RNG seed for -fault.spec error draws (same seed + same "
+             "request sequence = same chaos); place BEFORE the "
+             "subcommand")
+    parser.add_argument(
+        "-retry.maxAttempts", dest="retry_max_attempts", type=int,
+        default=None,
+        help="attempts per internal hop (default 3); place BEFORE "
+             "the subcommand")
+    parser.add_argument(
+        "-retry.baseDelay", dest="retry_base_delay", type=float,
+        default=None,
+        help="first-retry backoff cap in seconds (full jitter, "
+             "default 0.02); place BEFORE the subcommand")
+    parser.add_argument(
+        "-retry.maxDelay", dest="retry_max_delay", type=float,
+        default=None,
+        help="backoff cap in seconds (default 1.0); place BEFORE the "
+             "subcommand")
+    parser.add_argument(
+        "-retry.edgeBudget", dest="retry_edge_budget", type=float,
+        default=None,
+        help="overall deadline in seconds minted at the s3/filer edge "
+             "when the client sent no X-Sw-Deadline (default 300); "
+             "place BEFORE the subcommand")
+    parser.add_argument(
+        "-breaker.failures", dest="breaker_failures", type=int,
+        default=None,
+        help="consecutive connection failures that open a peer's "
+             "circuit breaker (default 5); place BEFORE the subcommand")
+    parser.add_argument(
+        "-breaker.reset", dest="breaker_reset", type=float,
+        default=None,
+        help="seconds an open breaker waits before its half-open "
+             "probe (default 5); place BEFORE the subcommand")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("master", help="start a master server")
@@ -231,6 +307,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "a server silent for 5 pulses is unregistered")
     _add_master_flags(p)
     _add_tier_flags(p)
+    p.add_argument("-master.traceStore", dest="trace_store_size",
+                   type=int, default=2048,
+                   help="max traces kept in the cluster span "
+                        "collector (tail-based retention pins "
+                        "error/slow traces)")
+    p.add_argument("-master.scrapeInterval", dest="scrape_interval",
+                   type=float, default=10.0,
+                   help="seconds between metrics-federation sweeps "
+                        "over every registered node's /metrics")
+    p.add_argument("-advisor.sealQuantile",
+                   dest="advisor_seal_quantile", type=float,
+                   default=0.95,
+                   help="idle-gap quantile the auto-seal advisor "
+                        "targets: it recommends -tier.sealAfterIdle "
+                        "just above this fraction of observed "
+                        "inter-access gaps (default 0.95)")
+    p.add_argument("-advisor.demandQuantile",
+                   dest="advisor_demand_quantile", type=float,
+                   default=0.9,
+                   help="per-tenant demand quantile the QoS advisor "
+                        "sizes provisioned rates against "
+                        "(default 0.9)")
+    p.add_argument("-advisor.headroom", dest="advisor_headroom",
+                   type=float, default=1.5,
+                   help="multiplier applied on top of observed "
+                        "demand/idle quantiles before recommending "
+                        "a threshold (default 1.5)")
 
     p = sub.add_parser("master.follower",
                        help="read-only master follower for lookup traffic")
@@ -314,6 +417,7 @@ def main(argv: list[str] | None = None) -> int:
 
     glog.set_verbosity(args.verbosity)
     apply_env_flags(args)
+    apply_global_flags(args)
     if args.cmd == "master":
         return _run_master(args)
     if args.cmd == "master.follower":
@@ -349,6 +453,36 @@ def apply_env_flags(args) -> None:
         os.environ["SEAWEEDFS_TPU_EC_MESH_COL"] = str(args.ec_mesh_col)
 
 
+def apply_global_flags(args) -> None:
+    """The process-wide tracing, fault-injection, retry and breaker
+    settings (the reference's cli.py:826-856)."""
+    from .utils import faults, retry, tracing
+
+    tracing.configure(slow_threshold=args.trace_slow_threshold,
+                      buffer_size=args.trace_buffer_size,
+                      sample_rate=args.trace_sample)
+    faults.configure(spec=args.fault_spec or None,
+                     seed=args.fault_seed or None)
+    retry.configure(max_attempts=args.retry_max_attempts,
+                    base_delay=args.retry_base_delay,
+                    max_delay=args.retry_max_delay,
+                    edge_budget=args.retry_edge_budget,
+                    breaker_failures=args.breaker_failures,
+                    breaker_reset=args.breaker_reset)
+
+
+def _start_span_pusher(master_url, service: str, instance: str):
+    """Ship this process's finished spans to the master's collector
+    (rpc/trace_push.py). `master_url` may be a callable, for a gateway
+    that resolves the master through its filer. Never fatal: a process
+    that cannot push still serves (drops are counted)."""
+    from .rpc.trace_push import SpanPusher
+
+    sp = SpanPusher(master_url, service, instance)
+    sp.start()
+    return sp
+
+
 def _run_master(args) -> int:
     from .rpc.http import ServerThread, run_apps_forever
     from .server.master_server import MasterServer
@@ -369,6 +503,13 @@ def _run_master(args) -> int:
                       sequencer=args.sequencer,
                       me=f"{args.ip}:{args.port}", peers=peers,
                       raft_state_dir=raft_dir or None,
+                      trace_store_size=args.trace_store_size,
+                      scrape_interval=args.scrape_interval,
+                      otlp_url=args.trace_otlp_url,
+                      advisor_seal_quantile=args.advisor_seal_quantile,
+                      advisor_demand_quantile=(
+                          args.advisor_demand_quantile),
+                      advisor_headroom=args.advisor_headroom,
                       **_master_kwargs(args), **_tier_kwargs(args))
     t = ServerThread(ms.app, host=args.ip, port=args.port).start()
     ms.admin_scripts_url = t.url
@@ -415,6 +556,8 @@ def _run_volume(args) -> int:
     t = _start_volume(args, args.dir.split(","), args.port, args.mserver,
                       max_volumes=args.max, data_center=args.dataCenter,
                       rack=args.rack, disk_type=args.disk)
+    _start_span_pusher(_http(args.mserver.split(",")[0].strip()),
+                       "volume", t.address)
     run_apps_forever([t])
     return 0
 
@@ -492,6 +635,8 @@ def _run_filer(args) -> int:
                      replication=args.replication,
                      chunk_size=args.max_mb << 20,
                      save_to_filer_limit=args.save_to_filer_limit)
+    _start_span_pusher(_http(args.master.split(",")[0].strip()), "filer",
+                       t.address)
     run_apps_forever([t])
     return 0
 
@@ -499,6 +644,12 @@ def _run_filer(args) -> int:
 def _run_s3(args) -> int:
     from .rpc.http import run_apps_forever
 
+    from .rpc.trace_push import master_from_filer
+
     t = _start_s3(args, args.filer, args.port, args.config)
+    # the gateway only knows its filer; resolving per flush keeps the
+    # pusher on the master across failovers
+    filer = _http(args.filer)
+    _start_span_pusher(lambda: master_from_filer(filer), "s3", t.address)
     run_apps_forever([t])
     return 0

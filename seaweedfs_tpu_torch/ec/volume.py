@@ -68,8 +68,21 @@ class EcVolumeShard:
         self.size = os.path.getsize(self.path)
 
     def read_at(self, offset: int, size: int) -> bytes:
-        self._f.seek(offset)
-        return self._f.read(size)
+        """Positional reads: the shard is read from many request
+        threads at once (degraded reads, shard_read, a partial rebuild
+        of this server), so no shared file position moves. (The
+        reference seeks then reads one shared file object, which two
+        threads can interleave into wrong bytes.)"""
+        fd = self._f.fileno()
+        out = []
+        while size > 0:
+            piece = os.pread(fd, size, offset)
+            if not piece:
+                break
+            out.append(piece)
+            offset += len(piece)
+            size -= len(piece)
+        return b"".join(out)
 
     def close(self) -> None:
         self._f.close()

@@ -37,6 +37,10 @@ resumed offload run then would skip the holders not yet registered and
 still record the volume remote; a seal would leave a replica that has
 not re-registered behind as a writable plain volume beside the EC
 shards. The reference queues at once.
+
+Each transition runs inside a root span `tier <transition>` (service
+master), so its shell calls are client spans of one trace that the
+volume servers' spans join (the reference records none here).
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
-from ..utils import glog, metrics
+from ..utils import glog, metrics, tracing
 from ..utils import retry as _retry
 from .watchdog import JOIN_TIMEOUT, REAP_PULSES
 
@@ -475,7 +479,9 @@ class TieringController:
             frm, _, to = TRANSITIONS[task.transition]
             t0 = time.monotonic()
             try:
-                detail, moved = self._transition_one(task)
+                with tracing.span(f"tier {task.transition}",
+                                  service="master", peer=str(task.vid)):
+                    detail, moved = self._transition_one(task)
                 ok, err = True, ""
             except Exception as e:  # noqa: BLE001 — recorded, retried
                 ok, err, detail, moved = False, str(e), {}, 0

@@ -9,8 +9,9 @@ EC shard registry (topology_ec.go:69-137). Pure in-memory state machine —
 no IO — so placement/balance logic is testable with fake clusters, the
 reference's own test strategy (SURVEY.md section 4).
 
-The port has no circuit breakers (utils/retry.py), so registration
-resets none and the topology dump carries no per-node "breaker" state.
+A fresh registration resets the node's circuit breakers
+(utils/retry.py): a server that registers again is a new process. The
+topology dump carries this process's breaker state of every node.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from dataclasses import dataclass, field
 
 from ..ec import geometry as geo
 from ..storage.super_block import ReplicaPlacement
+from ..utils import retry as _retry
 
 
 @dataclass
@@ -220,6 +222,12 @@ class Topology:
                                 rack_obj, norm_disk(disk_type))
                 rack_obj.nodes[node_id] = node
                 self.nodes[node_id] = node
+                # a re-registering server is a fresh process: drop any
+                # breaker state the dead incarnation accumulated, both
+                # under the admin url and the public one
+                _retry.reset_peer_breaker(node_id)
+                if public_url and public_url != node_id:
+                    _retry.reset_peer_breaker(public_url)
             node.disk_type = norm_disk(disk_type)
             node.last_seen = time.monotonic()
             return node
@@ -528,6 +536,9 @@ class Topology:
                             "disk_type": n.disk_type,
                             "repair_bw": n.repair_bw,
                             "tier_bw": n.tier_bw,
+                            # this process's circuit-breaker view of
+                            # the node (closed/open/half-open)
+                            "breaker": _retry.breaker_for(n.url).state,
                         } for n in r.nodes.values()],
                     } for r in dc.racks.values()],
                 } for dc in self.dcs.values()],

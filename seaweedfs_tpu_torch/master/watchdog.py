@@ -31,6 +31,11 @@ is one the reaper would unregister anyway. That holds after a partition
 too: an old leader cut off from the other masters steps down within an
 election window (raft.py's check-quorum) and refuses heartbeats, so its
 servers re-home here.
+
+Each repair attempt runs inside a root span `repair <kind>` (service
+master), so its shell calls are client spans of one trace that the
+volume servers' spans join (the reference records none here, and its
+repair hops start a trace each).
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from dataclasses import dataclass, field
 
 from ..ec import geometry as geo
 from ..storage.super_block import ReplicaPlacement
-from ..utils import glog, metrics
+from ..utils import glog, metrics, tracing
 from ..utils import retry as _retry
 
 # how long stop() waits for each thread
@@ -332,7 +337,9 @@ class RedundancyWatchdog:
                 self._report_depth()
             t0 = time.monotonic()
             try:
-                detail, repaired_bytes = self._repair_one(task)
+                with tracing.span(f"repair {task.kind}", service="master",
+                                  peer=str(task.vid)):
+                    detail, repaired_bytes = self._repair_one(task)
                 ok, err = True, ""
             except Exception as e:  # noqa: BLE001 — recorded, retried
                 ok, err, detail, repaired_bytes = False, str(e), {}, 0

@@ -10,19 +10,31 @@ keep-alive, daemon threads, handlers that are plain functions
 rebuild) therefore runs on the connection's own thread, where the
 reference ran it in `asyncio.to_thread`.
 
-Every request passes through `App.handle`:
+Every request passes through `App.handle`, which runs the app's
+middlewares around the route's handler, in the reference's order
+(`server_middlewares`): tracing (a server span named after the handler,
+utils/tracing.py) → deadline (utils/retry.py: a passed `X-Sw-Deadline`
+answers 504 before the handler runs, a live one is bound for the
+handler so the hops it makes carry it on, and an edge server mints one)
+→ fault injection (utils/faults.py) → the handler. An app without
+server middlewares keeps the deadline one. Then:
 
-* a passed `X-Sw-Deadline` answers 504 before the handler runs, and a
-  live one is bound for the handler (utils/retry.deadline_scope), so
-  the hops it makes carry it on;
 * exceptions listed in the app's `bad_request` map to 400
   `{"error": "bad request: ..."}` (the volume server's error
   middleware); any other exception is logged with its traceback and
   answers 500 `{"error": ...}` — a handler that raises never yields a
-  200.
+  200;
+* `App(max_body=n)` is aiohttp's `client_max_size`: `Request.read` and
+  `json` raise `BodyTooLarge` once the body reaches n bytes, which
+  answers 413. A declared Content-Length of n or more is refused before
+  a byte is read, and the connection is closed after the reply (the
+  rest of the body is read and dropped for a moment first, so the
+  reply is not lost to a reset). Streamed reads (`read_exactly`,
+  aiohttp's `request.content`) are not capped.
 """
 from __future__ import annotations
 
+import contextvars
 import http.server
 import json
 import os
@@ -34,7 +46,7 @@ import traceback
 from typing import Any, Callable, Iterable
 from urllib.parse import parse_qsl, unquote
 
-from ..utils import glog, retry
+from ..utils import faults, glog, retry, tracing
 
 # an idle keep-alive connection is closed after this many seconds
 IDLE_TIMEOUT = 120.0
@@ -45,18 +57,37 @@ FILE_PIECE = 1 << 20
 # handler's body for them is dropped, as aiohttp drops it
 _NO_BODY = (204, 304)
 
-# paths that skip the deadline check (the reference's _SKIP_PATHS)
-_NO_DEADLINE = frozenset({"/metrics", "/status", "/healthz"})
+# how long a refused body is read and dropped before the connection
+# closes, so the client reads the 413 instead of a reset
+LINGER_SECONDS = 2.0
+
+
+class BodyTooLarge(Exception):
+    """The request body reached the app's max_body (aiohttp's
+    HTTPRequestEntityTooLarge); answers 413."""
+
+    def __init__(self, max_size: int, actual_size: int):
+        super().__init__(f"Maximum request body size {max_size} exceeded, "
+                         f"actual body size {actual_size}")
 
 
 class Request:
-    """One parsed request: method, path, query, headers, match info
-    and the body, read whole once (`read`) or in pieces
-    (`read_exactly`, for bodies too large to hold)."""
+    """One parsed request: method, path, query, headers, match info,
+    the peer's address (`remote`) and the body, read whole once
+    (`read`, capped at `max_body`) or in pieces (`read_exactly`, for
+    bodies too large to hold)."""
 
     def __init__(self, method: str, path: str, query_string: str,
-                 headers, rfile, match_info: dict | None = None):
+                 headers, rfile, match_info: dict | None = None,
+                 remote: str = ""):
         self.method = method
+        self.remote = remote
+        # set by App.handle: the route's handler (tracing names the
+        # server span after it) and the app's body cap (None: no cap)
+        self.route_handler: Callable | None = None
+        self.max_body: int | None = None
+        # the body was refused before it was read whole (413)
+        self.refused = False
         self.path = path
         self.query_string = query_string
         self.headers = headers          # case-insensitive .get()
@@ -84,16 +115,31 @@ class Request:
             .strip()
 
     def read(self) -> bytes:
-        """The whole body (what is left of it after read_exactly)."""
+        """The whole body (what is left of it after read_exactly).
+        Raises BodyTooLarge once it reaches max_body bytes."""
         if self._body is None:
+            cap = self.max_body
+            declared = self.content_length
+            if cap and declared is not None and declared >= cap:
+                self.refused = True
+                raise BodyTooLarge(cap, declared)
             out = bytearray()
             while True:
                 piece = self._read_some(1 << 20)
                 if not piece:
                     break
                 out += piece
+                if cap and len(out) >= cap:
+                    self.refused = True
+                    raise BodyTooLarge(cap, len(out))
             self._body = bytes(out)
         return self._body
+
+    def drain(self) -> None:
+        """Read and drop what the handler left of the body."""
+        if self._body is None:
+            while self._read_some(1 << 20):
+                pass
 
     def read_exactly(self, n: int) -> bytes:
         """The next n bytes of the body, fewer only at its end."""
@@ -220,15 +266,36 @@ def _compile(path: str) -> re.Pattern:
 Handler = Callable[[Request], Response]
 
 
+Middleware = Callable[[Request, Handler], Response]
+
+
+def server_middlewares(service: str, edge: bool = False
+                       ) -> list[Middleware]:
+    """A server's middlewares in the reference's order: tracing, the
+    deadline (minted at an edge server: s3, filer), fault injection."""
+    return [tracing.middleware(service), retry.middleware(service, edge),
+            faults.middleware(service)]
+
+
 class App:
     """A route table: (method, path pattern) -> handler. A pattern may
     hold `{name}` or `{name:regex}` segments (aiohttp's syntax); method
-    "*" matches any method, and a GET route answers HEAD too."""
+    "*" matches any method, and a GET route answers HEAD too.
+    `middlewares` wrap every routed handler, first outermost (default:
+    the deadline middleware alone); `max_body` caps `Request.read`."""
 
-    def __init__(self, bad_request: tuple[type, ...] = ()):
+    def __init__(self, bad_request: tuple[type, ...] = (),
+                 middlewares: list[Middleware] | None = None,
+                 max_body: int | None = None):
         self._exact: dict[tuple[str, str], Handler] = {}
         self._patterns: list[tuple[str, re.Pattern, Handler]] = []
         self.bad_request = bad_request
+        self.max_body = max_body
+        chain: Handler = self._call_handler
+        for mw in reversed(middlewares if middlewares is not None
+                           else [retry.middleware("")]):
+            chain = (lambda m, nxt: lambda req: m(req, nxt))(mw, chain)
+        self._chain = chain
         # run by ServerThread: on_startup once the port is bound,
         # on_cleanup after the server stopped
         self.on_startup: list[Callable[[], None]] = []
@@ -271,22 +338,54 @@ class App:
                               f"{'method not allowed' if known else 'not found'}",
                               status=405 if known else 404)
         req.match_info = info
-        dl = None
-        if req.path not in _NO_DEADLINE:
-            dl = retry.parse_deadline(req.headers.get(retry.DEADLINE_HEADER))
-            if dl is not None and dl <= time.time():
-                return text_response("deadline exceeded\n", status=504)
+        req.route_handler = handler
+        req.max_body = self.max_body
         try:
-            with retry.deadline_scope(absolute=dl):
-                return handler(req)
+            return self._chain(req)
+        except BodyTooLarge as e:
+            return text_response(f"{e}", status=413)
         except retry.DeadlineExceeded:
             return text_response("deadline exceeded\n", status=504)
-        except self.bad_request as e:
-            return json_error(f"bad request: {e}", status=400)
         except Exception as e:  # noqa: BLE001 — the server must answer
             glog.error("%s %s failed: %s\n%s", req.method, req.path, e,
                        traceback.format_exc())
             return json_error(f"{type(e).__name__}: {e}", status=500)
+
+    def _call_handler(self, req: Request) -> Response:
+        try:
+            resp = req.route_handler(req)
+        except self.bad_request as e:
+            return json_error(f"bad request: {e}", status=400)
+        if resp.stream is not None:
+            # a streamed body is produced after the middlewares have
+            # returned: keep the request's trace and deadline on it
+            resp.stream = _ContextStream(contextvars.copy_context(),
+                                         resp.stream)
+        return resp
+
+
+class _ContextStream:
+    """A reply's stream whose pieces (and close) are produced in the
+    context its handler ran in."""
+
+    def __init__(self, ctx: contextvars.Context, stream: Iterable[bytes]):
+        self._ctx = ctx
+        self._stream = stream
+        self._it = None
+
+    def __iter__(self):
+        self._it = self._ctx.run(iter, self._stream)
+        while True:
+            try:
+                piece = self._ctx.run(next, self._it)
+            except StopIteration:
+                return
+            yield piece
+
+    def close(self) -> None:
+        close = getattr(self._stream, "close", None)
+        if close is not None:
+            self._ctx.run(close)
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -312,15 +411,42 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def _dispatch(self) -> None:
         path, _, qs = self.path.partition("?")
         req = Request(self.command, unquote(path), qs, self.headers,
-                      self.rfile)
+                      self.rfile, remote=self.client_address[0])
         resp = self.server.app.handle(req)
-        try:
-            req.read()                  # drain what the handler left
-        except (ConnectionError, ValueError):
+        if req.refused:
+            # the rest of a refused body is not read: end the connection
+            # once the reply is out
             self.close_connection = True
+            resp.headers["Connection"] = "close"
+        else:
+            try:
+                req.drain()
+            except (ConnectionError, ValueError):
+                self.close_connection = True
         if resp.upgrade is not None:
             self._upgrade(resp)
             return
+        try:
+            self._reply(resp)
+        finally:
+            if req.refused:
+                self._linger()
+
+    def _linger(self) -> None:
+        """Half-close, then read and drop what the client still sends
+        for a moment: a close with unread data would reset the
+        connection and could lose the reply on its way."""
+        try:
+            self.wfile.flush()
+            self.connection.shutdown(socket.SHUT_WR)
+            self.connection.settimeout(LINGER_SECONDS)
+            end = time.monotonic() + LINGER_SECONDS
+            while time.monotonic() < end and self.connection.recv(1 << 16):
+                pass
+        except OSError:
+            pass
+
+    def _reply(self, resp: Response) -> None:
         self.send_response(resp.status)
         sent = {k.lower() for k in resp.headers}
         no_body = resp.status in _NO_BODY

@@ -17,6 +17,15 @@ A pooled connection the server closed while idle is detected before
 reuse, and a reused connection that fails before any response byte is
 retried once on a fresh one. A read timeout is never replayed.
 
+Every attempt consults the peer's circuit breaker (utils/retry.py): an
+open breaker raises `BreakerOpen` (a `retry.BreakerOpenError`) at once, with no connect;
+a connect failure counts against the peer, a timeout or a mid-stream
+drop settles a held half-open probe as inconclusive, and any answer
+closes the breaker. The client fault hook (`faults.sync_hook` for
+service "httpclient") fires before each attempt; an injected fault is
+a connection that never carried the request, so it replays like a
+connect failure and hands a held probe slot back.
+
 A 307 or 308 is followed (up to MAX_REDIRECTS hops) with the same
 method, body and headers, as `requests` does: HA master followers
 answer mutating and topology routes with a 307 to the raft leader.
@@ -42,7 +51,7 @@ import threading
 import time
 from urllib.parse import urlencode, urljoin, urlsplit
 
-from ..utils import retry, tracing
+from ..utils import faults, retry, tracing
 
 # applied when a call site passes no timeout; (connect, read) so a
 # black-holed peer fails in seconds while long reads still stream
@@ -72,6 +81,12 @@ class Timeout(RequestException):
 
 class HTTPError(RequestException):
     """raise_for_status() on a 4xx / 5xx."""
+
+
+class BreakerOpen(retry.BreakerOpenError, RequestException):
+    """The peer's circuit breaker is open: no connect was tried. A
+    retry.BreakerOpenError, and a RequestException so every call site
+    that handles a dead peer handles this one."""
 
 
 class Response:
@@ -280,6 +295,8 @@ class Session:
               conn_to, read_to, stream) -> Response:
         pol = retry.policy()
         release = self._release(host, port)
+        peer = urlsplit(url).netloc
+        breaker = retry.breaker_for(peer)
         last_exc: Exception | None = None
         # a file-like body is read as it is sent: it goes out once, on
         # a connection of its own
@@ -289,6 +306,19 @@ class Session:
             if attempt:
                 time.sleep(pol.backoff(attempt))
             retry.check_deadline()
+            if not breaker.allow():
+                raise BreakerOpen(peer, breaker.retry_after())
+            try:
+                faults.sync_hook("httpclient", method)
+            except faults.FaultInjected as e:
+                # the fault fired before any byte moved: the peer was
+                # never contacted, so a held probe slot goes back
+                breaker.release_probe()
+                last_exc = e
+                if pol.should_retry(attempt, method, conn_failure=True):
+                    attempt += 1
+                    continue
+                raise
             conn = None if streamed else self._take(host, port)
             reused = conn is not None
             if conn is None:
@@ -296,7 +326,9 @@ class Session:
                     conn = self._connect(host, port, conn_to, read_to)
                 except OSError as e:
                     # refused / unreachable / connect timeout: the
-                    # request never left, so any method may replay
+                    # request never left, so any method may replay, and
+                    # it counts against the peer's breaker
+                    breaker.record_failure()
                     last_exc = (Timeout if isinstance(e, socket.timeout)
                                 else ConnectionError)(
                         f"{method} {url}: connect: {e}")
@@ -312,14 +344,20 @@ class Session:
                 raw = conn.getresponse()
             except socket.timeout as e:
                 conn.close()
+                # unproven outcome: a held probe must still settle
+                breaker.probe_inconclusive()
                 raise Timeout(f"{method} {url}: timed out") from e
             except (OSError, http.client.HTTPException) as e:
                 conn.close()
                 if reused:
                     # the server closed the idle connection as we
-                    # reused it: nothing was answered, go again fresh
+                    # reused it: nothing was answered, so a held probe
+                    # slot goes back and the request goes again fresh
+                    breaker.release_probe()
                     continue
+                breaker.probe_inconclusive()
                 raise ConnectionError(f"{method} {url}: {e}") from e
+            breaker.record_success()
             resp = Response(method, url, raw, conn, release)
             retryable = (resp.status_code == 503 and
                          retry.RETRYABLE_HEADER in resp.headers)

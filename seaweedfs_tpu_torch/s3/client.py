@@ -12,8 +12,13 @@ here are the remote tier: storage/backend.py S3BackendStorage (a tiered
 volume's .dat) and remote_storage/ type "s3" (offloaded EC shards).
 
 `put_stream` sends a file-like body in `httpclient.BODY_BLOCK` pieces
-with its Content-Length; `download_to` streams the object to a file in
-4 MiB pieces. Neither holds the object in memory.
+with its Content-Length; an object of `MULTIPART_THRESHOLD` bytes or
+more goes as a multipart upload of `PART_SIZE` parts, since a gateway
+refuses a request body at its cap with 413 (the reference's aiohttp
+gateway caps bodies at 1 GiB, `client_max_size`, and the reference's
+`put_stream` sends one PUT whatever the size). `download_to` streams
+the object to a file in 4 MiB pieces. None of them holds the object
+in memory.
 """
 from __future__ import annotations
 
@@ -30,6 +35,10 @@ from .sigv4_client import sign_headers
 _NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 # bytes per write of download_to
 DOWNLOAD_PIECE = 4 << 20
+# put_stream: objects this large go as multipart uploads (the S3
+# gateway's body cap, s3/server.py MAX_BODY), in parts of PART_SIZE
+MULTIPART_THRESHOLD = 1 << 30
+PART_SIZE = 64 << 20
 
 
 @dataclass
@@ -132,13 +141,58 @@ class S3Client:
         (exposing read(n)); signs with UNSIGNED-PAYLOAD so the body
         isn't hashed/buffered up front, and sends a Content-Length (S3
         rejects chunked encoding without the STREAMING-* signing
-        scheme)."""
-        url = self.url(key)
+        scheme). From MULTIPART_THRESHOLD bytes on, a multipart upload
+        whose parts stream the same way."""
+        if total >= MULTIPART_THRESHOLD:
+            return self._put_multipart(key, reader, total)
+        self._put_unsigned(self.url(key), _Body(reader, total))
+        return total
+
+    def _put_unsigned(self, url: str, body: _Body):
         r = session().put(
-            url, data=_Body(reader, total),
+            url, data=body,
             headers=self.headers("PUT", url, unsigned_payload=True),
             timeout=3600)
         r.raise_for_status()
+        return r
+
+    def _post(self, url: str, payload: bytes = b""):
+        r = session().post(url, data=payload,
+                           headers=self.headers("POST", url,
+                                                payload=payload),
+                           timeout=600)
+        r.raise_for_status()
+        return r
+
+    def _put_multipart(self, key: str, reader, total: int) -> int:
+        """CreateMultipartUpload, UploadPart per PART_SIZE of the
+        reader, CompleteMultipartUpload; aborted on any failure."""
+        r = self._post(self.url(key, "uploads"))
+        upload_id = ET.fromstring(r.content).findtext(f"{_NS}UploadId")
+        if not upload_id:
+            raise ValueError(f"no UploadId for {key}: {r.text[:200]}")
+        uid = quote(upload_id, safe="~._-")
+        try:
+            parts = []
+            for number, off in enumerate(range(0, total, PART_SIZE), 1):
+                body = _Body(reader, min(PART_SIZE, total - off))
+                r = self._put_unsigned(self.url(
+                    key, f"partNumber={number}&uploadId={uid}"), body)
+                parts.append((number, r.headers.get("ETag", "")))
+            done = "".join(
+                f"<Part><PartNumber>{n}</PartNumber><ETag>{etag}</ETag>"
+                "</Part>" for n, etag in parts)
+            self._post(self.url(key, f"uploadId={uid}"),
+                       (f"<CompleteMultipartUpload>{done}"
+                        "</CompleteMultipartUpload>").encode())
+        except BaseException:
+            url = self.url(key, f"uploadId={uid}")
+            try:
+                session().delete(url, headers=self.headers("DELETE", url),
+                                 timeout=60)
+            except OSError:
+                pass
+            raise
         return total
 
     def head_object(self, key: str) -> ObjectInfo | None:

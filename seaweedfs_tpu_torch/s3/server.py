@@ -13,14 +13,21 @@ storage collection of the same name, exactly like the reference.
 Multipart parts are staged under /buckets/<bucket>/.uploads/<id>/ and
 stitched into the final object by a metadata-only entry create — the
 bytes never move. A request body is read whole (SigV4 signs its
-sha256); a GET streams the filer's reply through, so an object is never
-held whole in the gateway.
+sha256), up to the reference's 1 GiB cap: a body that declares 1 GiB or
+more is refused with 413 before a byte of it is read. A GET streams the
+filer's reply through, so an object is never held whole in the gateway.
 
-One departure, a fix: a completed multipart upload's ETag (md5 of the
-parts' md5s, then -N) is kept on the object as `s3_etag`, and GET, HEAD
-and the listings answer it. The reference answers the filer's ETag
+One departure, a fix: a completed multipart upload's ETag (md5 of
+the parts' md5s, then -N) is kept on the object as `s3_etag`, and GET,
+HEAD and the listings answer it. The reference answers the filer's ETag
 there, which is ETagChunks of the object's chunks: the same value only
-while every part fits one filer chunk (8 MiB).
+while every part fits one filer chunk (8 MiB). An object of 1 GiB or
+more comes as a multipart upload (s3/client.py `put_stream` sends one).
+
+Every route runs behind the tracing, deadline (an edge server: it
+mints the budget when the client sent none) and fault middlewares
+(rpc/http.server_middlewares); /debug/traces and /debug/breakers serve
+this process's spans and breakers.
 
 Identities load from the filer's KV (`s3/identities`) at start and every
 `identity_refresh_seconds` on a thread, which `stop` joins.
@@ -28,8 +35,8 @@ Identities load from the filer's KV (`s3/identities`) at start and every
 Not here, each answering S3's NotImplemented (501): bucket ACL, policy,
 CORS, lifecycle and ownership controls; object ACL, tagging, retention,
 legal hold and object lock; SelectObjectContent; POST-policy (browser
-form) uploads. Nor the circuit breaker, qos and fault middleware, the
-event stream or the native front.
+form) uploads. Nor the circuit breaker (s3/circuit_breaker.py), the qos
+middleware and /debug/qos, the event stream or the native front.
 """
 from __future__ import annotations
 
@@ -44,9 +51,9 @@ import xml.etree.ElementTree as ET
 
 from ..filer.entry import entry_size
 from ..rpc.http import (App, Request, Response, debug_index_factory,
-                        json_response, text_response)
+                        json_response, server_middlewares, text_response)
 from ..rpc.httpclient import RequestException, session
-from ..utils import extheaders, glog, metrics
+from ..utils import extheaders, glog, metrics, retry, tracing
 from .auth import (ACTION_ADMIN, ACTION_LIST, ACTION_READ, ACTION_WRITE,
                    IdentityAccessManagement, S3AuthError)
 
@@ -58,6 +65,9 @@ IDENTITIES_KV_KEY = "s3/identities"  # filer KV key holding the config
 STREAM_PIECE = 1 << 20
 # how long stop waits for the identity reload thread
 JOIN_TIMEOUT = 10.0
+# the reference app's client_max_size: bodies are buffered for SigV4
+# payload hashing; larger objects go through multipart parts
+MAX_BODY = 1 << 30
 
 
 class S3Error(Exception):
@@ -220,7 +230,8 @@ class S3ApiServer:
             self.iam.load_config(json.loads(resp.content))
 
     def _build_app(self) -> App:
-        app = App()
+        app = App(middlewares=server_middlewares("s3", edge=True),
+                  max_body=MAX_BODY)
         app.get("/status", self.handle_status)
         app.get("/metrics", self.handle_metrics)
         # /debug index BEFORE the catch-all dispatch, or it would be
@@ -228,8 +239,12 @@ class S3ApiServer:
         app.get("/debug", debug_index_factory("s3", {
             "/status": "the filer and whether access is open",
             "/metrics": "Prometheus text exposition",
+            "/debug/traces": "recent spans recorded in-process",
+            "/debug/breakers": "circuit breaker states",
         }))
-        app.route("*", "/{tail:.*}", self.handle)
+        app.get("/debug/traces", tracing.handle_debug_traces)
+        app.get("/debug/breakers", retry.handle_debug_breakers)
+        app.route("*", "/{tail:.*}", self.dispatch)
         return app
 
     def handle_status(self, req: Request) -> Response:
@@ -241,13 +256,15 @@ class S3ApiServer:
                              content_type="text/plain; version=0.0.4")
 
     # -- auth + dispatch ------------------------------------------------
-    def handle(self, req: Request) -> Response:
-        """Error mapping and request metrics around dispatch."""
+    def dispatch(self, req: Request) -> Response:
+        """Error mapping and request metrics around the dispatch (the
+        reference's error middleware; the route keeps its handler's
+        name, which names its server span)."""
         start = time.perf_counter()
         code = "500"
         try:
             try:
-                resp = self.dispatch(req)
+                resp = self._dispatch(req)
             except (S3Error, S3AuthError) as e:
                 resp = _error_response(e.code, str(e), e.status, req.path)
             except (KeyError, ValueError, ET.ParseError) as e:
@@ -262,9 +279,10 @@ class S3ApiServer:
             metrics.counter_add("s3_requests_total", labels={
                 "method": req.method, "code": code})
 
-    def dispatch(self, req: Request) -> Response:
+    def _dispatch(self, req: Request) -> Response:
         tail = req.match_info["tail"]
         bucket, _, key = tail.partition("/")
+        # refused with 413 before it is read when it declares the cap
         payload = req.read()
         if req.method == "POST" and bucket and not key \
                 and req.content_type.startswith("multipart/form-data"):

@@ -28,6 +28,12 @@ volume server and the filer are then given the whole master list;
 read the leader over HTTP in every layout; `master` and
 `master_thread` exist only for in-process masters.
 
+Spans: a Cluster pushes none. With in-process masters, every
+master's tracing sink already sees every span of the process (they
+share one ring), so each span reaches the collector once; with
+`external_masters`, the caller starts one rpc/trace_push.SpanPusher
+for the process, as the CLI does for each server process.
+
 `tier_*` configure the masters' tiering controller (with
 `tier_enabled`, idle volumes are sealed into EC, offloaded to
 `tier_remote` and recalled on re-access; with several masters each

@@ -32,18 +32,26 @@ lock's home.
 
 Threads take the place of the reference's asyncio tasks: the handlers
 run on their connection's thread, the chunk uploads of a PUT on a
-shared pool. Not here: /ws/meta_subscribe, remote storage mounts
-(cacheRemote / uncacheRemote), -encryptVolumeData, the sharded and
-caching stores, the browser (text/html) listing view, qos and
-fault-injection middleware, /debug/traces.
+shared pool. Every route runs behind the tracing, deadline (an edge
+server: it mints the budget when the client sent none) and fault
+middlewares (rpc/http.server_middlewares) with the reference's 1 TiB
+body cap; /debug/traces, /debug/breakers, /debug/ec and /debug/filer
+serve this process's spans, breakers, codec router and store. Replica
+urls come breaker-healthy first (wdclient.lookup_file_id_urls). Not
+here: /ws/meta_subscribe, remote storage mounts (cacheRemote /
+uncacheRemote), -encryptVolumeData, the sharded and caching stores,
+the browser (text/html) listing view, the qos middleware and
+/debug/qos.
 """
 from __future__ import annotations
 
 import base64
 import binascii
 import collections
+import contextvars
 import email
 import email.policy
+import functools
 import hashlib
 import json
 import mimetypes
@@ -63,9 +71,11 @@ from ..filer.filer_conf import CONF_KEY as FILER_CONF_KEY
 from ..filer.filer_conf import FilerConf
 from ..operation import verbs
 from ..rpc.http import (App, Request, Response, debug_index_factory,
+                        server_middlewares,
                         json_response, text_response)
 from ..rpc.httpclient import session
-from ..utils import compression, extheaders, glog, httprange, metrics
+from ..utils import (compression, extheaders, glog, httprange, metrics,
+                     retry, tracing)
 from ..wdclient.client import MasterClient
 
 DEFAULT_CHUNK_SIZE = 8 << 20  # autochunk default (`-maxMB=8` upstream)
@@ -84,7 +94,9 @@ Handler = Callable[[Request], Response]
 def _errors(handler: Handler) -> Handler:
     """The reference's error middleware: filesystem errors to 404 /
     409, failed volume reads to 502, malformed input to 400; each as
-    JSON {"error": ...}, and the request time observed."""
+    JSON {"error": ...}, and the request time observed. Keeps the
+    handler's name, which names its server span."""
+    @functools.wraps(handler)
     def wrapped(req: Request) -> Response:
         start = time.perf_counter()
         try:
@@ -231,7 +243,8 @@ class FilerServer:
 
     # -- plumbing -------------------------------------------------------
     def _build_app(self) -> App:
-        app = App()
+        app = App(middlewares=server_middlewares("filer", edge=True),
+                  max_body=1 << 40)
         app.get("/status", self.handle_status)
         app.get("/metrics", self.handle_metrics)
         # /debug index BEFORE the catch-all path routes below, or the
@@ -239,7 +252,15 @@ class FilerServer:
         app.get("/debug", debug_index_factory("filer", {
             "/status": "master, store and signature",
             "/metrics": "Prometheus text exposition",
+            "/debug/traces": "recent spans recorded in-process",
+            "/debug/breakers": "circuit breaker states",
+            "/debug/ec": "EC codec router: probe curve + backends",
+            "/debug/filer": "metadata store kind and entries",
         }))
+        app.get("/debug/traces", tracing.handle_debug_traces)
+        app.get("/debug/breakers", retry.handle_debug_breakers)
+        app.get("/debug/ec", self.handle_debug_ec)
+        app.get("/debug/filer", self.handle_debug_filer)
         app.post("/dlm/lock", _errors(self.handle_dlm_lock))
         app.post("/dlm/unlock", _errors(self.handle_dlm_unlock))
         app.post("/dlm/find", _errors(self.handle_dlm_find))
@@ -677,7 +698,10 @@ class FilerServer:
                     small_content = piece
                     total = len(piece)
                     break
+                # copy_context: pool.submit drops contextvars, which
+                # would lose the trace and the deadline
                 pending.append((offset, len(piece), self._uploads.submit(
+                    contextvars.copy_context().run,
                     self._upload_chunk, piece, filename, collection,
                     replication, ttl, disk_type, fsync, data_center)))
                 offset += len(piece)
@@ -785,6 +809,27 @@ class FilerServer:
             "master": self.master_url, "store": self.filer.store.name,
             "signature": self.filer.meta_log.signature,
             "cipher": False})
+
+    def handle_debug_filer(self, req: Request) -> Response:
+        """GET /debug/filer — the metadata store: its kind and, where
+        the store can count them cheaply, its entries."""
+        store = self.filer.store
+        snap = getattr(store, "debug_snapshot", None)
+        if snap is not None:
+            body = snap()
+        else:
+            dirs = getattr(store, "_dirs", None)     # the memory store
+            body = {"kind": store.name,
+                    "entries": sum(len(v) for v in dirs.values())
+                    if dirs is not None else None}
+        return json_response({"store": store.name, "snapshot": body})
+
+    def handle_debug_ec(self, req: Request) -> Response:
+        """GET /debug/ec — the codec router's probe curve and
+        decisions, from its cache (never a sweep)."""
+        from ..ec import backend as ec_backend
+
+        return json_response(ec_backend.probe_snapshot())
 
     def handle_metrics(self, req: Request) -> Response:
         return text_response(metrics.render(),

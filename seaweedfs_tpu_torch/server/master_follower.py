@@ -12,6 +12,7 @@ lookup traffic never reaches the leader once the stream has warmed it;
 from __future__ import annotations
 
 from ..rpc.http import App, Request, Response, json_error, json_ok
+from ..utils import retry
 from ..wdclient.client import MasterClient
 
 
@@ -21,7 +22,10 @@ class MasterFollower:
         self.app = self.build_app()
 
     def build_app(self) -> App:
-        app = App()
+        # the reference's app: the deadline middleware alone, and
+        # aiohttp's default 1 MiB body cap
+        app = App(middlewares=[retry.middleware("master-follower")],
+                  max_body=1 << 20)
         app.get("/dir/lookup", self.handle_lookup)
         app.get("/status", self.handle_status)
         app.on_cleanup.append(self.client.stop)

@@ -54,8 +54,21 @@ the tier states, the `tier_bw` buckets the heartbeats carry and the
 scraped `tier_bytes_moved_total` into `Tiering`, and the scrape's
 health into `Observability.Federation`.
 
-Not here: JWT signing, the span collector and traces, the workload
-aggregator.
+The observability plane: every route runs behind the tracing, deadline
+and fault middlewares (rpc/http.server_middlewares) with the
+reference's 1 MiB body cap. The span collector (master/collector.py)
+takes pushed span batches at /cluster/traces/push and this process's
+own spans through a tracing sink, and serves the stitched traces at
+/cluster/traces (`?trace_id=` or `?trace=`, `?format=otlp`); with
+`otlp_url` a thread posts settled traces as OTLP/JSON. The workload
+aggregator (master/workload.py) ingests the heartbeats' sketches and
+serves the distributions and advisors at /debug/workload (POST sets an
+operator override). /cluster/status folds the breakers, the workload
+and the collector's pushers. A heartbeat is one POST per pulse here
+where the reference keeps a stream, so /heartbeat records no span (the
+reference's one span per stream ends only when the stream does).
+
+Not here: JWT signing.
 """
 from __future__ import annotations
 
@@ -67,19 +80,21 @@ import threading
 import zlib
 
 from ..cluster.membership import ClusterMembership
-from ..master.collector import MetricsFederator
+from ..master.collector import MetricsFederator, SpanCollector
 from ..master.raft import HTTPTransport, RaftNode
 from ..master.sequence import MemorySequencer, SnowflakeSequencer
 from ..master.topology import (NoFreeSlots, NoWritableVolume, Topology,
                                VolumeInfo)
 from ..master.tiering import TieringController
 from ..master.watchdog import JOIN_TIMEOUT, RedundancyWatchdog
+from ..master.workload import WorkloadAggregator
 from ..rpc.http import (App, Request, Response, debug_index_factory,
-                        json_error, json_ok, json_response, text_response)
+                        json_error, json_ok, json_response,
+                        server_middlewares, text_response)
 from ..rpc.httpclient import session
 from ..rpc.websocket import WebSocket, upgrade
 from ..storage import types as t
-from ..utils import glog, metrics
+from ..utils import glog, metrics, retry, tracing
 
 # timeout of one /admin/assign_volume call made by /vol/grow
 GROW_TIMEOUT = (5.0, 60.0)
@@ -166,7 +181,12 @@ class MasterServer:
                  tier_max_bytes_per_sec: float = 0.0,
                  tier_remote: dict | None = None,
                  tier_state_dir: str = "",
-                 scrape_interval: float = 10.0):
+                 trace_store_size: int = 2048,
+                 scrape_interval: float = 10.0,
+                 otlp_url: str = "",
+                 advisor_seal_quantile: float = 0.95,
+                 advisor_demand_quantile: float = 0.9,
+                 advisor_headroom: float = 1.5):
         self.topo = Topology(volume_size_limit, pulse_seconds)
         self.default_replication = default_replication
         if sequencer == "memory" and peers:
@@ -219,29 +239,50 @@ class MasterServer:
             max_attempts=tier_max_attempts,
             max_bytes_per_sec=tier_max_bytes_per_sec,
             remote=tier_remote, state_dir=tier_state_dir)
-        # metrics federation (collector.py): a scrape thread over every
-        # registered node's /metrics
+        # cluster observability plane (collector.py): span collector,
+        # OTLP export and a scrape thread over every node's /metrics
+        self.collector = SpanCollector(max_traces=trace_store_size)
         self.federator = MetricsFederator(self, interval=scrape_interval)
+        self.otlp_url = otlp_url
         self._fed_stop = threading.Event()
         self._fed_thread: threading.Thread | None = None
+        self._otlp_thread: threading.Thread | None = None
+        # workload-characterization plane (workload.py): heartbeat
+        # sketch aggregation + recommend-only advisors
+        self.workload = WorkloadAggregator(
+            self, seal_quantile=advisor_seal_quantile,
+            demand_quantile=advisor_demand_quantile,
+            headroom=advisor_headroom)
         self.app = self._build_app()
 
     def _build_app(self) -> App:
-        app = App()
+        app = App(middlewares=server_middlewares("master"),
+                  max_body=1 << 20)
         app.get("/debug", debug_index_factory("master", {
+            "/debug/traces": "recent spans recorded in-process",
+            "/debug/breakers": "circuit breaker states",
             "/debug/ec": "EC codec router: probe curve + backends",
             "/debug/repair": "watchdog deficits, queue, history "
                              "(POST enqueues one repair)",
             "/debug/tiering": "tier states and transitions (POST "
                               "forces one)",
+            "/debug/workload": "heat/demand distributions + "
+                               "threshold advisors (POST sets an "
+                               "advisor override)",
         }))
+        app.get("/debug/traces", tracing.handle_debug_traces)
+        app.get("/debug/breakers", retry.handle_debug_breakers)
         app.get("/debug/ec", self.handle_debug_ec)
         app.get("/debug/repair", self.handle_debug_repair)
         app.post("/debug/repair", self.handle_repair_enqueue)
         app.get("/debug/tiering", self.handle_debug_tiering)
         app.post("/debug/tiering", self.handle_tier_enqueue)
+        app.get("/debug/workload", self.handle_debug_workload)
+        app.post("/debug/workload", self.handle_workload_override)
         app.get("/metrics", self.handle_metrics)
         app.get("/cluster/metrics", self.handle_cluster_metrics)
+        app.get("/cluster/traces", self.handle_cluster_traces)
+        app.post("/cluster/traces/push", self.handle_cluster_traces_push)
         for method in ("GET", "POST"):
             app.route(method, "/dir/assign", self.handle_assign)
             app.route(method, "/vol/grow", self.handle_grow)
@@ -342,11 +383,17 @@ class MasterServer:
         self._reaper.start()
         self.watchdog.start()
         self.tiering.start()
+        tracing.add_sink(self._local_span_sink)
         self._fed_stop.clear()
         self._fed_thread = threading.Thread(
             target=self.federator.run, args=(self._fed_stop,),
             name="metrics-federation", daemon=True)
         self._fed_thread.start()
+        if self.otlp_url:
+            self._otlp_thread = threading.Thread(
+                target=self._otlp_push_loop, args=(self._fed_stop,),
+                name="otlp-push", daemon=True)
+            self._otlp_thread.start()
         if self.admin_scripts:
             self._admin_stop.clear()
             self._admin_thread = threading.Thread(
@@ -368,10 +415,12 @@ class MasterServer:
 
     def stop(self) -> None:
         self.stop_maintenance()
+        tracing.remove_sink(self._local_span_sink)
         self._fed_stop.set()
-        if self._fed_thread is not None:
-            self._fed_thread.join(timeout=JOIN_TIMEOUT)
-            self._fed_thread = None
+        for th in (self._fed_thread, self._otlp_thread):
+            if th is not None:
+                th.join(timeout=JOIN_TIMEOUT)
+        self._fed_thread = self._otlp_thread = None
         self._stop.set()
         if self._reaper is not None:
             self._reaper.join(timeout=10)
@@ -396,6 +445,7 @@ class MasterServer:
             glog.warning("volume server %s silent for 5 pulses: "
                          "unregistered", node_id)
             self.topo.unregister_data_node(node_id)
+            self.workload.forget(node_id)
         if dead:
             self.watchdog.poke()
             self.tiering.poke()
@@ -638,6 +688,10 @@ class MasterServer:
             node.repair_bw = hb["repair_bw"]
         if "tier_bw" in hb:
             node.tier_bw = hb["tier_bw"]
+        # per-volume heat sketches + node byte rates for the workload
+        # aggregator (compact encodings; absent with telemetry off)
+        if "workload" in hb:
+            self.workload.ingest(node_id, hb["workload"])
         self.watchdog.poke()
         self.tiering.poke()
         self._broadcast_node_update(node)
@@ -655,6 +709,7 @@ class MasterServer:
             "Peers": list(self.raft.peers) if self.raft else [],
             "VacuumDisabled": self.vacuum_disabled,
             "Topology": self.topo.to_dict(),
+            "Breakers": retry.breakers_snapshot(),
             "EcRouter": _ec_router_snapshot(),
             "UnderReplicated": wd.under_replicated,
             "UnderParity": wd.under_parity,
@@ -667,7 +722,12 @@ class MasterServer:
             # tiering lifecycle: per-tier volume counts, queue depth,
             # per-node tier bucket state, cluster-wide bytes moved
             "Tiering": self._tiering_summary(),
+            # measured-distribution plane: nodes reporting sketches,
+            # tenants seen, and the three advisors' current vs
+            # recommended thresholds (detail at /debug/workload)
+            "Workload": self.workload.status_fold(),
             "Observability": {
+                **self.collector.observability(),
                 "Federation": self.federator.observability(),
             },
         })
@@ -715,6 +775,121 @@ class MasterServer:
             return url.split("://", 1)[-1].rstrip("/")
         return "master"
 
+    def _local_span_sink(self, rec: dict) -> None:
+        """tracing sink: the master's own spans feed the collector
+        in-process (same sampling verdict as remote pushers). In an
+        in-process cluster every server's span arrives here once, and
+        nothing pushes it a second time."""
+        if not tracing.sample_decision(rec.get("trace_id", "")):
+            return
+        self.collector.add_spans(self._self_instance(),
+                                 rec.get("service") or "master", [rec])
+
+    def _otlp_push_loop(self, stop: threading.Event) -> None:
+        """-trace.otlpUrl: POST OTLP/JSON batches of settled traces to
+        an external collector (Jaeger/Tempo OTLP HTTP endpoint)."""
+        url = self.otlp_url
+        if not url.startswith("http"):
+            url = "http://" + url
+        while not stop.wait(5.0):
+            ids = self.collector.drain_otlp_pending()
+            if not ids:
+                continue
+            payload = self.collector.to_otlp(trace_ids=ids)
+            n_spans = sum(len(ss["spans"])
+                          for rs in payload["resourceSpans"]
+                          for ss in rs["scopeSpans"])
+            try:
+                r = session().post(
+                    url, json=payload,
+                    headers={"Content-Type": "application/json"},
+                    timeout=(5.0, 10.0))
+                if r.status_code < 300:
+                    metrics.counter_add("otlp_spans_exported_total",
+                                        n_spans)
+                else:
+                    metrics.counter_add("otlp_export_failures_total", 1)
+            except Exception as e:  # noqa: BLE001 — the loop goes on
+                metrics.counter_add("otlp_export_failures_total", 1)
+                glog.v(2, "otlp export to %s failed: %s", url, e)
+
+    def handle_cluster_traces(self, req: Request) -> Response:
+        """GET /cluster/traces — cross-process trace store.
+        ?trace_id= (alias ?trace=) for one stitched tree,
+        ?format=otlp for OTLP/JSON, ?limit= for the list size."""
+        try:
+            limit = int(req.query.get("limit", "50"))
+        except ValueError:
+            limit = 50
+        trace_id = req.query.get("trace_id", "") or \
+            req.query.get("trace", "")
+        if req.query.get("format") == "otlp":
+            ids = [trace_id] if trace_id else None
+            return json_response(
+                self.collector.to_otlp(trace_ids=ids, limit=limit))
+        if trace_id:
+            tree = self.collector.get_trace(trace_id)
+            if tree is None:
+                return json_error(f"trace {trace_id} not found",
+                                  status=404)
+            return json_response(tree)
+        return json_response(
+            {"traces": self.collector.list_traces(limit=limit),
+             "observability": self.collector.observability()})
+
+    def handle_cluster_traces_push(self, req: Request) -> Response:
+        """POST /cluster/traces/push — one SpanPusher batch:
+        {"instance", "service", "spans": [...], "dropped": n}."""
+        try:
+            d = req.json()
+        except Exception:
+            return json_error("push body must be JSON", status=400)
+        spans = d.get("spans")
+        if not isinstance(spans, list):
+            return json_error("push requires a spans list", status=400)
+        accepted = self.collector.add_spans(
+            str(d.get("instance") or req.remote or "unknown"),
+            str(d.get("service") or "unknown"),
+            [s for s in spans if isinstance(s, dict)],
+            dropped=int(d.get("dropped") or 0))
+        return json_ok({"accepted": accepted})
+
+    def handle_debug_workload(self, req: Request) -> Response:
+        """GET /debug/workload — cluster heat/demand distributions,
+        per-node provenance, tenant demand and the three advisors."""
+        return json_ok(self.workload.snapshot())
+
+    def handle_workload_override(self, req: Request) -> Response:
+        """POST /debug/workload — set/clear one advisor override:
+        {"advisor": "seal"|"qos"|"repair", "override": number|null,
+        "tenant": "..." (qos only)}. Malformed input is always a 400
+        with a JSON error."""
+        redir = self._leader_redirect(req)
+        if redir is not None:
+            return redir
+        try:
+            body = req.json()
+        except Exception:
+            return json_error("workload override body must be JSON",
+                              status=400)
+        if not isinstance(body, dict):
+            return json_error("workload override body must be a JSON "
+                              "object", status=400)
+        if "advisor" not in body:
+            return json_error("workload override requires an "
+                              "'advisor' field", status=400)
+        if "override" not in body:
+            return json_error("workload override requires an "
+                              "'override' field (number or null)",
+                              status=400)
+        try:
+            out = self.workload.set_override(
+                str(body["advisor"]), body["override"],
+                tenant=str(body.get("tenant", "")))
+        except ValueError as e:
+            return json_error(str(e), status=400)
+        return json_ok(out)
+
     def handle_cluster_metrics(self, req: Request) -> Response:
         """GET /cluster/metrics — the federated, instance-labeled
         exposition of every registered node plus this master."""
@@ -722,6 +897,9 @@ class MasterServer:
         # gets one sweep now, so a new node shows up immediately
         if self.federator.missing():
             self.federator.scrape_once()
+        # the merged corpus embeds this master's own registry render:
+        # refresh the workload_* gauges first, as handle_metrics does
+        self.workload.export_gauges()
         return text_response(
             self.federator.merged(self_instance=self._self_instance()),
             content_type="text/plain")
@@ -858,6 +1036,8 @@ class MasterServer:
         return json_ok({"vacuum_disabled": self.vacuum_disabled})
 
     def handle_metrics(self, req: Request) -> Response:
+        # workload distributions + advisor gauges refresh per scrape
+        self.workload.export_gauges()
         return text_response(metrics.render(),
                              content_type="text/plain; version=0.0.4")
 

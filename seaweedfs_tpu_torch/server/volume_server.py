@@ -36,7 +36,11 @@ EC_HOLDERS_RETRY_AGE old, in place of the reference's KeepConnected
 subscription.
 
 A write or delete on a replicated volume fans out to the replicas the
-master lists (store_replicate.go:24) before it is acknowledged, and
+master lists (store_replicate.go:24) before it is acknowledged, and a
+peer whose circuit breaker is open fails the fan-out at once (the
+shared registry of utils/retry.py, which the HTTP client feeds); a
+GET of a volume held elsewhere is redirected to a replica whose
+breaker is not open when there is one. And
 `volume_copy` pulls a replica's .dat/.idx for volume.fix.replication.
 Peers come from a lookup cache (LOOKUP_TTL); a delete that a peer
 answers with 404 looks the peers up again and reaches any new replica,
@@ -66,6 +70,11 @@ here, so a remote-backed volume's ranged reads never block another
 request: the reference's guard that keeps them off its inline fast
 path has no fast path to guard.
 
+Every route runs behind the tracing, deadline and fault middlewares
+(rpc/http.server_middlewares) with the reference's 256 MiB body cap;
+/debug/traces and /debug/breakers serve this process's spans and
+breakers.
+
 Not here: JWT guard, multipart uploads, chunk manifests, multi-range
 replies, the native data plane, the commit
 scheduler, query, tail / sync.
@@ -85,7 +94,8 @@ import numpy as np
 from ..ec import geometry as geo
 from ..ec.decoder import find_dat_size, write_dat_file, write_idx_from_ecx
 from ..rpc.http import (App, Request, Response, debug_index_factory,
-                        file_response, json_response, text_response)
+                        file_response, json_response, server_middlewares,
+                        text_response)
 from ..rpc.httpclient import RequestException, session
 from ..storage import backend
 from ..storage import needle as ndl
@@ -94,7 +104,8 @@ from ..storage import volume_info as vinfo
 from ..storage.store import Store
 from ..storage.super_block import ReplicaPlacement
 from ..storage.volume import Volume
-from ..utils import compression, glog, httprange, metrics, ratelimit, retry
+from ..utils import (compression, glog, httprange, metrics, ratelimit,
+                     retry, tracing)
 from ..wdclient.client import MasterClient, find_leader
 
 # timeout of one heartbeat POST beyond the pulse it covers
@@ -162,12 +173,18 @@ class VolumeServer:
     def _build_app(self) -> App:
         # the reference's error middleware: malformed input answers 400
         app = App(bad_request=(json.JSONDecodeError, KeyError, ValueError,
-                               TypeError))
+                               TypeError),
+                  middlewares=server_middlewares("volume"),
+                  max_body=256 << 20)
         app.get("/status", self.handle_status)
         app.get("/metrics", self.handle_metrics)
         app.get("/debug", debug_index_factory("volume", {
+            "/debug/traces": "recent spans recorded in-process",
+            "/debug/breakers": "circuit breaker states",
             "/debug/ec": "EC codec router: probe curve + backends",
         }))
+        app.get("/debug/traces", tracing.handle_debug_traces)
+        app.get("/debug/breakers", retry.handle_debug_breakers)
         app.get("/debug/ec", self.handle_debug_ec)
         app.post("/admin/assign_volume", self.handle_assign_volume)
         app.post("/admin/delete_volume", self.handle_delete_volume)
@@ -371,11 +388,16 @@ class VolumeServer:
         if not self.store.has_volume(vid) and \
                 vid not in self.store.ec_volumes:
             # not local: redirect via master lookup (handlers_read.go:48)
-            locs = self._mc.lookup(vid, max_age=LOOKUP_TTL)
-            if locs:
+            urls = [loc["url"] for loc in
+                    self._mc.lookup(vid, max_age=LOOKUP_TTL)]
+            if urls:
+                # redirect clients away from a replica whose breaker
+                # is open
+                healthy = [u for u in urls
+                           if retry.breaker_for(u).state != retry.OPEN]
                 return Response(status=301, headers={
-                    "Location":
-                        f"http://{locs[0]['url']}/{req.match_info['fid']}"})
+                    "Location": f"http://{(healthy or urls)[0]}/"
+                                f"{req.match_info['fid']}"})
             return text_response(f"volume {vid} not found", status=404)
         try:
             n = self.store.read_needle(
@@ -557,6 +579,8 @@ class VolumeServer:
             not_found = False
             for peer in peers:
                 url = f"http://{peer}/{fid}"
+                # the client consults the peer's breaker on every
+                # attempt: an open one refuses before any connect
                 try:
                     if method == "POST":
                         r = session().post(url, params=params, data=data,
@@ -566,6 +590,9 @@ class VolumeServer:
                         r = session().delete(url, params=params,
                                              headers=headers,
                                              timeout=timeout)
+                except retry.BreakerOpenError:
+                    self._mc.invalidate(vid)
+                    return f"replicate to {peer}: circuit open"
                 except RequestException as e:
                     self._mc.invalidate(vid)
                     return f"replicate to {peer}: {e}"

@@ -15,17 +15,25 @@ counterpart of seaweedfs_tpu/utils/retry.py.
   outlives the budget the edge minted. The ambient deadline lives in a
   contextvar, so it follows the handler through the calls it makes.
 
-Stdlib only. Not here: the per-peer circuit breakers and the aiohttp
-middleware of the reference (the port's transport binds the deadline
-itself, in rpc/http.py).
+* ``CircuitBreaker`` — per-peer consecutive connection-failure breaker
+  with a half-open probe, in one process-wide registry that the HTTP
+  client and the volume server's replica fan-out share. Callers fail
+  fast to the next replica instead of re-timing-out against a dead peer
+  on every request; ``/debug/breakers`` serves the registry.
+
+``middleware(service, edge)`` is the server side for rpc/http.App: it
+answers 504 for a passed deadline and binds a live one for the handler;
+an edge server (s3, filer) mints ``EDGE_BUDGET`` when the client sent
+none. Stdlib only.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import random
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Iterator
 
 # absolute unix-epoch seconds, decimal string, minted at the gateway
@@ -39,6 +47,19 @@ _IDEMPOTENT_METHODS = frozenset({"GET", "HEAD", "OPTIONS"})
 
 class DeadlineExceeded(Exception):
     """The request's overall deadline passed before the work finished."""
+
+
+class BreakerOpenError(ConnectionError):
+    """Fail-fast refusal: the peer's circuit breaker is open.
+
+    Subclasses ConnectionError so replica-failover paths that catch
+    OSError treat it as "this peer is down, try the next one".
+    """
+
+    def __init__(self, peer: str, retry_after: float = 0.0):
+        super().__init__(f"circuit open for peer {peer}")
+        self.peer = peer
+        self.retry_after = retry_after
 
 
 # ---------------------------------------------------------------------------
@@ -171,12 +192,277 @@ class RetryPolicy:
         return status in (502, 503, 504)
 
 
-# the process-wide policy every client call follows
+# ---------------------------------------------------------------------------
+# Per-peer circuit breaker
+# ---------------------------------------------------------------------------
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half-open"
+
+
+@dataclass
+class _BreakerConfig:
+    failure_threshold: int = 5   # consecutive conn failures to trip
+    reset_timeout: float = 5.0   # seconds open before the probe
+
+
+class CircuitBreaker:
+    """Connection-failure breaker for one peer (host:port).
+
+    Only *connection-level* failures count — an HTTP error status means
+    the peer is alive and must reset the streak.  Thread-safe: the HTTP
+    client's threads and the replica fan-out share instances.
+    """
+
+    def __init__(self, peer: str, config: _BreakerConfig):
+        self.peer = peer
+        self._cfg = config
+        self._lock = threading.Lock()
+        self._failures = 0
+        self._state = CLOSED
+        self._opened_at = 0.0
+        self._probing = False
+        self._probe_at = 0.0
+        self.trips = 0  # lifetime trip count (metric)
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open()
+            return self._state
+
+    def _maybe_half_open(self) -> None:
+        now = time.time()
+        if (self._state == OPEN and
+                now - self._opened_at >= self._cfg.reset_timeout):
+            self._state = HALF_OPEN
+            self._probing = False
+            return
+        # probe lease: an admitted probe whose caller never settled it
+        # (timeout path, injected fault, crashed thread) must not hold
+        # the slot forever — after reset_timeout the lease expires and
+        # the next caller may probe, so a peer is never fail-fast
+        # process-wide until restart just because one probe got lost
+        if (self._state == HALF_OPEN and self._probing and
+                now - self._probe_at >= self._cfg.reset_timeout):
+            self._probing = False
+
+    def allow(self) -> bool:
+        """May a request go to this peer right now?  In half-open state
+        exactly one probe is admitted; the rest fail fast until the
+        probe reports back (or its lease expires)."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == CLOSED:
+                return True
+            if self._state == HALF_OPEN and not self._probing:
+                self._probing = True
+                self._probe_at = time.time()
+                return True
+            return False
+
+    def retry_after(self) -> float:
+        with self._lock:
+            if self._state != OPEN:
+                return 0.0
+            return max(0.0, self._cfg.reset_timeout -
+                       (time.time() - self._opened_at))
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            self._state = CLOSED
+            self._probing = False
+
+    def probe_inconclusive(self) -> None:
+        """Settle an admitted half-open probe whose attempt ended
+        without proof either way (timed out, dropped mid-stream): the
+        peer is still suspect, so go back to OPEN with a fresh timer —
+        and the probe slot is released rather than leaked."""
+        with self._lock:
+            if self._state == HALF_OPEN and self._probing:
+                self._state = OPEN
+                self._opened_at = time.time()
+                self._probing = False
+
+    def release_probe(self) -> None:
+        """Release an admitted probe slot without judging the peer —
+        the attempt never reached it (e.g. an injected fault fired
+        before any bytes moved), so the next caller may probe at once."""
+        with self._lock:
+            if self._state == HALF_OPEN and self._probing:
+                self._probing = False
+
+    def record_failure(self) -> None:
+        """Record one connection-level failure."""
+        with self._lock:
+            if self._state == HALF_OPEN:
+                # failed probe: straight back to open, timer restarts
+                self._state = OPEN
+                self._opened_at = time.time()
+                self._probing = False
+                return
+            self._failures += 1
+            if (self._state == CLOSED and
+                    self._failures >= self._cfg.failure_threshold):
+                self._state = OPEN
+                self._opened_at = time.time()
+                self.trips += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            self._maybe_half_open()
+            return {"peer": self.peer, "state": self._state,
+                    "consecutive_failures": self._failures,
+                    "trips": self.trips,
+                    "retry_after": round(max(0.0, self._cfg.reset_timeout -
+                                             (time.time() - self._opened_at))
+                                         if self._state == OPEN else 0.0, 3)}
+
+
+class BreakerRegistry:
+    """Process-wide peer → breaker map (all clients share one view of
+    peer health, like wdclient's vidMap is shared)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._breakers: dict[str, CircuitBreaker] = {}
+        self.config = _BreakerConfig()
+
+    def for_peer(self, peer: str) -> CircuitBreaker:
+        peer = peer.strip().removeprefix("http://").removeprefix("https://")
+        peer = peer.split("/", 1)[0]
+        with self._lock:
+            br = self._breakers.get(peer)
+            if br is None:
+                br = self._breakers[peer] = CircuitBreaker(peer, self.config)
+            return br
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            brs = list(self._breakers.values())
+        return [b.snapshot() for b in sorted(brs, key=lambda b: b.peer)]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._breakers.clear()
+
+    def reset_peer(self, peer: str) -> bool:
+        """Forget one peer's breaker (same normalization as
+        ``for_peer``). A volume server that re-registers after a
+        restart is a fresh process — it must not inherit the dead
+        process's OPEN breaker, or every client shuns it for a full
+        reset_timeout after it came back healthy. Returns True when
+        state existed and was dropped."""
+        peer = peer.strip().removeprefix("http://").removeprefix("https://")
+        peer = peer.split("/", 1)[0]
+        with self._lock:
+            return self._breakers.pop(peer, None) is not None
+
+
+_registry = BreakerRegistry()
+
+
+def breaker_for(peer: str) -> CircuitBreaker:
+    return _registry.for_peer(peer)
+
+
+def breakers_snapshot() -> list[dict]:
+    return _registry.snapshot()
+
+
+def reset_breakers() -> None:
+    """Test hook: forget all peer state."""
+    _registry.reset()
+
+
+def reset_peer_breaker(peer: str) -> bool:
+    """Drop one peer's breaker state (see BreakerRegistry.reset_peer)."""
+    return _registry.reset_peer(peer)
+
+
+# ---------------------------------------------------------------------------
+# Process-wide defaults (tuned by cli.py global flags)
+# ---------------------------------------------------------------------------
+
 DEFAULT = RetryPolicy()
-# budget minted at the SDK edge (operation.verbs.upload_data); generous
-# on purpose — it bounds runaway work, not ordinary large uploads
+# budget minted at the gateway edge when the client sent no deadline
+# (and by operation.verbs.upload_data); generous on purpose — it bounds
+# runaway work (a dead peer chain), not ordinary large uploads
 EDGE_BUDGET = 300.0
+
+
+def configure(max_attempts: int | None = None,
+              base_delay: float | None = None,
+              max_delay: float | None = None,
+              edge_budget: float | None = None,
+              breaker_failures: int | None = None,
+              breaker_reset: float | None = None) -> None:
+    """Apply the -retry.* / -breaker.* CLI flags."""
+    global DEFAULT, EDGE_BUDGET
+    kw = {}
+    if max_attempts is not None:
+        kw["max_attempts"] = max(1, int(max_attempts))
+    if base_delay is not None:
+        kw["base_delay"] = float(base_delay)
+    if max_delay is not None:
+        kw["max_delay"] = float(max_delay)
+    if kw:
+        DEFAULT = replace(DEFAULT, **kw)
+    if edge_budget is not None:
+        EDGE_BUDGET = float(edge_budget)
+    if breaker_failures is not None:
+        _registry.config.failure_threshold = max(1, int(breaker_failures))
+    if breaker_reset is not None:
+        _registry.config.reset_timeout = float(breaker_reset)
 
 
 def policy() -> RetryPolicy:
     return DEFAULT
+
+
+# ---------------------------------------------------------------------------
+# Server side: the deadline middleware and /debug/breakers
+# ---------------------------------------------------------------------------
+
+def middleware(service: str, edge: bool = False):
+    """Bind the request's deadline for the handler (rpc/http.App).
+
+    Internal servers honour the X-Sw-Deadline a caller sent and answer
+    504 before the handler runs when it already passed. Edge servers
+    (``edge=True``: s3, filer) mint a fresh EDGE_BUDGET deadline when
+    the client sent none, so every downstream hop inherits a bound.
+    """
+    from ..rpc.http import text_response
+
+    skip = {"/metrics", "/debug/traces", "/debug/breakers", "/status",
+            "/healthz"}
+
+    def mw(req, handler):
+        if req.path in skip:
+            return handler(req)
+        dl = parse_deadline(req.headers.get(DEADLINE_HEADER))
+        if dl is not None and dl <= time.time():
+            # nobody is waiting for this response any more
+            return text_response("deadline exceeded\n", status=504)
+        if dl is None and edge:
+            dl = time.time() + EDGE_BUDGET
+        if dl is None:
+            return handler(req)
+        token = _deadline.set(dl)
+        try:
+            return handler(req)
+        except DeadlineExceeded:
+            return text_response("deadline exceeded\n", status=504)
+        finally:
+            _deadline.reset(token)
+
+    return mw
+
+
+def handle_debug_breakers(req):
+    """GET /debug/breakers: this process's peer breakers."""
+    from ..rpc.http import json_response
+
+    return json_response({"breakers": breakers_snapshot()})

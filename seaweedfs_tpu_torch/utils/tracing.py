@@ -1,6 +1,5 @@
-"""Stdlib-only distributed tracing — copy of seaweedfs_tpu/utils/tracing.py
-without its aiohttp glue (the middleware and the /debug/traces handler
-come with the servers).
+"""Stdlib-only distributed tracing; the counterpart of
+seaweedfs_tpu/utils/tracing.py.
 
 W3C-``traceparent``-style context (trace-id/span-id/flags): `span()`
 records one finished span (name, start, duration, status, peer) into a
@@ -9,6 +8,11 @@ span or on an explicit remote context. Server spans are summarized into
 ``request_trace_seconds{service,handler}`` histograms, and a local root
 server span slower than the configurable threshold emits one glog line
 carrying the full span tree. `traces_json` groups the ring by trace.
+
+`middleware(service)` is the server side for rpc/http.App: it joins the
+incoming traceparent (or starts a root trace) and records a server span
+named after the route's handler, with the reply's status;
+`handle_debug_traces` serves the ring at /debug/traces on every server.
 """
 from __future__ import annotations
 
@@ -291,3 +295,50 @@ def traces_json(limit: int = 20) -> list[dict]:
     return [{"trace_id": tid,
              "spans": sorted(groups[tid], key=lambda s: s["start"])}
             for tid in order]
+
+
+# -- server glue (rpc/http.App) ------------------------------------------
+
+# /heartbeat: the port's pulse is one POST where the reference keeps a
+# stream whose one span ends with it; a span per pulse would crowd the
+# collector's store
+_SKIP_PATHS = {"/metrics", "/status", "/healthz", "/debug/traces",
+               "/cluster/traces", "/cluster/traces/push",
+               "/cluster/metrics", "/heartbeat"}
+
+
+def middleware(service: str):
+    """Per-server tracing middleware: extracts the incoming traceparent
+    (or starts a root trace) and records a server span named after the
+    route's handler function."""
+
+    def mw(req, handler):
+        if req.path in _SKIP_PATHS:
+            return handler(req)
+        remote = parse_traceparent(req.headers.get("traceparent"))
+        name = getattr(req.route_handler, "__name__", None) or req.method
+        with span(name, service=service, kind="server", remote=remote,
+                  peer=req.remote) as rec:
+            resp = handler(req)
+            rec["status"] = str(resp.status)
+            return resp
+
+    return mw
+
+
+def handle_debug_traces(req):
+    """GET /debug/traces?limit=N — shared route handler for all servers.
+    Also carries this process's circuit-breaker view: {"traces": [...],
+    "breakers": [...]}; ?format=spans answers the plain list."""
+    from ..rpc.http import json_response
+    from . import retry as _retry
+
+    try:
+        limit = int(req.query.get("limit", "20"))
+    except ValueError:
+        limit = 20
+    traces = traces_json(limit=limit)
+    if req.query.get("format") == "spans":
+        return json_response(traces)
+    return json_response({"traces": traces,
+                          "breakers": _retry.breakers_snapshot()})

@@ -14,7 +14,7 @@ subscription, entries live for the caller's `max_age`, and a caller
 that finds an entry stale (a holder that no longer has the shard)
 drops it with `invalidate(vid)` and reads the master again.
 `lookup_file_id_urls` turns a fid into the urls the filer reads it
-from.
+from, breaker-healthy peers first (utils/retry.py).
 """
 from __future__ import annotations
 
@@ -25,6 +25,20 @@ import time
 
 from ..rpc import websocket
 from ..rpc.httpclient import RequestException, session
+from ..utils import retry
+
+
+def _order_by_breaker(urls: list[str]) -> list[str]:
+    """Peers whose circuit breaker is closed/half-open first, open-
+    breaker peers last (still listed — when every replica is open the
+    caller should try anyway rather than fail without a request).
+    Reads breaker state without consuming the half-open probe slot."""
+    good, bad = [], []
+    for u in urls:
+        peer = u.split("//", 1)[-1].split("/", 1)[0]
+        (bad if retry.breaker_for(peer).state == retry.OPEN
+         else good).append(u)
+    return good + bad
 
 LOOKUP_TIMEOUT = 10.0
 # timeout of one master's /cluster/leader probe
@@ -149,13 +163,13 @@ class MasterClient:
                             max_age: float = 600.0) -> list[str]:
         """All urls for a fid (every replica, or every holder of an EC
         volume's shards) — callers iterate for failover, or hedge the
-        second. Without the reference's circuit breakers, in the
-        master's order."""
+        second. Breaker-healthy first, else in the master's order."""
         vid = int(fid.split(",")[0])
         locs = self.lookup(vid, max_age=max_age)
         if not locs:
             raise LookupError(f"volume {vid} has no locations")
-        return [f"http://{loc['url']}/{fid}" for loc in locs]
+        return _order_by_breaker(
+            [f"http://{loc['url']}/{fid}" for loc in locs])
 
     def lookup_file_id(self, fid: str, max_age: float = 600.0) -> str:
         """fid -> full url (GetLookupFileIdFunction equivalent)."""

@@ -292,3 +292,38 @@ def test_disk_location_load_and_shard_removal(encoded, tmp_path):
     port.close()
     ref.close()
     assert port.volume_count == 0
+
+
+def test_shard_read_at_from_many_threads(tmp_path):
+    """A shard is read from many request threads at once (degraded
+    reads, shard_read, a partial rebuild): every read gets its own
+    bytes. A seek-then-read on one shared file object (the reference's
+    EcVolumeShard.read_at) lets two threads interleave into the wrong
+    range; on the card a partial rebuild under concurrent degraded
+    reads wrote such bytes into a rebuilt shard."""
+    import threading
+
+    rng = np.random.default_rng(20261017)
+    blob = rng.integers(0, 256, 8 << 20, dtype=np.uint8).tobytes()
+    path = str(tmp_path / "1.ec04")
+    with open(path, "wb") as f:
+        f.write(blob)
+    shard = ecvol.EcVolumeShard("", 1, 4, path)
+    bad = []
+
+    def reader(seed: int) -> None:
+        r = np.random.default_rng(seed)
+        for _ in range(300):
+            off = int(r.integers(0, len(blob)))
+            size = int(r.integers(1, 1 << 20))
+            if shard.read_at(off, size) != blob[off:off + size]:
+                bad.append((seed, off, size))
+
+    threads = [threading.Thread(target=reader, args=(s,))
+               for s in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    shard.close()
+    assert bad == []

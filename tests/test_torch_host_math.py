@@ -2,8 +2,9 @@
 for byte (tolerance 0: all of it is integer GF(256) arithmetic): gf256
 tables, rs_matrix for every known code, the numpy codec, geometry, the
 .vif sidecar and the metrics registry. Also scans the port's sources
-and chip_smoke.py for imports of jax or seaweedfs_tpu (the image imports
-jax into every process, so sys.modules cannot tell), of aiohttp,
+and the root scripts (chip_smoke.py, host_profile.py) for imports of
+jax or seaweedfs_tpu (the image imports jax into every process, so
+sys.modules cannot tell), of aiohttp,
 requests and the libraries under them (the card's machine has none of
 them), and of anything beyond the standard library, numpy, torch and
 triton."""
@@ -174,7 +175,8 @@ def test_metrics_histogram_and_counter():
 
 def _port_python_files():
     root = os.path.join(REPO, "seaweedfs_tpu_torch")
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                            "host_profile.py")]
     for base, dirs, files in os.walk(root):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
@@ -186,7 +188,9 @@ def _port_python_files():
 _BANNED_TOP = ("jax", "seaweedfs_tpu", "google_crc32c", "aiohttp",
                "requests", "urllib3", "websockets", "websocket")
 # beyond the standard library, the port may import only these
-_CARD_PACKAGES = {"numpy", "torch", "triton", "seaweedfs_tpu_torch"}
+# chip_smoke: host_profile.py drives its phases
+_CARD_PACKAGES = {"numpy", "torch", "triton", "seaweedfs_tpu_torch",
+                  "chip_smoke"}
 
 
 def _forbidden(name: str) -> bool:
@@ -355,6 +359,30 @@ def test_scan_covers_the_tier_layer(module):
     """The tiered-storage slice's modules are scanned, each has its
     reference at the same path, and none imports jax, seaweedfs_tpu,
     aiohttp, requests or anything the card's machine lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
+
+
+OBSERVABILITY_LAYER = ["utils/faults.py", "utils/retry.py",
+                       "utils/tracing.py", "rpc/http.py",
+                       "rpc/httpclient.py", "rpc/trace_push.py",
+                       "master/collector.py", "master/workload.py",
+                       "master/topology.py", "server/master_server.py",
+                       "server/volume_server.py",
+                       "server/filer_server.py", "s3/server.py",
+                       "server/master_follower.py", "server/cluster.py",
+                       "wdclient/client.py", "cli.py"]
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY_LAYER)
+def test_scan_covers_the_observability_layer(module):
+    """The robustness and observability slice's new and changed
+    modules are scanned, each has its reference at the same path, and
+    none imports jax, seaweedfs_tpu, aiohttp, requests or anything the
+    card's machine lacks."""
     path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
     assert path in _port_python_files()
     assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))

@@ -7,8 +7,12 @@ with the module's globals overridden by `subs` — the reference's names
 the same assertions run unchanged against seaweedfs_tpu_torch.
 -> {"Class.test_name" or "test_name": function}; a method comes bound
 to an instance of its class rebuilt the same way.
+`expand_params`, `run_case` and `swap_modules` cover parametrized
+cases, setup/teardown methods and imports made inside a case.
 """
+import contextlib
 import inspect
+import sys
 import types
 
 
@@ -17,6 +21,11 @@ def port_cases(ref_module, skip=(), **subs) -> dict:
     g.update(subs)
 
     def rebind(fn):
+        wrapped = getattr(fn, "__wrapped__", None)
+        if wrapped is not None and \
+                fn.__code__.co_filename == contextlib.__file__:
+            # a @contextlib.contextmanager helper: rebind what it wraps
+            return contextlib.contextmanager(rebind(wrapped))
         return types.FunctionType(fn.__code__, g, fn.__name__,
                                   fn.__defaults__, fn.__closure__)
 
@@ -44,3 +53,59 @@ def port_cases(ref_module, skip=(), **subs) -> dict:
 def call_case(fn, fixtures: dict):
     """Call a case with the fixtures its signature names."""
     return fn(*[fixtures[p] for p in inspect.signature(fn).parameters])
+
+
+def expand_params(ref_module, cases: dict) -> dict:
+    """-> {"name[i]": (name, kwargs)}: one entry per parameter set of a
+    case the reference parametrizes (its `@pytest.mark.parametrize`),
+    {"name": (name, {})} for any other case."""
+    out = {}
+    for name in cases:
+        cls, _, attr = name.rpartition(".")
+        fn = getattr(getattr(ref_module, cls), attr) if cls \
+            else getattr(ref_module, name)
+        marks = [m for m in getattr(fn, "pytestmark", [])
+                 if m.name == "parametrize"]
+        if not marks:
+            out[name] = (name, {})
+            continue
+        (mark,) = marks
+        argnames, values = mark.args[0], mark.args[1]
+        names = [a.strip() for a in argnames.split(",")] \
+            if isinstance(argnames, str) else list(argnames)
+        for i, v in enumerate(values):
+            out[f"{name}[{i}]"] = (name, dict(zip(
+                names, v if len(names) > 1 else (v,))))
+    return out
+
+
+def run_case(fn, fixtures: dict):
+    """call_case between the case's class's setup_method and
+    teardown_method, as pytest runs them."""
+    owner = getattr(fn, "__self__", None)
+    setup = getattr(owner, "setup_method", None)
+    teardown = getattr(owner, "teardown_method", None)
+    if setup is not None:
+        setup()
+    try:
+        return call_case(fn, fixtures)
+    finally:
+        if teardown is not None:
+            teardown()
+
+
+@contextlib.contextmanager
+def swap_modules(mapping: dict):
+    """Bind module names to other modules for the with-block, so a case
+    that imports inside its body (`from seaweedfs_tpu.x import Y`) gets
+    the port's module."""
+    saved = {name: sys.modules.get(name) for name in mapping}
+    sys.modules.update(mapping)
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
