@@ -260,6 +260,52 @@ Phases, each fatal on failure (exit code 1, no result line):
    h. The master answers a 1 MiB + 1 body with 413.
    i. The current device is what it was before phase 13.
 
+14. The secured, durable write path. The master is a process of `python
+   -m seaweedfs_tpu_torch -security <json> master -jwt.secret ...` on
+   HTTPS (pulse 0.5 s, the watchdog at grace 0, -tier.enabled), with
+   certificates from utils/tls.generate_self_signed and SSL_CERT_FILE /
+   REQUESTS_CA_BUNDLE naming their CA; four volume servers at
+   -commit.durability=batch under the same secret over three racks on
+   "cuda", a sqlite filer (plain: the watchdog's DLM lock reaches it
+   over http://, as the reference's does) and the S3 gateway on HTTPS
+   with per-tenant qos (a provisioned tenant and a greedy one) run here;
+   the fifth volume server, the victim, is a process of `volume
+   -commit.durability batch -jwt.secret ...`. Each step is fatal:
+   a. 401 on a replicated volume's primary and replica for no token, a
+      tampered signature, an expired token and another fid's token; the
+      signed write and two `_N` slots under the base fid's token 201
+      with X-Sw-Durability: batch; then a 1 GiB volume filled through
+      /dir/assign and Bearer uploads of 4 MiB needles on 8 threads,
+      every ack 201 with X-Sw-Durability: batch.
+   b. The primary's /debug/commit over the fill: fewer fsyncs than
+      acked writes (writes per fsync printed); each of its acks came
+      after a durable commit (fdatasync) of its volume that began after
+      the write's append (its CommitScheduler wrapped in-process).
+   c. 200 S3 PUT/GET cycles over https, md5- and ETag-equal; a client
+      without the CA fails verification and plain HTTP fails at the
+      gateway and the master; a master.follower on HTTPS locates the
+      volume from its KeepConnected stream over wss://.
+   d. The greedy tenant bursts 10x its provisioned rate for 5 s beside
+      the provisioned tenant: the excess is shed 503 with Retry-After
+      and X-Sw-Retryable, exactly as counted in qos_shed_total; the
+      provisioned tenant never fails (p50 / p99); every acked object of
+      both reads back. Then limits in the filer KV `s3/circuit_breaker`:
+      after the reload a writeCount-0 bucket answers 503
+      TooManyRequests, a PUT with no length 411, a DELETE with none 204.
+   e. The tiering controller's seal of the 1 GiB volume (POST
+      /debug/tiering): exactly ec.encode's 4 launches in one attempt, 0
+      repairs, 14 shards sha256-equal to the plain version's encode of
+      the same .dat on the card.
+   f. The victim SIGKILLed at a seeded point while 8 writers are
+      mid-write to a second volume on it (its /debug/commit just before:
+      fewer fsyncs than writes); the watchdog rebuilds the victim's
+      shards of the sealed volume elsewhere through the kernel (26
+      launches), the 14 live shards sha256-equal to step e's; the
+      victim restarted on the same directories reads every acked write
+      back byte-equal, its .dat on the 8-byte record grid.
+   g. The walls, launches, CUDA-event times and the device's busy share
+      of the phase.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -1111,14 +1157,19 @@ def _shard_paths(cluster, vid: int) -> dict[int, str]:
     return out
 
 
+FILL_ASSIGN_BATCH = 64           # fids per /dir/assign?count= of a fill
+
+
 def _fill_volume_http(cluster, env, collection: str, seed: int,
                       target: int, replication: str = "") -> dict:
     """Grow one volume of `collection` and fill it with seeded needles
     through assign + upload over HTTP until its .dat holds `target`
     bytes (1 KiB - 1 MiB log-uniform; 5% of writes overwrite an earlier
-    id), then delete 2% of the ids. -> vid, the primary's url and
-    Volume, {fid: sha256} of the live needles, the deleted fids, and
-    the counts and seconds of the writes."""
+    id), then delete 2% of the ids. Each /dir/assign asks for
+    FILL_ASSIGN_BATCH fids (the slots fid, fid_1, ..., as the filer's
+    batched assigns). -> vid, the primary's url and Volume, {fid:
+    sha256} of the live needles, the deleted fids, and the counts and
+    seconds of the writes."""
     from seaweedfs_tpu_torch.operation import verbs
 
     grown = env.master_get("/vol/grow", collection=collection, count=1,
@@ -1129,6 +1180,7 @@ def _fill_volume_http(cluster, env, collection: str, seed: int,
     rng = np.random.default_rng(seed)
     lo, hi = np.log(1 << 10), np.log(1 << 20)
     live: dict[str, str] = {}
+    slots: collections.deque = collections.deque()
     writes = overwrites = 0
     vid, vol, url = None, None, None
     t0 = time.perf_counter()
@@ -1139,16 +1191,20 @@ def _fill_volume_http(cluster, env, collection: str, seed: int,
             fid = fids[int(rng.integers(0, len(fids)))]
             overwrites += 1
         else:
-            a = verbs.assign(env.master_url, collection=collection,
-                             replication=replication)
-            fid = a.fid
-            if vid is None:
-                vid, url = int(fid.split(",")[0]), a.url
-                vol = next(s.find_volume(vid) for s in cluster.stores
-                           if s.has_volume(vid) and
-                           f"{s.ip}:{s.port}" == url)
-            elif int(fid.split(",")[0]) != vid or a.url != url:
-                fail(f"assign left volume {vid}: {fid} on {a.url}")
+            if not slots:
+                a = verbs.assign(env.master_url, collection=collection,
+                                 replication=replication,
+                                 count=FILL_ASSIGN_BATCH)
+                if vid is None:
+                    vid, url = int(a.fid.split(",")[0]), a.url
+                    vol = next(s.find_volume(vid) for s in cluster.stores
+                               if s.has_volume(vid) and
+                               f"{s.ip}:{s.port}" == url)
+                elif int(a.fid.split(",")[0]) != vid or a.url != url:
+                    fail(f"assign left volume {vid}: {a.fid} on {a.url}")
+                slots.extend([a.fid] + [f"{a.fid}_{i}"
+                                        for i in range(1, int(a.count))])
+            fid = slots.popleft()
         verbs.upload(f"http://{url}/{fid}", data)
         live[fid] = hashlib.sha256(data).hexdigest()
         writes += 1
@@ -2199,11 +2255,12 @@ def _s3_object(i: int) -> tuple[str, bytes]:
 
 
 class _S3Client:
-    """SigV4-signed requests to the gateway, one pooled session per
-    thread."""
+    """SigV4-signed requests to the gateway as one identity (phase 10's
+    by default), one pooled session per thread."""
 
-    def __init__(self, url: str):
+    def __init__(self, url: str, key: str = S3_KEY, secret: str = S3_SECRET):
         self.url = url
+        self.key, self.secret = key, secret
 
     def __call__(self, method: str, path: str, data: bytes = b"",
                  headers: dict | None = None, stream: bool = False):
@@ -2211,8 +2268,8 @@ class _S3Client:
         from seaweedfs_tpu_torch.s3.auth import sign_request
 
         url = self.url + path
-        hdrs = sign_request(method, url, S3_KEY, S3_SECRET, payload=data,
-                            extra_headers=headers)
+        hdrs = sign_request(method, url, self.key, self.secret,
+                            payload=data, extra_headers=headers)
         return session().request(method, url, data=data or None,
                                  headers=hdrs, timeout=(5.0, 300.0),
                                  stream=stream)
@@ -2814,6 +2871,13 @@ def phase_ha(card: str) -> int:
         # 11a. one stable leader
         leader = wait(lambda: _raft_leader(urls), "one stable raft leader")
         t_lead = time.monotonic() - t0
+        # the polls above met the masters before they listened: their
+        # refusals opened this process's breakers for them, which would
+        # refuse the first hops below until a half-open probe closes them
+        from seaweedfs_tpu_torch.utils import retry
+
+        for u in urls:
+            retry.reset_peer_breaker(u.split("://", 1)[1])
         follower = next(u for u in urls if u != leader)
         log(f"[11a] masters {peers} (processes of `python -m "
             f"seaweedfs_tpu_torch master -peers ... -raftDir ...`, pulse "
@@ -4137,6 +4201,785 @@ def phase_chaos(card: str) -> dict:
     return launches
 
 
+SEC_SECRET = "smoke14-jwt-secret"     # -jwt.secret of the master and volumes
+SEC_NEEDLE = 4 << 20                  # 14a's fill: 4 MiB needles
+SEC_THREADS = 8                       # client threads of 14a and 14f
+SEC_TOPOLOGY = [("dc1", "rA"), ("dc1", "rA"), ("dc1", "rB"),
+                ("dc1", "rC")]        # in-process; the victim joins rB
+SEC_VICTIM_RACK = "rB"
+SEC_PROV = ("SMOKE14PROV", "smoke14-provisioned-secret")
+SEC_GREEDY = ("SMOKE14GREEDY", "smoke14-greedy-secret")
+SEC_S3_CONFIG = {"identities": [
+    {"name": name, "actions": ["Admin"],
+     "credentials": [{"accessKey": ak, "secretKey": sk}]}
+    for name, (ak, sk) in (("provisioned", SEC_PROV),
+                           ("greedy", SEC_GREEDY))]}
+SEC_PROV_RATE = 64 << 20              # bytes/s provisioned per tenant
+SEC_GREEDY_RATE = 1 << 20
+SEC_MAX_DELAY = 0.5                   # -qos.maxDelay
+SEC_BURST_SECONDS = 5.0               # the greedy tenant's 10x burst
+SEC_BURST_OBJECT = 64 << 10
+# the burst's client threads: each admitted request is paced up to
+# -qos.maxDelay on the server, so the offered load only stays at 10x
+# (open loop) with more requests in flight than maxDelay x rate / object
+SEC_BURST_THREADS = 32
+SEC_PROV_OBJECT = 16 << 10
+# the five servers' -commit.maxBytes / -commit.maxDelay: at the defaults
+# (4 MiB, 2 ms) a 4 MiB needle closes its own batch, so the fill would
+# coalesce nothing; this window holds up to 16 of them, and stays open
+# longer than the gap between the 8 writers' uploads
+SEC_COMMIT_MAX_BYTES = 64 << 20
+SEC_COMMIT_MAX_DELAY = 0.05
+SEC_KILL_AFTER = (1.0, 3.0)           # seeded seconds of 14f's writes
+SEC_VICTIM_SIZES = (64 << 10, 1 << 20)
+
+
+def _plain_cuda_codec():
+    """The kernel's plain version (codec_cuda.coded_matmul_plain) in
+    CudaCodec's feed, on the card, with CUDA events around each call:
+    the reference encode 14e holds the seal's shards against."""
+    from seaweedfs_tpu_torch.ops import codec_cuda
+
+    class Plain(codec_cuda.CudaCodec):
+        name = "cuda-plain"
+
+        def __init__(self):
+            # the card; the CPU only in a rehearsal without one
+            super().__init__(device="cuda" if torch.cuda.is_available()
+                             else "cpu")
+            self.pairs = []
+
+        def _kernel(self, mats, x, out=None):
+            tables, m = mats
+            timed = x.device.type == "cuda"
+            if timed:
+                stream = torch.cuda.current_stream(x.device)
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in "se")
+                s.record(stream)
+            r = codec_cuda.coded_matmul_plain(tables, x, m)
+            if out is not None:
+                r = out.copy_(r)
+            if timed:
+                e.record(stream)
+                self.pairs.append((s, e))
+            return r
+
+        def ms(self) -> float:
+            if not self.pairs:
+                return 0.0
+            torch.cuda.synchronize()
+            return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+    return Plain()
+
+
+class _BatchAckWatch:
+    """Ties each batch ack of an in-process volume server to a finished
+    fsync. It wraps the server's CommitScheduler: every ticket a write
+    handler waits on is checked, when its wait returns (just before the
+    201), against the durable commits of its volume that began after the
+    ticket was enqueued, after the append, and ended before the ack.
+    `uncovered` counts acks with no such commit; `close` unwraps."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        self.lock = threading.Lock()
+        self.commits: dict[int, list[tuple[float, float]]] = {}
+        self.acks = self.uncovered = 0
+        submit, commit_volume = sched.submit, sched._commit_volume
+        watch = self
+
+        def timed_commit(v, durable: bool) -> None:
+            t0 = time.monotonic()
+            commit_volume(v, durable)
+            if durable:
+                with watch.lock:
+                    watch.commits.setdefault(id(v), []).append(
+                        (t0, time.monotonic()))
+
+        class Ticket:
+            def __init__(self, t):
+                self._t = t
+
+            def __getattr__(self, name):
+                return getattr(self._t, name)
+
+            def wait(self, timeout=None) -> bool:
+                done = self._t.wait(timeout)
+                if done:
+                    now, t = time.monotonic(), self._t
+                    with watch.lock:
+                        watch.acks += 1
+                        if not any(s >= t.enqueued_at and e <= now
+                                   for s, e in watch.commits.get(
+                                       id(t.volume), ())):
+                            watch.uncovered += 1
+                return done
+
+        sched.submit = lambda v, nbytes: Ticket(submit(v, nbytes))
+        sched._commit_volume = timed_commit
+
+    def close(self) -> None:
+        del self.sched.submit, self.sched._commit_volume
+
+
+def _signed_https(host: str, port: int, ctx, key: tuple[str, str],
+                  method: str, path: str, body: bytes = b"",
+                  chunked: bool = False, conn=None):
+    """One SigV4-signed request over `conn` (an HTTPSConnection the
+    caller keeps alive) or a connection of its own, with no retry (the
+    qos accounting counts every attempt): -> (status, headers, body)."""
+    import http.client
+
+    from seaweedfs_tpu_torch.s3.auth import sign_request
+
+    hdrs = sign_request(method, f"https://{host}:{port}{path}", key[0],
+                        key[1], payload=body)
+    own = conn is None
+    if own:
+        conn = http.client.HTTPSConnection(host, port, context=ctx,
+                                           timeout=60)
+    try:
+        if chunked:
+            conn.request(method, path, body=iter([body]), headers=hdrs,
+                         encode_chunked=True)
+        else:
+            conn.request(method, path, body=body if body or method in (
+                "PUT", "POST") else None, headers=hdrs)
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        if own:
+            conn.close()
+
+
+def phase_secure(card: str) -> dict:
+    """Phase 14: the secured, durable write path at 1 GiB. The master
+    is a process of the port's CLI on HTTPS with -jwt.secret; four
+    volume servers at -commit.durability=batch, a sqlite filer (plain:
+    the watchdog's DLM lock reaches it over http://, as the reference's
+    does) and the S3 gateway on HTTPS with per-tenant qos run here; the
+    fifth volume server is a process, SIGKILLed mid-write. -> kernel
+    launches of the seal and the rebuild."""
+    import signal
+    import socket
+    import ssl
+
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.rpc.http import ServerThread
+    from seaweedfs_tpu_torch.rpc.httpclient import (RequestException,
+                                                    session)
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.server.master_follower import MasterFollower
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.ec import encoder
+    from seaweedfs_tpu_torch.utils import metrics, qos, tls
+    from seaweedfs_tpu_torch.utils.security import sign_jwt
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke14-")
+    saved_env = {k: os.environ.get(k)
+                 for k in ("SSL_CERT_FILE", "REQUESTS_CA_BUNDLE")}
+    proc = victim = cluster = follower = None
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    try:
+        t0 = time.perf_counter()
+        certs = tls.generate_self_signed(os.path.join(tmp, "certs"))
+        ca = certs["ca_cert"]
+        # this process and the ones it starts trust the CA
+        os.environ["SSL_CERT_FILE"] = os.environ["REQUESTS_CA_BUNDLE"] = ca
+        ctx = tls.server_ssl_context(certs["cert"], certs["key"])
+        sec = os.path.join(tmp, "security.json")
+        with open(sec, "w") as f:
+            json.dump({"https": {"cert": certs["cert"],
+                                 "key": certs["key"]}}, f)
+        spec = os.path.join(tmp, "qos.json")
+        with open(spec, "w") as f:
+            json.dump({"default": {"rate": 0}, "tenants": {
+                SEC_PROV[0]: {"rate": SEC_PROV_RATE},
+                SEC_GREEDY[0]: {"rate": SEC_GREEDY_RATE}}}, f)
+        walls["certs"] = time.perf_counter() - t0
+        mport, vport = free_ports(2)
+        master = f"https://127.0.0.1:{mport}"
+        mlog = os.path.join(tmp, "master.log")
+        vlog = os.path.join(tmp, "victim.log")
+        proc = _spawn(["-security", sec, "master", "-ip", "127.0.0.1",
+                       "-port", str(mport), "-jwt.secret", SEC_SECRET,
+                       "-pulseSeconds", str(HEAL_PULSE),
+                       "-volumeSizeLimitMB", str((DAT_BYTES >> 20) + 64),
+                       "-repair.enabled", "-repair.interval",
+                       str(HEAL_INTERVAL), "-repair.grace", "0",
+                       "-tier.enabled", "-tier.interval",
+                       str(TIER_INTERVAL)], mlog)
+        _poll(lambda: _get_json(f"{master}/cluster/status"), 60.0,
+              f"the master process at {master} answering over HTTPS")
+        cluster = Cluster(os.path.join(tmp, "main"),
+                          n_volume_servers=len(SEC_TOPOLOGY),
+                          max_volumes=8, pulse_seconds=HEAL_PULSE,
+                          ec_backend="cuda", topology=SEC_TOPOLOGY,
+                          with_filer=True, filer_store="sqlite",
+                          with_s3=True, s3_config=SEC_S3_CONFIG,
+                          external_masters=[master],
+                          jwt_secret=SEC_SECRET,
+                          commit_durability="batch",
+                          commit_max_delay=SEC_COMMIT_MAX_DELAY,
+                          commit_max_bytes=SEC_COMMIT_MAX_BYTES,
+                          tls={"s3": ctx},
+                          qos={"enabled": True,
+                               "max_delay": SEC_MAX_DELAY, "spec": spec})
+        cluster.s3.identity_refresh_seconds = 0.5
+        vdir = os.path.join(tmp, "victim")
+        os.makedirs(vdir)
+        victim_args = ["volume", "-ip", "127.0.0.1", "-port", str(vport),
+                       "-dir", vdir, "-max", "8", "-mserver", master,
+                       "-dataCenter", "dc1", "-rack", SEC_VICTIM_RACK,
+                       "-jwt.secret", SEC_SECRET, "-commit.durability",
+                       "batch", "-commit.maxDelay",
+                       str(SEC_COMMIT_MAX_DELAY), "-commit.maxBytes",
+                       str(SEC_COMMIT_MAX_BYTES), "-ec.backend", "native"]
+        victim = _spawn(victim_args, vlog)
+        env = CommandEnv(master, filer_url=cluster.filer_url)
+        victim_url = f"127.0.0.1:{vport}"
+        _poll(lambda: len(env.data_nodes()) == len(SEC_TOPOLOGY) + 1,
+              60.0, "five volume servers registered at the HTTPS master")
+        mf = MasterFollower(master)
+        follower = ServerThread(mf.app, ssl_context=ctx).start()
+        s3_host, s3_port = "127.0.0.1", cluster.s3_thread.port
+        if not cluster.s3_url.startswith("https://"):
+            fail(f"the gateway serves {cluster.s3_url}, not HTTPS")
+        log(f"[14] {card}")
+        log(f"[14] master {master}: a process of `python -m "
+            f"seaweedfs_tpu_torch -security {os.path.basename(sec)} "
+            f"master -jwt.secret ... -repair.enabled -repair.grace 0 "
+            f"-tier.enabled`; here: volume servers "
+            f"{[(th.address, *SEC_TOPOLOGY[i]) for i, th in enumerate(cluster.volume_threads)]}"
+            f" at -commit.durability=batch -commit.maxDelay "
+            f"{SEC_COMMIT_MAX_DELAY} -commit.maxBytes {SEC_COMMIT_MAX_BYTES}"
+            f" on 'cuda', sqlite filer "
+            f"{cluster.filer_url} (plain), s3 {cluster.s3_url} with qos "
+            f"{SEC_PROV[0]} {SEC_PROV_RATE} B/s, {SEC_GREEDY[0]} "
+            f"{SEC_GREEDY_RATE} B/s, follower {follower.url}; victim "
+            f"{victim_url} (dc1, {SEC_VICTIM_RACK}) a process of `volume "
+            f"-commit.durability batch -jwt.secret ...`; certificates "
+            f"{walls['certs']:.3f} s")
+
+        # 14a. JWT: 401s on a primary and its replica, then the fill
+        grown = env.master_get("/vol/grow", collection="smoke14r",
+                               replication="001", count=1,
+                               dataNode=cluster.volume_threads[0].address)
+        if grown.get("count") != 1:
+            fail(f"/vol/grow of smoke14r answered {grown}")
+        a = verbs.assign(master, collection="smoke14r", replication="001",
+                         count=3)
+        other = verbs.assign(master, collection="smoke14r",
+                             replication="001")
+        if not a.auth:
+            fail("the master signed no token for an assign under "
+                 "-jwt.secret")
+        holders = sorted(x["url"] for x in
+                         env.master_get("/dir/lookup",
+                                        volumeId=a.fid.split(",")[0])[
+                             "locations"])
+        replica = next(u for u in holders if u != a.url)
+        h, p, sg = a.auth.split(".")
+        bad = {"no token": {},
+               "tampered": {"Authorization": f"Bearer {h}.{p}.AAAA{sg[4:]}"},
+               "expired": {"Authorization":
+                           f"Bearer {sign_jwt(SEC_SECRET, a.fid, -5)}"},
+               "another fid's": {"Authorization": f"Bearer {other.auth}"}}
+        refused = []
+        for where in (a.url, replica):
+            for name, hdr in bad.items():
+                r = session().post(f"http://{where}/{a.fid}",
+                                   data=b"refused", headers=hdr, timeout=30)
+                refused.append((where, name, r.status_code, r.text))
+                if r.status_code != 401:
+                    fail(f"a write with {name} token to {where} answered "
+                         f"{r.status_code}, not 401: {r.text[:200]}")
+        good = {"Authorization": f"Bearer {a.auth}"}
+        for fid in (a.fid, f"{a.fid}_1", f"{a.fid}_2"):
+            r = session().post(f"http://{a.url}/{fid}", data=b"guarded",
+                               headers=good, timeout=30)
+            if r.status_code != 201 or \
+                    r.headers.get("X-Sw-Durability") != "batch":
+                fail(f"the signed write of {fid} answered {r.status_code} "
+                     f"{r.headers.get('X-Sw-Durability')}: {r.text[:200]}")
+            for where in (a.url, replica):
+                g = session().get(f"http://{where}/{fid}", timeout=30)
+                if g.status_code != 200 or g.content != b"guarded":
+                    fail(f"{fid} from {where}: {g.status_code}")
+        log(f"[14a] 401 on the primary {a.url} and the replica {replica} "
+            f"for {list(bad)} tokens ({refused[0][3]!r} ...); the signed "
+            f"write and the _1, _2 slots under the base fid's token 201 "
+            f"X-Sw-Durability: batch, on both copies")
+
+        grown = env.master_get("/vol/grow", collection="smoke14", count=1,
+                               dataNode=cluster.volume_threads[0].address)
+        if grown.get("count") != 1:
+            fail(f"/vol/grow of smoke14 answered {grown}")
+        c0 = session().get(f"{cluster.volume_url(0)}/debug/commit",
+                           timeout=30).json()
+        watch = _BatchAckWatch(cluster.volume_servers[0].commit)
+        fill_lock = threading.Lock()
+        filled = {"bytes": 0, "n": 0, "lat": [], "vid": None}
+
+        def fill_worker(w: int):
+            i = w
+            while True:
+                with fill_lock:
+                    if filled["bytes"] >= DAT_BYTES:
+                        return
+                    filled["bytes"] += SEC_NEEDLE
+                data = np.random.default_rng([SEED, 14, i]).bytes(SEC_NEEDLE)
+                r0 = time.perf_counter()
+                asg = verbs.assign(master, collection="smoke14")
+                r = session().post(
+                    f"http://{asg.url}/{asg.fid}", data=data,
+                    headers={"Authorization": f"Bearer {asg.auth}"},
+                    timeout=(5.0, 120.0))
+                dt = time.perf_counter() - r0
+                if r.status_code != 201 or \
+                        r.headers.get("X-Sw-Durability") != "batch":
+                    fail(f"14a: the upload of {asg.fid} answered "
+                         f"{r.status_code} {r.headers.get('X-Sw-Durability')}"
+                         f": {r.text[:200]}")
+                with fill_lock:
+                    vid_i = int(asg.fid.split(",")[0])
+                    if filled["vid"] not in (None, vid_i):
+                        fail(f"14a: assigns left volume {filled['vid']}")
+                    filled["vid"] = vid_i
+                    filled["n"] += 1
+                    filled["lat"].append(dt)
+                i += SEC_THREADS
+        t0 = time.perf_counter()
+        _pool_map(fill_worker, range(SEC_THREADS), threads=SEC_THREADS)
+        walls["fill"] = time.perf_counter() - t0
+        vid = filled["vid"]
+        c1 = session().get(f"{cluster.volume_url(0)}/debug/commit",
+                           timeout=30).json()
+        watch.close()
+        vol = cluster.stores[0].find_volume(vid)
+        log(f"[14a] volume {vid} filled to {vol.content_size()} B on "
+            f"{cluster.volume_threads[0].address}: {filled['n']} signed "
+            f"uploads of {SEC_NEEDLE} B on {SEC_THREADS} threads, "
+            f"{walls['fill']:.3f} s, "
+            f"{filled['n'] * SEC_NEEDLE / walls['fill'] / 1e6:.1f} MB/s, "
+            f"{_lat(filled['lat'])} (assign + upload), every ack 201 "
+            f"X-Sw-Durability: batch")
+
+        # 14b. group commit over the fill
+        commits = c1["commits"] - c0["commits"]
+        fsyncs = c1["fsyncs"] - c0["fsyncs"]
+        if commits < filled["n"] or not 0 < fsyncs < commits:
+            fail(f"/debug/commit over the fill: {commits} commits, "
+                 f"{fsyncs} fsyncs for {filled['n']} acked writes")
+        if watch.acks < filled["n"] or watch.uncovered:
+            fail(f"14b: {watch.uncovered} of {watch.acks} batch acks came "
+                 f"before a durable commit of their volume that began "
+                 f"after their append ({filled['n']} writes acked)")
+        log(f"[14b] /debug/commit of {cluster.volume_threads[0].address} "
+            f"over the fill: {commits} acked writes, {fsyncs} fsyncs in "
+            f"{c1['batches'] - c0['batches']} batches: "
+            f"{commits / fsyncs:.2f} writes per fsync (batch size "
+            f"{c1['batch_size']}); each of its {watch.acks} acks came "
+            f"after a durable commit of the volume that began after the "
+            f"write's append ({watch.uncovered} before one)")
+
+        # 14c. TLS: S3 cycles over https, refusals, KeepConnected on wss
+        prov = _S3Client(cluster.s3_url, *SEC_PROV)
+        if prov("PUT", "/secure").status_code != 200:
+            fail("CreateBucket secure over https failed")
+        tls_s3 = _s3_cycles(prov, "secure", "14c")
+        noca = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)   # trusts nothing
+        for name, port_ in (("gateway", s3_port), ("master", mport)):
+            try:
+                with socket.create_connection(("127.0.0.1", port_),
+                                              timeout=10) as raw, \
+                        noca.wrap_socket(raw, server_hostname="127.0.0.1"):
+                    pass
+                fail(f"a client without the CA verified the {name}")
+            except ssl.SSLCertVerificationError:
+                pass
+            try:
+                r = session().get(f"http://127.0.0.1:{port_}/status",
+                                  timeout=5)
+                fail(f"plain HTTP to the {name}'s TLS port answered "
+                     f"{r.status_code}")
+            except RequestException:
+                pass
+        look = _poll(lambda: (lambda r: r.status_code == 200 and r.json())(
+            session().get(f"{follower.url}/dir/lookup", timeout=10,
+                          params={"volumeId": vid})), 30.0,
+            f"the follower's lookup of volume {vid} over wss")
+        if look["locations"][0]["url"] != cluster.volume_threads[0].address:
+            fail(f"the follower locates volume {vid} at {look}")
+        log(f"[14c] {CHAOS_CYCLES} S3 PUT/GET cycles over https "
+            f"{tls_s3['rate']:.1f} cycles/s {tls_s3['lat']}, md5- and "
+            f"ETag-equal, listing exact; a client without the CA fails "
+            f"verification and plain HTTP fails at the gateway and the "
+            f"master; the follower {follower.url} (KeepConnected over "
+            f"wss://) locates volume {vid}")
+
+        # 14d. qos: a 10x burst of the greedy tenant beside the
+        # provisioned one; then the circuit breaker from the KV
+        if prov("PUT", "/tenants").status_code != 200:
+            fail("CreateBucket tenants failed")
+        cactx = ssl.create_default_context(cafile=ca)
+        shed0 = metrics.counter_value("qos_shed_total", {
+            "tenant": SEC_GREEDY[0], "reason": "rate"})
+        adm0 = metrics.counter_value("qos_admitted_total",
+                                     {"tenant": SEC_GREEDY[0]})
+        stop = threading.Event()
+        prov_out: list = []
+
+        def provisioned():
+            j = 0
+            while not stop.is_set():
+                body = np.random.default_rng([SEED, 140, j]).bytes(
+                    SEC_PROV_OBJECT)
+                r0 = time.perf_counter()
+                r = prov("PUT", f"/tenants/prov-{j:05d}", data=body)
+                prov_out.append((j, r.status_code,
+                                 time.perf_counter() - r0,
+                                 hashlib.md5(body).hexdigest()))
+                j += 1
+
+        greedy_out: list = []
+        g_lock = threading.Lock()
+        per_thread = 10 * SEC_GREEDY_RATE / SEC_BURST_OBJECT / \
+            SEC_BURST_THREADS
+
+        def greedy(w: int):
+            import http.client
+
+            conn = http.client.HTTPSConnection(s3_host, s3_port,
+                                               context=cactx, timeout=60)
+            t_end = time.monotonic() + SEC_BURST_SECONDS
+            j = w
+            nxt = time.monotonic()
+            try:
+                while time.monotonic() < t_end:
+                    body = np.random.default_rng([SEED, 141, j]).bytes(
+                        SEC_BURST_OBJECT)
+                    st, hd, _ = _signed_https(
+                        s3_host, s3_port, cactx, SEC_GREEDY, "PUT",
+                        f"/tenants/greedy-{j:05d}", body, conn=conn)
+                    with g_lock:
+                        greedy_out.append((j, st, hd.get("Retry-After"),
+                                           hd.get("X-Sw-Retryable"),
+                                           hashlib.md5(body).hexdigest()))
+                    j += SEC_BURST_THREADS
+                    nxt += 1.0 / per_thread
+                    time.sleep(max(0.0, nxt - time.monotonic()))
+            finally:
+                conn.close()
+        pt = threading.Thread(target=provisioned, daemon=True)
+        pt.start()
+        time.sleep(0.5)          # the provisioned flow is established
+        t0 = time.perf_counter()
+        _pool_map(greedy, range(SEC_BURST_THREADS),
+                  threads=SEC_BURST_THREADS)
+        walls["burst"] = time.perf_counter() - t0
+        stop.set()
+        pt.join(timeout=60)
+        shed = [x for x in greedy_out if x[1] == 503]
+        acked_g = [x for x in greedy_out if x[1] == 200]
+        if len(shed) + len(acked_g) != len(greedy_out):
+            fail(f"the greedy burst saw other statuses: "
+                 f"{sorted({x[1] for x in greedy_out})}")
+        if not shed or any(x[2] is None or x[3] != "1" for x in shed):
+            fail(f"{len(shed)} sheds, not every one 503 with Retry-After "
+                 f"and X-Sw-Retryable")
+        d_shed = metrics.counter_value("qos_shed_total", {
+            "tenant": SEC_GREEDY[0], "reason": "rate"}) - shed0
+        d_adm = metrics.counter_value(
+            "qos_admitted_total", {"tenant": SEC_GREEDY[0]}) - adm0
+        if d_shed != len(shed) or d_adm != len(acked_g):
+            fail(f"qos_shed_total +{d_shed} / qos_admitted_total +{d_adm} "
+                 f"for {len(shed)} 503s / {len(acked_g)} 200s")
+        bad_prov = [x for x in prov_out if x[1] != 200]
+        if bad_prov or not prov_out:
+            fail(f"the provisioned tenant got {bad_prov[:3]}")
+        lost = []
+        for name, rows in (("prov", [(j, st, md5) for j, st, _, md5
+                                     in prov_out]),
+                           ("greedy", [(j, st, md5) for j, st, _, _, md5
+                                       in acked_g])):
+            for j, _st, md5 in rows:
+                g = prov("GET", f"/tenants/{name}-{j:05d}")
+                if g.status_code != 200 or \
+                        hashlib.md5(g.content).hexdigest() != md5:
+                    lost.append((name, j, g.status_code))
+        if lost:
+            fail(f"acked writes lost or changed: {lost[:5]}")
+        offered = len(greedy_out) * SEC_BURST_OBJECT / walls["burst"]
+        log(f"[14d] the greedy tenant offered {offered / 1e6:.2f} MB/s "
+            f"({offered / SEC_GREEDY_RATE:.1f}x its {SEC_GREEDY_RATE} B/s) "
+            f"for {walls['burst']:.3f} s: {len(acked_g)} admitted, "
+            f"{len(shed)} shed 503 + Retry-After + X-Sw-Retryable "
+            f"(qos_shed_total +{d_shed:.0f}); the provisioned tenant "
+            f"{len(prov_out)} PUTs all 200, "
+            f"{_lat([x[2] for x in prov_out])}; every acked object of "
+            f"both read back md5-equal")
+        kv = f"{cluster.filer_url}/kv/s3/circuit_breaker"
+        r = session().put(kv, data=json.dumps({
+            "global": {"writeBytes": 1 << 30},
+            "buckets": {"limited": {"writeCount": 0}}}), timeout=30)
+        if r.status_code >= 300:
+            fail(f"PUT {kv}: {r.status_code}")
+        t0 = time.perf_counter()
+        _poll(lambda: cluster.s3.circuit_breaker.enabled, 30.0,
+              "the gateway loading the breaker's limits from the KV")
+        walls["reload"] = time.perf_counter() - t0
+        st, _, body = _signed_https(s3_host, s3_port, cactx, SEC_PROV,
+                                    "PUT", "/limited", b"")
+        st2, _, body2 = _signed_https(s3_host, s3_port, cactx, SEC_PROV,
+                                      "PUT", "/tenants/chunked", b"x" * 100,
+                                      chunked=True)
+        st3, _, _ = _signed_https(s3_host, s3_port, cactx, SEC_PROV,
+                                  "DELETE", "/tenants/prov-00000")
+        g = prov("GET", "/tenants/prov-00001")
+        if st != 503 or b"TooManyRequests" not in body or st2 != 411 or \
+                b"MissingContentLength" not in body2 or st3 != 204 or \
+                g.status_code != 200:
+            fail(f"under the breaker: writeCount 0 PUT {st} {body[:120]}, "
+                 f"no-length PUT {st2}, DELETE {st3}, GET {g.status_code}")
+        session().put(kv, data=b"{}", timeout=30)
+        _poll(lambda: not cluster.s3.circuit_breaker.enabled, 30.0,
+              "the gateway dropping the breaker's limits")
+        log(f"[14d] the breaker's limits loaded from the filer KV "
+            f"{walls['reload']:.3f} s after the PUT: a write to the "
+            f"writeCount-0 bucket 503 TooManyRequests, a PUT with no "
+            f"length 411 MissingContentLength, a DELETE with none 204, "
+            f"reads 200; limits dropped again")
+
+        # 14e. the controller's seal through the kernel
+        vol.sync()
+        ref_base = os.path.join(tmp, "ref", "ref")
+        os.makedirs(os.path.dirname(ref_base))
+        shutil.copyfile(vol.file_name() + ".dat", ref_base + ".dat")
+        plain = _plain_cuda_codec()
+        t0 = time.perf_counter()
+        encoder.write_ec_files(ref_base, backend=plain)
+        walls["plain encode"] = time.perf_counter() - t0
+        ref_hashes = {sid: sha256(f"{ref_base}.ec{sid:02d}")
+                      for sid in range(14)}
+        codec_cuda.coded_matmul.launches = 0
+        rep0 = env.master_get("/debug/repair")["recent"]
+        t0 = time.time()
+        with _KernelEvents() as seal_ev:
+            r = env.master_request("POST", "/debug/tiering", json={
+                "volume": vid, "transition": "seal"}, timeout=30)
+            if r.status_code != 200 or not r.json().get("accepted"):
+                fail(f"POST /debug/tiering seal: {r.status_code} {r.text}")
+            seal = _poll(lambda: _tier_results(env, vid, "seal"),
+                         TIER_DEADLINE, "the controller's seal")[0]
+        launches["seal"] = codec_cuda.coded_matmul.launches
+        until = time.time()
+        locs = env.ec_shard_locations(vid)
+        if sorted(locs) != list(range(14)):
+            fail(f"shards {sorted(locs)} after the seal")
+        by_url = {f"{s.ip}:{s.port}": s for s in cluster.stores}
+        orig = {}
+        for sid, urls in locs.items():
+            if urls[0] in by_url:
+                orig[sid] = sha256(by_url[urls[0]].ec_volumes[vid]
+                                   .shards[sid].path)
+            else:
+                orig[sid] = hashlib.sha256(session().get(
+                    f"http://{urls[0]}/admin/ec/shard_read",
+                    params={"volume": vid, "shard": sid},
+                    timeout=(5.0, 300.0)).content).hexdigest()
+        if orig != ref_hashes:
+            fail(f"sealed shards "
+                 f"{[s for s in orig if orig[s] != ref_hashes[s]]} differ "
+                 f"from the plain version's encode of the same .dat")
+        shard_size = os.path.getsize(f"{ref_base}.ec00")
+        window = [x for x in env.master_get("/debug/repair")["recent"]
+                  if x not in rep0 and t0 <= x["finished_at"] <= until]
+        rebuilt = [x for x in window if x["ok"] or
+                   "cannot acquire admin lock" not in x["error"]]
+        want_seal = _encode_launches(os.path.getsize(ref_base + ".dat"))
+        if launches["seal"] != want_seal or seal["attempts"] != 1 or \
+                rebuilt:
+            fail(f"the seal made {launches['seal']} launches in "
+                 f"{seal['attempts']} attempts (want {want_seal} in one), "
+                 f"repairs during it {rebuilt}")
+        held: dict[str, list[int]] = {}
+        for sid, urls in locs.items():
+            for u in urls:
+                held.setdefault(u, []).append(sid)
+        lost_sids = sorted(held.get(victim_url, []))
+        if not 0 < len(lost_sids) <= 4:
+            fail(f"the victim {victim_url} holds shards {lost_sids} of "
+                 f"{held}; the phase needs 1 to 4 there (nodes "
+                 f"{[(n['url'], n['rack'], n['max_volumes'], len(n.get('volumes', []))) for n in env.data_nodes()]}; the victim's log:\n{_tail(vlog)})")
+        log(f"[14e] the controller's seal {seal['seconds']} s in "
+            f"{seal['attempts']} attempt; kernel launches "
+            f"{launches['seal']} (CUDA events {seal_ev.ms():.3f} ms); 0 "
+            f"repairs; 14 shards of {shard_size} B sha256-equal to the "
+            f"plain version's encode (CUDA events {plain.ms():.3f} ms, "
+            f"{walls['plain encode']:.3f} s); the victim holds {lost_sids}")
+
+        # 14f. SIGKILL of the victim mid-write in batch mode
+        grown = env.master_get("/vol/grow", collection="smoke14v",
+                               count=1, dataNode=victim_url)
+        if grown.get("count") != 1:
+            fail(f"/vol/grow of smoke14v on the victim answered {grown}")
+        acked: dict[str, str] = {}
+        ack_lock = threading.Lock()
+        writers_stop = threading.Event()
+
+        def victim_writer(w: int):
+            rng = np.random.default_rng([SEED, 142, w])
+            lo, hi = np.log(SEC_VICTIM_SIZES[0]), np.log(SEC_VICTIM_SIZES[1])
+            while not writers_stop.is_set():
+                data = rng.bytes(int(np.exp(rng.uniform(lo, hi))))
+                try:
+                    asg = verbs.assign(master, collection="smoke14v")
+                    if asg.url != victim_url:
+                        fail(f"14f: smoke14v assigned on {asg.url}")
+                    r = session().post(
+                        f"http://{asg.url}/{asg.fid}", data=data,
+                        headers={"Authorization": f"Bearer {asg.auth}"},
+                        timeout=(5.0, 30.0))
+                except (RequestException, RuntimeError):
+                    return           # the victim is gone
+                if r.status_code == 201:
+                    if r.headers.get("X-Sw-Durability") != "batch":
+                        fail("14f: an ack without X-Sw-Durability: batch")
+                    with ack_lock:
+                        acked[asg.fid] = hashlib.sha256(data).hexdigest()
+        kill_after = float(np.random.default_rng([SEED, 143]).uniform(
+            *SEC_KILL_AFTER))
+        wts = [threading.Thread(target=victim_writer, args=(w,),
+                                daemon=True) for w in range(SEC_THREADS)]
+        for th in wts:
+            th.start()
+        time.sleep(kill_after)
+        vsnap = session().get(f"http://{victim_url}/debug/commit",
+                              timeout=10).json()
+        with ack_lock:
+            acked_at_snap = len(acked)
+        codec_cuda.coded_matmul.launches = 0
+        since = time.time()
+        t_kill = time.monotonic()
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=30)
+        writers_stop.set()
+        for th in wts:
+            th.join(timeout=60)
+        if vsnap["durability"] != "batch" or \
+                not 0 < vsnap["fsyncs"] < vsnap["commits"]:
+            fail(f"the victim's /debug/commit before the kill: {vsnap}")
+        with _KernelEvents() as rebuild_ev:
+            _poll(lambda: any(e["volume"] == vid for e in env.master_get(
+                "/cluster/status")["UnderParity"]), HEAL_DEADLINE,
+                f"volume {vid} in UnderParity")
+            t_seen = time.monotonic()
+            _poll(lambda: not env.master_get("/cluster/status")[
+                "UnderParity"] and len(env.ec_shard_locations(vid)) == 14
+                and victim_url not in {u for us in env.ec_shard_locations(
+                    vid).values() for u in us},
+                HEAL_DEADLINE, f"volume {vid} back to 14 live shards")
+            t_done = time.monotonic()
+            def repaired():
+                recent = [x for x in env.master_get("/debug/repair")[
+                    "recent"] if x["finished_at"] >= since]
+                # repairs serialize on the admin lock (ROADMAP Queue 3):
+                # a refusal is retried, any other failure is fatal
+                bad = [x for x in recent if not x["ok"] and
+                       "cannot acquire admin lock" not in x["error"]]
+                if bad:
+                    fail(f"a repair failed: {bad[0]}")
+                return [x for x in recent if x["ok"] and
+                        x["volume"] == vid and x["kind"] == "ec"]
+            rec = _poll(repaired, HEAL_DEADLINE,
+                        "the watchdog's EC repair result")[0]
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        want_rebuild = -(-shard_size // REBUILD_CHUNK)
+        if rec["reason"] != "watchdog" or \
+                sorted(rec["detail"].get("rebuilt", [])) != lost_sids or \
+                launches["rebuild"] != want_rebuild:
+            fail(f"the watchdog's repair {rec} with {launches['rebuild']} "
+                 f"launches, not the rebuild of {lost_sids} in "
+                 f"{want_rebuild}")
+        locs = env.ec_shard_locations(vid)
+        now = {}
+        for sid, urls in locs.items():
+            st_ = by_url.get(urls[0])
+            if st_ is None:
+                fail(f"shard {sid} listed on {urls} after the rebuild")
+            now[sid] = sha256(st_.ec_volumes[vid].shards[sid].path)
+        if now != orig:
+            fail(f"shards {[s for s in now if now[s] != orig.get(s)]} "
+                 f"differ from the seal's after the rebuild")
+        log(f"[14f] SIGKILL of {victim_url} {kill_after:.3f} s into "
+            f"{SEC_THREADS} writers: {len(acked)} writes acked (batch); "
+            f"its /debug/commit just before: {vsnap['commits']} writes, "
+            f"{vsnap['fsyncs']} fsyncs, "
+            f"{vsnap['commits'] / vsnap['fsyncs']:.2f} writes per fsync "
+            f"({acked_at_snap} acked by then); detection "
+            f"{t_seen - t_kill:.3f} s, repair {t_done - t_seen:.3f} s, the "
+            f"watchdog's rebuild of {lost_sids} {rec['seconds']} s "
+            f"({rec['detail'].get('mode')!r} on "
+            f"{rec['detail'].get('rebuilder')}); kernel launches "
+            f"{launches['rebuild']} (CUDA events {rebuild_ev.ms():.3f} ms); "
+            f"14 live shards sha256-equal to the seal's")
+        t0 = time.perf_counter()
+        victim = _spawn(victim_args, vlog)
+        _poll(lambda: _get_json(f"http://{victim_url}/status"), 60.0,
+              "the victim restarted on its directories")
+        walls["restart"] = time.perf_counter() - t0
+        vid2 = int(next(iter(acked)).split(",")[0]) if acked else None
+        if vid2 is None:
+            fail("no write was acked before the kill")
+        back = _get_pass(sorted(acked), lambda f: victim_url, acked,
+                         "14f read-back after the restart",
+                         threads=SEC_THREADS)
+        dat = glob.glob(os.path.join(vdir, f"smoke14v_{vid2}.dat"))
+        if len(dat) != 1 or os.path.getsize(dat[0]) % 8:
+            fail(f"the victim's .dat {dat} does not end on the 8-byte "
+                 f"record grid")
+        log(f"[14f] the victim restarted on the same directories in "
+            f"{walls['restart']:.3f} s: all {back['n']} acked writes read "
+            f"back byte-equal ({back['rate']:.1f} reads/s {back['lat']}); "
+            f"its .dat {os.path.getsize(dat[0])} B on the 8-byte grid")
+        busy = seal_ev.ms() + rebuild_ev.ms() + plain.ms()
+        walls["phase"] = time.perf_counter() - t_phase
+        log(f"[14g] walls {({k: round(v, 3) for k, v in walls.items()})}; "
+            f"launches {launches}; the device busy {busy:.3f} ms of the "
+            f"phase's {walls['phase']:.1f} s "
+            f"({100 * busy / 1e3 / walls['phase']:.4f}%, CUDA events: the "
+            f"seal, the rebuild and the plain encode)")
+    finally:
+        for p_ in (victim, proc):
+            if p_ is not None and p_.poll() is None:
+                p_.kill()
+                p_.wait(timeout=30)
+        if follower is not None:
+            follower.stop()
+        if cluster is not None:
+            cluster.stop()
+        qos.reset()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cur is not None and torch.cuda.current_device() != cur:
+        fail(f"phase 14 left the current device "
+             f"{torch.cuda.current_device()}, not {cur}")
+    log(f"[14] done: launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -4157,6 +5000,7 @@ def main() -> int:
     ha_launches = phase_ha(card)
     tier_launches = phase_tier(card)
     chaos_launches = phase_chaos(card)
+    secure_launches = phase_secure(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -4196,6 +5040,8 @@ def main() -> int:
         "tier_launches_by_step": tier_launches,
         "chaos_launches": sum(chaos_launches.values()),
         "chaos_launches_by_step": chaos_launches,
+        "secure_launches": sum(secure_launches.values()),
+        "secure_launches_by_step": secure_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -32,8 +32,18 @@ its spans to the master's collector (rpc/trace_push.SpanPusher; the s3
 gateway finds the master through its filer); `server` runs everything
 in the master's process, whose collector sees every span directly.
 `-master.traceStore`, `-master.scrapeInterval` and `-advisor.*` size
-the master's collector, federation and workload advisors. Every other
-subcommand of the reference is not here.
+the master's collector, federation and workload advisors.
+
+The secured, durable write path, with the reference's names: the global
+`-security <json>` (`{"https": {"cert", "key", "ca", "client_auth"}}`,
+utils/tls.py) puts HTTPS on the master, master.follower, filer and s3
+listeners — the volume servers' blob HTTP stays plain, as the
+reference's does — and clients trust the CA through REQUESTS_CA_BUNDLE
+or SSL_CERT_FILE; `master -jwt.secret` signs every assign and `volume
+-jwt.secret` checks every write; `-commit.durability|maxDelay|maxBytes`
+(volume, server) set the ack contract (storage/commit.py); the global
+`-qos.*` flags the gateways' per-tenant admission (utils/qos.py).
+Every other subcommand of the reference is not here.
 """
 from __future__ import annotations
 
@@ -199,6 +209,50 @@ def _tier_kwargs(args) -> dict:
     }
 
 
+def _ssl_ctx(args):
+    """The server SSLContext from -security (None = plain HTTP), for the
+    control-plane and gateway listeners (master, follower, filer, s3);
+    the volume servers' HTTP data path stays plain, as the reference's
+    (tls.go wraps gRPC, not the blob HTTP port)."""
+    path = getattr(args, "security", "")
+    if not path:
+        return None
+    from .utils.tls import context_from_config, load_security_config
+
+    return context_from_config(load_security_config(path))
+
+
+def _add_commit_flags(p) -> None:
+    """The group-commit knobs of the volume and server commands
+    (storage/commit.py)."""
+    p.add_argument(
+        "-commit.durability", dest="commit_durability",
+        default="buffered", choices=["buffered", "batch", "sync"],
+        help="write ack contract: buffered = ack after the userspace "
+             "append (today's semantics), batch = ack only after the "
+             "covering group-commit fsync (~1 fsync/batch), sync = "
+             "per-write fsync oracle; recorded per response in the "
+             "X-Sw-Durability header")
+    p.add_argument(
+        "-commit.maxDelay", dest="commit_max_delay", type=float,
+        default=0.002,
+        help="seconds the group-commit batch window stays open after "
+             "its first write before the covering fsync (default "
+             "0.002); smaller = lower ack latency, larger = more "
+             "coalescing")
+    p.add_argument(
+        "-commit.maxBytes", dest="commit_max_bytes", type=int,
+        default=4 << 20,
+        help="bytes that close the group-commit batch window early, "
+             "before -commit.maxDelay elapses (default 4MiB)")
+
+
+def _commit_kwargs(args) -> dict:
+    return {"commit_durability": args.commit_durability,
+            "commit_max_delay": args.commit_max_delay,
+            "commit_max_bytes": args.commit_max_bytes}
+
+
 def _master_kwargs(args) -> dict:
     return {
         "admin_scripts": [s.strip() for s in args.admin_scripts.split(";")
@@ -286,6 +340,53 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="seconds an open breaker waits before its half-open "
              "probe (default 5); place BEFORE the subcommand")
+    parser.add_argument(
+        "-qos.enabled", dest="qos_enabled", action="store_true",
+        help="per-tenant QoS + overload shedding at the s3/filer "
+             "gateway edge (tenant = access key at s3, first path "
+             "segment at the filer); place BEFORE the subcommand")
+    parser.add_argument(
+        "-qos.rate", dest="qos_rate", type=float, default=None,
+        help="default per-tenant byte rate at the gateway edge "
+             "(bytes/sec; 0 = unlimited); place BEFORE the subcommand")
+    parser.add_argument(
+        "-qos.burst", dest="qos_burst", type=float, default=None,
+        help="default per-tenant burst allowance in bytes (default "
+             "max(64KiB, rate/8)); place BEFORE the subcommand")
+    parser.add_argument(
+        "-qos.maxTenants", dest="qos_max_tenants", type=int,
+        default=None,
+        help="distinct tenant buckets a gateway tracks before later "
+             "tenants share the __overflow__ bucket — bounds both "
+             "memory and the tenant metric label (default 256); "
+             "place BEFORE the subcommand")
+    parser.add_argument(
+        "-qos.maxDelay", dest="qos_max_delay", type=float,
+        default=None,
+        help="seconds of quoted queue delay beyond which a request "
+             "is shed with 503 instead of paced (default 2.0); "
+             "requests whose X-Sw-Deadline budget is smaller than "
+             "the quote are shed regardless; place BEFORE the "
+             "subcommand")
+    parser.add_argument(
+        "-qos.requestFloor", dest="qos_request_floor", type=int,
+        default=None,
+        help="minimum bytes charged per request so body-less ops "
+             "(GET/HEAD/LIST) are shaped too (default 4096); place "
+             "BEFORE the subcommand")
+    parser.add_argument(
+        "-qos.spec", dest="qos_spec", default="",
+        help="path to a per-tenant JSON spec "
+             "('{\"default\": {\"rate\":...}, \"tenants\": {\"akid\": "
+             "{\"rate\":..., \"priority\":...}}}'), hot-reloaded on "
+             "mtime change; place BEFORE the subcommand")
+    parser.add_argument(
+        "-security", default="",
+        help="path to a security config JSON (scaffold "
+             "-config=security): enables HTTPS (+ optional mutual "
+             "TLS) on this process's listeners; place BEFORE the "
+             "subcommand. Clients trust the CA via REQUESTS_CA_BUNDLE/"
+             "SSL_CERT_FILE")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("master", help="start a master server")
@@ -293,6 +394,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
     p.add_argument("-defaultReplication", default="000")
+    p.add_argument("-jwt.secret", dest="jwt_secret", default="")
     p.add_argument("-peers", default="",
                    help="comma-separated ip:port of all masters (HA mode)")
     p.add_argument("-raftDir", dest="raft_dir", default="",
@@ -354,7 +456,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-rack", default="DefaultRack")
     p.add_argument("-disk", default="hdd",
                    help="disk class of this server (hdd | ssd)")
+    p.add_argument("-jwt.secret", dest="jwt_secret", default="",
+                   help="HS256 secret for write authorization; must "
+                        "match the master's -jwt.secret")
     _add_ec_flags(p)
+    _add_commit_flags(p)
 
     p = sub.add_parser("filer", help="start a filer server")
     p.add_argument("-port", type=int, default=8888)
@@ -401,6 +507,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-volumeSizeLimitMB", type=int, default=1024)
     _add_ec_flags(p)
     _add_master_flags(p)
+    _add_commit_flags(p)
 
     p = sub.add_parser("shell", help="interactive admin shell")
     p.add_argument("-master", default="http://127.0.0.1:9333",
@@ -454,8 +561,8 @@ def apply_env_flags(args) -> None:
 
 
 def apply_global_flags(args) -> None:
-    """The process-wide tracing, fault-injection, retry and breaker
-    settings (the reference's cli.py:826-856)."""
+    """The process-wide tracing, fault-injection, retry, breaker and
+    qos settings (the reference's cli.py:826-864)."""
     from .utils import faults, retry, tracing
 
     tracing.configure(slow_threshold=args.trace_slow_threshold,
@@ -469,6 +576,15 @@ def apply_global_flags(args) -> None:
                     edge_budget=args.retry_edge_budget,
                     breaker_failures=args.breaker_failures,
                     breaker_reset=args.breaker_reset)
+    from .utils import qos
+
+    qos.configure(enabled=args.qos_enabled or None,
+                  rate=args.qos_rate,
+                  burst=args.qos_burst,
+                  max_tenants=args.qos_max_tenants,
+                  max_delay=args.qos_max_delay,
+                  request_floor=args.qos_request_floor,
+                  spec=args.qos_spec or None)
 
 
 def _start_span_pusher(master_url, service: str, instance: str):
@@ -510,8 +626,10 @@ def _run_master(args) -> int:
                       advisor_demand_quantile=(
                           args.advisor_demand_quantile),
                       advisor_headroom=args.advisor_headroom,
+                      jwt_secret=args.jwt_secret,
                       **_master_kwargs(args), **_tier_kwargs(args))
-    t = ServerThread(ms.app, host=args.ip, port=args.port).start()
+    t = ServerThread(ms.app, host=args.ip, port=args.port,
+                     ssl_context=_ssl_ctx(args)).start()
     ms.admin_scripts_url = t.url
     print(f"master listening on {t.url}", flush=True)
     run_apps_forever([t])
@@ -523,7 +641,8 @@ def _run_master_follower(args) -> int:
     from .server.master_follower import MasterFollower
 
     mf = MasterFollower(args.masters)
-    t = ServerThread(mf.app, host=args.ip, port=args.port).start()
+    t = ServerThread(mf.app, host=args.ip, port=args.port,
+                     ssl_context=_ssl_ctx(args)).start()
     print(f"master follower listening on {t.url}, following "
           f"{mf.client.masters}", flush=True)
     run_apps_forever([t])
@@ -555,7 +674,8 @@ def _run_volume(args) -> int:
 
     t = _start_volume(args, args.dir.split(","), args.port, args.mserver,
                       max_volumes=args.max, data_center=args.dataCenter,
-                      rack=args.rack, disk_type=args.disk)
+                      rack=args.rack, disk_type=args.disk,
+                      jwt_secret=args.jwt_secret, **_commit_kwargs(args))
     _start_span_pusher(_http(args.mserver.split(",")[0].strip()),
                        "volume", t.address)
     run_apps_forever([t])
@@ -574,7 +694,8 @@ def _run_server(args) -> int:
     vol_dir = os.path.join(args.dir, "volume")
     os.makedirs(vol_dir, exist_ok=True)
     try:
-        vt = _start_volume(args, [vol_dir], args.volume_port, mt.url)
+        vt = _start_volume(args, [vol_dir], args.volume_port, mt.url,
+                           **_commit_kwargs(args))
     except BaseException:
         mt.stop()
         raise
@@ -598,19 +719,21 @@ def _http(url: str) -> str:
 
 
 def _start_filer(args, master: str, port: int, store: str,
-                 store_path: str, **kwargs):
+                 store_path: str, ssl_context=None, **kwargs):
     from .rpc.http import ServerThread
     from .server.filer_server import FilerServer
 
     fs = FilerServer(_http(master), store=store, store_path=store_path,
                      **kwargs)
-    t = ServerThread(fs.app, host=args.ip, port=port).start()
+    t = ServerThread(fs.app, host=args.ip, port=port,
+                     ssl_context=ssl_context).start()
     fs.address = t.address
     print(f"filer listening on {t.url} (store={store})", flush=True)
     return t
 
 
-def _start_s3(args, filer: str, port: int, config_path: str):
+def _start_s3(args, filer: str, port: int, config_path: str,
+              ssl_context=None):
     import json
 
     from .rpc.http import ServerThread
@@ -621,7 +744,8 @@ def _start_s3(args, filer: str, port: int, config_path: str):
         with open(config_path) as f:
             config = json.load(f)
     s3 = S3ApiServer(_http(filer), iam_config=config)
-    t = ServerThread(s3.app, host=args.ip, port=port).start()
+    t = ServerThread(s3.app, host=args.ip, port=port,
+                     ssl_context=ssl_context).start()
     print(f"s3 gateway listening on {t.url}", flush=True)
     return t
 
@@ -634,7 +758,8 @@ def _run_filer(args) -> int:
                      collection=args.collection,
                      replication=args.replication,
                      chunk_size=args.max_mb << 20,
-                     save_to_filer_limit=args.save_to_filer_limit)
+                     save_to_filer_limit=args.save_to_filer_limit,
+                     ssl_context=_ssl_ctx(args))
     _start_span_pusher(_http(args.master.split(",")[0].strip()), "filer",
                        t.address)
     run_apps_forever([t])
@@ -646,7 +771,8 @@ def _run_s3(args) -> int:
 
     from .rpc.trace_push import master_from_filer
 
-    t = _start_s3(args, args.filer, args.port, args.config)
+    t = _start_s3(args, args.filer, args.port, args.config,
+                  ssl_context=_ssl_ctx(args))
     # the gateway only knows its filer; resolving per flush keeps the
     # pusher on the master across failovers
     filer = _http(args.filer)

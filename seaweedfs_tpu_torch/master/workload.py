@@ -30,9 +30,10 @@ would be fed. All of it is visible at GET /debug/workload,
 as ``workload_*`` gauges in the master's /metrics (hence federated
 into /cluster/metrics), and folded into /cluster/status.
 
-The port's gateways do not export ``workload_tenant_*`` yet (utils/qos
-is not ported), so the qos advisor sees only what a federated scrape
-carries.
+The port's gateways export ``workload_tenant_*`` from utils/qos.py's
+demand sketches when their /metrics is rendered, so the qos advisor
+sees each tenant that reached a filer or an S3 gateway the federation
+scrapes.
 """
 from __future__ import annotations
 

@@ -31,6 +31,18 @@ server middlewares keeps the deadline one. Then:
   rest of the body is read and dropped for a moment first, so the
   reply is not lost to a reset). Streamed reads (`read_exactly`,
   aiohttp's `request.content`) are not capped.
+
+The gateways add the qos admission middleware (utils/qos.py) after the
+deadline one, as the reference does (`server_middlewares(...,
+qos_tenant=)`).
+
+TLS: `ServerThread(app, ssl_context=ctx)` serves HTTPS (utils/tls.py
+makes the context) and its `url` says `https://`. The accepting thread
+only accepts: each connection's TLS handshake runs on that
+connection's own thread, bounded by HANDSHAKE_TIMEOUT, so one slow
+client or one speaking plain HTTP to the TLS port holds up no other.
+A failed handshake ends that connection and nothing else; a plain
+request never gets an answer there.
 """
 from __future__ import annotations
 
@@ -40,13 +52,14 @@ import json
 import os
 import re
 import socket
+import ssl
 import threading
 import time
 import traceback
 from typing import Any, Callable, Iterable
 from urllib.parse import parse_qsl, unquote
 
-from ..utils import faults, glog, retry, tracing
+from ..utils import faults, glog, qos, retry, tracing
 
 # an idle keep-alive connection is closed after this many seconds
 IDLE_TIMEOUT = 120.0
@@ -60,6 +73,8 @@ _NO_BODY = (204, 304)
 # how long a refused body is read and dropped before the connection
 # closes, so the client reads the 413 instead of a reset
 LINGER_SECONDS = 2.0
+# longest a TLS client may take over its handshake
+HANDSHAKE_TIMEOUT = 10.0
 
 
 class BodyTooLarge(Exception):
@@ -269,12 +284,18 @@ Handler = Callable[[Request], Response]
 Middleware = Callable[[Request, Handler], Response]
 
 
-def server_middlewares(service: str, edge: bool = False
+def server_middlewares(service: str, edge: bool = False,
+                       qos_tenant: Callable[[Request], str] | None = None
                        ) -> list[Middleware]:
     """A server's middlewares in the reference's order: tracing, the
-    deadline (minted at an edge server: s3, filer), fault injection."""
-    return [tracing.middleware(service), retry.middleware(service, edge),
-            faults.middleware(service)]
+    deadline (minted at an edge server: s3, filer), the gateways' qos
+    admission (with `qos_tenant`, which names a request's tenant; after
+    the deadline, whose budget it prices the queue delay against),
+    fault injection."""
+    mws = [tracing.middleware(service), retry.middleware(service, edge)]
+    if qos_tenant is not None:
+        mws.append(qos.middleware(service, qos_tenant))
+    return mws + [faults.middleware(service)]
 
 
 class App:
@@ -537,11 +558,33 @@ class _Server(http.server.ThreadingHTTPServer):
     allow_reuse_address = True
     request_queue_size = 128
 
-    def __init__(self, addr, app: App):
+    def __init__(self, addr, app: App,
+                 ssl_context: ssl.SSLContext | None = None):
         self.app = app
+        self.ssl_context = ssl_context
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
         super().__init__(addr, _Handler)
+
+    def finish_request(self, request, client_address) -> None:
+        """Runs on the connection's own thread: with TLS, the handshake
+        happens here, never on the thread that accepts."""
+        if self.ssl_context is None:
+            super().finish_request(request, client_address)
+            return
+        request.settimeout(HANDSHAKE_TIMEOUT)
+        try:
+            conn = self.ssl_context.wrap_socket(request, server_side=True)
+        except (OSError, ValueError) as e:
+            # a plain-HTTP client, an untrusted or missing client
+            # certificate, a peer that hung up: this connection ends
+            glog.v(1, "TLS handshake with %s failed: %s", client_address,
+                   e)
+            return
+        try:
+            super().finish_request(conn, client_address)
+        finally:
+            self.shutdown_request(conn)
 
     def track(self, conn: socket.socket, alive: bool) -> None:
         with self._conns_lock:
@@ -564,17 +607,21 @@ class _Server(http.server.ThreadingHTTPServer):
 
 class ServerThread:
     """Serve an App on (host, port) from a daemon thread; port 0 binds
-    an ephemeral port, read back from `.port` / `.url` after start()."""
+    an ephemeral port, read back from `.port` / `.url` after start().
+    With `ssl_context` it serves HTTPS."""
 
-    def __init__(self, app: App, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, app: App, host: str = "127.0.0.1", port: int = 0,
+                 ssl_context: ssl.SSLContext | None = None):
         self.app = app
         self.host = host
         self.port = port
+        self.ssl_context = ssl_context
         self._server: _Server | None = None
         self._thread: threading.Thread | None = None
 
     def start(self) -> "ServerThread":
-        self._server = _Server((self.host, self.port), self.app)
+        self._server = _Server((self.host, self.port), self.app,
+                               self.ssl_context)
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever, kwargs={"poll_interval": 0.1},
@@ -586,7 +633,8 @@ class ServerThread:
 
     @property
     def url(self) -> str:
-        return f"http://{self.host}:{self.port}"
+        scheme = "https" if self.ssl_context is not None else "http"
+        return f"{scheme}://{self.host}:{self.port}"
 
     @property
     def address(self) -> str:

@@ -37,6 +37,16 @@ in BODY_BLOCK pieces with that Content-Length (S3 refuses chunked
 bodies without a streaming signature), always on a fresh connection,
 and never replayed once a byte of it went out.
 
+An `https://` url goes over `http.client.HTTPSConnection`, verified
+against the CA that REQUESTS_CA_BUNDLE (or CURL_CA_BUNDLE) names, as the
+reference's `requests` session resolves it, else the system store that
+SSL_CERT_FILE / SSL_CERT_DIR point OpenSSL at. Pools are keyed by
+scheme, host, port and the trusted CA, so a plain connection is never
+reused for an `https` url, nor one verified against another CA. A
+failed handshake or verification raises `SSLError` (a
+`ConnectionError`) at once: it is never retried, and never over plain
+HTTP.
+
 The response mirrors what the call sites used of `requests`:
 `status_code`, `headers` (case-insensitive), `content`, `text`,
 `json()`, and with `stream=True` `iter_content(n)` / `close()`.
@@ -45,8 +55,10 @@ from __future__ import annotations
 
 import http.client
 import json as _json
+import os
 import select
 import socket
+import ssl
 import threading
 import time
 from urllib.parse import urlencode, urljoin, urlsplit
@@ -73,6 +85,11 @@ class RequestException(OSError):
 
 class ConnectionError(RequestException):  # noqa: A001 — requests' name
     """The transport failed (connect or mid-stream)."""
+
+
+class SSLError(ConnectionError):
+    """The TLS handshake or the server's certificate failed (requests'
+    name). Never retried."""
 
 
 class Timeout(RequestException):
@@ -176,6 +193,25 @@ def _split_timeout(timeout) -> tuple[float, float]:
     return float(conn_to), float(read_to)
 
 
+_tls_lock = threading.Lock()
+_tls: dict[str | None, ssl.SSLContext] = {}
+
+
+def client_context() -> ssl.SSLContext:
+    """The verifying client context for https urls, one per CA file
+    (REQUESTS_CA_BUNDLE / CURL_CA_BUNDLE, read at each call so a
+    process can set them after import; neither set: OpenSSL's default
+    paths, which SSL_CERT_FILE / SSL_CERT_DIR override)."""
+    ca = os.environ.get("REQUESTS_CA_BUNDLE") or \
+        os.environ.get("CURL_CA_BUNDLE") or None
+    with _tls_lock:
+        ctx = _tls.get(ca)
+        if ctx is None:
+            ctx = _tls[ca] = ssl.create_default_context(cafile=ca)
+            ctx.ca_file = ca    # the pools key on it
+        return ctx
+
+
 def _dropped(conn: http.client.HTTPConnection) -> bool:
     """An idle pooled connection the server closed reads as EOF."""
     sock = conn.sock
@@ -193,10 +229,19 @@ class Session:
     thread; http.client connections are not thread-safe)."""
 
     def __init__(self) -> None:
-        self._pools: dict[tuple[str, int], list] = {}
+        # (host, port) -> idle plain connections; (host, port, "https",
+        # the context's CA file) -> idle TLS ones
+        self._pools: dict[tuple, list] = {}
 
-    def _take(self, host: str, port: int):
-        pool = self._pools.get((host, port))
+    @staticmethod
+    def _key(host: str, port: int, ctx: ssl.SSLContext | None) -> tuple:
+        if ctx is None:
+            return host, port
+        return host, port, "https", ctx.ca_file
+
+    def _take(self, host: str, port: int,
+              ctx: ssl.SSLContext | None = None):
+        pool = self._pools.get(self._key(host, port, ctx))
         while pool:
             conn = pool.pop()
             if not _dropped(conn):
@@ -204,9 +249,12 @@ class Session:
             conn.close()
         return None
 
-    def _release(self, host: str, port: int):
+    def _release(self, host: str, port: int,
+                 ctx: ssl.SSLContext | None = None):
+        key = self._key(host, port, ctx)
+
         def release(conn: http.client.HTTPConnection, reusable: bool):
-            pool = self._pools.setdefault((host, port), [])
+            pool = self._pools.setdefault(key, [])
             if reusable and len(pool) < _POOL_PER_HOST:
                 pool.append(conn)
             else:
@@ -214,10 +262,16 @@ class Session:
         return release
 
     @staticmethod
-    def _connect(host: str, port: int, conn_to: float,
-                 read_to: float) -> http.client.HTTPConnection:
-        conn = http.client.HTTPConnection(host, port, timeout=conn_to,
-                                          blocksize=BODY_BLOCK)
+    def _connect(ctx: ssl.SSLContext | None, host: str, port: int,
+                 conn_to: float, read_to: float
+                 ) -> http.client.HTTPConnection:
+        if ctx is not None:
+            conn = http.client.HTTPSConnection(
+                host, port, timeout=conn_to, blocksize=BODY_BLOCK,
+                context=ctx)
+        else:
+            conn = http.client.HTTPConnection(host, port, timeout=conn_to,
+                                              blocksize=BODY_BLOCK)
         conn.connect()
         conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         conn.sock.settimeout(read_to)
@@ -256,9 +310,10 @@ class Session:
                       headers, timeout, stream: bool) -> Response:
         method = method.upper()
         parts = urlsplit(url)
-        if parts.scheme != "http":
-            raise ValueError(f"unsupported url {url!r}: http only")
-        host, port = parts.hostname or "", parts.port or 80
+        if parts.scheme not in ("http", "https"):
+            raise ValueError(f"unsupported url {url!r}: http or https only")
+        host = parts.hostname or ""
+        port = parts.port or (443 if parts.scheme == "https" else 80)
         target = parts.path or "/"
         query = parts.query
         if params:
@@ -280,21 +335,22 @@ class Session:
         retry.inject(hdrs)
         conn_to, read_to = _split_timeout(timeout)
         if tracing.current() is None:
-            return self._send(method, url, host, port, target, body, hdrs,
-                              conn_to, read_to, stream)
+            return self._send(method, url, parts.scheme, host, port,
+                              target, body, hdrs, conn_to, read_to, stream)
         peer = parts.netloc
         with tracing.span(f"{method} {peer}", kind="client",
                           peer=peer) as rec:
             tracing.inject(hdrs)
-            resp = self._send(method, url, host, port, target, body, hdrs,
-                              conn_to, read_to, stream)
+            resp = self._send(method, url, parts.scheme, host, port,
+                              target, body, hdrs, conn_to, read_to, stream)
             rec["status"] = str(resp.status_code)
             return resp
 
-    def _send(self, method, url, host, port, target, body, hdrs,
+    def _send(self, method, url, scheme, host, port, target, body, hdrs,
               conn_to, read_to, stream) -> Response:
         pol = retry.policy()
-        release = self._release(host, port)
+        ctx = client_context() if scheme == "https" else None
+        release = self._release(host, port, ctx)
         peer = urlsplit(url).netloc
         breaker = retry.breaker_for(peer)
         last_exc: Exception | None = None
@@ -319,11 +375,16 @@ class Session:
                     attempt += 1
                     continue
                 raise
-            conn = None if streamed else self._take(host, port)
+            conn = None if streamed else self._take(host, port, ctx)
             reused = conn is not None
             if conn is None:
                 try:
-                    conn = self._connect(host, port, conn_to, read_to)
+                    conn = self._connect(ctx, host, port, conn_to, read_to)
+                except ssl.SSLError as e:
+                    # the peer answered, but not with a TLS session we
+                    # trust: no replay, and never a fall back to plain
+                    breaker.probe_inconclusive()
+                    raise SSLError(f"{method} {url}: {e}") from e
                 except OSError as e:
                     # refused / unreachable / connect timeout: the
                     # request never left, so any method may replay, and

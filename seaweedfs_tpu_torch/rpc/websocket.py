@@ -9,7 +9,10 @@ server: a handler returns `upgrade(req, on_open)`, the server answers
 thread until it returns. `connect(url)` is the client. Neither side
 negotiates extensions, so frames are never compressed; fragmented
 messages are joined. A server's frames go unmasked, a client's masked
-(RFC 6455 §5.3).
+(RFC 6455 §5.3). Over a TLS listener the server side needs nothing of
+its own; the client takes `wss://` (and `https://`, as the reference
+maps an https master to wss, wdclient/client.py:180) through the HTTP
+client's verifying context (rpc/httpclient.client_context).
 """
 from __future__ import annotations
 
@@ -221,15 +224,26 @@ def upgrade(req, on_open: Callable[[WebSocket], None]):
 
 
 def connect(url: str, timeout: float = 10.0) -> WebSocket:
-    """Open a client websocket to ws://host:port/path (http:// is taken
-    as ws://). The socket keeps `timeout` as its read timeout."""
+    """Open a client websocket to ws://host:port/path or wss:// (http://
+    is taken as ws://, https:// as wss://). The socket keeps `timeout`
+    as its read timeout. A failed TLS handshake raises ssl.SSLError."""
     parts = urlsplit(url)
-    if parts.scheme not in ("ws", "http"):
+    if parts.scheme not in ("ws", "http", "wss", "https"):
         raise ValueError(f"unsupported websocket url {url!r}")
-    host, port = parts.hostname or "", parts.port or 80
+    tls = parts.scheme in ("wss", "https")
+    host = parts.hostname or ""
+    port = parts.port or (443 if tls else 80)
     target = (parts.path or "/") + (f"?{parts.query}" if parts.query
                                     else "")
     sock = socket.create_connection((host, port), timeout=timeout)
+    if tls:
+        from .httpclient import client_context
+
+        try:
+            sock = client_context().wrap_socket(sock, server_hostname=host)
+        except BaseException:
+            sock.close()
+            raise
     try:
         key = base64.b64encode(os.urandom(16)).decode()
         sock.sendall((f"GET {target} HTTP/1.1\r\nHost: {parts.netloc}\r\n"

@@ -29,14 +29,24 @@ mints the budget when the client sent none) and fault middlewares
 (rpc/http.server_middlewares); /debug/traces and /debug/breakers serve
 this process's spans and breakers.
 
-Identities load from the filer's KV (`s3/identities`) at start and every
+Identities and the circuit breaker's limits load from the filer's KV
+(`s3/identities`, `s3/circuit_breaker`) at start and every
 `identity_refresh_seconds` on a thread, which `stop` joins.
+
+Admission, in the reference's order: per-tenant qos (utils/qos.py; the
+tenant is the request's access key, read without verifying it) between
+the deadline and the fault middlewares, then the circuit breaker
+(s3/circuit_breaker.py, s3api_circuit_breaker.go) by the declared body
+length BEFORE the body is read: over a limit answers 503
+TooManyRequests, and while limits are on a PUT or POST that declares no
+length answers 411 MissingContentLength (a DELETE carries none and
+keeps working). /debug/qos serves the qos registry; /metrics exports
+the tenants' demand gauges.
 
 Not here, each answering S3's NotImplemented (501): bucket ACL, policy,
 CORS, lifecycle and ownership controls; object ACL, tagging, retention,
 legal hold and object lock; SelectObjectContent; POST-policy (browser
-form) uploads. Nor the circuit breaker (s3/circuit_breaker.py), the qos
-middleware and /debug/qos, the event stream or the native front.
+form) uploads. Nor the event stream or the native front.
 """
 from __future__ import annotations
 
@@ -53,14 +63,16 @@ from ..filer.entry import entry_size
 from ..rpc.http import (App, Request, Response, debug_index_factory,
                         json_response, server_middlewares, text_response)
 from ..rpc.httpclient import RequestException, session
-from ..utils import extheaders, glog, metrics, retry, tracing
+from ..utils import extheaders, glog, metrics, qos, retry, tracing
 from .auth import (ACTION_ADMIN, ACTION_LIST, ACTION_READ, ACTION_WRITE,
                    IdentityAccessManagement, S3AuthError)
+from .circuit_breaker import CircuitBreaker, CircuitOpen
 
 XMLNS = "http://s3.amazonaws.com/doc/2006-03-01/"
 BUCKETS_DIR = "/buckets"
 UPLOADS_DIR = ".uploads"
 IDENTITIES_KV_KEY = "s3/identities"  # filer KV key holding the config
+CIRCUIT_BREAKER_KV_KEY = "s3/circuit_breaker"  # limits, hot-reloaded
 # bytes per piece of a streamed GET
 STREAM_PIECE = 1 << 20
 # how long stop waits for the identity reload thread
@@ -179,11 +191,13 @@ def _header_dict(req: Request) -> dict[str, str]:
 class S3ApiServer:
     def __init__(self, filer_url: str, iam_config: dict | None = None,
                  region: str = "us-east-1",
-                 identity_refresh_seconds: float = 5.0):
+                 identity_refresh_seconds: float = 5.0,
+                 circuit_breaker_config: dict | None = None):
         self.filer_url = filer_url.rstrip("/")
         self.region = region
         self.iam = IdentityAccessManagement(iam_config)
         self.identity_refresh_seconds = identity_refresh_seconds
+        self.circuit_breaker = CircuitBreaker(circuit_breaker_config)
         self._load_identities_from_filer()
         # bucket metadata cache: a short TTL + invalidation on local
         # bucket mutations (the reference's s3api_bucket_registry role)
@@ -220,17 +234,28 @@ class S3ApiServer:
                 glog.warning("s3: identities in the filer: %s", e)
 
     def _load_identities_from_filer(self) -> None:
-        """Pick up s3.configure-style identities stored in the filer."""
+        """Pick up s3.configure-style identities stored in the filer
+        (auth_credentials_subscribe.go's role), and the circuit
+        breaker's limits (the reference's SeaweedFS keeps them at
+        /etc/s3/circuit_breaker.json, reloaded the same way)."""
         try:
             resp = session().get(
                 f"{self.filer_url}/kv/{IDENTITIES_KV_KEY}", timeout=5)
+            if resp.status_code == 200:
+                self.iam.load_config(json.loads(resp.content))
         except RequestException:
-            return
-        if resp.status_code == 200:
-            self.iam.load_config(json.loads(resp.content))
+            pass
+        try:
+            resp = session().get(
+                f"{self.filer_url}/kv/{CIRCUIT_BREAKER_KV_KEY}", timeout=5)
+            if resp.status_code == 200:
+                self.circuit_breaker.load_config(json.loads(resp.content))
+        except RequestException:
+            pass
 
     def _build_app(self) -> App:
-        app = App(middlewares=server_middlewares("s3", edge=True),
+        app = App(middlewares=server_middlewares(
+                      "s3", edge=True, qos_tenant=qos.s3_tenant),
                   max_body=MAX_BODY)
         app.get("/status", self.handle_status)
         app.get("/metrics", self.handle_metrics)
@@ -241,9 +266,11 @@ class S3ApiServer:
             "/metrics": "Prometheus text exposition",
             "/debug/traces": "recent spans recorded in-process",
             "/debug/breakers": "circuit breaker states",
+            "/debug/qos": "per-tenant admission buckets + shed counts",
         }))
         app.get("/debug/traces", tracing.handle_debug_traces)
         app.get("/debug/breakers", retry.handle_debug_breakers)
+        app.get("/debug/qos", qos.handle_debug_qos)
         app.route("*", "/{tail:.*}", self.dispatch)
         return app
 
@@ -252,6 +279,9 @@ class S3ApiServer:
                               "open": self.iam.is_open})
 
     def handle_metrics(self, req: Request) -> Response:
+        # per-tenant demand sketches -> workload_tenant_* gauges: tenant
+        # demand rides the federation to the master's aggregator
+        qos.export_demand_metrics()
         return text_response(metrics.render(),
                              content_type="text/plain; version=0.0.4")
 
@@ -282,8 +312,37 @@ class S3ApiServer:
     def _dispatch(self, req: Request) -> Response:
         tail = req.match_info["tail"]
         bucket, _, key = tail.partition("/")
-        # refused with 413 before it is read when it declares the cap
-        payload = req.read()
+        cb_action = "write" if req.method in ("PUT", "POST", "DELETE") \
+            else "read"
+        # the breaker is taken BEFORE the body is read, by its declared
+        # length: writeBytes exists to stop concurrent uploads from
+        # ballooning the gateway's memory, so it gates the read itself.
+        # A write with no declared length could evade a byte limit:
+        # demand one, as AWS does (411) for PUTs
+        declared = req.content_length
+        if declared is None:
+            decoded = req.headers.get("x-amz-decoded-content-length")
+            if decoded and decoded.isdigit():
+                declared = int(decoded)  # streaming-signed uploads
+        if declared is None and req.method in ("PUT", "POST") and \
+                self.circuit_breaker.enabled:
+            # body-carrying verbs only: a DELETE has no Content-Length
+            # and keeps working under limits
+            raise S3Error("MissingContentLength",
+                          "uploads must declare a content length", 411)
+        try:
+            with self.circuit_breaker.acquire(cb_action, bucket,
+                                              declared or 0):
+                # refused with 413 before it is read when it declares
+                # the cap
+                payload = req.read()
+                return self._dispatch_authed(req, bucket, key, payload)
+        except CircuitOpen as e:
+            # s3api_circuit_breaker.go rejects with TooManyRequests
+            raise S3Error("TooManyRequests", str(e), 503) from None
+
+    def _dispatch_authed(self, req: Request, bucket: str, key: str,
+                         payload: bytes) -> Response:
         if req.method == "POST" and bucket and not key \
                 and req.content_type.startswith("multipart/form-data"):
             # browser form upload (POST policy)

@@ -40,13 +40,27 @@ for the process, as the CLI does for each server process.
 keeps its state under `tier_state_dir/master_<i>`), and
 `tier_backends` the backend storages every volume server can upload a
 volume's .dat to (`{"s3.default": {"endpoint": ..., "bucket": ...}}`).
-`stop()` stops the controller with the watchdog. Not here: the native
+`stop()` stops the controller with the watchdog.
+
+The secured, durable write path: `jwt_secret` is given to the masters
+(they sign every assign) and the volume servers (they check every
+write and delete by fid); `commit_durability` / `commit_max_delay` /
+`commit_max_bytes` set every volume server's ack contract
+(storage/commit.py), as in the reference's harness. `tls` maps a role
+("master", "filer", "s3") to the SSLContext its listener serves HTTPS
+with (utils/tls.py); the volume servers stay plain, as the reference
+keeps its blob HTTP, and a client trusts the CA through
+REQUESTS_CA_BUNDLE / SSL_CERT_FILE. `qos` is passed to utils/qos.py's
+`configure` (the registry is process-wide, as the CLI's -qos.* flags
+make it); the S3 circuit breaker's limits arrive through the filer's KV
+(`s3/circuit_breaker`), as in the reference. Not here: the native
 fronts, the broker.
 """
 from __future__ import annotations
 
 import os
 import socket
+import ssl
 import time
 
 from ..ec.backend import CodecBackend
@@ -93,10 +107,24 @@ class Cluster:
                  tier_recall_window: float = 300.0,
                  tier_max_bytes_per_sec: float = 0.0,
                  tier_remote: dict | None = None,
-                 tier_state_dir: str = ""):
+                 tier_state_dir: str = "",
+                 jwt_secret: str = "",
+                 commit_durability: str = "buffered",
+                 commit_max_delay: float = 0.002,
+                 commit_max_bytes: int = 4 << 20,
+                 tls: dict[str, ssl.SSLContext] | None = None,
+                 qos: dict | None = None):
         """topology: optional per-server (data_center, rack) labels;
         disk_types: optional per-server disk class (hdd/ssd)."""
         self.base_dir = base_dir
+        tls = tls or {}
+        if set(tls) - {"master", "filer", "s3"}:
+            raise ValueError(f"tls roles {sorted(tls)}: master, filer or "
+                             f"s3 (the volume servers' HTTP stays plain)")
+        if qos:
+            from ..utils import qos as _qos
+
+            _qos.configure(**qos)
         self.masters: list[MasterServer] = []
         self.master_threads: list[ServerThread] = []
         self._stopped_masters: set[int] = set()
@@ -123,7 +151,8 @@ class Cluster:
             tier_recall_reads=tier_recall_reads,
             tier_recall_window=tier_recall_window,
             tier_max_bytes_per_sec=tier_max_bytes_per_sec,
-            tier_remote=tier_remote)
+            tier_remote=tier_remote,
+            jwt_secret=jwt_secret)
         if not self.external_masters:
             ports = free_ports(n_masters) if n_masters > 1 else [0]
             peers = [f"127.0.0.1:{p}" for p in ports] \
@@ -141,7 +170,8 @@ class Cluster:
                     state_dir = os.path.join(state_dir, f"master_{i}")
                 m = MasterServer(**kwargs, **raft,
                                  tier_state_dir=state_dir)
-                t = ServerThread(m.app, port=port).start()
+                t = ServerThread(m.app, port=port,
+                                 ssl_context=tls.get("master")).start()
                 m.admin_scripts_url = t.url
                 self.masters.append(m)
                 self.master_threads.append(t)
@@ -167,7 +197,11 @@ class Cluster:
                                   disk_type=(disk_types[i] if disk_types
                                              and i < len(disk_types)
                                              else "hdd"),
-                                  tier_backends=tier_backends)
+                                  tier_backends=tier_backends,
+                                  jwt_secret=jwt_secret,
+                                  commit_durability=commit_durability,
+                                  commit_max_delay=commit_max_delay,
+                                  commit_max_bytes=commit_max_bytes)
                 thread = ServerThread(vs.app).start()
                 store.port = thread.port
                 store.public_url = thread.address
@@ -186,7 +220,8 @@ class Cluster:
                                          store=filer_store,
                                          store_path=store_path,
                                          announce_pulse=pulse_seconds)
-                self.filer_thread = ServerThread(self.filer.app).start()
+                self.filer_thread = ServerThread(
+                    self.filer.app, ssl_context=tls.get("filer")).start()
                 self.filer.address = self.filer_thread.address
             self.s3 = None
             self.s3_thread: ServerThread | None = None
@@ -194,7 +229,8 @@ class Cluster:
                 from ..s3.server import S3ApiServer
 
                 self.s3 = S3ApiServer(self.filer_url, iam_config=s3_config)
-                self.s3_thread = ServerThread(self.s3.app).start()
+                self.s3_thread = ServerThread(
+                    self.s3.app, ssl_context=tls.get("s3")).start()
             self.wait_for_nodes(n_volume_servers)
             if self.filer is not None:
                 self.wait_for_filer()

@@ -37,11 +37,19 @@ server: it mints the budget when the client sent none) and fault
 middlewares (rpc/http.server_middlewares) with the reference's 1 TiB
 body cap; /debug/traces, /debug/breakers, /debug/ec and /debug/filer
 serve this process's spans, breakers, codec router and store. Replica
-urls come breaker-healthy first (wdclient.lookup_file_id_urls). Not
-here: /ws/meta_subscribe, remote storage mounts (cacheRemote /
+urls come breaker-healthy first (wdclient.lookup_file_id_urls).
+
+Per-tenant qos (utils/qos.py) sits between the deadline and the fault
+middlewares, as in the reference: the tenant is a path's first
+segment, the control-plane routes (/dlm/, /kv/, /debug/, /status,
+/metrics) are never shaped, /debug/qos serves the registry and /metrics
+exports the tenants' demand gauges. Under a jwt secret each chunk
+upload carries the assign's token, and a pooled batch slot older than
+`_FID_TOKEN_MAX_AGE` is skipped (tokens are valid 10 s).
+
+Not here: /ws/meta_subscribe, remote storage mounts (cacheRemote /
 uncacheRemote), -encryptVolumeData, the sharded and caching stores,
-the browser (text/html) listing view, the qos middleware and
-/debug/qos.
+the browser (text/html) listing view.
 """
 from __future__ import annotations
 
@@ -74,7 +82,7 @@ from ..rpc.http import (App, Request, Response, debug_index_factory,
                         server_middlewares,
                         json_response, text_response)
 from ..rpc.httpclient import session
-from ..utils import (compression, extheaders, glog, httprange, metrics,
+from ..utils import (compression, extheaders, glog, httprange, metrics, qos,
                      retry, tracing)
 from ..wdclient.client import MasterClient
 
@@ -121,6 +129,9 @@ def _errors(handler: Handler) -> Handler:
 
 class FilerServer:
     ASSIGN_BATCH = 128
+    # a pooled slot older than this is skipped under a jwt secret: the
+    # master's write tokens are valid 10 s
+    _FID_TOKEN_MAX_AGE = 7.0
     DELETION_INTERVAL = 0.3
     _FILER_CONF_TTL = 2.0  # backstop for edits via another filer
 
@@ -243,7 +254,8 @@ class FilerServer:
 
     # -- plumbing -------------------------------------------------------
     def _build_app(self) -> App:
-        app = App(middlewares=server_middlewares("filer", edge=True),
+        app = App(middlewares=server_middlewares(
+                      "filer", edge=True, qos_tenant=qos.filer_tenant),
                   max_body=1 << 40)
         app.get("/status", self.handle_status)
         app.get("/metrics", self.handle_metrics)
@@ -254,11 +266,13 @@ class FilerServer:
             "/metrics": "Prometheus text exposition",
             "/debug/traces": "recent spans recorded in-process",
             "/debug/breakers": "circuit breaker states",
+            "/debug/qos": "per-tenant admission buckets + shed counts",
             "/debug/ec": "EC codec router: probe curve + backends",
             "/debug/filer": "metadata store kind and entries",
         }))
         app.get("/debug/traces", tracing.handle_debug_traces)
         app.get("/debug/breakers", retry.handle_debug_breakers)
+        app.get("/debug/qos", qos.handle_debug_qos)
         app.get("/debug/ec", self.handle_debug_ec)
         app.get("/debug/filer", self.handle_debug_filer)
         app.post("/dlm/lock", _errors(self.handle_dlm_lock))
@@ -333,8 +347,12 @@ class FilerServer:
             pool = self._fid_pools.setdefault(key, collections.deque())
             if fresh:
                 pool.clear()
-            elif pool:
-                return pool.popleft()
+            now = time.monotonic()
+            while pool:
+                url, fid, auth, ts = pool.popleft()
+                if auth and now - ts > self._FID_TOKEN_MAX_AGE:
+                    continue    # a signed slot expires with its jwt
+                return url, fid, auth
         for left in range(len(self.masters.masters) - 1, -1, -1):
             try:
                 a = verbs.assign(self.master_url,
@@ -348,10 +366,11 @@ class FilerServer:
                 if not left:
                     raise
                 self.masters.failover()     # that master is down
-        # slot fids share the base fid's volume and cookie
-        # (ParsePath:121-141)
+        # slot fids share the base fid's volume, cookie and token
+        # (ParsePath:121-141; the guard strips the _N before its check)
+        ts = time.monotonic()
         with self._fid_lock:
-            pool.extend((a.url, f"{a.fid}_{i}", a.auth)
+            pool.extend((a.url, f"{a.fid}_{i}", a.auth, ts)
                         for i in range(1, int(a.count)))
         return a.url, a.fid, a.auth
 
@@ -832,6 +851,9 @@ class FilerServer:
         return json_response(ec_backend.probe_snapshot())
 
     def handle_metrics(self, req: Request) -> Response:
+        # per-tenant demand sketches -> workload_tenant_* gauges: tenant
+        # demand rides the federation to the master's aggregator
+        qos.export_demand_metrics()
         return text_response(metrics.render(),
                              content_type="text/plain; version=0.0.4")
 

@@ -68,7 +68,12 @@ and the collector's pushers. A heartbeat is one POST per pulse here
 where the reference keeps a stream, so /heartbeat records no span (the
 reference's one span per stream ends only when the stream does).
 
-Not here: JWT signing.
+With `jwt_secret` (`-jwt.secret`) /dir/assign signs each fid it hands
+out (utils/security.Guard, jwt.go:30): the reply's `auth` is an HS256
+token for that fid, valid 10 s, which the volume servers' guard checks
+on the write; without a secret `auth` is "". The qos fold of
+/cluster/status (`Qos`: admitted and shed per tenant) reads the
+gateways' qos_* counters from the federation scrape.
 """
 from __future__ import annotations
 
@@ -95,6 +100,7 @@ from ..rpc.httpclient import session
 from ..rpc.websocket import WebSocket, upgrade
 from ..storage import types as t
 from ..utils import glog, metrics, retry, tracing
+from ..utils.security import Guard
 
 # timeout of one /admin/assign_volume call made by /vol/grow
 GROW_TIMEOUT = (5.0, 60.0)
@@ -186,8 +192,10 @@ class MasterServer:
                  otlp_url: str = "",
                  advisor_seal_quantile: float = 0.95,
                  advisor_demand_quantile: float = 0.9,
-                 advisor_headroom: float = 1.5):
+                 advisor_headroom: float = 1.5,
+                 jwt_secret: str = ""):
         self.topo = Topology(volume_size_limit, pulse_seconds)
+        self.guard = Guard(jwt_secret)
         self.default_replication = default_replication
         if sequencer == "memory" and peers:
             # a per-process counter would re-issue, after a failover,
@@ -542,7 +550,7 @@ class MasterServer:
             "count": count,
             "replicas": [{"url": n.url, "publicUrl": n.public_url}
                          for n in nodes[1:]],
-            "auth": "",
+            "auth": self.guard.sign(fid),
         })
 
     def handle_lookup(self, req: Request) -> Response:
@@ -726,11 +734,44 @@ class MasterServer:
             # tenants seen, and the three advisors' current vs
             # recommended thresholds (detail at /debug/workload)
             "Workload": self.workload.status_fold(),
+            "Qos": self._qos_summary(),
             "Observability": {
                 **self.collector.observability(),
                 "Federation": self.federator.observability(),
             },
         })
+
+    _QOS_SERIES = re.compile(
+        r'^(qos_shed_total|qos_admitted_total)\{([^}]*)\}\s+'
+        r'([0-9.eE+-]+)\s*$')
+
+    def _qos_summary(self) -> dict:
+        """Cluster-wide admit / shed totals per tenant, folded from the
+        last federated scrape of each gateway (the master runs no edge
+        layer itself: its view is the scraped corpus)."""
+        with self.federator._lock:
+            texts = [sc["text"] for sc in self.federator._scraped.values()
+                     if sc.get("text")]
+        admitted: dict[str, float] = {}
+        shed: dict[str, dict[str, float]] = {}
+        for text in texts:
+            for line in text.splitlines():
+                m = self._QOS_SERIES.match(line.strip())
+                if not m:
+                    continue
+                fam, rawlab, val = m.groups()
+                labels = dict(
+                    p.split("=", 1) for p in rawlab.split(",") if "=" in p)
+                tenant = labels.get("tenant", "").strip('"')
+                if not tenant:
+                    continue
+                if fam == "qos_admitted_total":
+                    admitted[tenant] = admitted.get(tenant, 0) + float(val)
+                else:
+                    reason = labels.get("reason", "").strip('"')
+                    by = shed.setdefault(tenant, {})
+                    by[reason] = by.get(reason, 0) + float(val)
+        return {"Admitted": admitted, "Shed": shed}
 
     _TIER_BYTES_SERIES = re.compile(
         r'^tier_bytes_moved_total\{([^}]*)\}\s+([0-9.eE+-]+)\s*$')

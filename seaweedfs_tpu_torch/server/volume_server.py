@@ -21,7 +21,10 @@ ShellError. A degraded GET reconstructs its interval on the CPU codec
 
 The heartbeat is a thread that POSTs the Store's full report to the
 master's /heartbeat every pulse, and at once when `poke_heartbeat`
-wakes it; network errors retry forever, as the reference's loop. With
+wakes it; network errors retry forever, as the reference's loop. The
+pulse is its own or the shorter one the master's reply names, since the
+master unregisters a server silent for 5 of its pulses (the reference's
+stream is never silent while it stays open). With
 several masters (`master_url` a comma list) it first asks them
 /cluster/leader for the raft leader (`_find_leader`, the reference's
 :401-416) and heartbeats there; a failed beat, or one a follower
@@ -75,9 +78,24 @@ Every route runs behind the tracing, deadline and fault middlewares
 /debug/traces and /debug/breakers serve this process's spans and
 breakers.
 
-Not here: JWT guard, multipart uploads, chunk manifests, multi-range
-replies, the native data plane, the commit
-scheduler, query, tail / sync.
+The write path's guarantees (volume_server_handlers_write.go, the
+reference's :952-1021): with `jwt_secret` every write and delete by fid
+needs `Authorization: Bearer <token>` for that fid (utils/security.Guard;
+a `_N` batch slot takes its base fid's token), else 401 with the
+reason, and the fan-out forwards the client's token to the replicas,
+whose guards check it again. Every append is acked under the server's
+`commit_durability` (storage/commit.py): `buffered` after the append,
+`batch` after the group-commit fsync that covers it, `sync` (and
+`?fsync=true`, forwarded to the replicas) after an inline fsync; each
+201 names its contract in X-Sw-Durability. The fan-out to the replicas
+runs while the batch's fsync is pending, so only the ack waits on
+both. `write_commit_seconds{stage=queue|fsync|replicate|ack}`,
+`write_commit_batches_total`, `write_commit_fsyncs_total` and the
+`write_commit_queue_depth` gauge are in /metrics; /debug/commit
+serves the scheduler's snapshot.
+
+Not here: multipart uploads, chunk manifests, multi-range replies, the
+native data plane (its front and its commit queue), query, tail / sync.
 """
 from __future__ import annotations
 
@@ -101,11 +119,13 @@ from ..storage import backend
 from ..storage import needle as ndl
 from ..storage import types as t
 from ..storage import volume_info as vinfo
+from ..storage.commit import CommitScheduler
 from ..storage.store import Store
 from ..storage.super_block import ReplicaPlacement
 from ..storage.volume import Volume
 from ..utils import (compression, glog, httprange, metrics, ratelimit,
                      retry, tracing)
+from ..utils.security import Guard
 from ..wdclient.client import MasterClient, find_leader
 
 # timeout of one heartbeat POST beyond the pulse it covers
@@ -140,8 +160,19 @@ class VolumeServer:
                  rack: str = "DefaultRack",
                  pulse_seconds: float = 5.0,
                  disk_type: str = "hdd",
-                 tier_backends: dict[str, dict] | None = None):
+                 tier_backends: dict[str, dict] | None = None,
+                 jwt_secret: str = "",
+                 commit_durability: str = "buffered",
+                 commit_max_delay: float = 0.002,
+                 commit_max_bytes: int = 4 << 20):
         self.store = store
+        self.guard = Guard(jwt_secret)
+        # the group-commit pipeline runs in every mode: buffered rides
+        # it for the .idx flush cadence, batch gates acks on the
+        # covering fsync (sync fsyncs inline and never enqueues)
+        self.commit = CommitScheduler(durability=commit_durability,
+                                      max_delay=commit_max_delay,
+                                      max_bytes=commit_max_bytes)
         self.disk_type = disk_type
         self.masters = [
             m if m.startswith("http") else f"http://{m}"
@@ -182,10 +213,13 @@ class VolumeServer:
             "/debug/traces": "recent spans recorded in-process",
             "/debug/breakers": "circuit breaker states",
             "/debug/ec": "EC codec router: probe curve + backends",
+            "/debug/commit": "group-commit pipeline: window, "
+                             "queue depth, durability mode",
         }))
         app.get("/debug/traces", tracing.handle_debug_traces)
         app.get("/debug/breakers", retry.handle_debug_breakers)
         app.get("/debug/ec", self.handle_debug_ec)
+        app.get("/debug/commit", self.handle_debug_commit)
         app.post("/admin/assign_volume", self.handle_assign_volume)
         app.post("/admin/delete_volume", self.handle_delete_volume)
         app.post("/admin/mark_readonly", self.handle_mark_readonly)
@@ -247,6 +281,8 @@ class VolumeServer:
             pool, self._fetch_pool = self._fetch_pool, None
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
+        # what is queued commits before the volumes close
+        self.commit.stop()
         self.store.close()
 
     # ------------------------------------------------------------------
@@ -305,6 +341,11 @@ class VolumeServer:
                         continue
                     raise RequestException(
                         f"heartbeat: {resp.status_code} {resp.text}")
+                # beat at least as often as the master reaps: it
+                # unregisters a server silent for 5 of its pulses
+                pulse = resp.json().get("pulse_seconds")
+                if pulse:
+                    self.pulse_seconds = min(self.pulse_seconds, pulse)
             except Exception as e:  # noqa: BLE001 — retry forever
                 glog.v(1, "heartbeat to %s failed: %s; retrying",
                        self.master_url, e)
@@ -441,6 +482,10 @@ class VolumeServer:
     def _write_fid(self, req: Request, fid: str, vid: int, key: int,
                    cookie: int) -> Response:
         start = time.perf_counter()
+        try:
+            self.guard.check(req.headers.get("Authorization"), fid)
+        except PermissionError as e:
+            return text_response(str(e), status=401)
         if not self.store.has_volume(vid):
             return text_response(f"volume {vid} not found", status=404)
         ctype = req.content_type
@@ -488,26 +533,60 @@ class VolumeServer:
             if did:
                 n.data = body
                 n.flags |= ndl.FLAG_IS_COMPRESSED
+        durability = self.commit.durability
+        want_fsync = req.query.get("fsync") in ("true", "1")
+        ticket = None
         try:
             self.store.write_needle(vid, n)
+            v_w = self.store.find_volume(vid)
+            if durability == "sync" or want_fsync:
+                # the per-write fsync, and the ?fsync=true contract (the
+                # filer forwards its own ?fsync / filer.conf rule here)
+                if v_w is not None:
+                    v_w.sync()
+            elif v_w is not None:
+                # the group-commit pipeline: in batch mode the ack
+                # below waits for the covering fsync; buffered mode
+                # never waits but feeds the batched .idx flushes
+                ticket = self.commit.submit(v_w, len(n.data))
         except KeyError:
             return Response(status=404)
         except PermissionError as e:
             return text_response(str(e), status=409)
+        # the replica fan-out (store_replicate.go:24) runs now, while
+        # the committer's fsync of this batch is pending: only the ack
+        # waits on both, network and disk overlap
+        err = None
         if not is_replicate:
+            t_repl = time.perf_counter()
             err = self._replicate(req, fid, n.data, "POST", needle=n)
-            if err:
-                return text_response(err, status=500)
+            metrics.histogram_observe(
+                "write_commit_seconds", time.perf_counter() - t_repl,
+                {"stage": "replicate"})
+        if durability == "batch" and ticket is not None:
+            ticket.wait()
+            if ticket.error is not None:
+                return text_response(f"commit failed: {ticket.error}",
+                                     status=500)
+        if err:
+            return text_response(err, status=500)
         self.poke_heartbeat()
-        metrics.histogram_observe("volume_server_write_seconds",
-                                  time.perf_counter() - start)
+        elapsed = time.perf_counter() - start
+        metrics.histogram_observe("volume_server_write_seconds", elapsed)
+        metrics.histogram_observe("write_commit_seconds", elapsed,
+                                  {"stage": "ack"})
         return json_response(
             {"name": n.name.decode("utf-8", "replace") if n.name else "",
              "size": len(n.data), "eTag": n.etag()}, status=201,
-            headers={"X-Sw-Durability": "buffered"})
+            headers={"X-Sw-Durability": "sync" if want_fsync
+                     else durability})
 
     def _delete_fid(self, req: Request, fid: str, vid: int,
                     key: int) -> Response:
+        try:
+            self.guard.check(req.headers.get("Authorization"), fid)
+        except PermissionError as e:
+            return text_response(str(e), status=401)
         try:
             size = self.store.delete_needle(vid, key)
         except KeyError:
@@ -1501,7 +1580,14 @@ class VolumeServer:
         metrics.gauge_set(
             "volume_server_max_volumes",
             sum(l.max_volumes for l in self.store.locations))
+        metrics.gauge_set("write_commit_queue_depth",
+                          self.commit.snapshot()["queue_depth"])
         return text_response(metrics.render())
+
+    def handle_debug_commit(self, req: Request) -> Response:
+        """The group-commit pipeline's snapshot: durability mode, the
+        open window, queue depth, counters, batch size and bytes."""
+        return json_response(self.commit.snapshot())
 
     def handle_status(self, req: Request) -> Response:
         return json_response({"Version": "seaweedfs-tpu-torch",

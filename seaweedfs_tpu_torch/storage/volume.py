@@ -17,9 +17,13 @@ S3RangeFile, so reads become ranged GETs (`tier_upload` /
 `tier_adopt` / `tier_download` move it there and back; compaction
 refuses a remote .dat, and `destroy` deletes the remote object).
 
+`commit_batch` is the group-commit step of storage/commit.py: a durable
+batch fdatasyncs the .dat once for every write it covers, a buffered one
+flushes the .idx (it replaced the needle map's commit cadence, as in the
+reference).
+
 Not here yet: the native data-plane delegation (`attach_native` /
-`detach_native`, which hand the hot path to native/dataplane.cc) and
-the group-commit step `commit_batch` of storage/commit.py. `rebuild_index`
+`detach_native`, which hand the hot path to native/dataplane.cc). `rebuild_index`
 scans an on-disk .dat with the native record walker
 (`native.dat_scan`) and an in-memory one with the Python loop; a
 native library that does not build raises.
@@ -821,6 +825,24 @@ class Volume:
             self.nm = nmap.load_needle_map(base + ".idx",
                                            kind=self.needle_map_kind)
             self._idx_f = open(base + ".idx", "ab")
+
+    def commit_batch(self, durable: bool) -> None:
+        """One group-commit step (the storage/commit.py committer).
+
+        durable=True fdatasyncs the .dat ONLY — one journal commit per
+        batch, not two. The .idx is flushed to the OS but rides the
+        page cache: acked index entries are recoverable from the synced
+        .dat by check_integrity's tail replay (the .idx appends in .dat
+        order, so any loss is a suffix the replay regains).
+        durable=False is buffered mode's commit: flush the .idx and
+        the btree watermark, no fsync. Takes no lock, as sync() — the
+        committer waits behind a vacuum swap itself."""
+        if durable:
+            dat = self.dat
+            (dat.datasync if hasattr(dat, "datasync") else dat.sync)()
+        self._idx_f.flush()
+        if hasattr(self.nm, "set_watermark"):
+            self.nm.set_watermark(self._idx_f.tell())
 
     def sync(self) -> None:
         self.dat.sync()

@@ -1,6 +1,6 @@
 """Token-bucket byte-rate shaping for repair traffic; the counterpart of
-seaweedfs_tpu/utils/ratelimit.py (the node-wide "repair" bucket; the
-port has no tier traffic, so no "tier" bucket is ever made).
+seaweedfs_tpu/utils/ratelimit.py (the node-wide "repair" and "tier"
+buckets, and the per-tenant buckets of utils/qos.py).
 
 The repair plane moves bulk bytes (replica re-copies, EC shard
 reconstruction reads) over the same NICs and disks that serve
@@ -65,8 +65,22 @@ class TokenBucket:
                            self._tokens + (now - self._t) * self.rate)
         self._t = now
 
+    def reserve(self, n: int) -> float:
+        """Debit ``n`` bytes; return seconds the caller must wait
+        before using them (0.0 = immediately available). The gateways'
+        qos admission (utils/qos.py) prices a request with it."""
+        if self.rate <= 0 or n <= 0:
+            return 0.0
+        with self._lock:
+            self._refill_locked(time.monotonic())
+            self._tokens -= n
+            if self._tokens >= 0:
+                return 0.0
+            return -self._tokens / self.rate
+
     def cancel(self, n: int) -> None:
-        """Return ``n`` bytes debited by an acquire that timed out."""
+        """Return ``n`` bytes debited by an acquire that timed out, or
+        by a reservation the qos admission shed."""
         if self.rate <= 0 or n <= 0:
             return
         with self._lock:

@@ -18,7 +18,8 @@ package's, over HTTP (tolerance 0).
   ec/generate fails ec.encode; a volume server on "cuda" raises
   without a GPU.
 * Two admin routes at once on one shared codec, with reads running.
-* Heartbeats by POST: a silent server is unregistered and comes back.
+* Heartbeats by POST: a silent server is unregistered and comes back;
+  a volume server beats at the master's pulse where it is shorter.
 * The data plane's routes and the master's status routes.
 * `python -m seaweedfs_tpu_torch server` and the shell against it.
 """
@@ -410,6 +411,40 @@ def test_silent_server_is_unregistered_then_returns(tmp_path):
         assert node in c.master.topo.nodes
     finally:
         c.stop()
+
+
+def test_volume_server_beats_at_the_masters_shorter_pulse(tmp_path):
+    """A volume server built with the default 5 s pulse, under a master
+    that reaps after 5 of its 0.2 s pulses, takes the master's pulse
+    from the heartbeat reply and stays registered."""
+    from seaweedfs_tpu_torch.rpc.http import ServerThread
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    ms = port_ms.MasterServer(pulse_seconds=0.2)
+    mt = ServerThread(ms.app).start()
+    ms.start()                              # its reaper
+    store = Store([str(tmp_path)], ip="127.0.0.1", port=0,
+                  ec_backend="numpy")
+    vs = VolumeServer(store, mt.url)
+    vt = ServerThread(vs.app).start()
+    store.port = vt.port
+    try:
+        assert vs.pulse_seconds == 5.0
+        vs.start()
+        node = f"127.0.0.1:{vt.port}"
+        deadline = time.monotonic() + 10
+        while node not in ms.topo.nodes:
+            assert time.monotonic() < deadline, "never registered"
+            time.sleep(0.05)
+        assert vs.pulse_seconds == 0.2
+        time.sleep(2.0)                     # 10 of the master's pulses
+        assert node in ms.topo.nodes
+    finally:
+        vs.stop()
+        vt.stop()
+        mt.stop()
+        ms.stop()
 
 
 def test_data_plane_and_status_routes(tmp_path):
