@@ -6,7 +6,9 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device and build: the card's name and power limit (nvidia-smi), and the
-   build of every kernel in seaweedfs_tpu_torch/csrc/ with nvcc.
+   build of every kernel in seaweedfs_tpu_torch/csrc/ with nvcc; the host
+   codec and (in the background, for phase 15) the native data plane
+   build with g++.
 2. Kernel against its plain version on the card, byte for byte, on every
    path of the kernel: RS(10,4) parity rows, the recovery rows for shards
    {1,4,11,13} and {3}, RS(28,4) and k=40 (a tile's rows over several ring
@@ -305,6 +307,47 @@ Phases, each fatal on failure (exit code 1, no result line):
       back byte-equal, its .dat on the 8-byte record grid.
    g. The walls, launches, CUDA-event times and the device's busy share
       of the phase.
+   The victim runs `-dataplane python`: its checks read the Python
+   commit scheduler, which the native front's own queue bypasses.
+
+15. The native C++ data plane (seaweedfs_tpu_torch/native/dataplane.cc,
+   built with g++ at first use). An in-process master (volume limit
+   2 GiB); two volume servers started through the CLI's own `volume`
+   wiring (cli._start_volume) in this process — so the seal's launches
+   are counted here — one `-dataplane native`, one `-dataplane python`,
+   both `-jwt.secret` and `-commit.durability batch`, `-ec.backend
+   cuda`. Each step is fatal on failure:
+   a. One seeded fill: 1 GiB of needles (1 KiB - 1 MiB log-uniform, as
+      phase 6) on one volume, then 8,192 needles of 1-64 KiB on a
+      second, as signed POSTs replayed by the port's C++ bench client
+      (native.dataplane.bench_raw) on 8 keep-alive connections; then a
+      GET of every needle the same way. The native front takes all of
+      it, the Python front its first 128 MiB and 1,024 small needles
+      (at its rates the whole would take two minutes). Requests/s, MB/s,
+      p50 / p99 of each pass on each front. Every body GET through the
+      native front byte-equal; the Python front's checked in its store
+      and on 512 seeded GETs. The native process's /status fast_post and
+      fast_get and its native_front_requests_total grow by at least the
+      requests served.
+   b. An unsigned POST answered 401 by the front (jwt_reject +1); 8
+      signed POSTs 201 with X-Sw-Durability: batch (fast_post +8);
+      writes per fsync from the native_commit_* lines of /metrics.
+   c. ec.encode of the natively filled 1 GiB volume (detached from the
+      plane first): exactly 4 launches (CUDA events); 512 seeded
+      needles GET through the native front's port, relayed to the EC
+      volume, byte-equal.
+   d. `Cluster(with_s3=True, s3_native=True, filer_native=True)` on
+      one volume server: the first 1,024 of phase 10's 4,096 signed
+      objects of 1-64 KiB (the sqlite filer's per-entry commit holds
+      the PUTs near phase 10's rate) PUT and GET through the native S3
+      front on phase 10's 8 client threads
+      (objects/s, p50 / p99 beside phase 10's Python-front numbers of
+      this run); md5 and ETag equal; native_fronts_requests_total
+      {front="s3"} counts them; the bucket's volumes sealed (launches as
+      their sizes give) and 256 seeded objects read back through S3.
+   e. 512 files of 1-64 KiB PUT and GET through the native filer
+      front, each GET beside the Python filer's GET of the same path:
+      equal statuses and bodies.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -329,6 +372,9 @@ import torch
 
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+# numbers an earlier phase measured that a later one prints beside its
+# own (phase 10's Python S3 front beside phase 15's native one)
+SAME_RUN: dict = {}
 DAT_BYTES = 1 << 30             # 1 GiB volume
 CHUNK = 32 << 20                # encoder.DEFAULT_CHUNK, bytes per shard
 CARD = "cuda"                   # the device phase 5 times the kernel on
@@ -416,7 +462,13 @@ def phase_device():
             if "registers" in line or "spill" in line:
                 log(f"[1] ptxas {name}: {line.strip()}")
     from seaweedfs_tpu_torch import native
+    from seaweedfs_tpu_torch.native import build as native_build
 
+    # the data plane (phase 15) compiles with g++ meanwhile: its file
+    # lock makes phase 15's load wait for this build, not start another
+    threading.Thread(target=native_build.build_dataplane,
+                     kwargs={"verbose": False}, daemon=True,
+                     name="dataplane-build").start()
     t0 = time.perf_counter()
     lib = native.load()._name
     log(f"[1] built the native host codec {os.path.basename(lib)} in "
@@ -2462,6 +2514,8 @@ def phase_s3(card: str) -> dict:
             f"threads: {t_small:.3f} s, {S3_SMALL / t_small:.1f} objects/s, "
             f"{small_bytes / t_small / 1e6:.2f} MB/s, "
             f"{_lat([dt for _, dt, _ in small])}")
+        SAME_RUN["10a small PUT"] = (S3_SMALL / t_small,
+                                     [dt for _, dt, _ in small])
         total = big_bytes + S3_PARTS * S3_PART_BYTES + small_bytes
         log(f"[10a] the bucket holds {len(want)} objects, {total} B "
             f"({total / (1 << 30):.3f} GiB)")
@@ -2669,6 +2723,8 @@ def phase_s3(card: str) -> dict:
             f"{len(got_small) / (t2 - t1):.1f} objects/s, "
             f"{nsmall / (t2 - t1) / 1e6:.2f} MB/s, "
             f"{_lat([x for x, _ in got_small])}")
+        SAME_RUN["10d small GET (EC shards)"] = (
+            len(got_small) / (t2 - t1), [x for x, _ in got_small])
         key, data = _s3_object(S3_BIG)
         rng = np.random.default_rng(SEED + 12)
         t0 = time.perf_counter()
@@ -4440,7 +4496,10 @@ def phase_secure(card: str) -> dict:
                        "-jwt.secret", SEC_SECRET, "-commit.durability",
                        "batch", "-commit.maxDelay",
                        str(SEC_COMMIT_MAX_DELAY), "-commit.maxBytes",
-                       str(SEC_COMMIT_MAX_BYTES), "-ec.backend", "native"]
+                       str(SEC_COMMIT_MAX_BYTES), "-ec.backend", "native",
+                       # its checks read the Python commit scheduler,
+                       # which the native front's own queue bypasses
+                       "-dataplane", "python"]
         victim = _spawn(victim_args, vlog)
         env = CommandEnv(master, filer_url=cluster.filer_url)
         victim_url = f"127.0.0.1:{vport}"
@@ -4980,6 +5039,575 @@ def phase_secure(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 15: the native C++ data plane — the volume front with its JWT
+# check and group commit, the S3 and filer fronts — beside the Python
+# fronts, and volumes filled through it sealed through the kernel
+# ----------------------------------------------------------------------
+NAT_SECRET = "smoke15-jwt-secret"
+NAT_CONNS = 8                    # keep-alive connections of the bench
+NAT_FILL_BYTES = DAT_BYTES       # 1 GiB of needles, 1 KiB - 1 MiB
+# then this many needles of 1-64 KiB (cut from 16,384: with the 1.5 GiB
+# fill phase 15 took 98.6 s on one H100 host of the pool)
+NAT_SMALL = 8192
+NAT_SMALL_LO, NAT_SMALL_HI = 1 << 10, 64 << 10
+# the Python front takes a prefix of the same fill: at its rates (239
+# POSTs/s on an H100 host) the whole one would cost two minutes
+NAT_PY_FILL_BYTES = 128 << 20
+NAT_PY_SMALL = 1024
+NAT_SEAL_READS = 512             # seeded GETs after the volume's seal
+NAT_S3_READS = 256               # seeded GETs after the bucket's seal
+# the first quarter of phase 10's small objects: PUTs wait on the
+# sqlite filer's per-entry commit (4,096 took 34.1 s on an H100 host)
+NAT_S3_OBJECTS = S3_SMALL // 4
+NAT_FILER_FILES = 512            # 1-64 KiB files through the filer front
+NAT_POOL = 256 << 20             # the seeded bytes the bodies are cut from
+NAT_BUCKET = "smoke15"
+
+
+def _nat_needles() -> tuple[list, list]:
+    """The seeded fill of phase 15: (key, cookie, body) of 1 GiB of
+    needles log-uniform in 1 KiB - 1 MiB (as phase 6), and of NAT_SMALL
+    needles of 1-64 KiB (uniform). Each body is a slice of NAT_POOL
+    seeded bytes at a seeded offset (making 1.6 GB of fresh bytes took
+    6.9 s on the card's host); two needles share bytes only when offset
+    and size both match."""
+    rng = np.random.default_rng([SEED, 15])
+    pool = memoryview(rng.bytes(NAT_POOL))
+
+    def body(size: int) -> bytes:
+        at = int(rng.integers(0, NAT_POOL - size + 1))
+        return bytes(pool[at:at + size])
+
+    lo, hi = np.log(1 << 10), np.log(1 << 20)
+    big, total = [], 0
+    while total < NAT_FILL_BYTES:
+        data = body(int(np.exp(rng.uniform(lo, hi))))
+        big.append((len(big) + 1, int(rng.integers(1 << 32)), data))
+        total += len(data)
+    small = [(i + 1, int(rng.integers(1 << 32)),
+              body(int(rng.integers(NAT_SMALL_LO, NAT_SMALL_HI + 1))))
+             for i in range(NAT_SMALL)]
+    return big, small
+
+
+def _nat_bench(dpmod, port: int, reqs: list[bytes], what: str) -> dict:
+    """Replay prebuilt requests through the C++ bench client on
+    NAT_CONNS keep-alive connections; fail on any non-2xx/3xx."""
+    wall, lat, errs = dpmod.bench_raw("127.0.0.1", port, reqs, NAT_CONNS)
+    if errs:
+        fail(f"{what}: {errs} of {len(reqs)} requests failed")
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    return {"wall": wall, "n": len(reqs), "p50_ms": p50, "p99_ms": p99}
+
+
+def _nat_verify(port: int, items: list[tuple[str, bytes]], what: str,
+                threads: int = NAT_CONNS) -> int:
+    """GET every (path, body written) through 127.0.0.1:port on
+    keep-alive connections; fail on any status or byte mismatch. ->
+    bytes read.
+    Each thread frames its replies by Content-Length on a raw socket,
+    reading each body into one buffer (http.client's per-response
+    bookkeeping held a 1.6 GB pass to 68 MB/s on the card's host)."""
+    import socket
+
+    def run(chunk):
+        sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+        pending = b""
+        total = 0
+        try:
+            for path, want in chunk:
+                sock.sendall(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n"
+                             f"\r\n".encode())
+                while b"\r\n\r\n" not in pending:
+                    got = sock.recv(1 << 16)
+                    if not got:
+                        fail(f"{what}: connection closed at {path}")
+                    pending += got
+                head, _, pending = pending.partition(b"\r\n\r\n")
+                lines = head.decode("latin-1").split("\r\n")
+                status = int(lines[0].split()[1])
+                length = next(int(v) for k, _, v in
+                              (x.partition(":") for x in lines[1:])
+                              if k.strip().lower() == "content-length")
+                body = bytearray(length)
+                view = memoryview(body)
+                n = min(len(pending), length)
+                view[:n] = pending[:n]
+                pending = pending[n:]
+                while n < length:
+                    got = sock.recv_into(view[n:])
+                    if not got:
+                        fail(f"{what}: connection closed in {path}")
+                    n += got
+                if status != 200 or body != want:
+                    fail(f"{what}: GET {path} gave {status} and other "
+                         "bytes")
+                total += length
+        finally:
+            sock.close()
+        return total
+
+    return sum(_pool_map(run, [items[i::threads] for i in range(threads)],
+                         threads=threads))
+
+
+def _nat_counters(port: int) -> dict:
+    """The volume process's native counters: /status's native_dataplane
+    and the sum over codes of native_front_requests_total and of
+    native_fronts_requests_total by front, and the native_commit_*
+    counters of /metrics (requests the front relays to the app)."""
+    import re
+
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    st = session().get(f"http://127.0.0.1:{port}/status",
+                       timeout=30).json()
+    text = session().get(f"http://127.0.0.1:{port}/metrics",
+                         timeout=30).text
+    out = {"http": st.get("native_dataplane", {}), "front": 0,
+           "fronts": {}, "commit": {}}
+    for m in re.finditer(r'^native_front_requests_total\{code="\w+"\} '
+                         r'(\d+)$', text, re.M):
+        out["front"] += int(m.group(1))
+    for m in re.finditer(r'^native_fronts_requests_total\{front="(\w+)",'
+                         r'code="\w+"\} (\d+)$', text, re.M):
+        out["fronts"][m.group(1)] = \
+            out["fronts"].get(m.group(1), 0) + int(m.group(2))
+    for m in re.finditer(r'^native_commit_(\w+)_total (\S+)$', text, re.M):
+        out["commit"][m.group(1)] = float(m.group(2))
+    return out
+
+
+def _nat_rate(label: str, b: dict, nbytes: int) -> str:
+    return (f"{label}: {b['n']} requests in {b['wall']:.3f} s, "
+            f"{b['n'] / b['wall']:.1f}/s, {nbytes / b['wall'] / 1e6:.1f} "
+            f"MB/s, p50 {b['p50_ms']:.3f} ms p99 {b['p99_ms']:.3f} ms")
+
+
+def phase_native(card: str) -> dict:
+    """Phase 15: the native C++ data plane. -> kernel launches of the
+    seals of volumes filled through the native volume and S3 fronts."""
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.native import dataplane as dpmod
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.utils.security import sign_jwt
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke15-")
+    launches: dict[str, int] = {}
+    master = env = cluster = None
+    threads: dict[str, object] = {}
+    try:
+        t0 = time.perf_counter()
+        lib = dpmod._load()._name
+        log(f"[15] {card}; the native data plane "
+            f"{os.path.basename(lib)} built from "
+            f"seaweedfs_tpu_torch/native/dataplane.cc in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        # 15a/b. an in-process master, then two volume servers through
+        # the CLI's own `volume` wiring, -dataplane native and python,
+        # both under -jwt.secret and -commit.durability=batch
+        master = Cluster(os.path.join(tmp, "master"), n_volume_servers=0,
+                         volume_size_limit=2 * DAT_BYTES,
+                         pulse_seconds=HEAL_PULSE, ec_backend="cuda")
+        env = CommandEnv(master.master_url)
+        mhost = master.master_url.split("//", 1)[1]
+        ports = dict(zip(("native", "python"), free_ports(2)))
+        vs = {}
+        for mode, port in ports.items():
+            d = os.path.join(tmp, mode)
+            os.makedirs(d)
+            args = cli.build_parser().parse_args([
+                "volume", "-ip", "127.0.0.1", "-port", str(port),
+                "-dir", d, "-max", "8", "-mserver", mhost,
+                "-dataplane", mode, "-jwt.secret", NAT_SECRET,
+                "-commit.durability", "batch", "-ec.backend", "cuda"])
+            threads[mode], vs[mode] = cli._start_volume(
+                args, [d], port, mhost, max_volumes=args.max,
+                jwt_secret=args.jwt_secret, **cli._commit_kwargs(args))
+        if vs["native"].dp is None or vs["python"].dp is not None:
+            fail("-dataplane native did not start the front, or python "
+                 "did")
+        _poll(lambda: len(env.data_nodes()) == 2, 30.0,
+              "both volume servers registered")
+        vids = {}
+        for mode, port in ports.items():
+            for part in ("big", "small"):
+                g = env.master_get("/vol/grow", collection=f"nat15{part}",
+                                   count=1, dataNode=f"127.0.0.1:{port}")
+                if g.get("count") != 1:
+                    fail(f"/vol/grow on {mode}: {g}")
+        # the grown volume ids, as the servers report them
+        for mode, port in ports.items():
+            held = {col: int(v) for n in env.data_nodes()
+                    if n["url"] == f"127.0.0.1:{port}"
+                    for v, col in n.get("collections", {}).items()}
+            for part in ("big", "small"):
+                vids[mode, part] = held[f"nat15{part}"]
+        t0 = time.perf_counter()
+        big, small = _nat_needles()
+        big_bytes = sum(len(b) for _, _, b in big)
+        small_bytes = sum(len(b) for _, _, b in small)
+        log(f"[15a] seeded fill: {len(big)} needles, {big_bytes} B "
+            f"(1 KiB - 1 MiB log-uniform), then {len(small)} needles, "
+            f"{small_bytes} B ({NAT_SMALL_LO}-{NAT_SMALL_HI} B), made in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        def fid(mode, part, key, cookie):
+            return f"{vids[mode, part]},{key:x}{cookie:08x}"
+
+        def posts(mode, part, needles):
+            out = []
+            for key, cookie, body in needles:
+                f = fid(mode, part, key, cookie)
+                tok = sign_jwt(NAT_SECRET, f, expires_seconds=3600)
+                out.append(
+                    f"POST /{f} HTTP/1.1\r\nHost: smoke\r\n"
+                    f"Authorization: Bearer {tok}\r\n"
+                    f"Content-Type: application/octet-stream\r\n"
+                    f"Content-Length: {len(body)}\r\n\r\n".encode()
+                    + body)
+            return out
+
+        def gets(mode, part, needles):
+            return [f"GET /{fid(mode, part, k, c)} HTTP/1.1\r\n"
+                    f"Host: smoke\r\n\r\n".encode()
+                    for k, c, _ in needles]
+
+        n_py, acc = 0, 0
+        while acc < NAT_PY_FILL_BYTES and n_py < len(big):
+            acc += len(big[n_py][2])
+            n_py += 1
+        fills = {"native": (big, small),
+                 "python": (big[:n_py], small[:NAT_PY_SMALL])}
+        rates: dict[str, dict] = {}
+        c0 = _nat_counters(ports["native"])
+        for mode, port in ports.items():
+            mbig, msmall = fills[mode]
+            r = rates[mode] = {}
+            r["POST 1 KiB-1 MiB"] = _nat_bench(
+                dpmod, port, posts(mode, "big", mbig), f"{mode} fill")
+            r[f"POST {NAT_SMALL_LO}-{NAT_SMALL_HI} B"] = _nat_bench(
+                dpmod, port, posts(mode, "small", msmall),
+                f"{mode} small fill")
+            r["GET 1 KiB-1 MiB"] = _nat_bench(
+                dpmod, port, gets(mode, "big", mbig), f"{mode} reads")
+            r[f"GET {NAT_SMALL_LO}-{NAT_SMALL_HI} B"] = _nat_bench(
+                dpmod, port, gets(mode, "small", msmall),
+                f"{mode} small reads")
+            for label, b in r.items():
+                nbytes = sum(len(x[2]) for x in
+                             (mbig if "1 MiB" in label else msmall))
+                log(f"[15a] {mode} front, "
+                    + _nat_rate(label, b, nbytes))
+        c1 = _nat_counters(ports["native"])
+        n_native = 2 * (len(big) + len(small))
+        served = {k: c1["http"][k] - c0["http"].get(k, 0)
+                  for k in ("fast_get", "fast_post", "proxied")}
+        front = c1["front"] - c0["front"]
+        if served["fast_post"] < len(big) + len(small) or \
+                served["fast_get"] < len(big) + len(small) or \
+                front < n_native:
+            fail(f"the native front served {served} and counted {front} "
+                 f"in native_front_requests_total for {n_native} "
+                 "requests")
+        # every body through the native front; the Python front's
+        # through its store (an HTTP pass of it would contend for this
+        # process's GIL with the server for half a minute) and a seeded
+        # sample of NAT_SEAL_READS through its port
+        t0 = time.perf_counter()
+        n = _nat_verify(ports["native"], [
+            (f"/{fid('native', part, k, c)}", body)
+            for part, needles in (("big", big), ("small", small))
+            for k, c, body in needles], "native read-back")
+        log(f"[15a] native front: every body of the "
+            f"{len(big) + len(small)} needles GET byte-equal ({n} B, "
+            f"checked in {time.perf_counter() - t0:.3f} s)")
+        t0 = time.perf_counter()
+        for part, needles in zip(("big", "small"), fills["python"]):
+            for k, c, body in needles:
+                if vs["python"].store.read_needle(
+                        vids["python", part], k, c).data != body:
+                    fail(f"python front: needle {part} {k} differs")
+        rng = np.random.default_rng([SEED, 15, 2])
+        psmall = fills["python"][1]
+        n = _nat_verify(ports["python"], [
+            (f"/{fid('python', 'small', psmall[i][0], psmall[i][1])}",
+             psmall[i][2])
+            for i in rng.choice(len(psmall), min(NAT_SEAL_READS,
+                                                 len(psmall)),
+                                replace=False)], "python read-back")
+        log(f"[15a] python front: every needle byte-equal in its store, "
+            f"{NAT_SEAL_READS} seeded ones GET ({n} B); checked in "
+            f"{time.perf_counter() - t0:.3f} s")
+        log(f"[15a] native process: native_front_requests_total +{front} "
+            f"for {n_native} requests; fast_post +{served['fast_post']}, "
+            f"fast_get +{served['fast_get']}, relayed +{served['proxied']}")
+        SAME_RUN["15a"] = rates
+
+        # 15b. the guard and the ack contract, answered by the front
+        j0 = _nat_counters(ports["native"])["http"]
+        st = session().post(
+            f"http://127.0.0.1:{ports['native']}/"
+            f"{fid('native', 'small', 1 << 40, 7)}", data=b"unsigned",
+            timeout=30)
+        acks = []
+        for i in range(8):
+            f = fid("native", "small", (1 << 40) + i + 1, 9)
+            r = session().post(
+                f"http://127.0.0.1:{ports['native']}/{f}",
+                data=b"signed-%d" % i, timeout=30,
+                headers={"Authorization":
+                         f"Bearer {sign_jwt(NAT_SECRET, f)}"})
+            acks.append((r.status_code, r.headers.get("X-Sw-Durability")))
+        c2 = _nat_counters(ports["native"])
+        # the 401 and the 201s came from the front: jwt_reject and
+        # fast_post moved by them (the relayed count moves by the
+        # counter reads' own /status and /metrics)
+        if st.status_code != 401 or \
+                c2["http"]["jwt_reject"] - j0["jwt_reject"] != 1 or \
+                c2["http"]["fast_post"] - j0["fast_post"] != 8:
+            fail(f"unsigned POST: {st.status_code}, jwt_reject "
+                 f"{j0['jwt_reject']} -> {c2['http']['jwt_reject']}, "
+                 f"fast_post {j0['fast_post']} -> "
+                 f"{c2['http']['fast_post']}")
+        if acks != [(201, "batch")] * 8:
+            fail(f"signed POSTs answered {acks}")
+        dw = c2["commit"]["writes"] - c0["commit"].get("writes", 0)
+        df = c2["commit"]["fsyncs"] - c0["commit"].get("fsyncs", 0)
+        if not 0 < df < dw:
+            fail(f"native commit: {dw} writes, {df} fsyncs")
+        log(f"[15b] unsigned POST -> 401 from the front (jwt_reject "
+            f"+{c2['http']['jwt_reject'] - j0['jwt_reject']}); 8 signed "
+            f"POSTs -> 201 X-Sw-Durability: batch; native_commit over the "
+            f"fill: {dw:.0f} writes, {df:.0f} fsyncs, "
+            f"{dw / df:.1f} writes per fsync, "
+            f"{c2['commit'].get('batches', 0) - c0['commit'].get('batches', 0):.0f}"
+            f" batches")
+
+        # 15c. ec.encode of the natively filled volume through the kernel
+        vid = vids["native", "big"]
+        vol = vs["native"].store.find_volume(vid)
+        if vol is None or vol.delegate is None:
+            fail(f"volume {vid} is not attached to the native plane")
+        dat_size = vol.dat.size()
+        want = _encode_launches(dat_size)
+        repl.run_command(env, "lock")
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        with _KernelEvents() as ev:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        launches["seal volume front"] = codec_cuda.coded_matmul.launches
+        dt = time.perf_counter() - t0
+        repl.run_command(env, "unlock")
+        if launches["seal volume front"] != want:
+            fail(f"ec.encode of the {dat_size} B volume made "
+                 f"{launches['seal volume front']} launches, want {want}")
+        if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+            fail(f"shards {sorted(env.ec_shard_locations(vid))} after "
+                 "ec.encode")
+        rng = np.random.default_rng([SEED, 15, 3])
+        pick = rng.choice(len(big), NAT_SEAL_READS, replace=False)
+        p0 = _nat_counters(ports["native"])["http"]["proxied"]
+        t1 = time.perf_counter()
+        _nat_verify(ports["native"], [
+            (f"/{fid('native', 'big', big[i][0], big[i][1])}", big[i][2])
+            for i in pick], "EC read-back")
+        t2 = time.perf_counter()
+        relayed = _nat_counters(ports["native"])["http"]["proxied"] - p0
+        if relayed < NAT_SEAL_READS:
+            fail(f"{relayed} of {NAT_SEAL_READS} EC reads were relayed")
+        log(f"[15c] ec.encode -volumeId={vid} ({dat_size} B .dat filled "
+            f"through the front, detached from the plane first): "
+            f"{dt:.3f} s, kernel launches "
+            f"{launches['seal volume front']} (CUDA events "
+            f"{ev.ms():.3f} ms); {NAT_SEAL_READS} seeded needles GET "
+            f"through the front's port, relayed to the EC volume "
+            f"({relayed} relayed): {t2 - t1:.3f} s, "
+            f"{NAT_SEAL_READS / (t2 - t1):.1f} reads/s, all byte-equal")
+        for mode in ("native", "python"):
+            threads.pop(mode).stop()
+        master.stop()
+        master = None
+        env.close()
+        env = None
+
+        # 15d. the S3 front: phase 10's small objects
+        cluster = Cluster(os.path.join(tmp, "cluster"), n_volume_servers=1,
+                          max_volumes=16, volume_size_limit=DAT_BYTES,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                          with_filer=True, filer_store="sqlite",
+                          with_s3=True, s3_native=True, filer_native=True,
+                          s3_config=S3_CONFIG)
+        env = CommandEnv(cluster.master_url)
+        s3 = _S3Client(cluster.s3_url)
+        if s3("PUT", f"/{NAT_BUCKET}").status_code != 200:
+            fail("CreateBucket on the native S3 front")
+        _poll(lambda: cluster.s3_front.front.pool_level(NAT_BUCKET) > 0,
+              30.0, "the S3 front's fid pool filled")
+        objs = range(S3_BIG + 1, S3_BIG + 1 + NAT_S3_OBJECTS)
+        want_md5 = {}
+
+        def put_one(i):
+            key, data = _s3_object(i)
+            r0 = time.perf_counter()
+            r = s3("PUT", f"/{NAT_BUCKET}/{key}", data)
+            dt = time.perf_counter() - r0
+            md5 = hashlib.md5(data).hexdigest()
+            if r.status_code != 200 or r.headers.get("ETag") != f'"{md5}"':
+                fail(f"native S3 PUT {key}: {r.status_code} "
+                     f"{r.headers.get('ETag')}")
+            want_md5[key] = md5
+            return dt, len(data)
+
+        def get_one(i):
+            key, _ = _s3_object(i)
+            r0 = time.perf_counter()
+            r = s3("GET", f"/{NAT_BUCKET}/{key}")
+            dt = time.perf_counter() - r0
+            if r.status_code != 200 or \
+                    hashlib.md5(r.content).hexdigest() != want_md5[key] \
+                    or r.headers.get("ETag") != f'"{want_md5[key]}"':
+                fail(f"native S3 GET {key}: {r.status_code} "
+                     f"{r.headers.get('ETag')}")
+            return dt, len(r.content)
+
+        f0 = _nat_counters(cluster.stores[0].port)
+        s0 = cluster.s3_front.stats()
+        t0 = time.perf_counter()
+        put = _pool_map(put_one, objs)
+        t1 = time.perf_counter()
+        got = _pool_map(get_one, objs)
+        t2 = time.perf_counter()
+        s1 = cluster.s3_front.stats()
+        f1 = _nat_counters(cluster.stores[0].port)
+        n_s3 = f1["fronts"].get("s3", 0) - f0["fronts"].get("s3", 0)
+        moved = {k: s1[k] - s0[k] for k in s1}
+        if n_s3 < 2 * len(objs) or moved["fast_put"] < len(objs) or \
+                moved["fast_get"] < len(objs) or moved["chan_fail"]:
+            fail(f"native_fronts_requests_total{{front=\"s3\"}} +{n_s3}, "
+                 f"front stats {moved} for {len(objs)} PUTs and GETs")
+        nbytes = sum(n for _, n in put)
+        for label, wall, lat in (("PUT", t1 - t0, [d for d, _ in put]),
+                                 ("GET", t2 - t1, [d for d, _ in got])):
+            log(f"[15d] native S3 front, {len(objs)} signed {label}s of "
+                f"{S3_SMALL_LO}-{S3_SMALL_HI} B ({S3_THREADS} client "
+                f"threads): {wall:.3f} s, {len(objs) / wall:.1f} objects/s, "
+                f"{nbytes / wall / 1e6:.2f} MB/s, {_lat(lat)}")
+            SAME_RUN[f"15d {label}"] = (len(objs) / wall, lat)
+        for label, (rate, lat) in SAME_RUN.items():
+            if label.startswith("10"):
+                log(f"[15d] beside phase 10's Python S3 front in this "
+                    f"run, {label}: {rate:.1f} objects/s, {_lat(lat)}")
+        log(f"[15d] every md5 and ETag equal; "
+            f"native_fronts_requests_total{{front=\"s3\"}} +{n_s3}; "
+            f"front stats {moved}")
+        bvids = _bucket_vids(env, NAT_BUCKET)
+        sizes = {v: cluster.stores[0].find_volume(v).dat.size()
+                 for v in bvids}
+        want = sum(_encode_launches(n) for n in sizes.values())
+        repl.run_command(env, "lock")
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        with _KernelEvents() as ev:
+            for v in bvids:
+                repl.run_command(env, f"ec.encode -volumeId={v}")
+        launches["seal S3 front"] = codec_cuda.coded_matmul.launches
+        dt = time.perf_counter() - t0
+        repl.run_command(env, "unlock")
+        if launches["seal S3 front"] != want:
+            fail(f"the bucket's seals made {launches['seal S3 front']} "
+                 f"launches, want {want}")
+        rng = np.random.default_rng([SEED, 15, 4])
+        sample = [int(i) for i in rng.choice(
+            list(objs), min(NAT_S3_READS, len(objs)), replace=False)]
+        t1 = time.perf_counter()
+        _pool_map(get_one, sample)
+        t2 = time.perf_counter()
+        log(f"[15d] ec.encode of the bucket's {len(bvids)} volumes "
+            f"({sizes} B .dat): {dt:.3f} s, kernel launches "
+            f"{launches['seal S3 front']} (CUDA events {ev.ms():.3f} ms); "
+            f"{len(sample)} seeded objects GET through the S3 front after "
+            f"the seal: {t2 - t1:.3f} s, "
+            f"{len(sample) / (t2 - t1):.1f} objects/s, md5 and ETag equal")
+
+        # 15e. the filer front against the Python filer, same paths
+        rng = np.random.default_rng([SEED, 15, 5])
+        files = [(f"/nat15/f{i:04d}.bin",
+                  rng.bytes(int(rng.integers(NAT_SMALL_LO,
+                                             NAT_SMALL_HI + 1))))
+                 for i in range(NAT_FILER_FILES)]
+        front_url, py_url = cluster.filer_url, cluster.filer_thread.url
+
+        def fput(item):
+            path, body = item
+            r0 = time.perf_counter()
+            r = session().put(front_url + path, data=body, timeout=30)
+            if r.status_code != 201:
+                fail(f"filer front PUT {path}: {r.status_code} {r.text}")
+            return time.perf_counter() - r0
+
+        def fget(item):
+            path, body = item
+            r0 = time.perf_counter()
+            n = session().get(front_url + path, timeout=30)
+            dt = time.perf_counter() - r0
+            p = session().get(py_url + path, timeout=30)
+            if (n.status_code, n.content) != (p.status_code, p.content) \
+                    or n.content != body:
+                fail(f"filer GET {path}: front {n.status_code}, Python "
+                     f"{p.status_code}, bodies differ")
+            return dt
+
+        ff0 = cluster.filer_front.stats()
+        t0 = time.perf_counter()
+        put_lat = _pool_map(fput, files)
+        t1 = time.perf_counter()
+        get_lat = _pool_map(fget, files)
+        t2 = time.perf_counter()
+        ff1 = cluster.filer_front.stats()
+        fmoved = {k: ff1[k] - ff0[k] for k in ff1}
+        if fmoved["fast_put"] < len(files) or \
+                fmoved["fast_get"] < len(files) or fmoved["chan_fail"]:
+            fail(f"filer front stats {fmoved} for {len(files)} files")
+        missing = session().get(front_url + "/nat15/absent.bin", timeout=30)
+        missing_py = session().get(py_url + "/nat15/absent.bin", timeout=30)
+        if (missing.status_code, missing.content) != \
+                (missing_py.status_code, missing_py.content):
+            fail("a missing path answers differently on the two filers")
+        fbytes = sum(len(b) for _, b in files)
+        log(f"[15e] native filer front, {len(files)} PUTs of "
+            f"{NAT_SMALL_LO}-{NAT_SMALL_HI} B ({S3_THREADS} client "
+            f"threads): {t1 - t0:.3f} s, {len(files) / (t1 - t0):.1f}/s, "
+            f"{fbytes / (t1 - t0) / 1e6:.2f} MB/s, {_lat(put_lat)}; GETs "
+            f"(each beside the Python filer's GET of the same path, equal "
+            f"status and body): {_lat(get_lat)}; front stats {fmoved}")
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 15 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[15] phase 15 took {time.perf_counter() - t_phase:.3f} s; "
+            f"kernel launches {launches}; {card}")
+        return launches
+    finally:
+        if env is not None:
+            env.close()
+        for t in threads.values():
+            t.stop()
+        for c in (master, cluster):
+            if c is not None:
+                c.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -5001,6 +5629,7 @@ def main() -> int:
     tier_launches = phase_tier(card)
     chaos_launches = phase_chaos(card)
     secure_launches = phase_secure(card)
+    native_launches = phase_native(card)
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -5042,6 +5671,8 @@ def main() -> int:
         "chaos_launches_by_step": chaos_launches,
         "secure_launches": sum(secure_launches.values()),
         "secure_launches_by_step": secure_launches,
+        "native_launches": sum(native_launches.values()),
+        "native_launches_by_step": native_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -43,12 +43,27 @@ or SSL_CERT_FILE; `master -jwt.secret` signs every assign and `volume
 -jwt.secret` checks every write; `-commit.durability|maxDelay|maxBytes`
 (volume, server) set the ack contract (storage/commit.py); the global
 `-qos.*` flags the gateways' per-tenant admission (utils/qos.py).
+
+The native data plane, with the reference's flags: `-dataplane
+auto|native|python` (volume, server) puts the C++ front
+(native/dataplane.cc) on the volume server's public port — `auto`, the
+default, when the library builds (else Python, with one line on
+stderr), `native` or fail — and moves the Python app to a loopback
+backend port it relays to; the store's public url is the front's.
+`server -filer.native` and `-s3.native` (auto|native|python) put the
+native filer and S3 fronts on the public filer and S3 ports; they append
+to the in-process volume store, so they need the native volume front
+(`auto` follows it, `native` without it is an error) and a standalone
+`filer` serves Python only. `-filer.native.workers` sizes the filer
+front's relay pool. Requests a front answers never reach the Python
+taps (spans, workload sketches): run `-dataplane python` to see them.
 Every other subcommand of the reference is not here.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def _add_ec_flags(p) -> None:
@@ -459,6 +474,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-jwt.secret", dest="jwt_secret", default="",
                    help="HS256 secret for write authorization; must "
                         "match the master's -jwt.secret")
+    _add_dataplane_flag(p)
     _add_ec_flags(p)
     _add_commit_flags(p)
 
@@ -480,6 +496,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "inside the filer metadata entry (no volume "
                         "round trip); per-request ?saveInside=true "
                         "forces it")
+    _add_filer_native_flags(p, default="python",
+                            note="only the combined `server` command can "
+                                 "honor 'native' (the front appends to an "
+                                 "in-process volume store); a standalone "
+                                 "filer always serves Python")
 
     p = sub.add_parser("s3", help="start an S3 gateway")
     p.add_argument("-port", type=int, default=8333)
@@ -504,6 +525,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
     p.add_argument("-s3.config", dest="s3_config", default="",
                    help="json file with s3 identities")
+    p.add_argument("-s3.native", dest="s3_native", default="auto",
+                   choices=["auto", "native", "python"],
+                   help="native C++ S3 front for small-object PUT/GET "
+                        "(needs the native volume front; everything "
+                        "else relays to the Python S3 app)")
+    _add_filer_native_flags(p, default="auto",
+                            note="needs the native volume front; "
+                                 "listings, renames and every other verb "
+                                 "relay to the Python filer app")
+    _add_dataplane_flag(p)
     p.add_argument("-volumeSizeLimitMB", type=int, default=1024)
     _add_ec_flags(p)
     _add_master_flags(p)
@@ -587,6 +618,27 @@ def apply_global_flags(args) -> None:
                   spec=args.qos_spec or None)
 
 
+def _add_dataplane_flag(p) -> None:
+    p.add_argument("-dataplane", default="auto",
+                   choices=["auto", "native", "python"],
+                   help="object hot-path server: native = C++ epoll "
+                        "front (GET/HEAD/POST/DELETE by fid), python = "
+                        "the Python app only, auto = native when the "
+                        "library builds")
+
+
+def _add_filer_native_flags(p, default: str, note: str) -> None:
+    p.add_argument("-filer.native", dest="filer_native", default=default,
+                   choices=["auto", "native", "python"],
+                   help="native C++ filer front for plain-file "
+                        f"GET/PUT/HEAD/DELETE; {note}")
+    p.add_argument("-filer.native.workers", dest="filer_native_workers",
+                   type=int, default=2,
+                   help="relay worker threads of the native filer front "
+                        "(requests it cannot serve natively are relayed "
+                        "to the Python filer app)")
+
+
 def _start_span_pusher(master_url, service: str, instance: str):
     """Ship this process's finished spans to the master's collector
     (rpc/trace_push.py). `master_url` may be a callable, for a gateway
@@ -661,23 +713,60 @@ def _start_volume(args, dirs: list[str], port: int, master: str,
         for loc in store.locations:
             loc.max_volumes = max_volumes
     vs = VolumeServer(store, master, **labels)
+    public = _start_volume_front(vs, args, port)
+    if public is not None:
+        t = vs._backend_thread
+        store.port = public
+        store.public_url = f"{args.ip}:{public}"
+        print(f"volume server listening on http://{store.public_url} "
+              f"(native data plane; Python backend :{t.port}), "
+              f"dirs={dirs}, ec.backend={args.ec_backend}", flush=True)
+        return t, vs
     t = ServerThread(vs.app, host=args.ip, port=port).start()
     store.port = t.port
     store.public_url = t.address
     print(f"volume server listening on {t.url}, dirs={dirs}, "
           f"ec.backend={args.ec_backend}", flush=True)
-    return t
+    return t, vs
+
+
+def _start_volume_front(vs, args, port: int) -> int | None:
+    """Put the C++ data plane in front of volume server `vs` as
+    `-dataplane` asks: -> the public port, or None to serve Python
+    only."""
+    if args.dataplane == "python":
+        return None
+    from .native import dataplane as dpmod
+    from .rpc.http import ServerThread
+
+    # build and load the library BEFORE the backend thread starts: once
+    # the backend runs, stopping it would close the store — so every
+    # graceful fallback happens here
+    try:
+        dpmod._load()
+    except (OSError, RuntimeError) as e:  # no g++, a failed build
+        if args.dataplane == "native":
+            raise
+        print(f"native data plane unavailable ({e}); serving Python",
+              file=sys.stderr, flush=True)
+        return None
+    # past this point failures are fatal, exactly like the Python
+    # server failing to bind its port
+    backend = ServerThread(vs.app, host="127.0.0.1", port=0).start()
+    vs._backend_thread = backend
+    return vs.enable_native(port, backend.port, listen_ip=args.ip)
 
 
 def _run_volume(args) -> int:
     from .rpc.http import run_apps_forever
 
-    t = _start_volume(args, args.dir.split(","), args.port, args.mserver,
-                      max_volumes=args.max, data_center=args.dataCenter,
-                      rack=args.rack, disk_type=args.disk,
-                      jwt_secret=args.jwt_secret, **_commit_kwargs(args))
+    t, vs = _start_volume(args, args.dir.split(","), args.port,
+                          args.mserver, max_volumes=args.max,
+                          data_center=args.dataCenter, rack=args.rack,
+                          disk_type=args.disk, jwt_secret=args.jwt_secret,
+                          **_commit_kwargs(args))
     _start_span_pusher(_http(args.mserver.split(",")[0].strip()),
-                       "volume", t.address)
+                       "volume", vs.store.public_url)
     run_apps_forever([t])
     return 0
 
@@ -694,22 +783,59 @@ def _run_server(args) -> int:
     vol_dir = os.path.join(args.dir, "volume")
     os.makedirs(vol_dir, exist_ok=True)
     try:
-        vt = _start_volume(args, [vol_dir], args.volume_port, mt.url,
-                           **_commit_kwargs(args))
+        vt, vs = _start_volume(args, [vol_dir], args.volume_port,
+                               mt.url, **_commit_kwargs(args))
     except BaseException:
         mt.stop()
         raise
     threads = [vt, mt]
+    native_volume = vs.dp is not None
+    for flag, want in (("-filer.native", args.filer_native),
+                       ("-s3.native", args.s3_native)):
+        if want == "native" and not native_volume:
+            raise SystemExit(f"{flag}=native needs the native volume "
+                             "data plane in-process (-dataplane native)")
     if args.filer or args.s3:
         filer_dir = os.path.join(args.dir, "filer")
         os.makedirs(filer_dir, exist_ok=True)
-        ft = _start_filer(args, mt.url, args.filer_port,
-                          store=args.filer_store,
-                          store_path=os.path.join(filer_dir, "filer.db"))
+        store_path = os.path.join(filer_dir, "filer.db")
+        if args.filer_native != "python" and native_volume:
+            from .filer.native_front import NativeFilerFront
+
+            # the Python filer app becomes the relay backend on a
+            # loopback port; the native front owns the public filer
+            # port (the S3 gateway below talks to the Python app
+            # directly: its filer calls carry queries, which the front
+            # would only relay)
+            ft, fs = _start_filer(args, mt.url, 0, store=args.filer_store,
+                                  store_path=store_path, host="127.0.0.1")
+            fs._native_front = NativeFilerFront(
+                fs, mt.url, args.filer_port, ft.port, listen_ip=args.ip,
+                workers=args.filer_native_workers)
+            print(f"filer listening on "
+                  f"http://{args.ip}:{fs._native_front.port} (native "
+                  f"front; Python backend :{ft.port})", flush=True)
+        else:
+            ft, fs = _start_filer(args, mt.url, args.filer_port,
+                                  store=args.filer_store,
+                                  store_path=store_path)
         threads.insert(0, ft)
         if args.s3:
-            threads.insert(0, _start_s3(args, ft.url, args.s3_port,
-                                        args.s3_config))
+            if args.s3_native != "python" and native_volume:
+                from .s3.native_front import NativeS3Front
+
+                st, s3 = _start_s3(args, ft.url, 0, args.s3_config,
+                                   host="127.0.0.1")
+                s3._native_front = NativeS3Front(
+                    s3, fs.filer, mt.url, args.s3_port, st.port,
+                    listen_ip=args.ip)
+                print(f"s3 gateway listening on "
+                      f"http://{args.ip}:{s3._native_front.port} (native "
+                      f"front; Python backend :{st.port})", flush=True)
+            else:
+                st, _ = _start_s3(args, ft.url, args.s3_port,
+                                  args.s3_config)
+            threads.insert(0, st)
     run_apps_forever(threads)
     return 0
 
@@ -719,21 +845,22 @@ def _http(url: str) -> str:
 
 
 def _start_filer(args, master: str, port: int, store: str,
-                 store_path: str, ssl_context=None, **kwargs):
+                 store_path: str, ssl_context=None, host: str | None = None,
+                 **kwargs):
     from .rpc.http import ServerThread
     from .server.filer_server import FilerServer
 
     fs = FilerServer(_http(master), store=store, store_path=store_path,
                      **kwargs)
-    t = ServerThread(fs.app, host=args.ip, port=port,
+    t = ServerThread(fs.app, host=host or args.ip, port=port,
                      ssl_context=ssl_context).start()
     fs.address = t.address
     print(f"filer listening on {t.url} (store={store})", flush=True)
-    return t
+    return t, fs
 
 
 def _start_s3(args, filer: str, port: int, config_path: str,
-              ssl_context=None):
+              ssl_context=None, host: str | None = None):
     import json
 
     from .rpc.http import ServerThread
@@ -744,16 +871,21 @@ def _start_s3(args, filer: str, port: int, config_path: str,
         with open(config_path) as f:
             config = json.load(f)
     s3 = S3ApiServer(_http(filer), iam_config=config)
-    t = ServerThread(s3.app, host=args.ip, port=port,
+    t = ServerThread(s3.app, host=host or args.ip, port=port,
                      ssl_context=ssl_context).start()
     print(f"s3 gateway listening on {t.url}", flush=True)
-    return t
+    return t, s3
 
 
 def _run_filer(args) -> int:
     from .rpc.http import run_apps_forever
 
-    t = _start_filer(args, args.master, args.port, store=args.store,
+    if args.filer_native == "native":
+        raise SystemExit(
+            "-filer.native=native needs an in-process volume store: use "
+            "the combined `server` command with -dataplane native")
+
+    t, _ = _start_filer(args, args.master, args.port, store=args.store,
                      store_path=args.store_path,
                      collection=args.collection,
                      replication=args.replication,
@@ -771,7 +903,7 @@ def _run_s3(args) -> int:
 
     from .rpc.trace_push import master_from_filer
 
-    t = _start_s3(args, args.filer, args.port, args.config,
+    t, _ = _start_s3(args, args.filer, args.port, args.config,
                   ssl_context=_ssl_ctx(args))
     # the gateway only knows its filer; resolving per flush keeps the
     # pusher on the master across failovers

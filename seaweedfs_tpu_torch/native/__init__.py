@@ -9,7 +9,8 @@ ABI. `load()` builds on demand and returns the configured ctypes
 handle; `available()` is a cheap probe (a built library or a g++ to
 build one). ops.codec_native, the encoder's whole-file bypass, the
 needle record's CRC32C (storage/needle.py) and the volume's index
-rebuild (storage/volume.py) go through here.
+rebuild (storage/volume.py) go through here. The HTTP data plane,
+the reference's other native library, is native/dataplane.py.
 """
 from __future__ import annotations
 

@@ -239,7 +239,7 @@ class Response:
 def json_response(data: Any, status: int = 200,
                   headers: dict | None = None) -> Response:
     return Response(json.dumps(data).encode(), status, headers,
-                    content_type="application/json")
+                    content_type="application/json; charset=utf-8")
 
 
 def json_ok(data: Any = None, **extra) -> Response:
@@ -475,7 +475,10 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             if no_body and k.lower() == "content-length":
                 continue
             self.send_header(k, str(v))
-        if "content-length" not in sent and not no_body:
+        # aiohttp's rule, which the native fronts mirror byte for byte:
+        # a HEAD reply with no body and no length of its own names none
+        if "content-length" not in sent and not no_body and \
+                not (self.command == "HEAD" and resp.length == 0):
             self.send_header("Content-Length", str(resp.length))
         self.end_headers()
         if self.command == "HEAD" or no_body:

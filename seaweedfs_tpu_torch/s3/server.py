@@ -46,7 +46,11 @@ the tenants' demand gauges.
 Not here, each answering S3's NotImplemented (501): bucket ACL, policy,
 CORS, lifecycle and ownership controls; object ACL, tagging, retention,
 legal hold and object lock; SelectObjectContent; POST-policy (browser
-form) uploads. Nor the event stream or the native front.
+form) uploads. Nor the event stream.
+
+The native front (s3/native_front.py, `-s3.native`) owns the public
+port when it runs: this app then serves on a loopback backend port
+what the front relays, and /status carries `native_s3_front`.
 """
 from __future__ import annotations
 
@@ -205,6 +209,9 @@ class S3ApiServer:
         self._cache_lock = threading.Lock()
         self._stop = threading.Event()
         self._reload: threading.Thread | None = None
+        # the native S3 front (s3/native_front.py) when one owns the
+        # public port; /status then carries its counters
+        self._native_front = None
         self.app = self._build_app()
         self.app.on_startup.append(self._start_reload)
         self.app.on_cleanup.append(self._stop_reload)
@@ -275,8 +282,11 @@ class S3ApiServer:
         return app
 
     def handle_status(self, req: Request) -> Response:
-        return json_response({"filer": self.filer_url,
-                              "open": self.iam.is_open})
+        out = {"filer": self.filer_url, "open": self.iam.is_open}
+        front = self._native_front
+        if front is not None:
+            out["native_s3_front"] = front.stats()
+        return json_response(out)
 
     def handle_metrics(self, req: Request) -> Response:
         # per-tenant demand sketches -> workload_tenant_* gauges: tenant

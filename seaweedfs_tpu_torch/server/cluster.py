@@ -53,8 +53,17 @@ keeps its blob HTTP, and a client trusts the CA through
 REQUESTS_CA_BUNDLE / SSL_CERT_FILE. `qos` is passed to utils/qos.py's
 `configure` (the registry is process-wide, as the CLI's -qos.* flags
 make it); the S3 circuit breaker's limits arrive through the filer's KV
-(`s3/circuit_breaker`), as in the reference. Not here: the native
-fronts, the broker.
+(`s3/circuit_breaker`), as in the reference.
+
+The native fronts: `s3_native` and `filer_native` (both off by default,
+as in the reference) start volume server 0's C++ front
+(VolumeServer.enable_native — the S3 and filer fronts append to the
+volumes this process's volume front has attached) and then the native
+S3 gateway (s3/native_front.py) or filer (filer/native_front.py) front
+on the public port, the Python app demoted to a loopback backend it
+relays to; `s3_url` and `filer_url` name the fronts, `s3_front` and
+`filer_front` are their control planes, and `filer_thread.url` stays
+the Python filer. The fronts speak plain HTTP. Not here: the broker.
 """
 from __future__ import annotations
 
@@ -94,6 +103,8 @@ class Cluster:
                  filer_store: str = "memory",
                  with_s3: bool = False,
                  s3_config: dict | None = None,
+                 filer_native: bool = False,
+                 s3_native: bool = False,
                  n_masters: int = 1,
                  raft_tick: float = 1.0,
                  external_masters: list[str] | None = None,
@@ -121,6 +132,8 @@ class Cluster:
         if set(tls) - {"master", "filer", "s3"}:
             raise ValueError(f"tls roles {sorted(tls)}: master, filer or "
                              f"s3 (the volume servers' HTTP stays plain)")
+        if (s3_native and "s3" in tls) or (filer_native and "filer" in tls):
+            raise ValueError("the native fronts speak plain HTTP")
         if qos:
             from ..utils import qos as _qos
 
@@ -179,6 +192,7 @@ class Cluster:
         self.volume_threads: list[ServerThread] = []
         self.stores: list[Store] = []
         self.filer_thread = self.s3_thread = None
+        self.s3_front = self.filer_front = None
         try:
             for i in range(n_volume_servers):
                 dirs = []
@@ -202,9 +216,20 @@ class Cluster:
                                   commit_durability=commit_durability,
                                   commit_max_delay=commit_max_delay,
                                   commit_max_bytes=commit_max_bytes)
-                thread = ServerThread(vs.app).start()
-                store.port = thread.port
-                store.public_url = thread.address
+                if i == 0 and ((s3_native and with_s3) or (
+                        filer_native and (with_filer or with_s3))):
+                    # the front's port is the store's public one from
+                    # the first heartbeat on; the app is its backend
+                    (public,) = free_ports(1)
+                    store.port = public
+                    store.public_url = f"127.0.0.1:{public}"
+                    thread = ServerThread(vs.app).start()
+                    vs.enable_native(public, thread.port,
+                                     listen_ip="127.0.0.1")
+                else:
+                    thread = ServerThread(vs.app).start()
+                    store.port = thread.port
+                    store.public_url = thread.address
                 self.volume_servers.append(vs)
                 self.volume_threads.append(thread)
                 self.stores.append(store)
@@ -231,6 +256,18 @@ class Cluster:
                 self.s3 = S3ApiServer(self.filer_url, iam_config=s3_config)
                 self.s3_thread = ServerThread(
                     self.s3.app, ssl_context=tls.get("s3")).start()
+                if s3_native:
+                    from ..s3.native_front import NativeS3Front
+
+                    self.s3_front = NativeS3Front(
+                        self.s3, self.filer.filer, self.master_url, 0,
+                        self.s3_thread.port)
+                    self.s3._native_front = self.s3_front
+            if filer_native and self.filer is not None:
+                from ..filer.native_front import NativeFilerFront
+
+                self.filer_front = NativeFilerFront(
+                    self.filer, self.master_url, 0, self.filer_thread.port)
             self.wait_for_nodes(n_volume_servers)
             if self.filer is not None:
                 self.wait_for_filer()
@@ -321,12 +358,16 @@ class Cluster:
 
     @property
     def filer_url(self) -> str:
+        if self.filer_front is not None:
+            return f"http://127.0.0.1:{self.filer_front.port}"
         if self.filer_thread is None:
             raise RuntimeError("cluster started without a filer")
         return self.filer_thread.url
 
     @property
     def s3_url(self) -> str:
+        if self.s3_front is not None:
+            return f"http://127.0.0.1:{self.s3_front.port}"
         if self.s3_thread is None:
             raise RuntimeError("cluster started without s3")
         return self.s3_thread.url
@@ -360,6 +401,9 @@ class Cluster:
                 if i not in self._stopped_masters]
         for i in live:
             self.masters[i].stop_maintenance()
+        for front in (self.s3_front, self.filer_front):
+            if front is not None:
+                front.stop()
         for t in (self.s3_thread, self.filer_thread):
             if t is not None:
                 t.stop()

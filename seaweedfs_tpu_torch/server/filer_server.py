@@ -47,6 +47,11 @@ exports the tenants' demand gauges. Under a jwt secret each chunk
 upload carries the assign's token, and a pooled batch slot older than
 `_FID_TOKEN_MAX_AGE` is skipped (tokens are valid 10 s).
 
+The native filer front (filer/native_front.py, `server -filer.native`)
+owns the public port when it runs: this app serves what it relays, and
+`native_writes_ok` is the gate that lets the front take PUT and DELETE
+while this server would apply its defaults verbatim.
+
 Not here: /ws/meta_subscribe, remote storage mounts (cacheRemote /
 uncacheRemote), -encryptVolumeData, the sharded and caching stores,
 the browser (text/html) listing view.
@@ -452,6 +457,20 @@ class FilerServer:
         conf = FilerConf.from_json(raw) if raw else FilerConf()
         self._filer_conf_cache = (conf, now)
         return conf
+
+    def native_writes_ok(self) -> bool:
+        """The native filer front's writes gate (filer/native_front.py):
+        True while a PUT here would be a pure default single-chunk
+        create — no filer.conf rule (ttl, fsync, read-only, per-path
+        collection...), no -saveToFilerLimit inlining, no replicated
+        default placement — so the front may take PUT/DELETE itself."""
+        if self.save_to_filer_limit > 0 or \
+                self.replication not in ("", "000"):
+            return False
+        try:
+            return not self._filer_conf().rules
+        except Exception:  # noqa: BLE001 — an unreadable conf relays
+            return False
 
     # -- read path ------------------------------------------------------
     def handle_get(self, req: Request) -> Response:

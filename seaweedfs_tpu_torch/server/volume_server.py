@@ -94,11 +94,30 @@ both. `write_commit_seconds{stage=queue|fsync|replicate|ack}`,
 `write_commit_queue_depth` gauge are in /metrics; /debug/commit
 serves the scheduler's snapshot.
 
-Not here: multipart uploads, chunk manifests, multi-range replies, the
-native data plane (its front and its commit queue), query, tail / sync.
+The native data plane (native/dataplane.py, the reference's
+`-dataplane native`): `enable_native(public_port, backend_port)` starts
+the C++ front on the public port, hands it the write guard's secret
+(`dp.config`), the ack contract (`dp.set_commit`) and this service's
+share of -fault.spec (`dp.set_faults`), and attaches every plain
+local-disk volume. The front then serves GET, HEAD, POST and DELETE by
+fid itself — JWT check, group commit and replica fan-out included — and
+relays everything else to this app on the loopback backend port. A
+volume is re-attached after allocate, mount, copy, tier download and
+ec.to_volume, and detached (`_dp_detached`) for vacuum and ec generate;
+the tier detaches it itself. A refresher thread keeps each replicated
+volume's peer list in the front (only a complete placement may fan out
+natively). /status carries `native_dataplane` and `native_front`,
+/debug/commit `native`, and /metrics the `native_front_*`,
+`native_fronts_*{front=}` and `native_commit_*` families. Requests the
+front answers never reach the Python taps (spans, workload sketches,
+the in-process commit scheduler): run `-dataplane python` to see them.
+
+Not here: multipart uploads, chunk manifests, multi-range replies,
+query, tail / sync.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import gzip
 import json
@@ -123,8 +142,8 @@ from ..storage.commit import CommitScheduler
 from ..storage.store import Store
 from ..storage.super_block import ReplicaPlacement
 from ..storage.volume import Volume
-from ..utils import (compression, glog, httprange, metrics, ratelimit,
-                     retry, tracing)
+from ..utils import (compression, faults, glog, httprange, metrics,
+                     ratelimit, retry, tracing)
 from ..utils.security import Guard
 from ..wdclient.client import MasterClient, find_leader
 
@@ -182,6 +201,12 @@ class VolumeServer:
         self.data_center = data_center
         self.rack = rack
         self.pulse_seconds = pulse_seconds
+        # native C++ data plane (native/dataplane.cc): set by
+        # enable_native(); None = pure-Python serving
+        self.dp = None
+        self._dp_maint: dict[int, int] = {}  # vid -> open windows
+        self._dp_maint_lock = threading.Lock()
+        self._peer_thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._hb_wake = threading.Event()
         # heartbeat generations: pokes asked for, and the newest one the
@@ -271,19 +296,144 @@ class VolumeServer:
         self._hb_thread.start()
 
     def stop(self) -> None:
-        """Stop heartbeating, drop the fetch pool, close the store."""
+        """Stop heartbeating, drop the fetch pool, stop the native
+        front, close the store."""
         self._stop.set()
         self._hb_wake.set()
-        if self._hb_thread is not None:
-            self._hb_thread.join(timeout=10)
-            self._hb_thread = None
+        for attr in ("_hb_thread", "_peer_thread"):
+            t = getattr(self, attr)
+            if t is not None:
+                t.join(timeout=10)
+                setattr(self, attr, None)
         with self._pool_lock:
             pool, self._fetch_pool = self._fetch_pool, None
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
+        self.disable_native()
         # what is queued commits before the volumes close
         self.commit.stop()
         self.store.close()
+
+    # ------------------------------------------------------------------
+    # the native data plane
+    # ------------------------------------------------------------------
+    def enable_native(self, public_port: int, backend_port: int,
+                      workers: int = 2,
+                      listen_ip: str = "0.0.0.0") -> int:
+        """Start the C++ HTTP front on `public_port` (0 = ephemeral),
+        relaying what it does not serve to this app listening on
+        `backend_port`, and attach every eligible volume. Returns the
+        bound public port."""
+        from ..native.dataplane import DataPlane
+
+        dp = DataPlane()
+        port = dp.start(public_port, backend_port, workers,
+                        listen_ip=listen_ip)
+        dp.config(self.guard.enabled, self.guard.secret)
+        dp.set_commit(self.commit.durability, self.commit.max_delay,
+                      self.commit.max_bytes)
+        # this service's share of -fault.spec, so requests the front
+        # answers natively see the same chaos as relayed ones (all
+        # zeros when no spec is set)
+        dp.set_faults(*faults.native_params("volume"), seed=faults.seed())
+        self.dp = dp
+        for loc in self.store.locations:
+            for v in list(loc.volumes.values()):
+                self._dp_attach(v)
+        self._peer_thread = threading.Thread(
+            target=self._peer_refresh_loop, name="volume-native-peers",
+            daemon=True)
+        self._peer_thread.start()
+        return port
+
+    def disable_native(self) -> None:
+        if self.dp is None:
+            return
+        for loc in self.store.locations:
+            for v in list(loc.volumes.values()):
+                v.detach_native()
+        self.dp.stop()
+        self.dp = None
+
+    def _dp_attach(self, v) -> None:
+        """Attach one volume to the native plane (no-op when the plane
+        is off, the volume isn't a plain local-disk one, or another
+        maintenance window still holds it)."""
+        if self.dp is None or v is None:
+            return
+        with self._dp_maint_lock:
+            if self._dp_maint.get(v.vid, 0) > 0:
+                return  # a concurrent _dp_detached window is still open
+            try:
+                v.attach_native(self.dp)
+            except OSError as e:
+                glog.warning(
+                    f"native attach of volume {v.vid} failed: {e}")
+
+    @contextlib.contextmanager
+    def _dp_detached(self, vid: int):
+        """Exclusive Python ownership of a volume for maintenance
+        (vacuum, ec generate); reattaches on exit only when the LAST
+        overlapping window closes — two concurrent admin ops on one
+        volume must not reattach it under each other."""
+        with self._dp_maint_lock:
+            self._dp_maint[vid] = self._dp_maint.get(vid, 0) + 1
+        v = self.store.find_volume(vid)
+        if v is not None:
+            v.detach_native()
+        try:
+            yield v
+        finally:
+            with self._dp_maint_lock:
+                left = self._dp_maint.get(vid, 1) - 1
+                if left > 0:
+                    self._dp_maint[vid] = left
+                else:
+                    self._dp_maint.pop(vid, None)
+            if left <= 0:
+                self._dp_attach(self.store.find_volume(vid))
+
+    PEER_REFRESH_SECONDS = 2.0
+
+    def _peer_refresh_loop(self) -> None:
+        """Keep the native front's replica peer lists fresh so primary
+        writes to replicated volumes fan out in C++ (the reference's
+        masterClient vidMap feeding store_replicate.go:191). A fan-out
+        failure marks the list stale — the front relays those writes to
+        the Python path until the next push here."""
+        while not self._stop.wait(self.PEER_REFRESH_SECONDS):
+            dp = self.dp
+            if dp is None:
+                continue
+            try:
+                me = f"{self.store.ip}:{self.store.port}"
+                for loc in self.store.locations:
+                    for v in list(loc.volumes.values()):
+                        if v.delegate is None:
+                            continue
+                        copies = \
+                            v.super_block.replica_placement.copy_count
+                        if copies <= 1:
+                            continue
+                        try:
+                            if dp.peers_stale(v.vid):
+                                # a peer died or moved: look it up anew
+                                self._mc.invalidate(v.vid)
+                        except KeyError:
+                            continue  # detached meanwhile
+                        peers = [loc_["url"] for loc_ in
+                                 self._mc.lookup(v.vid, LOOKUP_TTL)
+                                 if loc_["url"] != me]
+                        # only a COMPLETE placement may fan out natively;
+                        # anything short relays to Python, which fails
+                        # the write rather than under-replicate
+                        if len(peers) == copies - 1:
+                            try:
+                                dp.set_peers(v.vid, peers)
+                            except KeyError:
+                                pass
+            except Exception as e:  # noqa: BLE001 — next tick retries
+                glog.v(1, "native peer refresh failed: %s", e)
 
     # ------------------------------------------------------------------
     # heartbeat (volume_grpc_client_to_master.go:50 doHeartbeat)
@@ -697,6 +847,7 @@ class VolumeServer:
                                   bytes(body.get("ttl", (0, 0))))
         except FileExistsError as e:
             return json_response({"error": str(e)}, status=409)
+        self._dp_attach(self.store.find_volume(vid))
         self.poke_heartbeat(wait=True)
         return json_response({"volume": vid})
 
@@ -758,6 +909,7 @@ class VolumeServer:
             finally:
                 resp.close()
         loc.volumes[vid] = Volume(loc.dir, collection, vid)
+        self._dp_attach(loc.volumes[vid])
         self.poke_heartbeat(wait=True)
         return json_response({"volume": vid, "bytes": copied})
 
@@ -779,6 +931,7 @@ class VolumeServer:
             self.store.mount_volume(int(body["volume"]))
         except KeyError as e:
             return json_response({"error": str(e)}, status=404)
+        self._dp_attach(self.store.find_volume(int(body["volume"])))
         self.poke_heartbeat(wait=True)
         return json_response({})
 
@@ -865,10 +1018,14 @@ class VolumeServer:
 
     def handle_vacuum_compact(self, req: Request) -> Response:
         body = req.json()
-        v = self.store.find_volume(int(body["volume"]))
+        vid = int(body["volume"])
+        v = self.store.find_volume(vid)
         if v is None:
             return json_response({"error": "not found"}, status=404)
-        v.compact()
+        # vacuum swaps .dat/.idx wholesale: the native plane hands the
+        # volume back to Python for the duration
+        with self._dp_detached(vid):
+            v.compact()
         self.poke_heartbeat(wait=True)
         return json_response({"size": v.content_size()})
 
@@ -926,6 +1083,7 @@ class VolumeServer:
             v.tier_download(bool(body.get("deleteRemote", True)))
         except (ValueError, KeyError) as e:
             return json_response({"error": str(e)}, status=400)
+        self._dp_attach(v)  # local disk again: back onto the fast path
         self.poke_heartbeat(wait=True)
         return json_response({"volume": v.vid, "size": v.content_size()})
 
@@ -1013,7 +1171,10 @@ class VolumeServer:
         body = req.json()
         vid = int(body["volume"])
         try:
-            self.store.generate_ec_shards(vid, body.get("codec", ""))
+            # the encoder reads the .dat and .idx whole: Python owns
+            # the volume while it runs
+            with self._dp_detached(vid):
+                self.store.generate_ec_shards(vid, body.get("codec", ""))
         except KeyError as e:
             return json_response({"error": str(e)}, status=404)
         return json_response({"volume": vid})
@@ -1382,6 +1543,7 @@ class VolumeServer:
         for loc in self.store.locations:
             if os.path.dirname(base) == loc.dir:
                 loc.volumes[vid] = Volume(loc.dir, collection, vid)
+                self._dp_attach(loc.volumes[vid])
         self.poke_heartbeat(wait=True)
         return json_response({"volume": vid})
 
@@ -1582,13 +1744,86 @@ class VolumeServer:
             sum(l.max_volumes for l in self.store.locations))
         metrics.gauge_set("write_commit_queue_depth",
                           self.commit.snapshot()["queue_depth"])
-        return text_response(metrics.render())
+        return text_response(metrics.render()
+                             + self._native_front_exposition()
+                             + self._native_commit_exposition())
+
+    def _native_commit_exposition(self) -> str:
+        """The native front's commit-queue counters: monotonic snapshots
+        owned by the C library, rendered directly (counter_add would
+        count them again on every scrape)."""
+        dp = self.dp
+        if dp is None:
+            return ""
+        st = dp.commit_stats()
+        lines = []
+        for name in ("batches", "fsyncs", "writes", "bytes"):
+            lines.append(f"# TYPE native_commit_{name}_total counter")
+            lines.append(f"native_commit_{name}_total {st[name]}")
+        lines.append("# TYPE native_commit_fsync_seconds_total counter")
+        lines.append("native_commit_fsync_seconds_total "
+                     f"{st['fsync_seconds']:.6f}")
+        lines.append("# TYPE native_commit_queue_depth gauge")
+        lines.append(f"native_commit_queue_depth {st['queue_depth']}")
+        return "\n".join(lines) + "\n"
+
+    def _native_front_exposition(self) -> str:
+        """The native fronts' response and byte counters, rendered
+        directly as _native_commit_exposition. `native_front_*` is the
+        volume front; `native_fronts_*{front=...}` breaks all three
+        roles out — the S3 and filer fronts run in this process
+        (combined-server mode shares the one C library), so their
+        counters federate through this volume server's /metrics."""
+        dp = self.dp
+        if dp is None:
+            return ""
+        from ..native import dataplane as dpmod
+
+        st = dp.front_stats()
+        lines = ["# TYPE native_front_requests_total counter"]
+        for code in ("2xx", "3xx", "4xx", "5xx"):
+            lines.append(f'native_front_requests_total{{code="{code}"}} '
+                         f'{st[code]}')
+        lines.append("# TYPE native_front_bytes_total counter")
+        for direction in ("in", "out"):
+            lines.append(
+                f'native_front_bytes_total{{direction="{direction}"}} '
+                f'{st["bytes_" + direction]}')
+        per_role = [(front, dp.role_front_stats(role)) for front, role in
+                    (("volume", dpmod.ROLE_VOLUME), ("s3", dpmod.ROLE_S3),
+                     ("filer", dpmod.ROLE_FILER))]
+        lines.append("# TYPE native_fronts_requests_total counter")
+        for front, rst in per_role:
+            for code in ("2xx", "3xx", "4xx", "5xx"):
+                lines.append(
+                    f'native_fronts_requests_total{{front="{front}"'
+                    f',code="{code}"}} {rst[code]}')
+        lines.append("# TYPE native_fronts_bytes_total counter")
+        for front, rst in per_role:
+            for direction in ("in", "out"):
+                lines.append(
+                    f'native_fronts_bytes_total{{front="{front}"'
+                    f',direction="{direction}"}} '
+                    f'{rst["bytes_" + direction]}')
+        return "\n".join(lines) + "\n"
 
     def handle_debug_commit(self, req: Request) -> Response:
         """The group-commit pipeline's snapshot: durability mode, the
-        open window, queue depth, counters, batch size and bytes."""
-        return json_response(self.commit.snapshot())
+        open window, queue depth, counters, batch size and bytes — and
+        the native front's commit counters when the C++ plane serves
+        the hot path (its commit queue is a second instance of the same
+        design, so both views matter)."""
+        snap = self.commit.snapshot()
+        dp = self.dp
+        if dp is not None:
+            snap["native"] = dp.commit_stats()
+        return json_response(snap)
 
     def handle_status(self, req: Request) -> Response:
-        return json_response({"Version": "seaweedfs-tpu-torch",
-                              **self.store.collect_heartbeat()})
+        out = {"Version": "seaweedfs-tpu-torch",
+               **self.store.collect_heartbeat()}
+        dp = self.dp
+        if dp is not None:
+            out["native_dataplane"] = dp.http_stats()
+            out["native_front"] = dp.front_stats()
+        return json_response(out)

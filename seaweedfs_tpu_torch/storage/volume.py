@@ -22,8 +22,17 @@ batch fdatasyncs the .dat once for every write it covers, a buffered one
 flushes the .idx (it replaced the needle map's commit cadence, as in the
 reference).
 
-Not here yet: the native data-plane delegation (`attach_native` /
-`detach_native`, which hand the hot path to native/dataplane.cc). `rebuild_index`
+The native data plane (native/dataplane.py): `attach_native` hands a
+plain local-disk volume's hot path to the C++ library, which is then
+the single authority for its needle map, .dat tail and .idx log — every
+append and delete here routes through `delegate`, the map becomes a
+NativeNeedleMap view, and compaction, raw segment application and the
+tier refuse or detach first (`detach_native` reloads the map from the
+.idx). While attached, `commit_batch` fdatasyncs the .dat but flushes
+no .idx through Python's buffer (the front's appends are unbuffered
+pwrites), and `sync` fsyncs the .idx through Python's own handle.
+
+`rebuild_index`
 scans an on-disk .dat with the native record walker
 (`native.dat_scan`) and an in-memory one with the Python loop; a
 native library that does not build raises.
@@ -57,6 +66,11 @@ class Volume:
         self.collection = collection
         self.vid = vid
         self.needle_map_kind = needle_map_kind
+        # native data-plane delegation (native/dataplane.py): while set,
+        # the C++ library is the single authority for this volume's
+        # needle map, .dat tail and .idx log — every mutation below
+        # routes through it instead of touching the files directly
+        self.delegate = None
         self.read_only = False
         self._backend_kind = backend_kind
         # serializes mutations (append/delete/raw-append) against each
@@ -115,6 +129,79 @@ class Volume:
         head = self.dat.read_at(64 << 10, 0)
         return SuperBlock.from_bytes(head)
 
+    # -- native data-plane delegation ----------------------------------
+    @property
+    def read_only(self) -> bool:
+        return self._read_only
+
+    @read_only.setter
+    def read_only(self, value: bool) -> None:
+        self._read_only = bool(value)
+        if self.delegate is not None:
+            self.delegate.set_readonly(self.vid, self._read_only)
+
+    @property
+    def last_append_at_ns(self) -> int:
+        if self.delegate is not None:
+            return self.delegate.stats(self.vid)["last_append_ns"]
+        return self._last_append_at_ns
+
+    @last_append_at_ns.setter
+    def last_append_at_ns(self, value: int) -> None:
+        self._last_append_at_ns = int(value)
+
+    def attach_native(self, dp) -> bool:
+        """Hand the hot path to the native data plane `dp`. Only plain
+        local-disk volumes qualify — remote/tiered and mmap stay
+        Python. Returns True when attached."""
+        if self.delegate is not None:
+            return True
+        if self._backend_kind != "disk" or not isinstance(
+                self.dat, bk.DiskFile):
+            return False
+        base = self.file_name()
+        with self.write_lock:
+            self.dat.flush()
+            self._idx_f.flush()
+            from ..native.dataplane import NativeNeedleMap
+
+            dp.attach(self.vid, base + ".dat", base + ".idx",
+                      self.version, self.read_only,
+                      self.super_block.replica_placement.copy_count > 1,
+                      self.dat.size(), self._last_append_at_ns)
+            if hasattr(self.nm, "close"):
+                self.nm.close()  # btree: persists its watermark
+            self.nm = NativeNeedleMap(dp, self.vid)
+            self.delegate = dp
+        return True
+
+    def detach_native(self, reload_map: bool = True) -> None:
+        """Take the volume back from the native plane (vacuum, tier,
+        EC, unmount all need exclusive Python ownership)."""
+        if self.delegate is None:
+            return
+        base = self.file_name()
+        with self.write_lock:
+            dp = self.delegate
+            self.delegate = None
+            _tail, last_ns = dp.detach(self.vid)
+            self._last_append_at_ns = max(self._last_append_at_ns,
+                                          last_ns)
+            # reopen the .idx append handle at the true EOF and rebuild
+            # the Python map from the .idx log (the btree sidecar's
+            # watermark catch-up consumes exactly the natively appended
+            # tail)
+            self._idx_f.close()
+            self._idx_f = open(base + ".idx", "ab")
+            if reload_map:
+                self.nm = nmap.load_needle_map(
+                    base + ".idx", kind=self.needle_map_kind)
+            else:
+                self.nm = nmap.new_needle_map(
+                    self.needle_map_kind, idx_path=base + ".idx") \
+                    if self.needle_map_kind != "btree" else \
+                    nmap.NeedleMap()
+
     # -- write path ----------------------------------------------------
     def append_needle(self, n: ndl.Needle) -> tuple[int, int]:
         """Append; returns (byte offset, body size). Pads .dat so offsets
@@ -133,6 +220,11 @@ class Volume:
                                  self.last_append_at_ns + 1)
         self.last_append_at_ns = n.append_at_ns
         blob = n.to_bytes(self.version)
+        if self.delegate is not None:
+            # native plane owns the tail, map and .idx for this volume
+            offset = self.delegate.append(self.vid, blob, n.id, n.size,
+                                          n.append_at_ns)
+            return offset, n.size
         offset = self.dat.append(blob)
         if offset % t.NEEDLE_PADDING:
             # torn previous write: realign (reference truncates on load)
@@ -157,6 +249,12 @@ class Volume:
             tomb = ndl.Needle(id=needle_id)
             tomb.append_at_ns = max(time.time_ns(),
                                     self.last_append_at_ns + 1)
+            if self.delegate is not None:
+                # the native side checks existence, appends the
+                # tombstone record + .idx entry atomically
+                return self.delegate.delete(self.vid, needle_id,
+                                            tomb.to_bytes(self.version),
+                                            tomb.append_at_ns)
             existing = self.nm.get(needle_id)
             if existing is None:
                 return 0
@@ -603,6 +701,10 @@ class Volume:
         and index them; returns the number of records applied. Only
         whole records are appended — a trailing partial record is an
         error, the transport must frame on record boundaries."""
+        if self.delegate is not None:
+            raise RuntimeError(
+                f"volume {self.vid} is natively attached; detach "
+                "before applying raw segments")
         if self.read_only:
             raise PermissionError(f"volume {self.vid} is read only")
         # the write lock spans append AND the error-path truncate: a
@@ -673,6 +775,7 @@ class Volume:
         if self.is_remote or (self.volume_info and
                               self.volume_info.remote_file()):
             raise ValueError(f"volume {self.vid} is already tiered")
+        self.detach_native()  # the .dat is about to be closed/removed
         base = self.file_name()
         was_read_only = self.read_only
         self.read_only = True
@@ -698,6 +801,7 @@ class Volume:
         once, not N times."""
         if self.is_remote:
             raise ValueError(f"volume {self.vid} is already tiered")
+        self.detach_native()
         self.read_only = True
         self.sync()
         self._adopt_remote(rf, keep_local, bk.get_storage(rf.backend_name))
@@ -743,6 +847,10 @@ class Volume:
         if self.is_remote:
             raise PermissionError(
                 f"volume {self.vid} is tiered; download before compacting")
+        if self.delegate is not None:
+            raise RuntimeError(
+                f"volume {self.vid} is natively attached; detach "
+                "before compacting")
         base = self.file_name()
         cpd, cpx = base + ".cpd", base + ".cpx"
         new_sb = SuperBlock(
@@ -836,16 +944,25 @@ class Volume:
         order, so any loss is a suffix the replay regains).
         durable=False is buffered mode's commit: flush the .idx and
         the btree watermark, no fsync. Takes no lock, as sync() — the
-        committer waits behind a vacuum swap itself."""
+        committer waits behind a vacuum swap itself. While the volume is
+        natively attached there is no .idx buffer here to flush: the
+        front's appends are unbuffered pwrites."""
         if durable:
             dat = self.dat
             (dat.datasync if hasattr(dat, "datasync") else dat.sync)()
+        if self.delegate is not None:
+            return
         self._idx_f.flush()
         if hasattr(self.nm, "set_watermark"):
             self.nm.set_watermark(self._idx_f.tell())
 
     def sync(self) -> None:
         self.dat.sync()
+        if self.delegate is not None:
+            # native writes are unbuffered pwrites; fsync the .idx
+            # through our own handle to the same file
+            os.fsync(self._idx_f.fileno())
+            return
         self._idx_f.flush()
         os.fsync(self._idx_f.fileno())
         if hasattr(self.nm, "set_watermark"):
@@ -854,6 +971,7 @@ class Volume:
             self.nm.set_watermark(self._idx_f.tell())
 
     def close(self) -> None:
+        self.detach_native(reload_map=False)
         try:
             self.sync()
         finally:

@@ -28,6 +28,9 @@ chaos e2e's "zero duplicate writes" assertion meaningful.
 
 The server side is `middleware(service)`, a middleware for
 rpc/http.App; the client side is `sync_hook` in rpc/httpclient.py.
+The native fronts (native/dataplane.cc) take their service's share of
+the spec at spawn through `native_params(service)` and `seed()`, so a
+request a front answers in C++ sees the same chaos as one it relays.
 """
 from __future__ import annotations
 
@@ -133,6 +136,7 @@ class FaultRegistry:
         self._lock = threading.Lock()
         self._rules: list[Rule] = []
         self._rng = random.Random(0)
+        self._seed = 0
         self._counts: dict[tuple[str, str], int] = {}
 
     def configure(self, spec: str | None, seed: int = 0) -> None:
@@ -140,6 +144,7 @@ class FaultRegistry:
         with self._lock:
             self._rules = rules
             self._rng = random.Random(seed)
+            self._seed = seed
             self._counts = {}
 
     @property
@@ -194,6 +199,44 @@ def configure(spec: str | None = None, seed: int | None = None) -> None:
 
 def enabled() -> bool:
     return _registry.enabled
+
+
+def rules() -> list[Rule]:
+    """The active rule set (a copy) — lets sibling planes (the native
+    fronts) mirror the configured spec at spawn."""
+    with _registry._lock:
+        return list(_registry._rules)
+
+
+def seed() -> int:
+    """The configured RNG seed (for mirroring into sibling planes)."""
+    with _registry._lock:
+        return _registry._seed
+
+
+def native_params(service: str) -> tuple[float, float, float, float]:
+    """Collapse the active rules for `service` into the four knobs the
+    native fronts understand: (read_err, write_err, read_delay,
+    write_delay). Probabilities combine as independent coin flips;
+    delays stack like decide()'s max()."""
+    read_keep = 1.0
+    write_keep = 1.0
+    read_delay = 0.0
+    write_delay = 0.0
+    for r in rules():
+        for op in ("read", "write") if r.op == "*" else (r.op,):
+            if not r.matches(service, op):
+                continue
+            if r.kind == "error":
+                if op == "read":
+                    read_keep *= 1.0 - r.value
+                else:
+                    write_keep *= 1.0 - r.value
+            elif op == "read":
+                read_delay = max(read_delay, r.value)
+            else:
+                write_delay = max(write_delay, r.value)
+    return 1.0 - read_keep, 1.0 - write_keep, read_delay, write_delay
 
 
 def counts() -> dict[str, int]:

@@ -13,6 +13,15 @@ the JAX package's, with tolerance 0.
   /debug/commit, and byte-equal read-back from a cold reopen of the
   volume after the cluster stopped (each package's Volume reads the
   other's files too).
+* Under the native front (native/dataplane.cc's own commit queue): the
+  reference's TestNativeFront cases (batch header and coalescing with a
+  cold restart, sync as a per-write fsync oracle, buffered pays no
+  fsync, the mode validated) on each package's plane, `[reference|
+  port]`; and the same PUTs through a reference and a port volume
+  server behind its front (`Cluster(filer_native=True)` puts server 0
+  there, a filer's front beside it) under each mode: equal statuses
+  and X-Sw-Durability, the port's native commit counters moving as the
+  mode says, byte-equal read-back.
 * SIGKILL mid group commit: the reference's
   tests/test_chaos_group_commit.py scenario through the port — a child
   process appends on 4 threads through the port's Volume and
@@ -34,9 +43,11 @@ import time
 import pytest
 import requests
 
+from seaweedfs_tpu.native import dataplane as ref_dpmod
 from seaweedfs_tpu.operation import verbs as ref_verbs
 from seaweedfs_tpu.server.cluster import Cluster as RefCluster
 from seaweedfs_tpu.storage.volume import Volume as RefVolume
+from seaweedfs_tpu_torch.native import dataplane as dpmod
 from seaweedfs_tpu_torch.operation import verbs
 from seaweedfs_tpu_torch.server.cluster import Cluster
 from seaweedfs_tpu_torch.storage import needle as ndl
@@ -59,6 +70,69 @@ CASES = {k: v for k, v in port_cases(
 @pytest.mark.parametrize("case", list(CASES))
 def test_scheduler_contract_on_the_port(case):
     run_case(CASES[case], {})
+
+
+NATIVE_CASES = {
+    side: {k: v for k, v in port_cases(ref_contract, **subs).items()
+           if k.startswith("TestNativeFront.")}
+    for side, subs in (("reference", {}),
+                       ("port", {"dpmod": dpmod, "Volume": Volume}))}
+PLANES = {"reference": ref_dpmod, "port": dpmod}
+
+
+@pytest.mark.parametrize("side", list(NATIVE_CASES))
+@pytest.mark.parametrize("case", list(NATIVE_CASES["port"]))
+def test_native_front_contract(case, side, tmp_path):
+    d = PLANES[side].DataPlane()
+    d.start(0, 1)
+    try:
+        run_case(NATIVE_CASES[side][case], {"tmp_path": tmp_path, "dp": d})
+    finally:
+        # the commit mode is plane-global: later cases see buffered
+        d.set_commit("buffered", 0.002, 4 << 20)
+        d.stop()
+
+
+@pytest.mark.parametrize("mode", DURABILITY_MODES)
+def test_durability_modes_match_under_the_native_front(tmp_path, mode):
+    out, native = {}, None
+    for name, cls, vmod in (("reference", RefCluster, ref_verbs),
+                            ("port", Cluster, verbs)):
+        c = cls(str(tmp_path / name), n_volume_servers=1,
+                commit_durability=mode, commit_max_delay=0.002,
+                with_filer=True, filer_native=True)
+        try:
+            if name == "port":
+                dp = c.volume_servers[0].dp
+                before = dp.commit_stats()
+            out[name] = _drive(c, vmod, mode)
+            if name == "port":
+                after = dp.commit_stats()
+                native = {k: after[k] - before[k]
+                          for k in ("writes", "fsyncs", "batches")}
+                served = dp.http_stats()
+        finally:
+            c.stop()
+    (ref_seen, _, _), (seen, acked, snap) = out["reference"], out["port"]
+    assert seen == ref_seen
+    assert [h for _, s, h, *_ in seen if s == 201] == \
+        [mode] * 3 + ["sync"] + [mode] * 2
+    # the port's writes were the front's own, through its commit queue
+    assert served["fast_post"] >= 5 and "native" in snap
+    # buffered acks after the pwrite: its queue never sees the write
+    assert (native["writes"] >= 5) == (mode != "buffered")
+    assert (native["fsyncs"] > 0) == (mode != "buffered")
+    vdir = str(tmp_path / "port" / "vol0_0")
+    vids = {_parse_fid(f)[0] for f, _ in acked}
+    for vcls in (Volume, RefVolume):
+        vols = {vid: vcls(vdir, "", vid) for vid in vids}
+        try:
+            for fid, payload in acked:
+                vid, key, cookie = _parse_fid(fid)
+                assert vols[vid].read_needle(key, cookie).data == payload
+        finally:
+            for v in vols.values():
+                v.close()
 
 
 def _payload(seed: bytes, n: int) -> bytes:

@@ -412,3 +412,55 @@ def test_scan_covers_the_storage_layer(module):
     names += [n.module or "" for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.level == 0]
     assert not [n for n in names if _forbidden(n)]
+
+
+DATA_PLANE_LAYER = ["native/build.py", "native/dataplane.py",
+                    "storage/volume.py", "utils/faults.py",
+                    "server/volume_server.py", "s3/native_front.py",
+                    "s3/server.py", "filer/native_front.py",
+                    "server/filer_server.py", "server/cluster.py",
+                    "rpc/http.py", "cli.py"]
+
+
+@pytest.mark.parametrize("module", DATA_PLANE_LAYER)
+def test_scan_covers_the_native_data_plane(module):
+    """The native data plane slice's new and changed modules are
+    scanned, each has its reference at the same path, and none imports
+    jax, seaweedfs_tpu, aiohttp, requests or anything the card's machine
+    lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]
+
+
+def test_data_plane_builds_from_the_port_tree(monkeypatch):
+    """native/dataplane.cc is compiled from the port's own tree into the
+    gitignored _build/, plain and sanitized alike — never from
+    seaweedfs_tpu/native/, whose prebuilt libraries sit beside their
+    source."""
+    from seaweedfs_tpu_torch.native import build
+
+    port_native = os.path.join(REPO, "seaweedfs_tpu_torch", "native")
+    assert build.DP_SRC == os.path.join(port_native, "dataplane.cc")
+    assert os.path.exists(build.DP_SRC)
+    assert build.BUILD_DIR == os.path.join(REPO, "seaweedfs_tpu_torch",
+                                           "_build")
+    monkeypatch.delenv(build.SANITIZE_ENV, raising=False)
+    for mode in ("", "asan", "tsan"):
+        path = build.dp_lib_path(mode)
+        assert os.path.dirname(path) == build.BUILD_DIR, path
+        assert "seaweedfs_tpu/native" not in path
+    compiles = []
+    monkeypatch.setattr(build, "_compile",
+                        lambda src, lib, flags, verbose:
+                        compiles.append((src, lib)) or lib)
+    build.build_dataplane(verbose=False, mode="")
+    assert compiles == [(build.DP_SRC, build.dp_lib_path(""))]
+    with open(os.path.join(REPO, ".gitignore"), encoding="utf-8") as f:
+        assert "seaweedfs_tpu_torch/_build/" in f.read().split()
+    # the binding loads the library native/build.py names
+    with open(os.path.join(port_native, "dataplane.py"),
+              encoding="utf-8") as f:
+        assert "ctypes.CDLL(_b.build_dataplane(" in f.read()
