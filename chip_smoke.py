@@ -76,8 +76,9 @@ Phases, each fatal on failure (exit code 1, no result line):
       3's seeded 1 GiB .dat, shards sha256-equal to phase 3's;
       rebuild_ec_files(backend="mesh") of {1,4,11,13}, sha256-equal;
       kernel launches > 0 on every card of the mesh.
-   b. pipelined_encode_stream, BASELINE config #3 at full size: 64 x
-      1 GiB volumes, RS(10,4), depth 2, 208 blocks of (8, 10, <= 4 Mi)
+   b. pipelined_encode_stream, BASELINE config #3 cut from 64 to 32 x
+      1 GiB volumes (PR 14, for phase 16's room), RS(10,4), depth 2, 104
+      blocks of (8, 10, <= 4 Mi)
       from a pool of 4 seeded blocks, each result equal to the native
       codec's parity of its pool block; with mesh=None and with the
       mesh; then the same bytes through the kernel's route
@@ -85,7 +86,7 @@ Phases, each fatal on failure (exit code 1, no result line):
       ceiling (and, with more than one card, the mesh codec's route and
       ceiling). MB/s and stage seconds of each.
    c. pipelined_scrub over the same blocks (BASELINE config #5, cut
-      from 1000 volumes to 64), without and with the mesh: 0 mismatches
+      from 1000 volumes to 32), without and with the mesh: 0 mismatches
       clean; with one byte flipped in one pool entry's parity, as many
       mismatches as that entry was fed.
    d. sharded_rebuild over rebuild_mesh(), shards {0,3,11,13} missing,
@@ -104,8 +105,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    rides out ec.encode's server-by-server mounts). Every repair is the
    watchdog's own; a failed one, one during ec.encode, or a deficit
    still open at its deadline, fails the run.
-   a. Phase 7's seeded 1 GiB volume (its writer, its seed) through
-      ec.encode; the 14 shards hashed; the server with the fewest
+   a. A 256 MiB volume of phase 7's seeded needles (its writer, its
+      seed; HTTP_FILL_BYTES) through ec.encode; the 14 shards hashed; the server with the fewest
       shards (at most m = 4) stopped. Detection seconds (kill ->
       UnderParity lists the volume) and repair seconds (-> 14 live
       shards), the kernel's launches during the repair (> 0), the
@@ -162,7 +163,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    interval 1 s); in this process five volume servers over three racks
    on "cuda" with every master in -mserver, and a sqlite filer.
    a. Seconds to one stable leader.
-   b. A 1 GiB volume filled over HTTP with every /vol/grow and
+   b. A 256 MiB volume filled over HTTP with every /vol/grow and
       /dir/assign sent to a follower (307 to the leader), then ec.encode
       from a shell whose master list names the follower first, under
       the filer's DLM lock: launches > 0, no repair during the encode.
@@ -194,8 +195,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    SigV4 s3 conf of `cold`, -tier.stateDir, and tier_backends
    {"s3.default": cold}. Each step is fatal on failure, as is any
    transition the controller fails:
-   a. Phase 9's seeded needles fill one collection's volume to the
-      1 GiB limit.
+   a. Phase 9's seeded needles fill one collection's volume with
+      256 MiB (under its 1 GiB limit).
    b. The controller seals the idle volume: seconds from the last write
       to `ec` in /debug/tiering, its ec.encode's wall, kernel launches
       (> 0), repairs during the seal (must be 0).
@@ -232,19 +233,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    0, -tier.enabled, -master.scrapeInterval 0.5); phase 9's five volume servers over three racks on "cuda", a
    sqlite filer (the DLM) and the S3 gateway run here, with one span
    pusher to the master. Each step is fatal on failure:
-   a. No faults: phase 9's seeded needles fill a 1 GiB volume; 512
+   a. No faults: phase 9's seeded needles fill a 256 MiB volume; 512
       seeded reads and 200 S3 PUT/GET cycles (the reference chaos
       test's objects) are the baseline; a copy of the .dat is encoded
       with the native codec.
    b. Faults on, in this process (the master has them from its flags).
    c. The tiering controller's seal (POST /debug/tiering): one
-      attempt, exactly ec.encode's launches (4 at 1 GiB), no repair
+      attempt, exactly ec.encode's launches (1 at 256 MiB), no repair
       during it, 14 shards sha256-equal to the fault-free encode.
    d. The server with the fewest shards stopped: the master's breaker
       for it reads open in its topology dump and at /debug/breakers
       (its federation scrape trips it); the watchdog's partial rebuild
-      in one attempt with one launch per 4 MiB chunk of a shard (26 at
-      1 GiB), 14 live shards, rebuilt ones sha256-equal; 512 degraded
+      in one attempt with one launch per 4 MiB chunk of a shard (7 at
+      256 MiB), 14 live shards, rebuilt ones sha256-equal; 512 degraded
       reads run meanwhile; the server restarted at its address (an
       empty disk) re-registers and the master's breaker reads closed.
    e. 200 S3 PUT/GET cycles: md5 and ETag equal, the listing exact, one
@@ -276,7 +277,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    a. 401 on a replicated volume's primary and replica for no token, a
       tampered signature, an expired token and another fid's token; the
       signed write and two `_N` slots under the base fid's token 201
-      with X-Sw-Durability: batch; then a 1 GiB volume filled through
+      with X-Sw-Durability: batch; then a 256 MiB volume filled through
       /dir/assign and Bearer uploads of 4 MiB needles on 8 threads,
       every ack 201 with X-Sw-Durability: batch.
    b. The primary's /debug/commit over the fill: fewer fsyncs than
@@ -294,15 +295,15 @@ Phases, each fatal on failure (exit code 1, no result line):
       both reads back. Then limits in the filer KV `s3/circuit_breaker`:
       after the reload a writeCount-0 bucket answers 503
       TooManyRequests, a PUT with no length 411, a DELETE with none 204.
-   e. The tiering controller's seal of the 1 GiB volume (POST
-      /debug/tiering): exactly ec.encode's 4 launches in one attempt, 0
+   e. The tiering controller's seal of the 256 MiB volume (POST
+      /debug/tiering): exactly ec.encode's launches in one attempt, 0
       repairs, 14 shards sha256-equal to the plain version's encode of
       the same .dat on the card.
    f. The victim SIGKILLed at a seeded point while 8 writers are
       mid-write to a second volume on it (its /debug/commit just before:
       fewer fsyncs than writes); the watchdog rebuilds the victim's
-      shards of the sealed volume elsewhere through the kernel (26
-      launches), the 14 live shards sha256-equal to step e's; the
+      shards of the sealed volume elsewhere through the kernel (one
+      launch per 4 MiB chunk of a shard), the 14 live shards sha256-equal to step e's; the
       victim restarted on the same directories reads every acked write
       back byte-equal, its .dat on the 8-byte record grid.
    g. The walls, launches, CUDA-event times and the device's busy share
@@ -322,7 +323,7 @@ Phases, each fatal on failure (exit code 1, no result line):
       second, as signed POSTs replayed by the port's C++ bench client
       (native.dataplane.bench_raw) on 8 keep-alive connections; then a
       GET of every needle the same way. The native front takes all of
-      it, the Python front its first 128 MiB and 1,024 small needles
+      it, the Python front its first 32 MiB and 1,024 small needles
       (at its rates the whole would take two minutes). Requests/s, MB/s,
       p50 / p99 of each pass on each front. Every body GET through the
       native front byte-equal; the Python front's checked in its store
@@ -349,6 +350,46 @@ Phases, each fatal on failure (exit code 1, no result line):
       front, each GET beside the Python filer's GET of the same path:
       equal statuses and bodies.
 
+16. The volume server's data verbs and the client tools. An in-process
+   master (volume limit 1 GiB, pulse 0.5 s) and four processes of the
+   CLI's `volume -dataplane native -ec.backend cuda` (the reference's
+   default front; four, not three: RS(10,4)'s 14 shards spread 5/5/4
+   over three servers, and the one holding the most data shards would
+   hold 5, past m = 4). Launches in a volume process are read from its
+   /metrics (`cuda_kernel_launches`); the CLI's subcommands run here
+   through `cli.main`. Each step is fatal on failure:
+   a. `upload -maxMB 64` of one seeded 1 GiB file into a collection
+      pinned to one grown volume: 16 chunk needles and a ?cm=true
+      manifest; `download` of the manifest fid sha256-equal; a 3-range
+      GET across chunk boundaries relayed by the front answers 206
+      multipart/byteranges, each part equal; one 64 MiB chunk through
+      the paged read path (a GET with a query string, which the front
+      relays; `volume_server_paged_reads_total` +1); a 5 MiB
+      multipart/form-data POST stored with its file name and type.
+      MB/s of the upload, the download and the paged GET.
+   b. `benchmark -client native -n 16384 -size 4096 -c 8` and `-client
+      python -n 2048`: writes/s and reads/s with p50 / p99.
+   c. V, the volume holding the most of the file (at least half):
+      `backup` (a full copy), 128 x 1 MiB needles added to V by fid,
+      `backup` again (only the new records: the bytes pulled within 1%
+      of those appended); V read-only: the copy's .dat and .idx
+      sha256-equal to V's; `fix` of a copy of the .dat rebuilds V's
+      .idx; `export` of the copy: every tar member equal to its needle
+      read by fid. `ec.encode` of V in the cluster and
+      `write_ec_files(backend="cuda")` of the copy: the 14 shards
+      sha256-equal, each seal's launches exactly ec.encode's for the
+      size; walls and CUDA-event (or kernel-stage) times.
+   d. The server holding the most data shards of V (at most 4 shards,
+      none of the file's other volumes) SIGKILLed: `download` through
+      degraded reads sha256-equal; `ec.rebuild` (partial) back to 14
+      shards with exactly one launch per 4 MiB of a shard; `download`
+      sha256-equal again.
+   e. 4,096 seeded JSON needles (a fifth sent as application/json, so
+      stored gzipped) on one volume: /admin/query with SELECT a, b
+      WHERE c > 50 byte-equal to a plain filter; /admin/volume_tail
+      from the half-way stamp gives exactly the later needles;
+      /ui/index.html of every live server lists its volumes.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -356,12 +397,14 @@ from __future__ import annotations
 
 import collections
 import glob
+import gzip
 import hashlib
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -1210,6 +1253,10 @@ def _shard_paths(cluster, vid: int) -> dict[int, str]:
 
 
 FILL_ASSIGN_BATCH = 64           # fids per /dir/assign?count= of a fill
+# the HTTP fills of phases 9, 11, 12, 13 and 14: cut from 1 GiB to make
+# room for phase 16 in the 1200 s limit (phase 7 keeps DAT_BYTES); every
+# launch count these phases check is derived from the filled .dat's size
+HTTP_FILL_BYTES = 256 << 20
 
 
 def _fill_volume_http(cluster, env, collection: str, seed: int,
@@ -1480,7 +1527,9 @@ def phase_cluster(card: str) -> dict:
 
 GROUP = 8                        # volumes per batched block (8b)
 BLOCK_COLS = 4 << 20             # columns per batched block
-VOLUMES = 64                     # BASELINE config #3: 64 x 1 GiB
+# BASELINE config #3 is 64 x 1 GiB: cut to 32 to make room for phase 16
+# (each pass still moves 32 GiB through the feed)
+VOLUMES = 32
 VOLUME_ROW = -(-DAT_BYTES // 10)  # bytes per shard row of a 1 GiB volume
 POOL = 4                         # distinct seeded blocks the feeds reuse
 SCRUB_COLS = 1 << 20             # 8e's stripe width, phase 4's shape
@@ -1515,8 +1564,9 @@ class Checker:
 
 
 def _plan() -> list[tuple[int, int]]:
-    """(pool entry, width) of each of 8b's blocks: 8 groups of 8 volumes,
-    each group's 107,374,183-column rows cut into 4 Mi-column blocks."""
+    """(pool entry, width) of each of 8b's blocks: VOLUMES // GROUP
+    groups of GROUP volumes, each group's 107,374,183-column rows cut
+    into 4 Mi-column blocks."""
     out = []
     for g in range(VOLUMES // GROUP):
         for c0 in range(0, VOLUME_ROW, BLOCK_COLS):
@@ -1708,7 +1758,7 @@ def _batched_phase() -> dict:
             f"{res['cuda_ceiling']['mbps']:.1f} MB/s")
 
     # 8c: the scrub over the same blocks (BASELINE config #5, cut from
-    # 1000 volumes to 64)
+    # 1000 volumes to VOLUMES)
     def pairs():
         return ((pool[p][:, :, :w], exp[p][:, :, :w]) for p, w in plan)
 
@@ -1992,7 +2042,8 @@ def phase_heal(card: str) -> dict:
             f"interval {HEAL_INTERVAL} s, grace {HEAL_GRACE} s")
 
         # 9a. lose the server with the fewest shards
-        w = _fill_volume_http(cluster, env, "smoke9", SEED + 7, DAT_BYTES)
+        w = _fill_volume_http(cluster, env, "smoke9", SEED + 7,
+                              HTTP_FILL_BYTES)
         vid, live = w["vid"], w["live"]
         log(f"[9a] volume {vid} on {w['url']}: {w['writes']} uploads "
             f"({w['overwrites']} overwrites), {len(w['dead'])} deletes, "
@@ -2833,16 +2884,19 @@ def _raft_leader(urls: list[str]) -> str | None:
     return None
 
 
-def _spawn(args: list[str], log_path: str) -> subprocess.Popen:
-    """A process of the port's CLI, from the repository root, without a
-    card (the masters and the follower run no codec)."""
+def _spawn(args: list[str], log_path: str,
+           card: bool = False) -> subprocess.Popen:
+    """A process of the port's CLI, from the repository root; without a
+    card unless `card` (the masters and the follower run no codec)."""
     out = open(log_path, "ab")
+    env = dict(os.environ)
+    if not card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
     try:
         return subprocess.Popen(
             [sys.executable, "-m", "seaweedfs_tpu_torch", *args],
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
-            stdout=out, stderr=subprocess.STDOUT)
+            env=env, stdout=out, stderr=subprocess.STDOUT)
     finally:
         out.close()
 
@@ -2872,7 +2926,7 @@ def _fid_keys(fids) -> set[int]:
 
 def phase_ha(card: str) -> int:
     """Phase 11: three raft masters (processes of the port's CLI), five
-    volume servers and a sqlite filer in this process; a 1 GiB volume
+    volume servers and a sqlite filer in this process; a 256 MiB volume
     filled through a follower and erasure-coded from a shell that lists
     the follower first; the leader SIGKILLed; the new leader's
     registry, its repair hold, its watchdog's rebuild of a lost server
@@ -2957,7 +3011,7 @@ def phase_ha(card: str) -> int:
         # lists the follower first
         via_follower = CommandEnv(follower)
         w = _fill_volume_http(cluster, via_follower, "smoke11", SEED + 14,
-                              DAT_BYTES)
+                              HTTP_FILL_BYTES)
         vid, live = w["vid"], w["live"]
         log(f"[11b] volume {vid} on {w['url']} filled through the follower "
             f"{follower} (every /vol/grow and /dir/assign 307'd to the "
@@ -3332,7 +3386,7 @@ def _cold_objects(client, prefix: str) -> dict[str, int]:
 
 
 def phase_tier(card: str) -> dict:
-    """Phase 12: the tiered-storage lifecycle at 1 GiB, driven by the
+    """Phase 12: the tiered-storage lifecycle at 256 MiB, driven by the
     master's tiering controller; the cold tier is a second port cluster
     behind its S3 gateway. -> kernel launches of its steps."""
     from seaweedfs_tpu_torch.ops import codec_cuda
@@ -3397,8 +3451,9 @@ def phase_tier(card: str) -> dict:
             f"{TIER_RECALL_WINDOW} -tier.remote=<s3 conf of "
             f"{TIER_BUCKET!r}>, tier_backends s3.default = the same")
 
-        # 12a. fill one collection's volume to the 1 GiB limit
-        w = _fill_volume_http(cluster, env, col, SEED + 7, DAT_BYTES)
+        # 12a. fill one collection's volume with HTTP_FILL_BYTES
+        w = _fill_volume_http(cluster, env, col, SEED + 7,
+                              HTTP_FILL_BYTES)
         vid, live = w["vid"], w["live"]
         t_last = time.time()
         log(f"[12a] volume {vid} on {w['url']}: {w['writes']} uploads "
@@ -3853,7 +3908,7 @@ def _find_trace(master_url: str, want: set[str]) -> dict | None:
 
 
 def phase_chaos(card: str) -> dict:
-    """Phase 13: the robustness and observability layer at 1 GiB. The
+    """Phase 13: the robustness and observability layer at 256 MiB. The
     master is a process of the port's CLI with the reference's chaos
     spec; five volume servers, a sqlite filer and the S3 gateway run
     here with one span pusher. A fault-free baseline, then under
@@ -3924,7 +3979,8 @@ def phase_chaos(card: str) -> dict:
             f"{cluster.s3_url}, one span pusher to the master")
 
         # 13a. the fault-free baseline
-        w = _fill_volume_http(cluster, env, col, SEED + 13, DAT_BYTES)
+        w = _fill_volume_http(cluster, env, col, SEED + 13,
+                              HTTP_FILL_BYTES)
         vid, live = w["vid"], w["live"]
         rng = np.random.default_rng(SEED + 13)
         fids = sorted(live)
@@ -4411,7 +4467,7 @@ def _signed_https(host: str, port: int, ctx, key: tuple[str, str],
 
 
 def phase_secure(card: str) -> dict:
-    """Phase 14: the secured, durable write path at 1 GiB. The master
+    """Phase 14: the secured, durable write path at 256 MiB. The master
     is a process of the port's CLI on HTTPS with -jwt.secret; four
     volume servers at -commit.durability=batch, a sqlite filer (plain:
     the watchdog's DLM lock reaches it over http://, as the reference's
@@ -4590,7 +4646,7 @@ def phase_secure(card: str) -> dict:
             i = w
             while True:
                 with fill_lock:
-                    if filled["bytes"] >= DAT_BYTES:
+                    if filled["bytes"] >= HTTP_FILL_BYTES:
                         return
                     filled["bytes"] += SEC_NEEDLE
                 data = np.random.default_rng([SEED, 14, i]).bytes(SEC_NEEDLE)
@@ -5053,7 +5109,7 @@ NAT_SMALL = 8192
 NAT_SMALL_LO, NAT_SMALL_HI = 1 << 10, 64 << 10
 # the Python front takes a prefix of the same fill: at its rates (239
 # POSTs/s on an H100 host) the whole one would cost two minutes
-NAT_PY_FILL_BYTES = 128 << 20
+NAT_PY_FILL_BYTES = 32 << 20     # cut from 128 MiB for phase 16
 NAT_PY_SMALL = 1024
 NAT_SEAL_READS = 512             # seeded GETs after the volume's seal
 NAT_S3_READS = 256               # seeded GETs after the bucket's seal
@@ -5608,6 +5664,581 @@ def phase_native(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+TOOLS_SERVERS = 4                # volume processes (see phase_tools)
+TOOLS_FILE_BYTES = DAT_BYTES     # the chunked file: 1 GiB
+TOOLS_CHUNK_MB = 64              # upload -maxMB
+TOOLS_VOLUME_LIMIT = DAT_BYTES   # the master's volume size limit
+TOOLS_APPEND = 128               # 1 MiB needles added to V by fid (16c)
+TOOLS_FORM_BYTES = 5 << 20       # the multipart/form-data upload
+TOOLS_BENCH_NATIVE = 16384       # benchmark -client native -n
+TOOLS_BENCH_PYTHON = 2048        # benchmark -client python -n
+TOOLS_JSON_DOCS = 4096           # 16e's JSON needles
+TOOLS_THREADS = 8
+
+
+def _tools_cli(cli, argv: list[str]) -> str:
+    """cli.main(argv) in this process (so the kernel's launches count
+    here); its standard output, failing on a nonzero exit."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"`{' '.join(argv[:2])} ...` exited {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def _tools_metrics(url: str) -> dict:
+    """A volume process's kernel launches and kernel-stage seconds (the
+    feed's CUDA events) from its /metrics, and its paged reads."""
+    import re
+
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    text = session().get(f"http://{url}/metrics", timeout=30).text
+    out = {"launches": 0, "kernel_s": 0.0, "paged": 0}
+    m = re.search(r'^cuda_kernel_launches\{kernel="coded_matmul"\} (\S+)$',
+                  text, re.M)
+    if m:
+        out["launches"] = int(float(m.group(1)))
+    for m in re.finditer(r'^ec_codec_stage_seconds_sum\{([^}]*)\} (\S+)$',
+                         text, re.M):
+        if 'stage="kernel"' in m.group(1):
+            out["kernel_s"] += float(m.group(2))
+    m = re.search(r'^volume_server_paged_reads_total (\S+)$', text, re.M)
+    if m:
+        out["paged"] = int(float(m.group(1)))
+    return out
+
+
+def _tools_records(buf: bytes) -> list:
+    """The needle records of a raw .dat span (a tail's body)."""
+    import struct
+
+    from seaweedfs_tpu_torch.storage import needle as ndl
+
+    out, off = [], 0
+    while off < len(buf):
+        size = struct.unpack_from(">I", buf, off + 12)[0]
+        if size >= 1 << 31:
+            size = 0  # a tombstone
+        disk = ndl.disk_size(size)
+        out.append(ndl.Needle.from_bytes(buf[off:off + disk]))
+        off += disk
+    if off != len(buf):
+        fail(f"the tail ended mid-record at {off} of {len(buf)} B")
+    return out
+
+
+def phase_tools(card: str) -> dict:
+    """Phase 16: the volume server's data verbs and the client tools on
+    four `volume -dataplane native` processes: a chunked file, the
+    benchmark command, an incremental backup sealed offline beside the
+    cluster's seal, a lost server under the chunked file, query and
+    tail. -> kernel launches by step."""
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.ec.encoder import write_ec_files
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.storage import types as t
+
+    t_phase = time.perf_counter()
+    on_card = card != "cpu"
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke16-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    master = env = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    try:
+        # set-up: an in-process master; four volume processes of the
+        # CLI's `volume` with the reference's default -dataplane native
+        master = Cluster(os.path.join(tmp, "master"), n_volume_servers=0,
+                         volume_size_limit=TOOLS_VOLUME_LIMIT,
+                         pulse_seconds=HEAL_PULSE, ec_backend="native")
+        env = CommandEnv(master.master_url)
+        murl = master.master_url
+        mhost = murl.split("//", 1)[1]
+        dirs: dict[str, str] = {}
+        t0 = time.perf_counter()
+        for port in free_ports(TOOLS_SERVERS):
+            url = f"127.0.0.1:{port}"
+            dirs[url] = os.path.join(tmp, f"v{port}")
+            os.makedirs(dirs[url])
+            logs[url] = os.path.join(tmp, f"v{port}.log")
+            procs[url] = _spawn(
+                ["volume", "-ip", "127.0.0.1", "-port", str(port),
+                 "-dir", dirs[url], "-max", "8", "-mserver", mhost,
+                 "-dataplane", "native",
+                 "-ec.backend", "cuda" if on_card else "native"],
+                logs[url], card=on_card)
+        _poll(lambda: len(env.data_nodes()) == TOOLS_SERVERS, 120.0,
+              f"{TOOLS_SERVERS} volume processes registered")
+        for url in procs:
+            st = _get_json(f"http://{url}/status", timeout=30)
+            if not st or "native_dataplane" not in st:
+                fail(f"{url} serves no native front: {st}")
+        walls["start"] = time.perf_counter() - t0
+        log(f"[16] {card}; master {murl} (volume limit "
+            f"{TOOLS_VOLUME_LIMIT} B, pulse {HEAL_PULSE} s) in this "
+            f"process; {TOOLS_SERVERS} processes of `volume -dataplane "
+            f"native -ec.backend {'cuda' if on_card else 'native'}` at "
+            f"{sorted(procs)}, registered with native fronts in "
+            f"{walls['start']:.3f} s")
+
+        # 16a. a 1 GiB file through `upload -maxMB 64`
+        path = os.path.join(tmp, "smoke16.bin")
+        rng = np.random.default_rng([SEED, 16])
+        piece = TOOLS_CHUNK_MB << 20
+        h = hashlib.sha256()
+        with open(path, "wb") as f:
+            left = TOOLS_FILE_BYTES
+            while left:
+                b = rng.bytes(min(piece, left))
+                h.update(b)
+                f.write(b)
+                left -= len(b)
+        want = h.hexdigest()
+        first = sorted(procs)[0]
+        g = env.master_get("/vol/grow", collection="smoke16", count=1,
+                           dataNode=first)
+        if g.get("count") != 1:
+            fail(f"/vol/grow of smoke16 on {first}: {g}")
+        t0 = time.perf_counter()
+        out = json.loads(_tools_cli(cli, [
+            "upload", "-master", murl, "-maxMB", str(TOOLS_CHUNK_MB),
+            "-collection", "smoke16", path]))
+        walls["upload"] = time.perf_counter() - t0
+        mfid = out["fid"]
+        if not out.get("chunked") or out["size"] != TOOLS_FILE_BYTES:
+            fail(f"upload -maxMB answered {out}")
+        mvid = int(mfid.split(",")[0])
+        mhome = env.volume_locations(mvid)[0]
+        man = session().get(f"http://{mhome}/{mfid}",
+                            params={"cm": "false"}, timeout=60).json()
+        chunks = man["chunks"]
+        if len(chunks) != -(-TOOLS_FILE_BYTES // piece):
+            fail(f"the manifest lists {len(chunks)} chunks")
+        by_vid: dict[int, int] = {}
+        for c in chunks:
+            vid_c = int(c["fid"].split(",")[0])
+            by_vid[vid_c] = by_vid.get(vid_c, 0) + c["size"]
+        dl = os.path.join(tmp, "download.bin")
+        t0 = time.perf_counter()
+        msg = _tools_cli(cli, ["download", "-master", murl, "-o", dl, mfid])
+        walls["download"] = time.perf_counter() - t0
+        if sha256(dl) != want:
+            fail(f"download of {mfid} differs from the file ({msg})")
+        os.remove(dl)
+        log(f"[16a] upload -maxMB {TOOLS_CHUNK_MB} of {TOOLS_FILE_BYTES} B: "
+            f"{walls['upload']:.3f} s, "
+            f"{TOOLS_FILE_BYTES / walls['upload'] / 1e6:.1f} MB/s, manifest "
+            f"{mfid} on {mhome}, {len(chunks)} chunks over volumes "
+            f"{by_vid}; download {walls['download']:.3f} s, "
+            f"{TOOLS_FILE_BYTES / walls['download'] / 1e6:.1f} MB/s, "
+            f"sha256-equal")
+        # three ranges across chunk boundaries, through the front
+        spans = [(piece - 100, 200), (5 * piece - 1, (1 << 20) + 2),
+                 (TOOLS_FILE_BYTES - 1000, 1000)]
+        spec = "bytes=" + ",".join(f"{s}-{s + n - 1}" for s, n in spans)
+        st0 = _get_json(f"http://{mhome}/status")["native_dataplane"]
+        r = session().get(f"http://{mhome}/{mfid}", headers={"Range": spec},
+                          timeout=120)
+        ctype = r.headers.get("Content-Type", "")
+        if r.status_code != 206 or \
+                not ctype.startswith("multipart/byteranges; boundary="):
+            fail(f"the 3-range GET answered {r.status_code} {ctype}")
+        delim = b"--" + ctype.split("boundary=")[1].encode()
+        parts = r.content.split(delim)[1:-1]
+        with open(path, "rb") as f:
+            for (s, n), raw in zip(spans, parts):
+                head, _, body = raw[2:].partition(b"\r\n\r\n")
+                f.seek(s)
+                if body[:-2] != f.read(n) or \
+                        f"bytes {s}-{s + n - 1}/{TOOLS_FILE_BYTES}".encode() \
+                        not in head:
+                    fail(f"the range {s}+{n} differs")
+        if len(parts) != 3:
+            fail(f"the 3-range GET gave {len(parts)} parts")
+        st1 = _get_json(f"http://{mhome}/status")["native_dataplane"]
+        if st1["proxied"] <= st0["proxied"]:
+            fail(f"the front did not relay the manifest GET: {st0} {st1}")
+        # one chunk through the paged path: a GET with a query string,
+        # which the front relays to the Python app
+        c0 = chunks[1]
+        home = env.volume_locations(int(c0["fid"].split(",")[0]))[0]
+        p0 = _tools_metrics(home)["paged"]
+        t0 = time.perf_counter()
+        r = session().get(f"http://{home}/{c0['fid']}",
+                          params={"read": "paged"}, timeout=120)
+        walls["paged"] = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            f.seek(c0["offset"])
+            if r.status_code != 200 or r.content != f.read(c0["size"]):
+                fail(f"the paged GET of {c0['fid']}: {r.status_code}")
+        if _tools_metrics(home)["paged"] != p0 + 1:
+            fail("the chunk's GET did not take the paged read path")
+        # a multipart/form-data upload through the front
+        form = rng.bytes(TOOLS_FORM_BYTES)
+        bnd = "smoke16" + rng.bytes(8).hex()
+        body = (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\";"
+                f" filename=\"form16.bin\"\r\nContent-Type: "
+                f"application/x-smoke16\r\n\r\n").encode() + form + \
+            f"\r\n--{bnd}--\r\n".encode()
+        a = verbs.assign(murl, collection="smoke16f")
+        r = session().post(f"http://{a.url}/{a.fid}", data=body, headers={
+            "Content-Type": f"multipart/form-data; boundary={bnd}"},
+            timeout=60)
+        if r.status_code != 201 or r.json().get("name") != "form16.bin" or \
+                r.json().get("size") != TOOLS_FORM_BYTES:
+            fail(f"the form upload answered {r.status_code} {r.text[:200]}")
+        g = session().get(f"http://{a.url}/{a.fid}", timeout=60)
+        if g.content != form or \
+                g.headers.get("Content-Type") != "application/x-smoke16":
+            fail(f"the form upload read back {len(g.content)} B "
+                 f"{g.headers.get('Content-Type')}")
+        log(f"[16a] 3 ranges across chunk boundaries: 206 "
+            f"multipart/byteranges relayed by the front, each part equal; "
+            f"chunk {c0['fid']} ({c0['size']} B) through the paged path "
+            f"in {walls['paged']:.3f} s, "
+            f"{c0['size'] / walls['paged'] / 1e6:.1f} MB/s; a "
+            f"{TOOLS_FORM_BYTES} B multipart/form-data POST stored as "
+            f"form16.bin, application/x-smoke16, read back equal")
+
+        # 16b. the benchmark command, both clients
+        bench = {}
+        for client, n in (("native", TOOLS_BENCH_NATIVE),
+                          ("python", TOOLS_BENCH_PYTHON)):
+            t0 = time.perf_counter()
+            bench[client] = json.loads(_tools_cli(cli, [
+                "benchmark", "-client", client, "-master", murl, "-n",
+                str(n), "-size", "4096", "-c", str(TOOLS_THREADS)]))
+            walls[f"bench {client}"] = time.perf_counter() - t0
+            b = bench[client]
+            if b["errors"]:
+                fail(f"benchmark -client {client}: {b}")
+            log(f"[16b] benchmark -client {client} -n {n} -size 4096 -c "
+                f"{TOOLS_THREADS}: writes {b['write_rps']}/s p50 "
+                f"{b['write_p50_ms']} ms p99 {b['write_p99_ms']} ms, reads "
+                f"{b['read_rps']}/s p50 {b['read_p50_ms']} ms p99 "
+                f"{b['read_p99_ms']} ms; {walls[f'bench {client}']:.3f} s")
+
+        # 16c. incremental backup of V, then two seals that must agree
+        vid = max(by_vid, key=by_vid.get)
+        if by_vid[vid] < TOOLS_FILE_BYTES // 2:
+            fail(f"volume {vid} holds {by_vid[vid]} B of the file")
+        home = env.volume_locations(vid)[0]
+        src = os.path.join(dirs[home], f"smoke16_{vid}")
+        bdir = os.path.join(tmp, "backup")
+        t0 = time.perf_counter()
+        b1 = json.loads(_tools_cli(cli, [
+            "backup", "-master", murl, "-volumeId", str(vid), "-dir", bdir,
+            "-collection", "smoke16"]))
+        walls["backup full"] = time.perf_counter() - t0
+        if b1["mode"] != "full (new)":
+            fail(f"the first backup: {b1}")
+        s0 = _get_json(f"http://{home}/admin/volume_sync_status",
+                       volume=vid)["tail_offset"]
+        extra = {}
+        for i in range(TOOLS_APPEND):
+            key, cookie = (1 << 40) + i, int(rng.integers(1 << 32))
+            extra[f"{vid},{key:x}{cookie:08x}"] = rng.bytes(1 << 20)
+
+        def post(item):
+            fid, data = item
+            r = session().post(f"http://{home}/{fid}", data=data,
+                               timeout=60)
+            if r.status_code != 201:
+                fail(f"POST {fid}: {r.status_code} {r.text[:200]}")
+
+        _pool_map(post, list(extra.items()), threads=TOOLS_THREADS)
+        s1 = _get_json(f"http://{home}/admin/volume_sync_status",
+                       volume=vid)["tail_offset"]
+        t0 = time.perf_counter()
+        b2 = json.loads(_tools_cli(cli, [
+            "backup", "-master", murl, "-volumeId", str(vid), "-dir", bdir,
+            "-collection", "smoke16"]))
+        walls["backup incremental"] = time.perf_counter() - t0
+        pulled = b2["tail_offset"] - b1["tail_offset"]
+        if b2["mode"] != "incremental" or \
+                b2["records_applied"] != TOOLS_APPEND or \
+                abs(pulled - (s1 - s0)) > 0.01 * (s1 - s0):
+            fail(f"the incremental backup: {b2}, pulled {pulled} B of "
+                 f"{s1 - s0} B appended")
+        repl.run_command(env, "lock")
+        repl.run_command(env, f"volume.mark -volumeId={vid} -readonly")
+        _get_json(f"http://{home}/admin/volume_sync_status", volume=vid)
+        dst = os.path.join(bdir, f"smoke16_{vid}")
+        for ext in (".dat", ".idx"):
+            if sha256(src + ext) != sha256(dst + ext):
+                fail(f"the backup's {ext} differs from the source's")
+        fixdir = os.path.join(tmp, "fix")
+        os.makedirs(fixdir)
+        shutil.copy(dst + ".dat", fixdir)
+        _tools_cli(cli, ["fix", "-dir", fixdir, "-volumeId", str(vid),
+                         "-collection", "smoke16"])
+        if sha256(os.path.join(fixdir, f"smoke16_{vid}.idx")) != \
+                sha256(src + ".idx"):
+            fail("fix rebuilt another .idx than the source's")
+        shutil.rmtree(fixdir)
+        tar = os.path.join(tmp, "export.tar")
+        t0 = time.perf_counter()
+        ex = json.loads(_tools_cli(cli, [
+            "export", "-dir", bdir, "-volumeId", str(vid), "-collection",
+            "smoke16", "-o", tar]))
+        walls["export"] = time.perf_counter() - t0
+        names = {f"{os.path.basename(path)}-{i + 1}": c["fid"]
+                 for i, c in enumerate(chunks)
+                 if c["fid"].startswith(f"{vid},")}
+        names.update({f"{t.parse_file_id(f)[1]:x}": f for f in extra})
+        if mvid == vid:
+            names[os.path.basename(path)] = mfid  # the manifest itself
+        n_members = 0
+        with tarfile.open(tar) as tf:
+            for m in tf:
+                name = m.name.split("/", 1)[1]
+                got = tf.extractfile(m).read()
+                if name.endswith(".gz") and name[:-3] in names:
+                    # export names a gzipped needle .gz, bytes as stored
+                    name, got = name[:-3], gzip.decompress(got)
+                fid = names.get(name)
+                r = session().get(f"http://{home}/{fid}", timeout=120,
+                                  params={"cm": "false"} if fid == mfid
+                                  else None) if fid else None
+                if r is None or r.status_code != 200 or r.content != got:
+                    fail(f"export member {m.name} is not needle {fid}")
+                n_members += 1
+        os.remove(tar)
+        if n_members != len(names) or ex["files"] != len(names):
+            fail(f"export wrote {n_members} members, {ex}; want "
+                 f"{len(names)}")
+        log(f"[16c] volume {vid} on {home}: {by_vid[vid]} B of the file; "
+            f"backup full {walls['backup full']:.3f} s "
+            f"({b1['tail_offset']} B), {TOOLS_APPEND} x 1 MiB added by "
+            f"fid ({s1 - s0} B appended), backup incremental "
+            f"{walls['backup incremental']:.3f} s pulling {pulled} B "
+            f"({b2['records_applied']} records); read-only: .dat and .idx "
+            f"sha256-equal to the source's; fix rebuilt the source's "
+            f".idx; export {walls['export']:.3f} s, {n_members} members "
+            f"each equal to its needle by fid")
+        m0 = {u: _tools_metrics(u) for u in procs}
+        t0 = time.perf_counter()
+        repl.run_command(env, f"ec.encode -volumeId={vid}")
+        walls["ec.encode"] = time.perf_counter() - t0
+        m1 = {u: _tools_metrics(u) for u in procs}
+        launches["encode"] = sum(m1[u]["launches"] - m0[u]["launches"]
+                                 for u in procs)
+        enc_kernel_s = sum(m1[u]["kernel_s"] - m0[u]["kernel_s"]
+                           for u in procs)
+        want_enc = _encode_launches(os.path.getsize(dst + ".dat"))
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        with _KernelEvents() as ev:
+            write_ec_files(dst, backend="cuda")
+        walls["offline seal"] = time.perf_counter() - t0
+        launches["offline seal"] = codec_cuda.coded_matmul.launches
+        shard_home = {}
+        for sid in range(14):
+            hits = [u for u in procs if os.path.exists(
+                os.path.join(dirs[u], f"smoke16_{vid}.ec{sid:02d}"))]
+            if len(hits) != 1:
+                fail(f"shard {sid} of volume {vid} on {hits}")
+            shard_home[sid] = hits[0]
+            if sha256(os.path.join(dirs[hits[0]], f"smoke16_{vid}.ec"
+                                   f"{sid:02d}")) != \
+                    sha256(f"{dst}.ec{sid:02d}"):
+                fail(f"shard {sid}: the cluster's and the backup's differ")
+        if launches["offline seal"] != want_enc or \
+                (on_card and launches["encode"] != want_enc):
+            fail(f"the seals made {launches['encode']} (ec.encode) and "
+                 f"{launches['offline seal']} (offline) launches, not "
+                 f"{want_enc} each")
+        log(f"[16c] ec.encode of volume {vid}: {walls['ec.encode']:.3f} s, "
+            f"{launches['encode']} launches, kernel stage "
+            f"{enc_kernel_s * 1e3:.3f} ms (the volume process's CUDA "
+            f"events); write_ec_files(backend='cuda') of the backup: "
+            f"{walls['offline seal']:.3f} s, {launches['offline seal']} "
+            f"launches, {ev.ms():.3f} ms CUDA events; all 14 shards "
+            f"sha256-equal")
+
+        # 16d. a lost server under the chunked file
+        shards = env.master_get("/cluster/ec_shards", volumeId=vid)["shards"]
+        held: dict[str, list[int]] = {u: [] for u in procs}
+        for sid, urls in shards.items():
+            for u in urls:
+                held[u].append(int(sid))
+        other_vids = ({int(c["fid"].split(",")[0]) for c in chunks} |
+                      {mvid}) - {vid}
+        others = {u for v in other_vids for u in env.volume_locations(v)}
+        cands = [u for u in procs if u not in others and 0 < len(held[u])
+                 <= 4]
+        if not cands:
+            fail(f"no server can be lost: shards {held}, other volumes of "
+                 f"the file on {others}")
+        victim = max(cands, key=lambda u: (sum(s < 10 for s in held[u]),
+                                           -len(held[u]), u))
+        lost = sorted(held[victim])
+        procs[victim].kill()
+        procs[victim].wait(timeout=30)
+        _poll(lambda: len(env.data_nodes()) == TOOLS_SERVERS - 1, 30.0,
+              f"the master dropped {victim}")
+        live = [u for u in procs if u != victim]
+        t0 = time.perf_counter()
+        _tools_cli(cli, ["download", "-master", murl, "-o", dl, mfid])
+        walls["degraded download"] = time.perf_counter() - t0
+        if sha256(dl) != want:
+            fail("the degraded download differs from the file")
+        os.remove(dl)
+        r0 = {u: _tools_metrics(u) for u in live}
+        t0 = time.perf_counter()
+        reb = repl.run_command(env, f"ec.rebuild -volumeId={vid}")
+        walls["ec.rebuild"] = time.perf_counter() - t0
+        r1 = {u: _tools_metrics(u) for u in live}
+        launches["rebuild"] = sum(r1[u]["launches"] - r0[u]["launches"]
+                                  for u in live)
+        shard_size = os.path.getsize(f"{dst}.ec00")
+        want_reb = -(-shard_size // REBUILD_CHUNK)
+        if reb.get("mode") != "partial" or sorted(reb["rebuilt"]) != lost \
+                or (on_card and launches["rebuild"] != want_reb):
+            fail(f"ec.rebuild: {reb}, {launches['rebuild']} launches; want "
+                 f"partial, {lost}, {want_reb}")
+        repl.run_command(env, "unlock")
+        t0 = time.perf_counter()
+        _tools_cli(cli, ["download", "-master", murl, "-o", dl, mfid])
+        walls["download rebuilt"] = time.perf_counter() - t0
+        if sha256(dl) != want:
+            fail("the download after the rebuild differs from the file")
+        os.remove(dl)
+        log(f"[16d] killed {victim} (shards {lost} of volume {vid}, "
+            f"{sum(s < 10 for s in lost)} data); degraded download "
+            f"{walls['degraded download']:.3f} s, "
+            f"{TOOLS_FILE_BYTES / walls['degraded download'] / 1e6:.1f} "
+            f"MB/s, sha256-equal; ec.rebuild {walls['ec.rebuild']:.3f} s "
+            f"({reb['mode']}, {reb['rebuilt']} on {reb['rebuilder']}), "
+            f"{launches['rebuild']} launches (one per {REBUILD_CHUNK} B "
+            f"of a {shard_size} B shard: {want_reb}); download "
+            f"{walls['download rebuilt']:.3f} s, sha256-equal")
+
+        # 16e. query and tail on one volume of JSON needles
+        qhome = live[0]
+        g = env.master_get("/vol/grow", collection="smoke16q", count=1,
+                           dataNode=qhome)
+        if g.get("count") != 1:
+            fail(f"/vol/grow of smoke16q: {g}")
+        qvid = next(int(v) for n in env.data_nodes() if n["url"] == qhome
+                    for v, col in n.get("collections", {}).items()
+                    if col == "smoke16q")
+        docs = []
+        for i in range(TOOLS_JSON_DOCS):
+            d = {"a": int(rng.integers(-1000, 1000)),
+                 "b": ["red", "green", "blue"][int(rng.integers(3))],
+                 "c": round(float(rng.uniform(0, 100)), 3)}
+            gz = rng.random() < 0.2
+            if gz:
+                d["note"] = "compressible " * 40  # gzip saves its 10%
+            fid = f"{qvid},{i + 1:x}{int(rng.integers(1 << 32)):08x}"
+            docs.append((fid, json.dumps(d).encode(), gz, d))
+
+        def put_doc(item):
+            fid, body, gz, _ = item
+            r = session().post(f"http://{qhome}/{fid}", data=body, headers={
+                "Content-Type": "application/json" if gz
+                else "application/octet-stream"}, timeout=60)
+            if r.status_code != 201:
+                fail(f"POST {fid}: {r.status_code}")
+
+        half = TOOLS_JSON_DOCS // 2
+        t0 = time.perf_counter()
+        _pool_map(put_doc, docs[:half], threads=TOOLS_THREADS)
+        since = _get_json(f"http://{qhome}/admin/volume_sync_status",
+                          volume=qvid)["last_append_at_ns"]
+        _pool_map(put_doc, docs[half:], threads=TOOLS_THREADS)
+        walls["json fill"] = time.perf_counter() - t0
+        x = 50
+        t0 = time.perf_counter()
+        r = session().post(f"http://{qhome}/admin/query", json={
+            "fids": [d[0] for d in docs], "selections": ["a", "b"],
+            "filter": {"field": "c", "operand": ">", "value": str(x)}},
+            timeout=120)
+        walls["query"] = time.perf_counter() - t0
+        plain = "".join(json.dumps({"a": d["a"], "b": d["b"]},
+                                   separators=(",", ":")) + "\n"
+                        for *_, d in docs if d["c"] > x).encode()
+        if r.status_code != 200 or r.content != plain:
+            fail(f"/admin/query: {r.status_code}, {len(r.content)} B; the "
+                 f"plain filter gives {len(plain)} B")
+        gz_fid = next(fid for fid, _, gz, _ in docs if gz)
+        r = session().get(f"http://{qhome}/{gz_fid}",
+                          headers={"Accept-Encoding": "gzip"}, timeout=30)
+        if r.headers.get("Content-Encoding") != "gzip":
+            fail(f"{gz_fid} (application/json) was not stored gzipped")
+        t0 = time.perf_counter()
+        r = session().get(f"http://{qhome}/admin/volume_tail", params={
+            "volume": qvid, "since_ns": since, "idle_timeout": 0.5},
+            timeout=60)
+        walls["tail"] = time.perf_counter() - t0
+        tail_keys = sorted(n.id for n in _tools_records(r.content))
+        if r.status_code != 200 or tail_keys != list(
+                range(half + 1, TOOLS_JSON_DOCS + 1)):
+            fail(f"/admin/volume_tail since {since} gave {len(tail_keys)} "
+                 f"records, not the {TOOLS_JSON_DOCS - half} written after")
+        for u in live:
+            page = session().get(f"http://{u}/ui/index.html", timeout=30)
+            st = _get_json(f"http://{u}/status")
+            ids = [v["id"] for v in st["volumes"]] + \
+                [e["id"] for e in st["ec_shards"]]
+            if page.status_code != 200 or not ids or any(
+                    f"<tr><td>{i}</td>" not in page.text for i in ids):
+                fail(f"{u}/ui/index.html does not list {ids}")
+        n_gz = sum(1 for *_, gz, _ in docs if gz)
+        n_rows = plain.count(b"\n")
+        log(f"[16e] {TOOLS_JSON_DOCS} JSON needles ({n_gz} sent as "
+            f"application/json, stored gzipped by the relayed path) on "
+            f"volume {qvid} in {walls['json fill']:.3f} s; /admin/query "
+            f"SELECT a, b WHERE c > {x}: {walls['query']:.3f} s, "
+            f"{n_rows} rows byte-equal to a plain filter; "
+            f"/admin/volume_tail since the half-way stamp: "
+            f"{len(tail_keys)} records, exactly those written after, "
+            f"{walls['tail']:.3f} s (0.5 s idle end); /ui/index.html of "
+            f"each live server lists its volumes")
+
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 16 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[16] phase 16 took {time.perf_counter() - t_phase:.3f} s; "
+            f"walls {({k: round(v, 3) for k, v in walls.items()})}; "
+            f"kernel launches {launches}; {card}")
+        return launches
+    except BaseException:
+        for url, lp in logs.items():
+            print(f"--- {url} log tail ---\n{_tail(lp)}", file=sys.stderr)
+        raise
+    finally:
+        if env is not None:
+            env.close()
+        for p_ in procs.values():
+            if p_.poll() is None:
+                p_.terminate()
+        for p_ in procs.values():
+            try:
+                p_.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p_.kill()
+                p_.wait(timeout=15)
+        if master is not None:
+            master.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -5615,21 +6246,33 @@ def main() -> int:
         import seaweedfs_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"run from the root of the repository: {e}")
-    card = phase_device()
-    max_err, timings = phase_kernel()
-    launches, shard_hashes = phase_main_path()
-    phase_batched()
-    sweep_launches, decode_launches = phase_router_lifecycle()
-    gen_launches, reb_launches = phase_store()
-    cluster_launches = phase_cluster(card)
-    mesh = phase_mesh(shard_hashes)
-    heal_launches = phase_heal(card)
-    s3_launches = phase_s3(card)
-    ha_launches = phase_ha(card)
-    tier_launches = phase_tier(card)
-    chaos_launches = phase_chaos(card)
-    secure_launches = phase_secure(card)
-    native_launches = phase_native(card)
+    t_start = time.perf_counter()
+    walls: dict[int, float] = {}
+
+    def timed(n: int, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[n] = round(time.perf_counter() - t0, 3)
+        return out
+
+    card = timed(1, phase_device)
+    max_err, timings = timed(2, phase_kernel)
+    launches, shard_hashes = timed(3, phase_main_path)
+    timed(4, phase_batched)
+    sweep_launches, decode_launches = timed(5, phase_router_lifecycle)
+    gen_launches, reb_launches = timed(6, phase_store)
+    cluster_launches = timed(7, phase_cluster, card)
+    mesh = timed(8, phase_mesh, shard_hashes)
+    heal_launches = timed(9, phase_heal, card)
+    s3_launches = timed(10, phase_s3, card)
+    ha_launches = timed(11, phase_ha, card)
+    tier_launches = timed(12, phase_tier, card)
+    chaos_launches = timed(13, phase_chaos, card)
+    secure_launches = timed(14, phase_secure, card)
+    native_launches = timed(15, phase_native, card)
+    tools_launches = timed(16, phase_tools, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-16 "
+        f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
     rebuild_ms, rebuild_plain_ms, rebuild_bound_ms = timings["rebuild m=1"]
@@ -5673,6 +6316,8 @@ def main() -> int:
         "secure_launches_by_step": secure_launches,
         "native_launches": sum(native_launches.values()),
         "native_launches_by_step": native_launches,
+        "tools_launches": sum(tools_launches.values()),
+        "tools_launches_by_step": tools_launches,
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

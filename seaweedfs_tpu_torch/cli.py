@@ -57,7 +57,21 @@ to the in-process volume store, so they need the native volume front
 `filer` serves Python only. `-filer.native.workers` sizes the filer
 front's relay pool. Requests a front answers never reach the Python
 taps (spans, workload sketches): run `-dataplane python` to see them.
-Every other subcommand of the reference is not here.
+
+The client and offline tools, with the reference's flags and output
+lines: `upload` (`-maxMB` splits a file into chunk needles and a
+?cm=true manifest), `download`, `backup` (operation/backup.py),
+`benchmark` (`-client python` on threads over rpc/httpclient,
+`-client native` on the C++ bench client of native/dataplane.py,
+`-target s3|filer` the gateways), `fix`, `compact`, `export`,
+`see.dat`, `see.idx` (operation/tools.py, on a stopped volume's
+files), `filer.cat`, `filer.copy`, `scaffold`, `version`,
+`autocomplete`, `unautocomplete`, `update`. The python benchmark signs
+its writes when the master hands out tokens and counts a non-2xx write
+as an error (the reference counts any answer as a write). The
+subcommands of the filer's replication, the gateways (ftp, webdav,
+iam, mount, mq.broker) and the global profiling and pushgateway flags
+are not here.
 """
 from __future__ import annotations
 
@@ -546,16 +560,141 @@ def build_parser() -> argparse.ArgumentParser:
                         "the raft leader among them")
     p.add_argument("-filer", default="",
                    help="filer address for the cluster-wide admin lock")
+    _add_tool_parsers(sub)
     return parser
 
 
+def _add_tool_parsers(sub) -> None:
+    """The client and offline subcommands, with the reference's flags."""
+    p = sub.add_parser("upload", help="upload files")
+    p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-maxMB", dest="max_mb", type=int, default=0,
+                   help="split files larger than this into chunk "
+                        "needles + a manifest (submit.go maxMB)")
+    p.add_argument("files", nargs="+")
+
+    p = sub.add_parser("download", help="download a fid")
+    p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-o", dest="output", default="")
+    p.add_argument("fid")
+
+    p = sub.add_parser("fix", help="offline: rebuild a volume's .idx "
+                                   "by scanning its .dat")
+    p.add_argument("-dir", default=".")
+    p.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+    p.add_argument("-collection", default="")
+
+    for name, hlp in (("see.dat", "offline: dump every .dat record as "
+                                  "JSON lines (debug inspector)"),
+                      ("see.idx", "offline: dump every .idx entry as "
+                                  "JSON lines (debug inspector)")):
+        p = sub.add_parser(name, help=hlp)
+        p.add_argument("-dir", default=".")
+        p.add_argument("-volumeId", dest="volume_id", type=int,
+                       required=True)
+        p.add_argument("-collection", default="")
+
+    p = sub.add_parser("compact", help="offline: vacuum a volume's "
+                                       "deleted records")
+    p.add_argument("-dir", default=".")
+    p.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+    p.add_argument("-collection", default="")
+
+    p = sub.add_parser("export", help="offline: dump live needles to tar")
+    p.add_argument("-dir", default=".")
+    p.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-o", dest="output", default="")
+    p.add_argument("-newerThanNs", dest="newer_than_ns", type=int,
+                   default=0)
+
+    p = sub.add_parser("filer.cat", help="print a filer file to stdout")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("path")
+
+    p = sub.add_parser("filer.copy", help="upload local files/dirs to a "
+                                          "filer directory")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-collection", default="")
+    p.add_argument("-maxMB", dest="max_mb", type=int, default=0)
+    p.add_argument("sources", nargs="+")
+    p.add_argument("dest")
+
+    p = sub.add_parser("backup", help="incrementally back up a volume "
+                                      "to a local directory")
+    p.add_argument("-server", "-master", dest="master",
+                   default="http://127.0.0.1:9333")
+    p.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+    p.add_argument("-dir", default=".")
+    p.add_argument("-collection", default="")
+
+    p = sub.add_parser("benchmark", help="write/read load generator")
+    p.add_argument("-client", default="python",
+                   choices=["python", "native"],
+                   help="load generator: python threads or the C++ "
+                        "keep-alive client — use native to measure a "
+                        "native-dataplane server without the client's "
+                        "GIL being the bottleneck")
+    p.add_argument("-master", default="http://127.0.0.1:9333")
+    p.add_argument("-n", type=int, default=1000)
+    p.add_argument("-size", type=int, default=1024)
+    p.add_argument("-c", dest="concurrency", type=int, default=16)
+    p.add_argument("-collection", default="benchmark")
+    p.add_argument("-replication", default="",
+                   help="replica placement for the benchmark volumes "
+                        "(e.g. 001); empty = master default")
+    p.add_argument("-target", default="fid",
+                   choices=["fid", "s3", "filer"],
+                   help="fid = raw volume path (default); s3 = the "
+                        "gateway path (SigV4 auth -> filer autochunk "
+                        "-> assign -> volume); filer = the filer HTTP "
+                        "path without S3 auth")
+    p.add_argument("-s3.url", dest="s3_url",
+                   default="http://127.0.0.1:8333")
+    p.add_argument("-s3.access", dest="s3_access", default="")
+    p.add_argument("-s3.secret", dest="s3_secret", default="")
+    p.add_argument("-filer.url", dest="filer_url",
+                   default="http://127.0.0.1:8888")
+    p.add_argument("-bucket", default="benchbucket")
+
+    p = sub.add_parser("scaffold", help="print a starter config "
+                                        "template")
+    p.add_argument("-config", default="filer",
+                   help="filer | master | security | replication | "
+                        "notification | s3 | shell")
+    p.add_argument("-output", default="",
+                   help="write to a file instead of stdout")
+
+    p = sub.add_parser(
+        "autocomplete",
+        help="print shell tab-completion setup (the reference's "
+             "autocomplete command); eval it or add to your rc file")
+    p.add_argument("-shell", default="bash", choices=["bash", "zsh"])
+
+    sub.add_parser("unautocomplete",
+                   help="print how to remove shell completion")
+
+    sub.add_parser("update",
+                   help="self-update placeholder (no binary releases "
+                        "in this distribution)")
+
+    sub.add_parser("version")
+
+
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     from .utils import glog
 
     glog.set_verbosity(args.verbosity)
     apply_env_flags(args)
     apply_global_flags(args)
+    if args.cmd in TOOL_COMMANDS:
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        return run_tool(args, list(sub.choices))
     if args.cmd == "master":
         return _run_master(args)
     if args.cmd == "master.follower":
@@ -910,4 +1049,447 @@ def _run_s3(args) -> int:
     filer = _http(args.filer)
     _start_span_pusher(lambda: master_from_filer(filer), "s3", t.address)
     run_apps_forever([t])
+    return 0
+
+
+# ----------------------------------------------------------------------
+# the client and offline tools (the reference's cli.py:897-979,
+# :1208-1257, _run_benchmark*, _run_filer_copy)
+# ----------------------------------------------------------------------
+TOOL_COMMANDS = ("version", "autocomplete", "unautocomplete", "update",
+                 "scaffold", "see.dat", "see.idx", "fix", "compact",
+                 "export", "filer.cat", "filer.copy", "backup", "upload",
+                 "download", "benchmark")
+PROG = "seaweedfs-tpu-torch"
+
+
+def run_tool(args, subcommands: list[str]) -> int:
+    import json
+
+    if args.cmd == "version":
+        from . import __version__
+
+        print(f"{PROG} {__version__}")
+        return 0
+    if args.cmd == "autocomplete":
+        cmds = " ".join(sorted(subcommands))
+        if args.shell == "bash":
+            print(f"complete -W '{cmds}' {PROG}\n"
+                  f"complete -W '{cmds}' weed\n"
+                  "# add the lines above to ~/.bashrc, or: "
+                  f"eval \"$({PROG} autocomplete)\"")
+        else:
+            print(f"compdef '_arguments \"1:command:({cmds})\"' "
+                  f"{PROG}\n# add to ~/.zshrc after compinit")
+        return 0
+    if args.cmd == "unautocomplete":
+        print(f"remove the 'complete -W ... {PROG}' lines from "
+              "your shell rc file (this build never edits it for you)")
+        return 0
+    if args.cmd == "update":
+        print(f"{PROG} is distributed as a Python package, not a "
+              "downloadable binary; update it with your package "
+              "manager / git checkout")
+        return 1
+    if args.cmd == "scaffold":
+        from .scaffold import scaffold
+
+        text = scaffold(args.config)
+        if args.output:
+            with open(args.output, "w") as f:
+                f.write(text)
+            print(f"wrote {args.output}")
+        else:
+            print(text, end="")
+        return 0
+    if args.cmd in ("see.dat", "see.idx"):
+        from .operation import tools
+
+        it = (tools.see_dat if args.cmd == "see.dat" else
+              tools.see_idx)(args.dir, args.volume_id, args.collection)
+        for rec in it:
+            print(json.dumps(rec))
+        return 0
+    if args.cmd in ("fix", "compact", "export"):
+        from .operation import tools
+
+        if args.cmd == "fix":
+            out = tools.fix_volume(args.dir, args.volume_id,
+                                   args.collection)
+        elif args.cmd == "compact":
+            out = tools.compact_volume(args.dir, args.volume_id,
+                                       args.collection)
+        else:
+            out = tools.export_volume(
+                args.dir, args.volume_id,
+                args.output or f"vol{args.volume_id}.tar",
+                args.collection, args.newer_than_ns)
+        print(json.dumps(out))
+        return 0
+    if args.cmd == "filer.cat":
+        from .rpc.httpclient import session
+
+        with session().get(f"{args.filer.rstrip('/')}/"
+                           f"{args.path.lstrip('/')}", stream=True,
+                           timeout=600) as r:
+            if r.status_code >= 300:
+                print(r.text, file=sys.stderr)
+                return 1
+            for chunk in r.iter_content(1 << 20):
+                sys.stdout.buffer.write(chunk)
+        sys.stdout.flush()
+        return 0
+    if args.cmd == "filer.copy":
+        return _run_filer_copy(args)
+    if args.cmd == "backup":
+        from .operation.backup import backup_volume
+
+        print(json.dumps(backup_volume(args.master, args.volume_id,
+                                       args.dir,
+                                       collection=args.collection)))
+        return 0
+    if args.cmd == "upload":
+        return _run_upload(args)
+    if args.cmd == "download":
+        from .operation import verbs
+        from .wdclient.client import MasterClient
+
+        data = verbs.download(MasterClient(args.master)
+                              .lookup_file_id(args.fid))
+        out = args.output or args.fid.replace(",", "_")
+        with open(out, "wb") as f:
+            f.write(data)
+        print(f"{args.fid} -> {out} ({len(data)} bytes)")
+        return 0
+    if args.target in ("s3", "filer"):
+        return _run_benchmark_gateway(args)
+    if args.client == "native":
+        return _run_benchmark_native(args)
+    return _run_benchmark(args)
+
+
+def _run_upload(args) -> int:
+    """Each file as one needle, or past -maxMB as chunk needles of that
+    size and a ?cm=true manifest needle (submit.go:134)."""
+    import json
+    import mimetypes
+
+    from .operation import verbs
+    from .operation.chunked_file import upload_chunked
+
+    for path in args.files:
+        size = os.path.getsize(path)
+        limit = args.max_mb << 20
+        if limit and size > limit:
+            name = os.path.basename(path)
+
+            def pieces(p=path, lim=limit):
+                with open(p, "rb") as f:
+                    while True:
+                        piece = f.read(lim)
+                        if not piece:
+                            return
+                        yield piece
+
+            fid, stored = upload_chunked(
+                args.master, pieces(), size, name,
+                mimetypes.guess_type(name)[0] or "", limit,
+                collection=args.collection, replication=args.replication)
+            print(json.dumps({"file": path, "fid": fid, "size": stored,
+                              "chunked": True}))
+            continue
+        with open(path, "rb") as f:
+            data = f.read()
+        fid = verbs.upload_data(
+            args.master, data, name=os.path.basename(path),
+            collection=args.collection, replication=args.replication)
+        print(json.dumps({"file": path, "fid": fid, "size": len(data)}))
+    return 0
+
+
+def _pct_ms(lat, p) -> float:
+    import numpy as np
+
+    return float(np.percentile(lat, p)) * 1000 if len(lat) else 0
+
+
+def _bench_report(client: str, wcount: int, wwall: float, wlat,
+                  rcount: int, rwall: float, rlat, size: int,
+                  errors: int, **extra) -> int:
+    import json
+
+    out = {**extra, "client": client,
+           "write_rps": round(wcount / wwall, 1),
+           "write_mbps": round(wcount * size / wwall / 1e6, 2),
+           "write_p50_ms": round(_pct_ms(wlat, 50), 2),
+           "write_p99_ms": round(_pct_ms(wlat, 99), 2),
+           "read_rps": round(rcount / rwall, 1),
+           "read_mbps": round(rcount * size / rwall / 1e6, 2),
+           "read_p50_ms": round(_pct_ms(rlat, 50), 2),
+           "read_p99_ms": round(_pct_ms(rlat, 99), 2),
+           "errors": errors}
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _run_benchmark(args) -> int:
+    """The benchmark command (command/benchmark.go:111) on Python
+    threads over rpc/httpclient: concurrent writes, then reads of what
+    was written, with latency percentiles."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from .operation import verbs
+    from .rpc.httpclient import session
+    from .wdclient.client import MasterClient
+
+    n, size, conc = args.n, args.size, args.concurrency
+    payload = np.random.default_rng(0).bytes(size)
+    fids: list[str] = []
+    lock = threading.Lock()
+    write_lat: list[float] = []
+    read_lat: list[float] = []
+    err = [0]
+
+    def writer(count):
+        sess = session()
+        done = 0
+        while done < count:
+            # one assign hands out a run of fids (fid, fid_1, ...): the
+            # master round trip amortizes over the batch
+            batch = min(100, count - done)
+            try:
+                a = verbs.assign(args.master, count=batch,
+                                 collection=args.collection,
+                                 replication=args.replication)
+            except Exception:  # noqa: BLE001 — counted, as the reference
+                with lock:
+                    err[0] += batch
+                done += batch
+                continue
+            headers = {"Authorization": f"Bearer {a.auth}"} \
+                if a.auth else {}
+            for i in range(batch):
+                fid = a.fid if i == 0 else f"{a.fid}_{i}"
+                t0 = time.perf_counter()
+                try:
+                    r = sess.post(f"http://{a.url}/{fid}", data=payload,
+                                  headers=headers, timeout=30)
+                    if r.status_code >= 300:
+                        raise IOError(f"POST {fid}: {r.status_code}")
+                    with lock:
+                        fids.append(fid)
+                        write_lat.append(time.perf_counter() - t0)
+                except Exception:  # noqa: BLE001
+                    with lock:
+                        err[0] += 1
+            done += batch
+
+    def reader(my_fids):
+        mc = MasterClient(args.master)
+        sess = session()
+        for fid in my_fids:
+            t0 = time.perf_counter()
+            try:
+                resp = sess.get(mc.lookup_file_id(fid), timeout=30)
+                if len(resp.content) != size:
+                    raise IOError(f"GET {fid}: {len(resp.content)} B")
+                with lock:
+                    read_lat.append(time.perf_counter() - t0)
+            except Exception:  # noqa: BLE001
+                with lock:
+                    err[0] += 1
+
+    def run_phase(fn, work) -> float:
+        threads = [threading.Thread(target=fn, args=(w,)) for w in work]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0
+
+    wdt = run_phase(writer, [n // conc + (1 if i < n % conc else 0)
+                             for i in range(conc)])
+    rdt = run_phase(reader, [fids[i::conc] for i in range(conc)])
+    return _bench_report("python", len(write_lat), wdt, write_lat,
+                         len(read_lat), rdt, read_lat, size, err[0])
+
+
+def _run_benchmark_gateway(args) -> int:
+    """The gateway path: PUT + GET through the S3 gateway (SigV4 ->
+    filer autochunk -> assign -> volume) or the bare filer. Requests
+    are built (and signed) here, then replayed by the native keep-alive
+    client, so the server is measured and not this process."""
+    import time
+    import urllib.parse
+
+    from .native import dataplane as dpmod
+    from .rpc.httpclient import session
+
+    if not dpmod.available():
+        raise SystemExit("gateway benchmark needs the native client "
+                         "(g++ builds native/dataplane.cc)")
+    n, size, conc = args.n, args.size, args.concurrency
+    payload = bytes(ord("a") + (i * 31 + 7) % 26 for i in range(size))
+    is_s3 = args.target == "s3"
+    base = (args.s3_url if is_s3 else args.filer_url).rstrip("/")
+    parts = urllib.parse.urlsplit(base)
+    host, _, port = parts.netloc.partition(":")
+
+    def build(method: str, path: str, body: bytes) -> bytes:
+        headers = {"Host": parts.netloc,
+                   "Content-Length": str(len(body))}
+        if body:
+            headers["Content-Type"] = "application/octet-stream"
+        if is_s3 and args.s3_access:
+            from .s3.sigv4_client import sign_headers
+
+            headers.update(sign_headers(method, f"{base}{path}",
+                                        args.s3_access, args.s3_secret,
+                                        body))
+        head = f"{method} {path} HTTP/1.1\r\n" + "".join(
+            f"{k}: {v}\r\n" for k, v in headers.items()) + "\r\n"
+        return head.encode() + body
+
+    prefix = f"/{args.bucket}/bench" if is_s3 else "/bench"
+    if is_s3:
+        # the bucket must exist before objects land in it
+        from .s3.sigv4_client import sign_headers
+
+        h = sign_headers("PUT", f"{base}/{args.bucket}", args.s3_access,
+                         args.s3_secret) if args.s3_access else {}
+        session().put(f"{base}/{args.bucket}", headers=h, timeout=10)
+    t0 = time.perf_counter()
+    puts = [build("PUT", f"{prefix}/{i:07d}", payload) for i in range(n)]
+    gets = [build("GET", f"{prefix}/{i:07d}", b"") for i in range(n)]
+    sign_s = time.perf_counter() - t0
+    wwall, wlat, werr = dpmod.bench_raw(host, int(port or 80), puts, conc)
+    rwall, rlat, rerr = dpmod.bench_raw(host, int(port or 80), gets, conc)
+    return _bench_report("native-raw", n - werr, wwall, wlat[wlat > 0],
+                         n - rerr, rwall, rlat[rlat > 0], size,
+                         werr + rerr, target=args.target,
+                         signing=bool(is_s3 and args.s3_access),
+                         sign_build_s=round(sign_s, 2))
+
+
+def _run_benchmark_native(args) -> int:
+    """The benchmark on the C++ load generator: Python only assigns
+    fids (in batches) and aggregates; every timed request is native."""
+    import time
+
+    import numpy as np
+
+    from .native import dataplane as dpmod
+    from .operation import verbs
+    from .rpc.httpclient import session
+
+    n, size, conc = args.n, args.size, args.concurrency
+    if args.replication:
+        # replicated volumes fan out natively only once the control
+        # plane pushed their peer lists (~2 s refresh): wait for a
+        # warmup write on the native path BEFORE minting the measured
+        # fids, whose 10 s tokens must not be spent here. repl_post
+        # counts for the process's life: gate on its delta
+        def repl_post(url):
+            st = session().get(f"http://{url}/status", timeout=5).json()
+            nd = st.get("native_dataplane")
+            return None if nd is None else nd.get("repl_post", 0)
+
+        base: dict[str, int | None] = {}
+        deadline = time.time() + 20
+        while time.time() < deadline:
+            a = verbs.assign(args.master, collection=args.collection,
+                             replication=args.replication)
+            if a.url not in base:
+                base[a.url] = repl_post(a.url)
+            verbs.upload(a, b"warmup")
+            now_ct = repl_post(a.url)
+            if now_ct is None or now_ct > (base[a.url] or 0):
+                break  # native fan-out live, or a Python-only server
+            time.sleep(0.5)
+
+    by_url: dict[str, tuple[list[str], list[str]]] = {}
+    left = n
+    while left > 0:
+        batch = min(1000, left)
+        a = verbs.assign(args.master, count=batch,
+                         collection=args.collection,
+                         replication=args.replication)
+        fids, auths = by_url.setdefault(a.url, ([], []))
+        fids.append(a.fid)
+        fids.extend(f"{a.fid}_{i}" for i in range(1, batch))
+        # batch slots share the base fid's token
+        # (volume_server_handlers.go:181 strips the _N suffix)
+        auths.extend([a.auth] * batch)
+        left -= batch
+
+    def run(mode: str):
+        total_wall, lats, errs, count = 0.0, [], 0, 0
+        for url, (fids, auths) in by_url.items():
+            host, _, port = url.partition(":")
+            wall, lat, err = dpmod.bench(
+                host, int(port), mode, fids, size, conc,
+                auths=auths if any(auths) else None)
+            total_wall += wall
+            lats.append(lat[lat > 0])
+            errs += err
+            count += len(fids) - err
+        return total_wall, np.concatenate(lats), errs, count
+
+    wwall, wlat, werr, wcount = run("post")
+    rwall, rlat, rerr, rcount = run("get")
+    return _bench_report("native", wcount, wwall, wlat, rcount, rwall,
+                         rlat, size, werr + rerr)
+
+
+def _run_filer_copy(args) -> int:
+    """Upload local files and directories into a filer directory
+    (command/filer_copy.go); directories recurse, and the destination
+    is always a directory."""
+    from .rpc.httpclient import session
+
+    filer = args.filer.rstrip("/")
+    dest = "/" + args.dest.strip("/")
+    params = {}
+    if args.collection:
+        params["collection"] = args.collection
+    if args.max_mb:
+        params["maxMB"] = str(args.max_mb)
+
+    def post(src: str, target: str) -> bool:
+        with open(src, "rb") as fh:
+            r = session().post(
+                f"{filer}/{target.lstrip('/')}", params=params, data=fh,
+                headers={"Content-Length": str(os.path.getsize(src))},
+                timeout=600)
+        if r.status_code >= 300:
+            print(f"{target}: {r.text}")
+            return False
+        return True
+
+    uploaded = 0
+    for src in args.sources:
+        if os.path.isdir(src):
+            base = os.path.basename(os.path.abspath(src))
+            for dirpath, _, files in os.walk(src):
+                rel = os.path.relpath(dirpath, src)
+                for f in sorted(files):
+                    target = "/".join(
+                        p for p in (dest, base,
+                                    "" if rel == "." else rel, f) if p)
+                    if not post(os.path.join(dirpath, f), target):
+                        return 1
+                    uploaded += 1
+                    print(f"{os.path.join(dirpath, f)} -> "
+                          f"/{target.lstrip('/')}")
+        else:
+            target = f"{dest}/{os.path.basename(src)}"
+            if not post(src, target):
+                return 1
+            uploaded += 1
+            print(f"{src} -> {target}")
+    print(f"copied {uploaded} files")
     return 0

@@ -3,7 +3,7 @@ seaweedfs_tpu/operation/verbs.py.
 
 Equivalent of SeaweedFS weed/operation/ (Assign assign_file_id.go:141,
 upload_content.go, delete, lookup), over rpc/httpclient.py.
-Not here: chunked files and backup.
+Chunked files are in chunked_file.py, the backup tool in backup.py.
 """
 from __future__ import annotations
 

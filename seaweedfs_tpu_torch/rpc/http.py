@@ -205,7 +205,8 @@ class Response:
     file (streamed in FILE_PIECE writes; `pace(n)` is called before
     each write when set, for the repair token bucket), or `stream`, an
     iterable of byte pieces whose total is `length` (sent with that
-    Content-Length; its `close()` is called once the reply is done).
+    Content-Length, or chunked when `length` is None; its `close()` is
+    called once the reply is done).
     A 101 reply with `upgrade` hands the connection, once the reply
     head is sent, to `upgrade(ws)` as an rpc/websocket.WebSocket, on
     the request's thread; the connection ends when it returns."""
@@ -228,6 +229,8 @@ class Response:
         self.pace = pace
         self.stream = stream
         self._length = length
+        # a stream of unknown total goes out chunked
+        self.chunked = stream is not None and length is None
 
     @property
     def length(self) -> int:
@@ -477,7 +480,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.send_header(k, str(v))
         # aiohttp's rule, which the native fronts mirror byte for byte:
         # a HEAD reply with no body and no length of its own names none
-        if "content-length" not in sent and not no_body and \
+        if resp.chunked and not no_body:
+            self.send_header("Transfer-Encoding", "chunked")
+        elif "content-length" not in sent and not no_body and \
                 not (self.command == "HEAD" and resp.length == 0):
             self.send_header("Content-Length", str(resp.length))
         self.end_headers()
@@ -531,6 +536,13 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         connection: the client sees a cut body, never a wrong one."""
         left = resp.length
         try:
+            if resp.chunked:
+                for piece in resp.stream:
+                    if piece:
+                        self.wfile.write(b"%x\r\n%b\r\n"
+                                         % (len(piece), piece))
+                self.wfile.write(b"0\r\n\r\n")
+                return
             for piece in resp.stream:
                 if len(piece) > left:
                     raise IOError(f"stream gave {len(piece) - left} B more "

@@ -49,7 +49,8 @@ HTTP.
 
 The response mirrors what the call sites used of `requests`:
 `status_code`, `headers` (case-insensitive), `content`, `text`,
-`json()`, and with `stream=True` `iter_content(n)` / `close()`.
+`json()`, and with `stream=True` `iter_content(n)` / `close()`; as a
+context manager it closes on exit.
 """
 from __future__ import annotations
 
@@ -173,6 +174,12 @@ class Response:
         if self._conn is not None:
             self._raw.close()
             self._done(False)
+
+    def __enter__(self) -> "Response":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def raise_for_status(self) -> None:
         if self.status_code >= 400:

@@ -45,8 +45,12 @@ the tenants' demand gauges.
 
 Not here, each answering S3's NotImplemented (501): bucket ACL, policy,
 CORS, lifecycle and ownership controls; object ACL, tagging, retention,
-legal hold and object lock; SelectObjectContent; POST-policy (browser
-form) uploads. Nor the event stream.
+legal hold and object lock; POST-policy (browser form) uploads.
+
+SelectObjectContent (POST ?select&select-type=2) runs the volume
+server's query engine (query/) over a JSON object of at most
+SELECT_MAX_OBJECT_BYTES and frames its records as an AWS event stream
+(s3/eventstream.py); `?output=ndjson` answers the raw lines.
 
 The native front (s3/native_front.py, `-s3.native`) owns the public
 port when it runs: this app then serves on a loopback backend port
@@ -105,7 +109,7 @@ ERR_NOT_IMPLEMENTED = ("NotImplemented",
 _BUCKET_UNPORTED = ("policy", "cors", "acl", "lifecycle",
                     "ownershipControls")
 _OBJECT_UNPORTED = ("tagging", "acl", "retention", "legal-hold",
-                    "object-lock", "select")
+                    "object-lock")
 
 
 def _xml(tag: str, *children, text: str | None = None,
@@ -442,6 +446,10 @@ class S3ApiServer:
             return self._list_parts(bucket, key, q["uploadId"])
         if any(sub in q for sub in _OBJECT_UNPORTED):
             raise S3Error(*ERR_NOT_IMPLEMENTED)
+        if m == "POST" and "select" in q:
+            check(ACTION_READ)
+            return self._select_object_content(
+                bucket, key, payload, ndjson=q.get("output") == "ndjson")
         if m == "PUT":
             check(ACTION_WRITE)
             src = req.headers.get("x-amz-copy-source", "")
@@ -456,6 +464,59 @@ class S3ApiServer:
             check(ACTION_WRITE)
             return self._delete_object(bucket, key)
         raise S3Error("MethodNotAllowed", f"{m} on object", 405)
+
+    # -- select -----------------------------------------------------------
+    # a select scan is buffered in the gateway's memory: one query's
+    # object is bounded
+    SELECT_MAX_OBJECT_BYTES = 256 << 20
+
+    def _select_object_content(self, bucket: str, key: str,
+                               payload: bytes,
+                               ndjson: bool = False) -> Response:
+        """SelectObjectContent subset: SQL over a JSON object (the
+        query engine behind the volume server's Query rpc), its records
+        framed as an AWS event stream (Records*, Stats, End)."""
+        from ..query import parse_select, query_json_bytes
+        from .eventstream import select_response
+
+        try:
+            root = ET.fromstring(payload)
+        except ET.ParseError:
+            raise S3Error("MalformedXML", "bad select request", 400)
+        expr_el = _find(root, "Expression")
+        if expr_el is None or not (expr_el.text or "").strip():
+            raise S3Error("MissingRequiredParameter",
+                          "Expression is required", 400)
+        try:
+            selections, filt = parse_select(expr_el.text)
+        except ValueError as e:
+            raise S3Error("InvalidTextEncoding", str(e), 400)
+        meta = self._entry_meta(bucket, key)
+        if meta.get("mode", 0) & 0o40000:
+            raise S3Error(*ERR_NO_SUCH_KEY)
+        size = max((c["offset"] + c["size"]
+                    for c in meta.get("chunks", [])), default=0)
+        if size > self.SELECT_MAX_OBJECT_BYTES:
+            raise S3Error("OverMaxRecordSize",
+                          f"select is limited to objects under "
+                          f"{self.SELECT_MAX_OBJECT_BYTES} bytes", 400)
+        resp = self._filer("GET", self._fpath(bucket, key))
+        if resp.status_code != 200:
+            raise S3Error(*ERR_NO_SUCH_KEY)
+        try:
+            lines = [json.dumps(doc, separators=(",", ":"))
+                     for doc in query_json_bytes(resp.content,
+                                                 selections, filt)]
+        except (json.JSONDecodeError, ValueError) as e:
+            raise S3Error("InvalidTextEncoding",
+                          f"object is not valid JSON: {e}", 400)
+        body = ("\n".join(lines) + "\n").encode() if lines else b""
+        if ndjson:
+            return Response(body, content_type="application/octet-stream")
+        return Response(
+            select_response(body, scanned=len(resp.content),
+                            processed=len(resp.content)),
+            content_type="application/vnd.amazon.eventstream")
 
     # -- filer helpers --------------------------------------------------
     def _fpath(self, bucket: str, key: str = "") -> str:

@@ -112,8 +112,23 @@ natively). /status carries `native_dataplane` and `native_front`,
 front answers never reach the Python taps (spans, workload sketches,
 the in-process commit scheduler): run `-dataplane python` to see them.
 
-Not here: multipart uploads, chunk manifests, multi-range replies,
-query, tail / sync.
+The data verbs of the reference's handlers_read.go / _write.go: a
+needle past STREAM_READ_LIMIT (1 MiB) is served in pread windows
+(Volume.read_needle_streamed); a chunk-manifest needle (written with
+?cm=true, as `upload -maxMB` does) is reassembled on GET and HEAD from
+only the chunks a Range touches (?cm=false serves the manifest), and
+its DELETE removes the chunks first; several ranges answer 206
+multipart/byteranges; a multipart/form-data POST stores its first
+part with the part's file name and type (`first_form_part` reads that
+part as aiohttp's multipart reader hands it to the reference). The
+admin routes
+/admin/query (JSON lines of the projected, filtered documents),
+/admin/volume_sync_status, /admin/volume_incremental_copy,
+/admin/volume_tail and /admin/volume_tail_receive (what `backup` and
+a tailing replica pull) and the status page at / and /ui/index.html
+are the reference's. The native front relays each of these to this
+app. Image parameters (width, height, crop_*) are not served: the
+port has no images module.
 """
 from __future__ import annotations
 
@@ -122,6 +137,7 @@ import contextvars
 import gzip
 import json
 import os
+import sys
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
@@ -158,6 +174,51 @@ SYNC_HEARTBEAT_TIMEOUT = 5.0
 REPLICATE_TIMEOUT = 30.0
 # age limit of a cached volume lookup (replica peers, redirects)
 LOOKUP_TTL = 10.0
+
+
+def first_form_part(body: bytes, content_type: str
+                    ) -> tuple[bytes, str, str] | None:
+    """The first part of a multipart/form-data body, as aiohttp's
+    `MultipartReader.next()` gives it to the reference's upload path:
+    (raw bytes, its filename or "", its Content-Type or ""). None when
+    the form holds no part; ValueError (-> 400) when the body is not a
+    multipart form of the named boundary."""
+    import email.message
+
+    ctm = email.message.Message()
+    ctm["Content-Type"] = content_type
+    boundary = ctm.get_param("boundary")
+    if not boundary or not isinstance(boundary, str):
+        raise ValueError("multipart body without a boundary")
+    delim = b"--" + boundary.encode("latin-1")
+    at = body.find(delim)
+    if at < 0:
+        raise ValueError("multipart body without its boundary")
+    at += len(delim)
+    if body[at:at + 2] == b"--":
+        return None  # the closing delimiter: an empty form
+    if body[at:at + 2] != b"\r\n":
+        raise ValueError("malformed multipart delimiter line")
+    head_end = body.find(b"\r\n\r\n", at + 2)
+    if head_end < 0:
+        raise ValueError("multipart part without a header end")
+    headers = email.message.Message()
+    for line in body[at + 2:head_end].split(b"\r\n"):
+        if line:
+            # aiohttp's part-header parser decodes them so
+            name, sep, value = line.decode(
+                "utf-8", "surrogateescape").partition(":")
+            if not sep:
+                raise ValueError(f"malformed part header {line!r}")
+            headers[name.strip()] = value.strip()
+    data_start = head_end + 4
+    end = body.find(b"\r\n" + delim, data_start)
+    if end < 0:
+        raise ValueError("multipart part without a closing boundary")
+    filename = ""
+    if headers.get("Content-Disposition"):
+        filename = headers.get_filename("") or ""
+    return body[data_start:end], filename, headers.get("Content-Type", "")
 
 
 def _named_leader(resp) -> str:
@@ -216,6 +277,8 @@ class VolumeServer:
         self._hb_acked = 0
         self._hb_thread: threading.Thread | None = None
         self._mc = MasterClient(self.masters)
+        # (vid, key) of big needles the paged read path cannot serve
+        self._no_stream: set[tuple[int, int]] = set()
         self._fetch_pool: ThreadPoolExecutor | None = None
         self._pool_lock = threading.Lock()
         self.store.remote_shards_fetcher = self._remote_shards_fetch_sync
@@ -232,6 +295,8 @@ class VolumeServer:
                                TypeError),
                   middlewares=server_middlewares("volume"),
                   max_body=256 << 20)
+        app.get("/", self.handle_ui)
+        app.get("/ui/index.html", self.handle_ui)
         app.get("/status", self.handle_status)
         app.get("/metrics", self.handle_metrics)
         app.get("/debug", debug_index_factory("volume", {
@@ -278,6 +343,14 @@ class VolumeServer:
         app.post("/admin/ec/to_volume", self.handle_ec_to_volume)
         app.get("/admin/ec/shard_read", self.handle_ec_shard_read)
         app.get("/admin/copy_file", self.handle_copy_file)
+        app.get("/admin/volume_sync_status",
+                self.handle_volume_sync_status)
+        app.get("/admin/volume_incremental_copy",
+                self.handle_volume_incremental_copy)
+        app.get("/admin/volume_tail", self.handle_volume_tail)
+        app.post("/admin/volume_tail_receive",
+                 self.handle_volume_tail_receive)
+        app.post("/admin/query", self.handle_query)
         # `_N` suffix = assign?count batch slot (ParsePath:121-141)
         app.route("*", "/{fid:[0-9]+,[0-9a-fA-F]+(_[0-9]+)?}",
                   self.handle_fid)
@@ -573,6 +646,157 @@ class VolumeServer:
                 "%a, %d %b %Y %H:%M:%S GMT", time.gmtime(n.last_modified))
         return headers
 
+    def _serve_chunked_manifest(self, req: Request, manifest_body: bytes,
+                                is_gzip: bool, headers: dict) -> Response:
+        """GET/HEAD of a chunk-manifest needle (the reference's
+        :553-631): fetch only the bytes the request asks for — a HEAD
+        reads nothing, a ranged read fetches its spans, and a full GET
+        streams chunk by chunk (filer/stream.iter_content), so a
+        multi-GB chunked file never sits in memory."""
+        from ..filer.stream import iter_content, stream_content
+        from ..operation.chunked_file import load_chunk_manifest
+
+        cm = load_chunk_manifest(manifest_body, is_gzip)
+        chunks = cm.as_file_chunks()
+        total = cm.size
+        headers["X-File-Store"] = "chunked"
+        ct = "application/octet-stream"
+        if cm.mime and not cm.mime.startswith(
+                "application/octet-stream"):
+            ct = cm.mime
+        elif cm.name:
+            import mimetypes
+
+            ct = mimetypes.guess_type(cm.name)[0] \
+                or "application/octet-stream"
+        if req.method == "HEAD":
+            headers["Content-Length"] = str(total)
+            return Response(status=200, headers=headers, content_type=ct)
+
+        def span(off: int, ln: int) -> bytes:
+            return stream_content(self._lookup_fid_url, chunks, off, ln)
+
+        rng = req.headers.get("Range")
+        if rng:
+            ranges = httprange.parse_range_header(rng, total)
+            if ranges in (httprange.MALFORMED, httprange.UNSATISFIABLE):
+                return Response(status=416, headers={
+                    "Content-Range": f"bytes */{total}"})
+            if ranges and ranges is not httprange.IGNORE:
+                if len(ranges) == 1:
+                    s, ln = ranges[0]
+                    headers["Content-Range"] = httprange.content_range(
+                        s, ln, total)
+                    return Response(span(s, ln), 206, headers,
+                                    content_type=ct)
+                mbody, mct = httprange.multipart_byteranges(
+                    [(s, ln, span(s, ln)) for s, ln in ranges], ct, total)
+                headers["Content-Type"] = mct
+                return Response(mbody, 206, headers)
+        headers["Content-Type"] = ct
+        return Response(status=200, headers=headers, length=total,
+                        stream=iter_content(self._lookup_fid_url, chunks))
+
+    def _lookup_fid_url(self, fid: str) -> str:
+        """fid -> url through the master client (chunk-manifest
+        reassembly and the delete cascade look up other volumes)."""
+        return self._mc.lookup_file_id(fid, max_age=LOOKUP_TTL)
+
+    def invalidate_fid(self, fid: str) -> None:
+        """filer/stream.read_fid calls this on its lookup's owner when a
+        chunk's read failed, then reads once more from a fresh lookup:
+        a manifest read rides out a holder lost since the cached one
+        (the reference reads its cached url only)."""
+        self._mc.invalidate(int(fid.split(",")[0]))
+
+    # needles past this many bytes are served in pread windows
+    # (PagedReadLimit, volume_read.go:15)
+    STREAM_READ_LIMIT = 1 << 20
+    STREAM_WINDOW = 4 << 20
+    # memo of big compressed / manifest needles, which the paged path
+    # cannot serve: their repeat GETs skip its probe preads
+    NO_STREAM_MAX = 4096
+
+    def _maybe_stream_big_needle(self, req: Request, vid: int, key: int,
+                                 cookie: int) -> Response | None:
+        """Serve a plain needle past STREAM_READ_LIMIT in pread windows
+        instead of reading it whole (the reference's :633-743). None =
+        not eligible: compressed and manifest needles, image
+        parameters, multi-range, readDeleted, EC and remote-backed
+        volumes take the whole-body path."""
+        if req.method != "GET":
+            return None
+        if set(req.query) & {"width", "height", "mode", "crop_x1",
+                             "crop_y1", "crop_x2", "crop_y2",
+                             "readDeleted", "cm"}:
+            return None
+        v = self.store.find_volume(vid)
+        if v is None or getattr(v.dat, "remote", True) \
+                or vid in self.store.ec_volumes:
+            return None
+        try:
+            if self.store.needle_size(vid, key) <= self.STREAM_READ_LIMIT:
+                return None
+        except KeyError:
+            return None
+        if (vid, key) in self._no_stream:
+            return None
+        try:
+            n, data_size, reader = v.read_needle_streamed(key, cookie)
+        except KeyError:
+            return Response(status=404)
+        except PermissionError:
+            return Response(status=403)
+        except (ValueError, IOError):
+            return None  # surprises re-run through the checked path
+        if n.is_compressed or n.is_chunk_manifest:
+            # the flags live after the data: known only once opened
+            if len(self._no_stream) >= self.NO_STREAM_MAX:
+                self._no_stream.clear()
+            self._no_stream.add((vid, key))
+            return None
+        headers = self._needle_headers(n)
+        ct = n.mime.decode() if n.mime else "application/octet-stream"
+        start_i, length = 0, data_size
+        status = 200
+        rng = req.headers.get("Range")
+        if rng:
+            ranges = httprange.parse_range_header(rng, data_size)
+            if ranges in (httprange.MALFORMED, httprange.UNSATISFIABLE):
+                return Response(status=416, headers={
+                    "Content-Range": f"bytes */{data_size}"})
+            if ranges and ranges is not httprange.IGNORE:
+                if len(ranges) > 1:
+                    return None  # multipart assembly: whole-body path
+                start_i, length = ranges[0]
+                status = 206
+                headers["Content-Range"] = httprange.content_range(
+                    start_i, length, data_size)
+        headers["Content-Type"] = ct
+        metrics.counter_add("volume_server_paged_reads_total", 1)
+
+        def windows():
+            t0 = time.perf_counter()
+            sent = 0
+            while sent < length:
+                try:
+                    piece = reader(start_i + sent,
+                                   min(self.STREAM_WINDOW, length - sent))
+                except (ValueError, OSError):
+                    # a vacuum commit closed the captured handle: end
+                    # short, the client sees a cut body (a retry reads
+                    # the compacted volume)
+                    return
+                if not piece:
+                    return
+                yield piece
+                sent += len(piece)
+            metrics.histogram_observe("volume_server_read_seconds",
+                                      time.perf_counter() - t0)
+
+        return Response(status=status, headers=headers, length=length,
+                        stream=windows())
+
     def _read_fid(self, req: Request, vid: int, key: int,
                   cookie: int) -> Response:
         start = time.perf_counter()
@@ -590,6 +814,9 @@ class VolumeServer:
                     "Location": f"http://{(healthy or urls)[0]}/"
                                 f"{req.match_info['fid']}"})
             return text_response(f"volume {vid} not found", status=404)
+        streamed = self._maybe_stream_big_needle(req, vid, key, cookie)
+        if streamed is not None:
+            return streamed
         try:
             n = self.store.read_needle(
                 vid, key, cookie,
@@ -605,6 +832,16 @@ class VolumeServer:
         headers = self._needle_headers(n)
         body = n.data
         ct = n.mime.decode() if n.mime else "application/octet-stream"
+        if n.is_chunk_manifest and req.query.get("cm") != "false":
+            # a chunked file: the body is a manifest of sub-fids,
+            # reassembled here (handlers_read.go:254
+            # tryHandleChunkedFile); ?cm=false serves the manifest
+            try:
+                return self._serve_chunked_manifest(
+                    req, body, n.is_compressed, headers)
+            except (ValueError, KeyError, LookupError, OSError) as e:
+                return text_response(f"chunked manifest: {e}",
+                                     status=500)
         rng = req.headers.get("Range")
         if n.is_compressed:
             # ranges address the original bytes: inflate for them and
@@ -615,18 +852,25 @@ class VolumeServer:
             else:
                 headers["Content-Encoding"] = "gzip"
         headers["Content-Type"] = ct
-        if rng:
+        if rng and req.method != "HEAD":
+            # one range answers 206 with its bytes, several answer 206
+            # multipart/byteranges (common.go processRangeRequest)
             ranges = httprange.parse_range_header(rng, len(body))
             if ranges in (httprange.MALFORMED, httprange.UNSATISFIABLE):
                 return Response(status=416, headers={
                     "Content-Range": f"bytes */{len(body)}"})
-            if ranges and ranges is not httprange.IGNORE and \
-                    len(ranges) == 1:
-                start_i, length = ranges[0]
-                headers["Content-Range"] = httprange.content_range(
-                    start_i, length, len(body))
-                return Response(body[start_i:start_i + length], 206,
-                                headers)
+            if ranges and ranges is not httprange.IGNORE:
+                if len(ranges) == 1:
+                    start_i, length = ranges[0]
+                    headers["Content-Range"] = httprange.content_range(
+                        start_i, length, len(body))
+                    return Response(body[start_i:start_i + length], 206,
+                                    headers)
+                mbody, mct = httprange.multipart_byteranges(
+                    [(s, ln, body[s:s + ln]) for s, ln in ranges], ct,
+                    len(body))
+                headers["Content-Type"] = mct  # carries the boundary
+                return Response(mbody, 206, headers)
         return Response(body, 200, headers)
 
     def _write_fid(self, req: Request, fid: str, vid: int, key: int,
@@ -639,13 +883,23 @@ class VolumeServer:
         if not self.store.has_volume(vid):
             return text_response(f"volume {vid} not found", status=404)
         ctype = req.content_type
-        if ctype.startswith("multipart/"):
-            return text_response("multipart uploads are not ported; "
-                                 "send the raw body", status=415)
         n = ndl.Needle(id=key, cookie=cookie)
-        n.data = req.read()
-        if ctype and ctype != "application/octet-stream":
-            n.mime = ctype.encode()
+        if ctype.startswith("multipart/"):
+            # a form upload (curl -F, the reference's `upload`): the
+            # first part is the file (needle_parse_upload.go)
+            part = first_form_part(req.read(),
+                                   req.headers.get("Content-Type") or "")
+            if part is None:
+                return text_response("empty multipart body", status=400)
+            n.data, filename, pct = part
+            if filename:
+                n.name = filename.encode()
+            if pct and pct != "application/octet-stream":
+                n.mime = pct.encode()
+        else:
+            n.data = req.read()
+            if ctype and ctype != "application/octet-stream":
+                n.mime = ctype.encode()
         is_replicate = req.query.get("type") == "replicate"
         if req.query.get("name"):
             if is_replicate:
@@ -658,6 +912,11 @@ class VolumeServer:
             n.mime = req.query["mime"].encode("latin-1", "replace")
         if req.query.get("ts"):
             n.last_modified = int(req.query["ts"])
+        if req.query.get("cm") in ("true", "1"):
+            # the body is a chunk manifest of sub-fids
+            # (needle_parse_upload.go:186 IsChunkedFile): reads
+            # reassemble it, deletes cascade to the chunks
+            n.flags |= ndl.FLAG_IS_CHUNK_MANIFEST
         # custom metadata pairs: Seaweed-* headers stored as JSON in
         # the needle (needle_parse_upload.go parsePairs)
         pairs = {k: v for k, v in req.headers.items()
@@ -737,10 +996,37 @@ class VolumeServer:
             self.guard.check(req.headers.get("Authorization"), fid)
         except PermissionError as e:
             return text_response(str(e), status=401)
+        manifest_size = 0
+        # a chunk manifest's chunks are deleted FIRST
+        # (volume_server_handlers_write.go:112-124), so a manifest-only
+        # delete orphans no data. Only the primary cascades: a
+        # ?type=replicate delete is the fan-out of one that already did
+        if req.query.get("type") != "replicate":
+            try:
+                n = self.store.read_needle(vid, key)
+            except (KeyError, PermissionError, ValueError, IOError):
+                n = None  # absent or unreadable: the plain delete decides
+            if n is not None and n.is_chunk_manifest:
+                from ..operation.chunked_file import (delete_chunks,
+                                                      load_chunk_manifest)
+
+                try:
+                    cm = load_chunk_manifest(n.data, n.is_compressed)
+                except ValueError as e:
+                    return json_response(
+                        {"error": f"load chunks manifest: {e}"},
+                        status=500)
+                failed = delete_chunks(self._lookup_fid_url, cm)
+                if failed:
+                    return json_response(
+                        {"error": f"delete chunks failed: {failed}"},
+                        status=500)
+                manifest_size = cm.size
         try:
             size = self.store.delete_needle(vid, key)
         except KeyError:
             return Response(status=404)
+        size = manifest_size or size
         if req.query.get("type") != "replicate":
             err = self._replicate(req, fid, b"", "DELETE")
             if err:
@@ -790,6 +1076,10 @@ class VolumeServer:
                 # marker param, not Content-Encoding: the replica
                 # appends these bytes verbatim
                 params["compressed"] = "1"
+            if needle.is_chunk_manifest:
+                # the replica stores the manifest flag too, so a read
+                # or delete there reassembles or cascades as here
+                params["cm"] = "true"
         budget = retry.remaining(default=REPLICATE_TIMEOUT) or \
             REPLICATE_TIMEOUT
         timeout = (5.0, max(0.1, min(REPLICATE_TIMEOUT, budget)))
@@ -1160,6 +1450,19 @@ class VolumeServer:
                 return json_response({"error": str(e)}, status=400)
             v.super_block.replica_placement = rp
             v.dat.write_at(v.super_block.to_bytes(), 0)
+            dp = self.dp
+            if dp is not None and v.delegate is not None:
+                # the native front fans out by its own copy of the
+                # placement: a volume moved to 001 must stop acking
+                # from C++ with one copy. Its peer list is emptied, so
+                # its writes relay to _replicate until the refresher
+                # pushes the new complete placement
+                self._mc.invalidate(v.vid)
+                try:
+                    dp.set_replicas(v.vid, rp.copy_count > 1)
+                    dp.set_peers(v.vid, [])
+                except KeyError:
+                    pass  # detached meanwhile: the next attach reads it
             self.poke_heartbeat(wait=True)
         return json_response(
             {"replication": str(v.super_block.replica_placement)})
@@ -1744,6 +2047,15 @@ class VolumeServer:
             sum(l.max_volumes for l in self.store.locations))
         metrics.gauge_set("write_commit_queue_depth",
                           self.commit.snapshot()["queue_depth"])
+        # the CUDA kernel's launches in this process (its wrapper's
+        # count), once a codec has loaded it: a seal or rebuild run on
+        # this server is read here by whoever drove it
+        codec_cuda = sys.modules.get(
+            __package__.rsplit(".", 1)[0] + ".ops.codec_cuda")
+        if codec_cuda is not None:
+            metrics.gauge_set("cuda_kernel_launches",
+                              codec_cuda.coded_matmul.launches,
+                              {"kernel": "coded_matmul"})
         return text_response(metrics.render()
                              + self._native_front_exposition()
                              + self._native_commit_exposition())
@@ -1818,6 +2130,213 @@ class VolumeServer:
         if dp is not None:
             snap["native"] = dp.commit_stats()
         return json_response(snap)
+
+    # ------------------------------------------------------------------
+    # server-side query (volume_grpc_query.go, query/json)
+    # ------------------------------------------------------------------
+    def handle_query(self, req: Request) -> Response:
+        """VolumeServer.Query rpc: scan the JSON bodies of local
+        needles and stream back only the projected, filtered records
+        (JSON lines); compressed needles are inflated first."""
+        from ..query import Filter, query_json_bytes
+        from ..query.json_query import OPS
+
+        body = req.json()
+        fids = body.get("from", {}).get("file_ids") or body.get("fids")
+        if not fids:
+            return json_response({"error": "query needs fids"},
+                                 status=400)
+        selections = body.get("selections", [])
+        fd = body.get("filter", {})
+        filt = Filter(field=fd.get("field", ""),
+                      op=fd.get("operand", fd.get("op", "=")),
+                      value=str(fd.get("value", "")))
+        # everything that can refuse the query is checked before the
+        # 200 goes out
+        if filt.op not in OPS:
+            return json_response({"error": f"bad operand {filt.op!r}"},
+                                 status=400)
+        try:
+            parsed = [t.parse_file_id(fid) for fid in fids]
+        except ValueError as e:
+            return json_response({"error": str(e)}, status=400)
+
+        def rows():
+            for vid, key, cookie in parsed:
+                v = self.store.find_volume(vid)
+                if v is None:
+                    continue  # only local volumes are queried
+                try:
+                    n = v.read_needle(key, cookie)
+                except (KeyError, PermissionError, ValueError):
+                    continue
+                payload = n.data
+                if n.is_compressed:
+                    try:
+                        payload = compression.ungzip(payload)
+                    except OSError:
+                        continue
+                out = [json.dumps(doc, separators=(",", ":"))
+                       for doc in query_json_bytes(payload, selections,
+                                                   filt)]
+                if out:
+                    yield ("\n".join(out) + "\n").encode()
+
+        return Response(status=200, content_type="application/x-ndjson",
+                        stream=rows())
+
+    # ------------------------------------------------------------------
+    # incremental sync and tail (volume_backup.go, volume_grpc_tail.go)
+    # ------------------------------------------------------------------
+    TAIL_POLL = 0.1     # seconds between a tail's looks at the .dat
+    SEGMENT = 1 << 20   # bytes per read of a streamed .dat span
+
+    def handle_volume_sync_status(self, req: Request) -> Response:
+        """VolumeSyncStatus rpc: tail offset, compact revision and last
+        append stamp, what an incremental copy negotiates with."""
+        v = self.store.find_volume(int(req.query["volume"]))
+        if v is None:
+            return text_response("volume not found", status=404)
+        v.sync()
+        return json_response(v.sync_status())
+
+    def handle_volume_incremental_copy(self, req: Request) -> Response:
+        """VolumeIncrementalCopy rpc: the raw .dat records appended
+        strictly after since_ns."""
+        v = self.store.find_volume(int(req.query["volume"]))
+        if v is None:
+            return text_response("volume not found", status=404)
+        since_ns = int(req.query.get("since_ns", "0"))
+        v.sync()
+        offset = v.offset_for_append_at_ns(since_ns)
+        end = v.dat.size()
+
+        def segments(offset=offset):
+            # capped at the captured end: later appends must not run
+            # past the declared length, and a compaction swapping the
+            # file ends the stream short
+            while offset < end:
+                chunk = v.read_segment(offset,
+                                       min(self.SEGMENT, end - offset))
+                if not chunk:
+                    raise ConnectionResetError(
+                        f"volume {v.vid} changed under incremental copy")
+                yield chunk
+                offset += len(chunk)
+
+        return Response(status=200, content_type="application/octet-stream",
+                        length=end - offset, stream=segments())
+
+    def handle_volume_tail(self, req: Request) -> Response:
+        """VolumeTailSender rpc: the records after since_ns, then new
+        appends as they land, until idle for idle_timeout seconds."""
+        v = self.store.find_volume(int(req.query["volume"]))
+        if v is None:
+            return text_response("volume not found", status=404)
+        since_ns = int(req.query.get("since_ns", "0"))
+        idle_timeout = float(req.query.get("idle_timeout", "3"))
+        start = v.offset_for_append_at_ns(since_ns)
+
+        def follow():
+            offset, idle = start, 0.0
+            while idle < idle_timeout:
+                # size() flushes the write buffer: enough to read what
+                # was appended, without an fsync per poll
+                end = v.dat.size()
+                if end < offset:
+                    return  # compaction rewrote history: end the tail
+                if offset < end:
+                    idle = 0.0
+                    while offset < end:
+                        chunk = v.read_segment(
+                            offset, min(self.SEGMENT, end - offset))
+                        if not chunk:
+                            return  # the volume was swapped mid-read
+                        yield chunk
+                        offset += len(chunk)
+                else:
+                    time.sleep(self.TAIL_POLL)
+                    idle += self.TAIL_POLL
+
+        return Response(status=200, content_type="application/octet-stream",
+                        stream=follow())
+
+    def handle_volume_tail_receive(self, req: Request) -> Response:
+        """VolumeTailReceiver rpc: follow another server's tail of a
+        volume and append its records to the local copy."""
+        body = req.json()
+        vid = int(body["volume"])
+        source = body["source"]
+        v = self.store.find_volume(vid)
+        if v is None:
+            return json_response({"error": "volume not found"},
+                                 status=404)
+        since_ns = int(body.get("since_ns", v.last_append_at_ns))
+        idle_timeout = float(body.get("idle_timeout", 3))
+        # appending raw segments needs the tail to itself (a
+        # multi-record append, truncated on error): the volume is off
+        # the native plane for the whole stream
+        with self._dp_detached(vid):
+            applied, left = 0, bytearray()
+            with session().get(f"http://{source}/admin/volume_tail",
+                               params={"volume": vid, "since_ns": since_ns,
+                                       "idle_timeout": idle_timeout},
+                               stream=True,
+                               timeout=(5.0, idle_timeout + 60.0)) as r:
+                if r.status_code != 200:
+                    return json_response(
+                        {"error": f"tail from {source}: {r.status_code}"},
+                        status=502)
+                for chunk in r.iter_content(1 << 20):
+                    left.extend(chunk)
+                    whole = ndl.whole_records_prefix(left, v.version)
+                    if whole:
+                        applied += v.append_raw_segment(
+                            bytes(memoryview(left)[:whole]))
+                        del left[:whole]
+        if left:
+            return json_response(
+                {"error": f"tail stream ended mid-record "
+                          f"({len(left)} trailing bytes)",
+                 "applied": applied}, status=502)
+        self.poke_heartbeat()
+        return json_response({"applied": applied})
+
+    def handle_ui(self, req: Request) -> Response:
+        """Status page (server/volume_server_ui/ equivalent)."""
+        import html as _html
+
+        hb = self.store.collect_heartbeat()
+        rows = "".join(
+            f"<tr><td>{v['id']}</td>"
+            f"<td>{_html.escape(v['collection']) or '-'}</td>"
+            f"<td>{v['size']:,}</td><td>{v['file_count']}</td>"
+            f"<td>{v['delete_count']}</td>"
+            f"<td>{'ro' if v['read_only'] else 'rw'}</td>"
+            f"<td>{v['replica_placement']}</td></tr>"
+            for v in hb["volumes"])
+        ec_rows = "".join(
+            f"<tr><td>{e['id']}</td>"
+            f"<td>{_html.escape(e['collection']) or '-'}</td>"
+            f"<td>{e['shard_bits']:014b}</td></tr>"
+            for e in hb["ec_shards"])
+        return text_response(
+            f"<html><body><h1>seaweedfs-tpu volume server</h1>"
+            f"<p>{_html.escape(hb['public_url'])} &middot; master "
+            f"{self.master_url} &middot; "
+            f"{len(hb['volumes'])} volumes, "
+            f"{len(hb['ec_shards'])} ec volumes</p>"
+            f"<table border=1 cellpadding=4><tr><th>id</th>"
+            f"<th>collection</th><th>size</th><th>files</th>"
+            f"<th>deleted</th><th>mode</th><th>rp</th></tr>"
+            f"{rows}</table>"
+            f"<h2>ec shards</h2>"
+            f"<table border=1 cellpadding=4><tr><th>id</th>"
+            f"<th>collection</th><th>shard bits</th></tr>"
+            f"{ec_rows}</table>"
+            f"<p><a href='/metrics'>metrics</a> &middot; "
+            f"<a href='/status'>status</a></p></body></html>",
+            content_type="text/html; charset=utf-8")
 
     def handle_status(self, req: Request) -> Response:
         out = {"Version": "seaweedfs-tpu-torch",

@@ -1,8 +1,7 @@
 """HTTP byte-range parsing and multipart/byteranges assembly (RFC
-7233); the counterpart of seaweedfs_tpu/utils/httprange.py. The port's
-volume server answers one range with a 206 and serves several as the
-full body (200), which RFC 7233 allows; the filer answers several with
-multipart/byteranges, as the reference. Parsing as in SeaweedFS
+7233); the counterpart of seaweedfs_tpu/utils/httprange.py. The volume
+server and the filer answer one range with a 206 and several with a
+206 multipart/byteranges, as the reference. Parsing as in SeaweedFS
 weed/server/common.go processRangeRequest:306-383:
 
 - header absent / non-"bytes" unit: no range (serve 200 full) —

@@ -466,7 +466,16 @@ def test_data_plane_and_status_routes(tmp_path):
         assert r.status_code == 206 and r.content == body[100:200]
         assert r.headers["Content-Range"] == "bytes 100-199/10240"
         r = s.get(url, headers={"Range": "bytes=0-9,20-29"})
-        assert r.status_code == 200 and r.content == body
+        ctype = r.headers["Content-Type"]
+        assert r.status_code == 206 and \
+            ctype.startswith("multipart/byteranges; boundary=")
+        delim = b"--" + ctype.split("boundary=")[1].encode()
+        assert r.content == (
+            delim + b"\r\nContent-Type: image/png\r\nContent-Range: "
+            b"bytes 0-9/10240\r\n\r\n" + body[0:10] + b"\r\n" + delim
+            + b"\r\nContent-Type: image/png\r\nContent-Range: "
+            b"bytes 20-29/10240\r\n\r\n" + body[20:30] + b"\r\n"
+            + delim + b"--\r\n")
         assert s.get(url, headers={"Range": "bytes=99999-"}).status_code \
             == 416
         vid, key, cookie = t.parse_file_id(a.fid)

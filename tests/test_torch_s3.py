@@ -276,8 +276,7 @@ def test_auth_answers_as_the_reference(pair):
     ("GET", "/np/k.txt", {"acl": ""}),
     ("PUT", "/np/k.txt", {"retention": ""}),
     ("PUT", "/np/k.txt", {"legal-hold": ""}),
-    ("GET", "/np/k.txt", {"object-lock": ""}),
-    ("POST", "/np/k.txt", {"select": "", "select-type": "2"})])
+    ("GET", "/np/k.txt", {"object-lock": ""})])
 def test_unported_operations_answer_not_implemented(pair, method, path,
                                                     params):
     port = pair[1]

@@ -26,8 +26,10 @@ def port_cases(ref_module, skip=(), **subs) -> dict:
                 fn.__code__.co_filename == contextlib.__file__:
             # a @contextlib.contextmanager helper: rebind what it wraps
             return contextlib.contextmanager(rebind(wrapped))
-        return types.FunctionType(fn.__code__, g, fn.__name__,
-                                  fn.__defaults__, fn.__closure__)
+        new = types.FunctionType(fn.__code__, g, fn.__name__,
+                                 fn.__defaults__, fn.__closure__)
+        new.__kwdefaults__ = fn.__kwdefaults__
+        return new
 
     for name, obj in list(g.items()):
         if isinstance(obj, types.FunctionType) and \
@@ -95,11 +97,21 @@ def run_case(fn, fixtures: dict):
 
 
 @contextlib.contextmanager
-def swap_modules(mapping: dict):
+def swap_modules(mapping: dict, parents: bool = False):
     """Bind module names to other modules for the with-block, so a case
     that imports inside its body (`from seaweedfs_tpu.x import Y`) gets
-    the port's module."""
+    the port's module. With `parents`, each name's attribute on its
+    loaded parent package is swapped too, so `from seaweedfs_tpu.pkg
+    import x` gets it as well."""
     saved = {name: sys.modules.get(name) for name in mapping}
+    attrs = []
+    if parents:
+        for name, mod in mapping.items():
+            parent, _, leaf = name.rpartition(".")
+            pkg = sys.modules.get(parent)
+            if pkg is not None:
+                attrs.append((pkg, leaf, getattr(pkg, leaf, None)))
+                setattr(pkg, leaf, mod)
     sys.modules.update(mapping)
     try:
         yield
@@ -109,3 +121,8 @@ def swap_modules(mapping: dict):
                 sys.modules.pop(name, None)
             else:
                 sys.modules[name] = mod
+        for pkg, leaf, old in attrs:
+            if old is None:
+                delattr(pkg, leaf)
+            else:
+                setattr(pkg, leaf, old)
