@@ -133,9 +133,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    0 (interval 1 s). A failed repair other than a refused lock, a
    repair during ec.encode, or a deficit open at its deadline fails
    the run.
-   a. SigV4-signed PUTs of 80 objects of 10 MiB (warp's default size,
+   a. SigV4-signed PUTs of 84 objects of 10 MiB (warp's default size,
       two 8 MiB filer chunks each), one 160 MiB object by multipart
-      (10 x 16 MiB parts) and 4,096 objects of 1-64 KiB (every 8th
+      (10 x 16 MiB parts) and 1,024 objects of 1-64 KiB (every 8th
       seeded .json text, stored gzipped), at least 1 GiB in all; MB/s,
       objects/s, p50 / p99; the large objects read back from the plain
       volumes.
@@ -338,8 +338,7 @@ Phases, each fatal on failure (exit code 1, no result line):
       needles GET through the native front's port, relayed to the EC
       volume, byte-equal.
    d. `Cluster(with_s3=True, s3_native=True, filer_native=True)` on
-      one volume server: the first 1,024 of phase 10's 4,096 signed
-      objects of 1-64 KiB (the sqlite filer's per-entry commit holds
+      one volume server: phase 10's 1,024 signed objects of 1-64 KiB (the sqlite filer's per-entry commit holds
       the PUTs near phase 10's rate) PUT and GET through the native S3
       front on phase 10's 8 client threads
       (objects/s, p50 / p99 beside phase 10's Python-front numbers of
@@ -390,12 +389,45 @@ Phases, each fatal on failure (exit code 1, no result line):
       from the half-way stamp gives exactly the later needles;
       /ui/index.html of every live server lists its volumes.
 
+17. A cloud bucket mounted under the filer (SeaweedFS's documented
+   `remote.configure -type=s3` + `remote.mount`). The cloud: a second
+   port cluster's S3 gateway holding bucket cloud17, seeded: 4 objects
+   of 64 MiB and 48 of 16 MiB (1 GiB) and 512 of 1-64 KiB
+   (log-uniform) under 8 prefixes. The main cluster: four in-process
+   volume servers with ec_backend="cuda", a 1 GiB volume limit and a
+   sqlite filer; `filer.remote.sync -dir /mnt/cloud17` and
+   `filer.remote.gateway -createBucketAt cloud` run as CLI processes.
+   Each step is fatal on failure:
+   a. remote.configure, remote.mount, remote.meta.sync: fs.ls / fs.du
+      show the 564 objects as files, bytes summing to the cloud's;
+      entries/s.
+   b. Read-through of uncached entries: the 4 large and 256 small
+      objects GET sha256-equal, one ranged GET per large one equal;
+      MB/s, p50 / p99 of the small ones.
+   c. remote.cache of the mount: every entry gains chunks; the whole
+      tree read back cached sha256-equal; MB/s of both.
+   d. ec.encode of every volume holding the cached chunks: launches
+      exactly as the .dat sizes give; kernel-stage (CUDA event) time.
+   e. The volume server holding the most shards of the largest sealed
+      volume stopped: the 4 large and 128 small entries read degraded,
+      sha256-equal; ec.rebuild (launches > 0); read again, equal.
+   f. remote.uncache of the 48 16-MiB entries: their chunks go, they
+      read through again sha256-equal.
+   g. 64 writes of 1 KiB-4 MiB through the filer reach the cloud
+      sha256-equal (lag from the filer's 201, p50 / p99) with exactly
+      one cloud PUT each (the loop guard); 16 deletes and 8 renames
+      are mirrored (one PUT per rename).
+   h. s3.bucket.create b17: the gateway maps /buckets/b17 to cloud/b17;
+      16 objects written there appear in the cloud equal;
+      s3.bucket.delete -includeObjects=true removes both (waited for).
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import collections
+import gc
 import glob
 import gzip
 import hashlib
@@ -2315,11 +2347,13 @@ def phase_heal(card: str) -> dict:
 # phase 10: S3 objects through the filer, erasure-coded and healed
 # ----------------------------------------------------------------------
 S3_BUCKET = "smoke10"
-S3_BIG = 80                       # warp's default object: 10 MiB
+# 84, not 80: with 1,024 small objects (4,096 before phase 17 needed
+# the room) the bucket still holds at least 1 GiB
+S3_BIG = 84                       # warp's default object: 10 MiB
 S3_BIG_BYTES = 10 << 20
 S3_PARTS = 10                     # one multipart object, 10 x 16 MiB
 S3_PART_BYTES = 16 << 20
-S3_SMALL = 4096                   # 1-64 KiB, uniform
+S3_SMALL = 1024                   # 1-64 KiB, uniform
 S3_SMALL_LO, S3_SMALL_HI = 1 << 10, 64 << 10
 S3_JSON_EVERY = 8                 # every 8th small object is .json text
 S3_THREADS = 8                    # client threads of the PUT / GET passes
@@ -5113,9 +5147,9 @@ NAT_PY_FILL_BYTES = 32 << 20     # cut from 128 MiB for phase 16
 NAT_PY_SMALL = 1024
 NAT_SEAL_READS = 512             # seeded GETs after the volume's seal
 NAT_S3_READS = 256               # seeded GETs after the bucket's seal
-# the first quarter of phase 10's small objects: PUTs wait on the
-# sqlite filer's per-entry commit (4,096 took 34.1 s on an H100 host)
-NAT_S3_OBJECTS = S3_SMALL // 4
+# phase 10's small objects: PUTs wait on the sqlite filer's per-entry
+# commit (4,096 took 34.1 s on an H100 host)
+NAT_S3_OBJECTS = S3_SMALL
 NAT_FILER_FILES = 512            # 1-64 KiB files through the filer front
 NAT_POOL = 256 << 20             # the seeded bytes the bodies are cut from
 NAT_BUCKET = "smoke15"
@@ -6239,6 +6273,540 @@ def phase_tools(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 17: a cloud bucket mounted under the filer, read through,
+# cached, sealed through the kernel, rebuilt, uncached, written back
+# ----------------------------------------------------------------------
+REMOTE_BUCKET = "cloud17"
+REMOTE_MOUNT = "/mnt/cloud17"
+REMOTE_LARGE = ((4, 64 << 20), (48, 16 << 20))  # (count, bytes): 1 GiB
+REMOTE_SMALL = 512                # 1-64 KiB, log-uniform
+REMOTE_PREFIXES = 8               # the small objects' prefixes
+REMOTE_SMALL_LO, REMOTE_SMALL_HI = 1 << 10, 64 << 10
+REMOTE_THROUGH_SMALL = 256        # 17b's small read-throughs
+REMOTE_DEGRADED_SMALL = 128       # 17e's small degraded reads
+REMOTE_WRITES = 64                # 17g: 1 KiB-4 MiB, log-uniform
+REMOTE_WRITE_LO, REMOTE_WRITE_HI = 1 << 10, 4 << 20
+REMOTE_DELETES, REMOTE_RENAMES = 16, 8
+REMOTE_GATEWAY_OBJECTS = 16       # 17h
+REMOTE_THREADS = 8
+REMOTE_DEADLINE = 60.0            # longest wait for a worker's mirror
+
+
+def _remote_objects() -> list[tuple[str, int]]:
+    """(key, size) of the cloud bucket's objects, in a fixed order."""
+    out = []
+    for kind, (n, size) in zip(("big", "mid"), REMOTE_LARGE):
+        out += [(f"{kind}/obj-{i:02d}.bin", size) for i in range(n)]
+    rng = np.random.default_rng([SEED, 17, 0])
+    sizes = np.exp(rng.uniform(np.log(REMOTE_SMALL_LO),
+                               np.log(REMOTE_SMALL_HI), REMOTE_SMALL))
+    out += [(f"p{j % REMOTE_PREFIXES}/s-{j:04d}.bin", int(sz))
+            for j, sz in enumerate(sizes)]
+    return out
+
+
+def _remote_bytes(key: str, size: int) -> bytes:
+    """An object's bytes, regenerated from the seed on demand."""
+    digest = hashlib.sha256(key.encode()).digest()
+    return np.random.default_rng(
+        [SEED, 17, int.from_bytes(digest[:4], "big")]).bytes(size)
+
+
+def _sha(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def _filer_get(filer: str, path: str, headers: dict | None = None):
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    return session().get(f"{filer}{path}", headers=headers or {},
+                         timeout=(5.0, 600.0))
+
+
+def _remote_read(filer: str, items: list[tuple[str, int]], want: dict,
+               label: str, threads: int = REMOTE_THREADS) -> dict:
+    """GET every (key, size) under the mount through the filer and hold
+    each body's sha256 against the cloud's. -> MB/s and latencies."""
+    def one(item):
+        key, size = item
+        t0 = time.perf_counter()
+        r = _filer_get(filer, f"{REMOTE_MOUNT}/{key}")
+        dt = time.perf_counter() - t0
+        if r.status_code != 200 or len(r.content) != size or \
+                _sha(r.content) != want[key]:
+            fail(f"{label}: GET {key} answered {r.status_code}, "
+                 f"{len(r.content)} B, sha256 off the cloud's")
+        return dt, size
+
+    t0 = time.perf_counter()
+    got = _pool_map(one, items, threads=threads)
+    wall = time.perf_counter() - t0
+    nbytes = sum(n for _, n in got)
+    return {"wall": wall, "bytes": nbytes, "mbps": nbytes / wall / 1e6,
+            "lat": [dt for dt, _ in got]}
+
+
+def _entries(env) -> dict[str, dict]:
+    """Every file entry under the mount, by key (the shell's walk)."""
+    from seaweedfs_tpu_torch.shell.commands_fs import _is_dir, _walk
+
+    return {e["full_path"][len(REMOTE_MOUNT) + 1:]: e
+            for e in _walk(env, REMOTE_MOUNT) if not _is_dir(e)}
+
+
+def _s3_puts() -> float:
+    """The cloud gateway's answered PUTs so far (this process's only S3
+    gateway in phase 17)."""
+    from seaweedfs_tpu_torch.utils import metrics
+
+    return metrics.counter_value("s3_requests_total",
+                                 {"method": "PUT", "code": "200"})
+
+
+def phase_remote(card: str) -> dict:
+    """Phase 17: a 1 GiB S3 bucket mounted under the filer, read
+    through, cached, sealed through the kernel, read degraded and
+    rebuilt, uncached, written back by filer.remote.sync and mirrored
+    by filer.remote.gateway. -> kernel launches by step."""
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.remote_storage.mount import load_conf
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.s3.client import S3Client
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke17-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    cloud = cluster = env = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    try:
+        # set-up: the cloud, a port cluster of its own behind its S3
+        # gateway, and the main cluster
+        t0 = time.perf_counter()
+        cloud = Cluster(os.path.join(tmp, "cloud"), n_volume_servers=1,
+                        max_volumes=16, volume_size_limit=DAT_BYTES,
+                        pulse_seconds=HEAL_PULSE, ec_backend="native",
+                        with_filer=True, filer_store="sqlite",
+                        with_s3=True, s3_config=S3_CONFIG)
+        cluster = Cluster(os.path.join(tmp, "main"), n_volume_servers=4,
+                          max_volumes=8, volume_size_limit=DAT_BYTES,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                          with_filer=True, filer_store="sqlite")
+        filer = cluster.filer_url
+        env = CommandEnv(cluster.master_url, filer_url=filer)
+        conf = {"endpoint": cloud.s3_url, "bucket": REMOTE_BUCKET,
+                "access_key": S3_KEY, "secret_key": S3_SECRET}
+        bucket = S3Client(**conf)
+        s3 = _S3Client(cloud.s3_url)
+        r = s3("PUT", f"/{REMOTE_BUCKET}")
+        if r.status_code != 200:
+            fail(f"CreateBucket {REMOTE_BUCKET}: {r.status_code} {r.text}")
+        objects = _remote_objects()
+        sizes = dict(objects)
+        want: dict[str, str] = {}
+
+        def put(item):
+            key, size = item
+            data = _remote_bytes(key, size)
+            want[key] = _sha(data)
+            bucket.put_object(key, data)
+            return size
+
+        cloud_bytes = sum(_pool_map(put, objects, threads=4))
+        walls["setup"] = time.perf_counter() - t0
+        n_large = sum(n for n, _ in REMOTE_LARGE)
+        log(f"[17] {card}; cloud: port cluster, s3 {cloud.s3_url}, bucket "
+            f"{REMOTE_BUCKET!r}: {len(objects)} objects ({n_large} large: "
+            f"{REMOTE_LARGE}, {REMOTE_SMALL} of {REMOTE_SMALL_LO}-"
+            f"{REMOTE_SMALL_HI} B under {REMOTE_PREFIXES} prefixes), "
+            f"{cloud_bytes} B; main: master {cluster.master_url}, 4 volume "
+            f"servers ec_backend='cuda', volume limit {DAT_BYTES} B, sqlite "
+            f"filer {filer}; set-up {walls['setup']:.3f} s")
+
+        # 17a. configure, mount, meta.sync
+        t0 = time.perf_counter()
+        repl.run_command(env, "lock")
+        out = repl.run_command(
+            env, f"remote.configure -name=cloud -type=s3 "
+                 f"-endpoint={cloud.s3_url} -bucket={REMOTE_BUCKET} "
+                 f"-access_key={S3_KEY} -secret_key={S3_SECRET}")
+        if out != {"cloud": "s3"}:
+            fail(f"remote.configure answered {out}")
+        out = repl.run_command(env, f"remote.mount -dir={REMOTE_MOUNT} "
+                                    f"-remote=cloud")
+        t_mount = time.perf_counter() - t0
+        if out.get("created") != len(objects):
+            fail(f"remote.mount created {out}, wanted {len(objects)}")
+        t1 = time.perf_counter()
+        again = repl.run_command(env,
+                                 f"remote.meta.sync -dir={REMOTE_MOUNT}")
+        t_sync = time.perf_counter() - t1
+        if again != {"created": 0, "updated": 0, "removed": 0}:
+            fail(f"a second remote.meta.sync changed {again}")
+        du = repl.run_command(env, f"fs.du {REMOTE_MOUNT}")
+        ls = repl.run_command(env, f"fs.ls {REMOTE_MOUNT}")
+        prefixes = sorted({k.split("/")[0] + "/" for k, _ in objects})
+        if du["files"] != len(objects) or du["bytes"] != 0 or \
+                sorted(ls) != prefixes:
+            fail(f"fs.du {du} / fs.ls {ls}: wanted {len(objects)} files "
+                 f"(placeholders: 0 B local) under {prefixes}")
+        entries = _entries(env)
+        remote_sizes = {k: json.loads(e["extended"]["remote"])["size"]
+                        for k, e in entries.items()}
+        if remote_sizes != sizes or any(e.get("chunks")
+                                        for e in entries.values()):
+            fail("the mount's entries are not the cloud's placeholders")
+        walls["a"] = time.perf_counter() - t0
+        log(f"[17a] remote.configure + remote.mount (its meta.sync "
+            f"included) {t_mount:.3f} s: {len(objects)} entries, "
+            f"{len(objects) / t_mount:.1f} entries/s; a second "
+            f"remote.meta.sync {t_sync:.3f} s changed nothing; fs.du "
+            f"{du}; fs.ls {ls}; the placeholders' remote sizes sum to "
+            f"the cloud's {cloud_bytes} B")
+
+        # the workers, as processes of the CLI
+        for name, args in (
+                ("sync", ["filer.remote.sync", "-filer", filer, "-dir",
+                          REMOTE_MOUNT]),
+                ("gateway", ["filer.remote.gateway", "-filer", filer,
+                             "-createBucketAt", "cloud"])):
+            logs[name] = os.path.join(tmp, f"{name}.log")
+            procs[name] = _spawn(args, logs[name])
+
+        # 17b. read-through of uncached entries
+        rng = np.random.default_rng([SEED, 17, 1])
+        small = [o for o in objects if o[0].startswith("p")]
+        large = [o for o in objects if o[0].startswith("big/")]
+        sample = [small[int(i)] for i in rng.choice(
+            len(small), REMOTE_THROUGH_SMALL, replace=False)]
+        big = _remote_read(filer, large, want, "17b", threads=4)
+        tiny = _remote_read(filer, sample, want, "17b")
+        for key, size in large:
+            a = int(rng.integers(0, size - 1))
+            b = min(size - 1, a + int(rng.integers(1, 24 << 20)))
+            r = _filer_get(filer, f"{REMOTE_MOUNT}/{key}",
+                           {"Range": f"bytes={a}-{b}"})
+            if r.status_code != 206 or r.content != \
+                    _remote_bytes(key, size)[a:b + 1]:
+                fail(f"17b: Range bytes={a}-{b} of {key}: "
+                     f"{r.status_code}")
+        walls["b"] = big["wall"] + tiny["wall"]
+        log(f"[17b] read-through (uncached): the {len(large)} large "
+            f"entries {big['wall']:.3f} s, {big['mbps']:.1f} MB/s; "
+            f"{len(sample)} small ones {tiny['wall']:.3f} s, "
+            f"{tiny['mbps']:.2f} MB/s, {_lat(tiny['lat'])}; one ranged "
+            f"GET per large entry equal; every sha256 equal")
+
+        # 17c. remote.cache
+        t0 = time.perf_counter()
+        out = repl.run_command(env, f"remote.cache -dir={REMOTE_MOUNT}")
+        t_cache = time.perf_counter() - t0
+        if out != {"cached": len(objects)}:
+            fail(f"remote.cache answered {out}")
+        entries = _entries(env)
+        du = repl.run_command(env, f"fs.du {REMOTE_MOUNT}")
+        if any(not e.get("chunks") for e in entries.values()) or \
+                du["bytes"] != cloud_bytes:
+            fail(f"after remote.cache: fs.du {du}, or an entry without "
+                 "chunks")
+        cached = _remote_read(filer, objects, want, "17c")
+        walls["c"] = t_cache + cached["wall"]
+        log(f"[17c] remote.cache of {len(objects)} entries "
+            f"{t_cache:.3f} s, {cloud_bytes / t_cache / 1e6:.1f} MB/s; "
+            f"the whole tree read back cached ({REMOTE_THREADS} threads) "
+            f"{cached['wall']:.3f} s, {cached['mbps']:.1f} MB/s; every "
+            f"entry has chunks (fs.du {du['bytes']} B), every sha256 "
+            f"equal")
+
+        # 17d. seal every volume holding the cached chunks
+        vids = sorted({int(c["fid"].split(",")[0])
+                       for e in entries.values() for c in e["chunks"]})
+        listed = {v["volume"] for v in repl.run_command(env, "volume.list")
+                  if v.get("server")}
+        if not set(vids) <= listed:
+            fail(f"volume.list {sorted(listed)} lacks {vids}")
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        dat = {}
+        for vid in vids:
+            for st in cluster.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    dat[vid] = v.content_size()
+        before = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        walls["d"] = time.perf_counter() - t0
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before["kernel"]
+        own = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i
+                  for i, st in enumerate(cluster.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        if scraped != launches["encode"]:
+            fail(f"the volume servers' cuda_kernel_launches {scraped}, "
+                 f"the wrapper's count {launches['encode']}")
+        log(f"[17d] ec.encode of {len(vids)} volumes ({dat} .dat bytes) "
+            f"{walls['d']:.3f} s, {launches['encode']} launches (their "
+            f"sizes give {own}; /metrics cuda_kernel_launches {scraped}); {stages_since(before, walls['d'])}; "
+            f"kernel {kernel_s * 1e3:.3f} ms, "
+            f"{kernel_s * 1e3 / max(1, launches['encode']):.3f} ms per "
+            f"launch")
+        if launches["encode"] <= 0 or launches["encode"] != own:
+            fail(f"{launches['encode']} launches during ec.encode, the "
+                 f"sizes give {own}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+
+        # 17e. lose the server holding the most shards of the largest
+        largest = max(vids, key=lambda v: (dat[v], v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        if any(len(s) > 4 for s in lost.values()):
+            fail(f"{victim} holds more than m=4 shards of a volume: {lost}")
+        t0 = time.perf_counter()
+        cluster.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"the master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t0
+        dsample = large + [small[int(i)] for i in rng.choice(
+            len(small), REMOTE_DEGRADED_SMALL, replace=False)]
+        degraded = _remote_read(filer, dsample, want, "17e degraded")
+        codec_cuda.coded_matmul.launches = 0
+        t0 = time.perf_counter()
+        rebuilt = {}
+        for vid in vids:
+            if lost[vid]:
+                rebuilt[vid] = repl.run_command(
+                    env, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t0
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped = _tools_metrics(next(u for u in by_url if u != victim))[
+            "launches"]
+        if launches["rebuild"] <= 0 or scraped != launches["rebuild"]:
+            fail(f"ec.rebuild: {launches['rebuild']} launches, the volume "
+                 f"servers' cuda_kernel_launches {scraped}")
+        for vid in vids:
+            if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"volume {vid} after ec.rebuild: "
+                     f"{env.ec_shard_locations(vid)}")
+        healed = _remote_read(filer, dsample, want, "17e rebuilt")
+        walls["e"] = t_gone + degraded["wall"] + t_rebuild + healed["wall"]
+        log(f"[17e] stopped {victim} (shards {lost}); the master dropped "
+            f"them in {t_gone:.3f} s; {len(dsample)} entries read "
+            f"degraded {degraded['wall']:.3f} s, {degraded['mbps']:.1f} "
+            f"MB/s, {_lat(degraded['lat'])}; ec.rebuild {t_rebuild:.3f} "
+            f"s, {launches['rebuild']} launches; read again after the "
+            f"rebuild {healed['wall']:.3f} s, {healed['mbps']:.1f} MB/s; "
+            f"every sha256 equal")
+
+        # 17f. uncache the 16 MiB entries
+        mids = [o for o in objects if o[0].startswith("mid/")]
+        t0 = time.perf_counter()
+        out = repl.run_command(env, f"remote.uncache -dir={REMOTE_MOUNT}"
+                                    f"/mid")
+        t_uncache = time.perf_counter() - t0
+        if out != {"uncached": len(mids)}:
+            fail(f"remote.uncache answered {out}")
+        entries = _entries(env)
+        if any(entries[k].get("chunks") for k, _ in mids) or any(
+                not entries[k].get("chunks") for k, _ in large):
+            fail("remote.uncache left chunks or took others'")
+        through = _remote_read(filer, mids, want, "17f")
+        walls["f"] = t_uncache + through["wall"]
+        log(f"[17f] remote.uncache of the {len(mids)} entries of "
+            f"{REMOTE_LARGE[1][1]} B "
+            f"{t_uncache:.3f} s; read through again {through['wall']:.3f}"
+            f" s, {through['mbps']:.1f} MB/s, every sha256 equal")
+
+        # 17g. writes under the mount pushed back by filer.remote.sync;
+        # first the worker catches up with the history it replays from
+        # the filer's start (17a's placeholders, 17c's and 17f's
+        # updates: no PUT for any), so the lag below is the steady one
+        offset_key = f"remote.sync/{REMOTE_MOUNT.strip('/')}/offset"
+        history = cluster.filer.filer.meta_log.replay(0, REMOTE_MOUNT)
+
+        def caught_up():
+            r = session().get(f"{filer}/kv/{offset_key}", timeout=30)
+            return r.status_code == 200 and \
+                int(r.content) >= history[-1]["ts_ns"]
+
+        t0 = time.perf_counter()
+        _poll(caught_up, 4 * REMOTE_DEADLINE,
+              "filer.remote.sync through the mount's history")
+        t_catch = time.perf_counter() - t0
+        log(f"[17g] filer.remote.sync (started after 17a) through the "
+            f"mount's {len(history)} events of history {t_catch:.3f} s "
+            f"after 17f")
+        rng = np.random.default_rng([SEED, 17, 2])
+        wsizes = np.exp(rng.uniform(np.log(REMOTE_WRITE_LO),
+                                    np.log(REMOTE_WRITE_HI), REMOTE_WRITES))
+        writes = {f"new17/w-{i:02d}.bin": rng.bytes(int(n))
+                  for i, n in enumerate(wsizes)}
+        acked: dict[str, float] = {}
+        landed: dict[str, float] = {}
+        in_bucket = f"/buckets/{REMOTE_BUCKET}/"
+
+        def on_cloud_event(ev):  # the cloud filer's create, as it lands
+            ent = ev["new_entry"]
+            if ent and ent["full_path"].startswith(in_bucket):
+                landed.setdefault(ent["full_path"][len(in_bucket):],
+                                  time.perf_counter())
+
+        cloud.filer.filer.meta_log.sync_listeners.append(on_cloud_event)
+        puts0 = _s3_puts()
+        t0 = time.perf_counter()
+        for key, data in writes.items():
+            r = session().post(f"{filer}{REMOTE_MOUNT}/{key}", data=data,
+                               timeout=60)
+            if r.status_code != 201:
+                fail(f"17g: write {key} answered {r.status_code}")
+            acked[key] = time.perf_counter()
+        _poll(lambda: all(k in landed for k in writes), REMOTE_DEADLINE,
+              "every write in the cloud")
+        cloud.filer.filer.meta_log.sync_listeners.remove(on_cloud_event)
+        for key, data in writes.items():
+            if _sha(bucket.get_object(key)) != _sha(data):
+                fail(f"17g: the cloud's {key} differs from the write")
+
+        def refreshed(key):
+            e = session().get(f"{filer}{REMOTE_MOUNT}/{key}",
+                              params={"meta": "1"}, timeout=30).json()
+            meta = json.loads(e.get("extended", {}).get("remote", "{}"))
+            return meta.get("etag") and meta["etag"] == e.get("md5")
+
+        _poll(lambda: all(refreshed(k) for k in writes), REMOTE_DEADLINE,
+              "the worker's metadata refresh of every write")
+        time.sleep(1.0)                 # a looping worker would PUT again
+        puts = _s3_puts() - puts0
+        t_writes = time.perf_counter() - t0
+        lag = [landed[k] - acked[k] for k in writes]
+        log(f"[17g] {len(writes)} writes of {REMOTE_WRITE_LO}-"
+            f"{REMOTE_WRITE_HI} B ({sum(map(len, writes.values()))} B) "
+            f"through the filer, each in the cloud sha256-equal: lag from "
+            f"the 201 {_lat(lag)}; cloud PUTs {puts:.0f} (one per write)")
+        if puts != len(writes):
+            fail(f"{puts} cloud PUTs for {len(writes)} writes: the loop "
+                 "guard failed")
+        keys = list(writes)
+        gone = keys[:REMOTE_DELETES]
+        moved = keys[REMOTE_DELETES:REMOTE_DELETES + REMOTE_RENAMES]
+        puts0 = _s3_puts()
+        t1 = time.perf_counter()
+        for key in gone:
+            r = session().delete(f"{filer}{REMOTE_MOUNT}/{key}", timeout=60)
+            if r.status_code >= 300:
+                fail(f"17g: delete {key} answered {r.status_code}")
+        for key in moved:
+            r = session().put(f"{filer}{REMOTE_MOUNT}/{key}.moved",
+                              params={"mv.from": f"{REMOTE_MOUNT}/{key}"},
+                              timeout=60)
+            if r.status_code >= 300:
+                fail(f"17g: rename {key} answered {r.status_code}")
+        _poll(lambda: all(bucket.head_object(k) is None
+                          for k in gone + moved) and all(
+            bucket.head_object(k + ".moved") is not None for k in moved),
+            REMOTE_DEADLINE, "the deletes and renames in the cloud")
+        for key in moved:
+            if _sha(bucket.get_object(key + ".moved")) != _sha(writes[key]):
+                fail(f"17g: the renamed {key} differs in the cloud")
+        time.sleep(1.0)
+        rputs = _s3_puts() - puts0
+        walls["g"] = t_catch + t_writes + time.perf_counter() - t1
+        log(f"[17g] {len(gone)} deletes and {len(moved)} renames mirrored "
+            f"in {time.perf_counter() - t1:.3f} s; cloud PUTs meanwhile "
+            f"{rputs:.0f} (one per rename)")
+        if rputs != len(moved):
+            fail(f"{rputs} cloud PUTs for {len(moved)} renames")
+
+        # 17h. filer.remote.gateway: a bucket's life mirrored
+        t0 = time.perf_counter()
+        repl.run_command(env, "s3.bucket.create -name=b17")
+        _poll(lambda: "/buckets/b17" in load_conf(filer).mounts,
+              REMOTE_DEADLINE, "the gateway's mount of /buckets/b17")
+        m = load_conf(filer).mounts["/buckets/b17"]
+        if (m.storage, m.remote_path) != ("cloud", "b17"):
+            fail(f"/buckets/b17 mounted on {m}")
+        t_create = time.perf_counter() - t0
+        rng = np.random.default_rng([SEED, 17, 3])
+        gobjs = {f"g-{i:02d}.bin": rng.bytes(int(rng.integers(1, 256 << 10)))
+                 for i in range(REMOTE_GATEWAY_OBJECTS)}
+        for name, data in gobjs.items():
+            r = session().post(f"{filer}/buckets/b17/{name}", data=data,
+                               timeout=60)
+            if r.status_code != 201:
+                fail(f"17h: write {name} answered {r.status_code}")
+        _poll(lambda: all(bucket.head_object(f"b17/{n}") is not None
+                          for n in gobjs), REMOTE_DEADLINE,
+              "the bucket's objects in the cloud")
+        for name, data in gobjs.items():
+            if bucket.get_object(f"b17/{name}") != data:
+                fail(f"17h: the cloud's b17/{name} differs")
+        t_objects = time.perf_counter() - t0 - t_create
+        t1 = time.perf_counter()
+        repl.run_command(env,
+                         "s3.bucket.delete -name=b17 -includeObjects=true")
+        _poll(lambda: "/buckets/b17" not in load_conf(filer).mounts and
+              not list(bucket.list_objects("b17/")), REMOTE_DEADLINE,
+              "the bucket's mapping and objects gone")
+        t_delete = time.perf_counter() - t1
+        walls["h"] = time.perf_counter() - t0
+        repl.run_command(env, "unlock")
+        log(f"[17h] s3.bucket.create b17 -> mounted on cloud/b17 in "
+            f"{t_create:.3f} s; {len(gobjs)} objects mirrored equal in "
+            f"{t_objects:.3f} s; s3.bucket.delete -includeObjects=true -> "
+            f"mapping and objects gone in {t_delete:.3f} s")
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                fail(f"the {name} worker exited: {_tail(logs[name])}")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 17 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[17] phase 17 took {wall:.3f} s ({ {k: round(v, 3) for k, v in walls.items()} }); "
+            f"kernel launches {launches}; the seal's kernel time "
+            f"{kernel_s:.3f} s is {busy:.2%} of the phase wall (idle "
+            f"share {1 - busy:.2%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 4)
+        return launches
+    finally:
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        if env is not None:
+            env.close()
+        for c in (cluster, cloud):
+            if c is not None:
+                c.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -6253,6 +6821,12 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         walls[n] = round(time.perf_counter() - t0, 3)
+        # the phase's freed device memory goes back to the card: phase
+        # 16's volume processes allocate on the same card
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[mem] after phase {n}: {torch.cuda.memory_allocated()} B "
+            f"allocated, {torch.cuda.memory_reserved()} B reserved")
         return out
 
     card = timed(1, phase_device)
@@ -6271,7 +6845,8 @@ def main() -> int:
     secure_launches = timed(14, phase_secure, card)
     native_launches = timed(15, phase_native, card)
     tools_launches = timed(16, phase_tools, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-16 "
+    remote = timed(17, phase_remote, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-17 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -6318,6 +6893,11 @@ def main() -> int:
         "native_launches_by_step": native_launches,
         "tools_launches": sum(tools_launches.values()),
         "tools_launches_by_step": tools_launches,
+        "remote_launches": remote["encode"] + remote["rebuild"],
+        "remote_launches_by_step": {k: remote[k]
+                                    for k in ("encode", "rebuild")},
+        "remote_kernel_ms_per_launch": remote["kernel_ms_per_launch"],
+        "remote_idle_share": remote["idle_share"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

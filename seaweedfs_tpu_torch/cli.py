@@ -68,10 +68,18 @@ lines: `upload` (`-maxMB` splits a file into chunk needles and a
 files), `filer.cat`, `filer.copy`, `scaffold`, `version`,
 `autocomplete`, `unautocomplete`, `update`. The python benchmark signs
 its writes when the master hands out tokens and counts a non-2xx write
-as an error (the reference counts any answer as a write). The
-subcommands of the filer's replication, the gateways (ftp, webdav,
-iam, mount, mq.broker) and the global profiling and pushgateway flags
-are not here.
+as an error (the reference counts any answer as a write).
+
+The filer's metadata-stream consumers (rpc/meta_subscriber.py over the
+filer's /ws/meta_subscribe), with the reference's flags and lines:
+`filer.remote.sync -dir` pushes writes under a remote mount back to its
+cloud storage, `filer.remote.gateway` (`-createBucketAt`,
+`-createBucketWithRandomSuffix`, `-include`, `-exclude`) mirrors the
+buckets under /buckets, `filer.meta.tail` (`-path`, `-pattern`) prints
+each event as one JSON line. The filer's replication subcommands
+(filer.replicate, filer.sync, filer.backup, filer.meta.backup), the
+gateways (ftp, webdav, iam, mount, mq.broker) and the global profiling
+and pushgateway flags are not here.
 """
 from __future__ import annotations
 
@@ -560,8 +568,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "the raft leader among them")
     p.add_argument("-filer", default="",
                    help="filer address for the cluster-wide admin lock")
+    _add_filer_worker_parsers(sub)
     _add_tool_parsers(sub)
     return parser
+
+
+def _add_filer_worker_parsers(sub) -> None:
+    """The filer's metadata-stream consumers, with the reference's
+    flags: remote-mount write-back, the bucket gateway and the tail."""
+    p = sub.add_parser("filer.remote.sync",
+                       help="push local writes under a remote mount "
+                            "back to the cloud storage")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-dir", required=True, help="mounted directory")
+
+    p = sub.add_parser("filer.remote.gateway",
+                       help="mirror bucket creation/deletion and bucket "
+                            "contents to the primary remote storage")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-createBucketAt", dest="create_bucket_at", default="",
+                   help="remote storage name for new buckets "
+                        "(defaults to the only configured storage)")
+    p.add_argument("-createBucketWithRandomSuffix", dest="bucket_suffix",
+                   action="store_true")
+    p.add_argument("-include", default="",
+                   help="glob of bucket names to mirror, e.g. s3*")
+    p.add_argument("-exclude", default="",
+                   help="glob of bucket names to skip, e.g. local*")
+
+    p = sub.add_parser("filer.meta.tail",
+                       help="print the filer metadata event stream")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-path", default="/", help="path prefix filter")
+    p.add_argument("-pattern", default="",
+                   help="only events whose path contains this substring")
 
 
 def _add_tool_parsers(sub) -> None:
@@ -707,10 +747,60 @@ def main(argv: list[str] | None = None) -> int:
         return _run_filer(args)
     if args.cmd == "s3":
         return _run_s3(args)
+    if args.cmd in FILER_WORKER_COMMANDS:
+        return _run_filer_worker(args)
     from .shell.repl import run_shell
 
     return run_shell(args.master, filer_url=_http(args.filer)
                      if args.filer else "")
+
+
+FILER_WORKER_COMMANDS = ("filer.remote.sync", "filer.remote.gateway",
+                         "filer.meta.tail")
+
+
+def _run_filer_worker(args) -> int:
+    """Start one metadata-stream consumer against -filer and run it
+    until interrupted, printing the reference's lines."""
+    import json
+    import time
+
+    if args.cmd == "filer.remote.gateway":
+        from .remote_storage.gateway import RemoteGateway
+
+        worker = RemoteGateway(args.filer,
+                               create_bucket_at=args.create_bucket_at,
+                               bucket_suffix=args.bucket_suffix,
+                               include=args.include, exclude=args.exclude)
+        worker.start()
+        print(f"mirroring {args.filer}/buckets to remote storage "
+              f"{worker.create_bucket_at or '(none configured)'}",
+              flush=True)
+    elif args.cmd == "filer.remote.sync":
+        from .remote_storage.sync import RemoteSyncWorker
+
+        worker = RemoteSyncWorker(args.filer, args.dir)
+        worker.start()
+        print(f"pushing {args.filer}{args.dir} writes to "
+              f"storage {worker.mount.storage!r}", flush=True)
+    else:
+        from .rpc.meta_subscriber import MetaSubscriber
+
+        def emit(ev: dict) -> None:
+            entry = ev.get("new_entry") or ev.get("old_entry") or {}
+            path = entry.get("full_path") or ev.get("directory", "")
+            if args.pattern and args.pattern not in path:
+                return
+            print(json.dumps(ev, separators=(",", ":")), flush=True)
+
+        worker = MetaSubscriber(args.filer, args.path, emit)
+        worker.start()
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        worker.stop()
+    return 0
 
 
 def apply_env_flags(args) -> None:

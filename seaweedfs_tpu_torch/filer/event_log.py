@@ -6,8 +6,9 @@ Equivalent of SeaweedFS weed/filer/filer_notify.go (EventNotify) +
 weed/util/log_buffer/log_buffer.go:25-44 — the filer appends every
 create/update/delete/rename to a local log that powers metadata
 subscriptions, replication, filer.sync, S3 events and mount cache
-invalidation. (The port's filer has no /ws/meta_subscribe yet: the log
-is appended to and read in-process.)
+invalidation. The filer server streams it to remote consumers over
+/ws/meta_subscribe (server/filer_server.py; rpc/meta_subscriber.py is
+the client).
 
 Events are dicts:
   {"ts_ns": int, "directory": str,

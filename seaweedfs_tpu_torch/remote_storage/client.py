@@ -8,9 +8,10 @@ WriteDirectory / RemoveDirectory) with a factory registry keyed by type
 in any environment: a local directory (tests, NFS-style mounts — the
 reference's localsink analogue) and any S3-compatible endpoint via the
 in-tree SigV4 signer. The cold tier of the master's tiering controller
-(master/tiering.py, storage/store.py tier_offload_ec) is one of these.
-The JAX package's in-tree `gcs` and `azure` REST clients are not in
-seaweedfs_tpu_torch yet: `make_client` names them in a clear error.
+(master/tiering.py, storage/store.py tier_offload_ec) and the filer's
+remote mounts (remote_storage/mount.py) are built from this registry;
+the in-tree `gcs` and `azure` REST clients (gcs_client.py,
+azure_client.py) register themselves here when the package is imported.
 """
 from __future__ import annotations
 
@@ -178,10 +179,9 @@ _makers: dict[str, Callable[..., RemoteStorageClient]] = {
 
 # present in the reference via cloud SDKs not shipped in this image;
 # named so configuration errors are explicit, not "unknown type".
-# (b2's S3-compatible endpoint works through type "s3".)
+# (gcs and azure are real in-tree REST clients; b2's S3-compatible
+# endpoint works through type "s3".)
 UNAVAILABLE_TYPES = ("aliyun", "tencent", "wasabi", "hdfs")
-# in-tree REST clients of seaweedfs_tpu not ported yet
-UNPORTED_TYPES = ("gcs", "azure")
 
 
 def register_remote(type_name: str,
@@ -215,10 +215,6 @@ def parse_remote_spec(spec: str) -> dict:
 
 def make_client(conf: dict) -> RemoteStorageClient:
     t = conf.get("type", "")
-    if t in UNPORTED_TYPES and t not in _makers:
-        raise KeyError(
-            f"remote storage type {t!r} is not yet in "
-            "seaweedfs_tpu_torch; available: " + ", ".join(sorted(_makers)))
     if t in UNAVAILABLE_TYPES:
         raise KeyError(
             f"remote storage type {t!r} needs a cloud SDK not present "

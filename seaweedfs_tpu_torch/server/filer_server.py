@@ -1,10 +1,13 @@
-"""Filer server: the namespace over HTTP, its KV side channel and the
-DLM's lock routes; the counterpart of seaweedfs_tpu/server/filer_server.py.
+"""Filer server: the namespace over HTTP, its KV side channel, the
+DLM's lock routes, the metadata subscription stream and remote mounts;
+the counterpart of seaweedfs_tpu/server/filer_server.py.
 
 Equivalents: SeaweedFS weed/server/filer_server_handlers_write_autochunk.go:25-130
 (upload auto-chunking), filer_server_handlers_read.go (ranged streaming
 reads), _read_dir.go (listing), filer_grpc_server_kv.go (KV),
-filer_grpc_server_dlm.go (the distributed lock manager) and the rename
+filer_grpc_server_dlm.go (the distributed lock manager),
+filer_grpc_server_sub_meta.go (metadata subscription — here a
+websocket), filer_grpc_server_remote.go (remote mounts) and the rename
 rpc (filer_grpc_server_rename.go) via `mv.from`.
 
 Uploads split the body into `-maxMB` chunks (8 MiB): each is assigned a
@@ -52,9 +55,24 @@ owns the public port when it runs: this app serves what it relays, and
 `native_writes_ok` is the gate that lets the front take PUT and DELETE
 while this server would apply its defaults verbatim.
 
-Not here: /ws/meta_subscribe, remote storage mounts (cacheRemote /
-uncacheRemote), -encryptVolumeData, the sharded and caching stores,
-the browser (text/html) listing view.
+/ws/meta_subscribe (`path_prefix`, `since_ns`, `client_id`) streams the
+event log (filer/event_log.py) as one text frame of event JSON per
+mutation under the prefix, from the first event after `since_ns`. Each
+subscription holds its connection's thread; stop ends every one of them
+(their sockets are shut down and their loops see the stop flag).
+
+Remote mounts (remote_storage/mount.py, the KV key etc/remote.conf):
+an entry under a mount with no chunks and an `extended["remote"]`
+record is read through to its cloud object, whole or ranged (streamed
+in `-maxMB` pieces); `?cacheRemote` copies its bytes into volumes in
+`-maxMB` chunks of the entry's collection, `?uncacheRemote` drops them
+again (the deletion thread frees them); both verbs pass a read-only
+filer.conf rule, as they move bytes, not content. A KV write of the
+conf drops the cached conf and clients at once (another filer's edit
+is seen within _REMOTE_CONF_TTL).
+
+Not here: -encryptVolumeData, the sharded and caching stores, the
+browser (text/html) listing view.
 """
 from __future__ import annotations
 
@@ -68,6 +86,7 @@ import functools
 import hashlib
 import json
 import mimetypes
+import queue
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -87,6 +106,7 @@ from ..rpc.http import (App, Request, Response, debug_index_factory,
                         server_middlewares,
                         json_response, text_response)
 from ..rpc.httpclient import session
+from ..rpc.websocket import WebSocket, upgrade
 from ..utils import (compression, extheaders, glog, httprange, metrics, qos,
                      retry, tracing)
 from ..wdclient.client import MasterClient
@@ -139,6 +159,9 @@ class FilerServer:
     _FID_TOKEN_MAX_AGE = 7.0
     DELETION_INTERVAL = 0.3
     _FILER_CONF_TTL = 2.0  # backstop for edits via another filer
+    _REMOTE_CONF_TTL = 2.0  # backstop for conf edits via another filer
+    # how often an idle subscription looks at its stop flag
+    SUBSCRIBE_POLL = 0.25
 
     def __init__(self, master_url: str, store: str = "memory",
                  store_path: str = ":memory:",
@@ -167,6 +190,10 @@ class FilerServer:
         self._fid_pools: dict[tuple, collections.deque] = {}
         self._fid_lock = threading.Lock()
         self._filer_conf_cache: tuple[FilerConf, float] | None = None
+        self._remote_conf_cache = None
+        self._remote_clients: dict[tuple, object] = {}
+        self._subscribers: set[WebSocket] = set()
+        self._subs_lock = threading.Lock()
         self._uploads = ThreadPoolExecutor(max_workers=16,
                                            thread_name_prefix="filer-up")
         self._stop = threading.Event()
@@ -197,6 +224,10 @@ class FilerServer:
         still queued (orphans would survive only as vacuum work), and
         tell the master this filer left."""
         self._stop.set()
+        with self._subs_lock:
+            subscribers = list(self._subscribers)
+        for ws in subscribers:
+            ws.abort()      # a subscriber blocked on a send ends too
         for t in self._threads:
             t.join(timeout=JOIN_TIMEOUT)
         self._threads = []
@@ -280,6 +311,7 @@ class FilerServer:
         app.get("/debug/qos", qos.handle_debug_qos)
         app.get("/debug/ec", self.handle_debug_ec)
         app.get("/debug/filer", self.handle_debug_filer)
+        app.get("/ws/meta_subscribe", self.handle_meta_subscribe)
         app.post("/dlm/lock", _errors(self.handle_dlm_lock))
         app.post("/dlm/unlock", _errors(self.handle_dlm_unlock))
         app.post("/dlm/find", _errors(self.handle_dlm_find))
@@ -458,6 +490,51 @@ class FilerServer:
         self._filer_conf_cache = (conf, now)
         return conf
 
+    # -- remote storage (weed/filer/remote_storage.go) ------------------
+    def _remote_conf(self):
+        """Cached remote conf: dropped on local KV writes of the conf
+        key, TTL-refreshed otherwise — read-through GETs must not pay a
+        store read + JSON parse per request."""
+        from ..remote_storage import RemoteConf
+        from ..remote_storage.mount import CONF_KEY
+
+        cached = self._remote_conf_cache
+        now = time.monotonic()
+        if cached is not None and now - cached[1] < self._REMOTE_CONF_TTL:
+            return cached[0]
+        raw = self.filer.store.kv_get(CONF_KEY)
+        conf = RemoteConf.from_json(raw) if raw else RemoteConf()
+        self._remote_conf_cache = (conf, now)
+        return conf
+
+    def _invalidate_remote_conf(self, key: str) -> None:
+        from ..remote_storage.mount import CONF_KEY
+
+        if key == CONF_KEY:
+            self._remote_conf_cache = None
+            self._remote_clients = {}
+        if key == FILER_CONF_KEY:
+            self._filer_conf_cache = None
+
+    def _remote_client_for(self, path: str):
+        """-> (client, object key) for a path under a remote mount, or
+        None when the path isn't mounted. Clients are memoized per
+        storage name and conf."""
+        from ..remote_storage import find_mount, make_client, remote_key_for
+
+        conf = self._remote_conf()
+        mount = find_mount(conf, path)
+        if mount is None:
+            return None
+        storage = conf.storages.get(mount.storage)
+        if storage is None:
+            return None
+        clients = self._remote_clients
+        ck = (mount.storage, json.dumps(storage, sort_keys=True))
+        if ck not in clients:
+            clients[ck] = make_client(storage)
+        return clients[ck], remote_key_for(mount, path)
+
     def native_writes_ok(self) -> bool:
         """The native filer front's writes gate (filer/native_front.py):
         True while a PUT here would be a pure default single-chunk
@@ -499,8 +576,15 @@ class FilerServer:
             return json_response(d)
         if entry.is_directory:
             return self._list_dir(req, path)
-        size = entry.file_size
-        etag = entry.md5 or etag_chunks(entry.chunks)
+        # an uncached remote entry: metadata only, the bytes still in
+        # the cloud — read through (cache explicitly with remote.cache)
+        remote_meta = None
+        if not entry.chunks and entry.extended.get("remote"):
+            remote_meta = json.loads(entry.extended["remote"])
+        size = int(remote_meta["size"]) if remote_meta \
+            else entry.file_size
+        etag = entry.md5 or (remote_meta or {}).get("etag") \
+            or etag_chunks(entry.chunks)
         mime = (entry.mime or mimetypes.guess_type(path)[0]
                 or "application/octet-stream")
         headers = {"ETag": f'"{etag}"', "Accept-Ranges": "bytes",
@@ -540,7 +624,7 @@ class FilerServer:
             headers["Content-Length"] = str(size if multi else length)
             return Response(status=200 if multi else status,
                             headers=headers)
-        if entry.content and not entry.chunks:
+        if entry.content and not entry.chunks and remote_meta is None:
             # inline small file (entry.Content, filer/stream.go:28):
             # the bytes live in the metadata entry — no volume trip
             if multi is not None:
@@ -552,6 +636,9 @@ class FilerServer:
                 return Response(mbody, 206, headers)
             return Response(entry.content[offset:offset + length],
                             status, headers)
+        if remote_meta is not None:
+            return self._read_through(path, remote_meta, multi, offset,
+                                      length, status, headers, mime, size)
         if multi is not None:
             parts = [(m_off, m_len,
                       stream_content(self._lookup_fid, entry.chunks,
@@ -565,6 +652,51 @@ class FilerServer:
         return Response(status=status, headers=headers, length=length,
                         stream=iter_content(self._lookup_fid,
                                             entry.chunks, offset, length))
+
+    def _read_through(self, path: str, remote_meta: dict,
+                      multi: list[tuple[int, int]] | None, offset: int,
+                      length: int, status: int, headers: dict, mime: str,
+                      size: int) -> Response:
+        """The bytes of an uncached remote entry, from its cloud object:
+        several ranges as multipart/byteranges, else one span streamed
+        in chunk_size pieces (an empty span streams nothing)."""
+        found = self._remote_client_for(path)
+        if found is None:
+            return json_response(
+                {"error": f"{path} is remote but its mount/storage is no "
+                          "longer configured"}, status=502)
+        client, _ = found
+        key = remote_meta["key"]
+        if multi is not None:
+            parts = [(m_off, m_len, client.read_file(key, m_off, m_len))
+                     for m_off, m_len in multi]
+            mbody, mct = httprange.multipart_byteranges(parts, mime, size)
+            headers["Content-Type"] = mct
+            return Response(mbody, 206, headers)
+        end = offset + length
+
+        def read(at: int) -> bytes:
+            piece = client.read_file(key, at, min(self.chunk_size, end - at))
+            if not piece:
+                raise IOError(f"remote object {key} ended at {at}, "
+                              f"expected {end} bytes")
+            return piece
+
+        # the first piece before the status goes out: a cloud that fails
+        # is answered as an error, as the reference answers it
+        first = read(offset) if length else b""
+
+        def pieces():
+            at = offset + len(first)
+            if first:
+                yield first
+            while at < end:
+                piece = read(at)
+                at += len(piece)
+                yield piece
+
+        return Response(status=status, headers=headers, length=length,
+                        stream=pieces())
 
     def _list_dir(self, req: Request, path: str) -> Response:
         limit = int(req.query.get("limit", "1024"))
@@ -601,8 +733,10 @@ class FilerServer:
         signatures = _parse_signatures(req.query.get("signatures", ""))
         # per-path rules, checked before every mutating verb
         # (detectStorageOption, filer_server_handlers_write.go:219)
+        # remote cache / uncache are exempt: they move bytes, not content
         rule = self._filer_conf().match(path)
-        if rule.read_only:
+        if rule.read_only and "cacheRemote" not in req.query \
+                and "uncacheRemote" not in req.query:
             return json_response(
                 {"error": f"{rule.location_prefix or path} is read-only "
                           "by filer.conf rule"}, status=403)
@@ -631,6 +765,10 @@ class FilerServer:
             e = self.filer.link(req.query["link.from"], path,
                                 signatures=signatures)
             return json_response(e.to_dict(), status=201)
+        if "cacheRemote" in req.query:
+            return self._cache_remote(path, signatures)
+        if "uncacheRemote" in req.query:
+            return self._uncache_remote(path, signatures)
         if "meta" in req.query:
             # raw entry create: the body is an Entry dict whose chunks
             # point at already-uploaded fids (filer_pb CreateEntry —
@@ -801,6 +939,68 @@ class FilerServer:
             {"name": filename, "size": total,
              "etag": entry.md5 or etag_chunks(chunks)}, status=201)
 
+    def _cache_remote(self, path: str,
+                      signatures: list[int] | None) -> Response:
+        """Pull a remote entry's bytes into cluster chunks
+        (CacheRemoteObjectToLocalCluster, filer_grpc_server_remote.go):
+        afterwards reads are local; the remote metadata stays so uncache
+        can drop the copy again."""
+        entry = self.filer.find_entry(path)
+        if entry is None or entry.is_directory:
+            return json_response({"error": f"no file at {path}"},
+                                 status=404)
+        if not entry.extended.get("remote"):
+            return json_response(
+                {"error": f"{path} is not a remote entry"}, status=400)
+        if entry.chunks:  # already cached
+            return json_response(entry.to_dict())
+        meta = json.loads(entry.extended["remote"])
+        found = self._remote_client_for(path)
+        if found is None:
+            return json_response(
+                {"error": "mount/storage no longer configured"},
+                status=502)
+        client, _ = found
+        name = path.rsplit("/", 1)[-1]
+        chunks, offset = [], 0
+        size = int(meta["size"])
+        while offset < size:  # empty files need no chunks
+            want = min(self.chunk_size, size - offset)
+            piece = client.read_file(meta["key"], offset, want)
+            if not piece:
+                self._delete_chunks(chunks)
+                return json_response(
+                    {"error": f"remote object {meta['key']} ended at "
+                              f"{offset}, expected {size} bytes"},
+                    status=502)
+            fid, etag = self._upload_chunk(piece, name, entry.collection,
+                                           entry.replication, "")
+            chunks.append(FileChunk(fid=fid, offset=offset,
+                                    size=len(piece),
+                                    mtime_ns=time.time_ns(), etag=etag))
+            offset += len(piece)
+        entry.chunks = chunks
+        self.filer.create_entry(entry, signatures=signatures)
+        return json_response(entry.to_dict())
+
+    def _uncache_remote(self, path: str,
+                        signatures: list[int] | None) -> Response:
+        """Drop the local chunk copy of a cached remote entry, leaving
+        metadata that reads through to the cloud again
+        (shell command_remote_uncache.go)."""
+        entry = self.filer.find_entry(path)
+        if entry is None or entry.is_directory:
+            return json_response({"error": f"no file at {path}"},
+                                 status=404)
+        if not entry.extended.get("remote"):
+            return json_response(
+                {"error": f"{path} is not a remote entry"}, status=400)
+        dead = entry.chunks
+        entry.chunks = []
+        self.filer.create_entry(entry, signatures=signatures)
+        self._delete_chunks(dead)  # queued; the deletion thread frees them
+        return json_response(entry.to_dict())
+
     def handle_delete(self, req: Request) -> Response:
         path = norm_path("/" + req.match_info["path"])
         if self._filer_conf().match(path).read_only:
@@ -833,13 +1033,49 @@ class FilerServer:
     def handle_kv_put(self, req: Request) -> Response:
         key = req.match_info["key"]
         self.filer.store.kv_put(key, req.read())
-        if key == FILER_CONF_KEY:
-            self._filer_conf_cache = None
+        self._invalidate_remote_conf(key)
         return json_response({})
 
     def handle_kv_delete(self, req: Request) -> Response:
         self.filer.store.kv_delete(req.match_info["key"])
         return json_response({}, status=204)
+
+    # -- metadata subscription (filer_grpc_server_sub_meta.go) ----------
+    def handle_meta_subscribe(self, req: Request) -> Response:
+        """Push metadata events (filer.proto:57-60 SubscribeMetadata).
+        Query: path_prefix, since_ns, client_id (signature)."""
+        prefix = req.query.get("path_prefix", "/")
+        since = int(req.query.get("since_ns", "0"))
+        under = prefix.rstrip("/") + "/"
+
+        def serve(ws: WebSocket) -> None:
+            ended = threading.Event()
+
+            def read() -> None:    # answers pings; sees the client go
+                while ws.receive() is not None:
+                    pass
+                ended.set()
+
+            sid, q = self.filer.meta_log.subscribe(since_ts_ns=since)
+            with self._subs_lock:
+                self._subscribers.add(ws)
+            threading.Thread(target=read, name="meta-subscribe-read",
+                             daemon=True).start()
+            try:
+                while not ended.is_set() and not self._stop.is_set():
+                    try:
+                        ev = q.get(timeout=self.SUBSCRIBE_POLL)
+                    except queue.Empty:
+                        continue
+                    if (ev["directory"] + "/").startswith(under):
+                        ws.send_json(ev)
+            except OSError:
+                pass            # the client went away mid-send
+            finally:
+                self.filer.meta_log.unsubscribe(sid)
+                with self._subs_lock:
+                    self._subscribers.discard(ws)
+        return upgrade(req, serve)
 
     # -- misc -----------------------------------------------------------
     def handle_status(self, req: Request) -> Response:

@@ -18,6 +18,7 @@ A follower reads an empty topology, so the shell never reads one.
 """
 from __future__ import annotations
 
+import posixpath
 import time
 
 from ..ec import geometry as geo
@@ -41,8 +42,17 @@ class CommandEnv:
         self.filer_url = filer_url.rstrip("/")
         self.locked = False
         self._dlm = None
+        # fs.cd / fs.pwd working directory (commands.go option.directory)
+        self.cwd = "/"
 
     ADMIN_LOCK = "admin"  # cluster-wide exclusive shell lock name
+
+    def resolve(self, path: str) -> str:
+        """Resolve a possibly-relative shell path against fs.cd's cwd."""
+        if not path.startswith("/"):
+            path = posixpath.join(self.cwd, path)
+        norm = posixpath.normpath(path)
+        return norm if norm != "." else "/"
 
     # -- master helpers -------------------------------------------------
     @property

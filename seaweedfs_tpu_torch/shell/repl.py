@@ -4,9 +4,11 @@ Equivalent of SeaweedFS weed/shell/shell_liner.go: a line-based REPL
 over the command registry, with the admin lock (commands.go:78). The
 port's registry holds lock / unlock, cluster.check, cluster.ps and the
 cluster.raft.* commands, the collection.* and volume.* commands (scrub,
-vacuum, replication, mount, move, the volume.tier.* remote tier, ...)
-and the ec.* commands; every other command of the reference (fs.*,
-remote.*, s3.*, mq.*) is not ported and answers "unknown command".
+vacuum, replication, mount, move, the volume.tier.* remote tier, ...),
+the ec.* commands, the filer's fs.* commands and mount.configure, the
+remote.* mounts and the s3.* gateway state. `fs.meta.notify` raises
+until the notification queues are ported; the mq.topic.* commands are
+not ported and answer "unknown command".
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import json
 import shlex
 
 from ..remote_storage.client import parse_remote_spec
-from . import commands_cluster, commands_ec, commands_volume
+from . import (commands_cluster, commands_ec, commands_fs,
+               commands_remote, commands_s3, commands_volume)
 from .env import CommandEnv, ShellError
 
 HELP = """commands:
@@ -57,6 +60,39 @@ HELP = """commands:
   ec.rebuild -volumeId=N            rebuild missing shards
   ec.balance                        even out shard counts
   ec.decode -volumeId=N             decode shards back to a volume
+  fs.cd <dir> / fs.pwd              shell working directory
+  fs.ls [-l] <dir>                  list a filer directory
+  fs.cat <file>                     print file contents
+  fs.du <dir>                       recursive usage
+  fs.tree <dir>                     recursive listing
+  fs.mkdir <dir>                    create a directory
+  fs.rm [-r] <path>                 delete
+  fs.mv <src> <dst>                 rename/move
+  fs.meta.save <dir> <out.jsonl>    snapshot metadata
+  fs.meta.load <in.jsonl>           restore metadata
+  fs.meta.cat <path>                print one entry's stored metadata
+  fs.meta.notify <dir>              (needs notification/: not ported)
+  fs.meta.changeVolumeId <dir> -mapping=old:new[,..] [-apply]
+  mount.configure -dir=/d -quotaMB=N   per-mount quota (0 clears)
+  fs.verify <dir>                   check chunks are readable
+  fs.configure [-locationPrefix=/p -collection=C -ttl=1d -readOnly=true
+                -replication=001 -maxFileNameLength=N -delete -apply]
+  remote.configure [-name=X -type=s3|local ...] [-delete]
+  remote.mount [-dir=/d -remote=storage/prefix]
+  remote.mount.buckets -remote=storage [-bucketPattern=glob]
+  remote.unmount -dir=/d
+  remote.meta.sync -dir=/d          pull remote listing into metadata
+  remote.cache -dir=/d              materialise remote files locally
+  remote.uncache -dir=/d            drop local copies, keep metadata
+  s3.configure [-user=U -access_key=AK -secret_key=SK
+                -actions=Read,Write -delete -apply]
+  s3.bucket.list / s3.bucket.create -name=B
+  s3.bucket.delete -name=B [-includeObjects]
+  s3.bucket.quota -name=B [-quotaMB=N]   show/set quota (0 clears)
+  s3.bucket.quota.enforce           mark over-quota buckets read-only
+  s3.clean.uploads [-timeAgo=86400] abort stale multipart uploads
+  s3.circuit.breaker [-global='{"writeCount":32}'
+                      -bucket=B -bucketConf='{...}' -delete -apply]
   help / exit
 """
 
@@ -78,9 +114,11 @@ def run_command(env: CommandEnv, line: str) -> object:
         else:
             pos.append(a)
 
-    def arg(i: int) -> str:
+    def arg(i: int, default: str | None = None) -> str:
         if i < len(pos):
             return pos[i]
+        if default is not None:
+            return default
         raise ShellError(f"{cmd}: missing argument {i + 1}")
 
     if cmd == "lock":
@@ -199,6 +237,112 @@ def run_command(env: CommandEnv, line: str) -> object:
             env, int(opts["volumeId"]),
             sample_mb=int(opts.get("sampleMB", 4)),
             backend=opts.get("backend", "numpy"))
+    # -- filesystem -----------------------------------------------------
+    def rarg(i: int, default: str | None = None) -> str:
+        # fs paths resolve against the fs.cd working directory
+        return env.resolve(arg(i, default))
+
+    if cmd == "fs.cd":
+        return commands_fs.fs_cd(env, arg(0, "/"))
+    if cmd == "fs.pwd":
+        return commands_fs.fs_pwd(env)
+    if cmd == "fs.ls":
+        return commands_fs.fs_ls(env, rarg(0, "."), long="l" in opts)
+    if cmd == "fs.cat":
+        return commands_fs.fs_cat(env, rarg(0)).decode(errors="replace")
+    if cmd == "fs.du":
+        return commands_fs.fs_du(env, rarg(0, "."))
+    if cmd == "fs.tree":
+        return "\n".join(commands_fs.fs_tree(env, rarg(0, ".")))
+    if cmd == "fs.mkdir":
+        return commands_fs.fs_mkdir(env, rarg(0))
+    if cmd == "fs.rm":
+        commands_fs.fs_rm(env, rarg(0), recursive="r" in opts)
+        return "removed"
+    if cmd == "fs.mv":
+        commands_fs.fs_mv(env, rarg(0), rarg(1))
+        return "moved"
+    if cmd == "fs.meta.save":
+        n = commands_fs.fs_meta_save(env, rarg(0, "."),
+                                     arg(1, "meta.jsonl"))
+        return f"saved {n} entries"
+    if cmd == "fs.meta.load":
+        n = commands_fs.fs_meta_load(env, arg(0))
+        return f"loaded {n} entries"
+    if cmd == "fs.meta.cat":
+        return commands_fs.fs_meta_cat(env, rarg(0))
+    if cmd == "fs.meta.notify":
+        return commands_fs.fs_meta_notify(env, rarg(0, "."))
+    if cmd == "fs.meta.changeVolumeId":
+        return commands_fs.fs_meta_change_volume_id(
+            env, rarg(0, "."), opts.get("mapping", ""),
+            apply="apply" in opts or "force" in opts)
+    if cmd == "fs.verify":
+        return commands_fs.fs_verify(env, rarg(0, "."))
+    if cmd == "mount.configure":
+        return commands_fs.mount_configure(
+            env, opts.get("dir", ""),
+            int(opts.get("quotaMB", "-1")))
+    if cmd == "fs.configure":
+        return commands_fs.fs_configure(
+            env, opts.pop("locationPrefix", ""),
+            delete=opts.pop("delete", "") == "true",
+            apply=opts.pop("apply", "") == "true", **opts)
+    # -- remote storage -------------------------------------------------
+    if cmd == "remote.configure":
+        conf = {k: v for k, v in opts.items()
+                if k not in ("name", "delete")}
+        return commands_remote.remote_configure(
+            env, opts.get("name", ""), delete="delete" in opts, **conf)
+    if cmd == "remote.mount":
+        return commands_remote.remote_mount(
+            env, opts.get("dir", ""), opts.get("remote", ""))
+    if cmd == "remote.mount.buckets":
+        return commands_remote.remote_mount_buckets(
+            env, opts.get("remote", ""),
+            opts.get("bucketPattern", ""))
+    if cmd == "remote.unmount":
+        return commands_remote.remote_unmount(env, opts["dir"])
+    if cmd == "remote.meta.sync":
+        return commands_remote.remote_meta_sync(env, opts["dir"])
+    if cmd == "remote.cache":
+        return commands_remote.remote_cache(env, opts["dir"])
+    if cmd == "remote.uncache":
+        return commands_remote.remote_uncache(env, opts["dir"])
+    # -- s3 gateway state -----------------------------------------------
+    if cmd == "s3.configure":
+        return commands_s3.s3_configure(
+            env, user=opts.get("user", ""),
+            access_key=opts.get("access_key", ""),
+            secret_key=opts.get("secret_key", ""),
+            actions=opts.get("actions", ""),
+            delete=opts.get("delete", "") == "true",
+            apply=opts.get("apply", "") == "true")
+    if cmd == "s3.bucket.list":
+        return commands_s3.s3_bucket_list(env)
+    if cmd == "s3.bucket.create":
+        return commands_s3.s3_bucket_create(
+            env, opts.get("name") or arg(0, ""))
+    if cmd == "s3.bucket.delete":
+        return commands_s3.s3_bucket_delete(
+            env, opts.get("name") or arg(0, ""),
+            include_objects=opts.get("includeObjects", "") == "true")
+    if cmd == "s3.bucket.quota":
+        return commands_s3.s3_bucket_quota(
+            env, opts.get("name") or arg(0, ""),
+            quota_mb=int(opts.get("quotaMB", "-1")))
+    if cmd == "s3.bucket.quota.enforce":
+        return commands_s3.s3_bucket_quota_enforce(env)
+    if cmd == "s3.clean.uploads":
+        return commands_s3.s3_clean_uploads(
+            env, time_ago_seconds=int(opts.get("timeAgo", "86400")))
+    if cmd == "s3.circuit.breaker":
+        return commands_s3.s3_circuit_breaker(
+            env, global_conf=opts.get("global", ""),
+            bucket=opts.get("bucket", ""),
+            bucket_conf=opts.get("bucketConf", ""),
+            delete=opts.get("delete", "") == "true",
+            apply=opts.get("apply", "") == "true")
     if cmd == "help":
         return HELP
     raise ShellError(f"unknown command {cmd!r} (try `help`)")

@@ -2,8 +2,8 @@
 
 * The cases of tests/test_filer_server.py run unchanged against a port
   `Cluster(with_filer=True)` (tests/torch_port_cases.py rebinds
-  `Cluster`; the cases talk HTTP through `requests`). Not run: the
-  websocket metadata subscription and the aiohttp hedged-read
+  `Cluster`; the cases talk HTTP through `requests`), the websocket
+  metadata subscription included. Not run: the aiohttp hedged-read
   internals, which the port does not have.
 * The same requests to a reference `Cluster(with_filer=True)` and to
   the port's get the same statuses, bodies, listing JSON (timestamps
@@ -37,8 +37,7 @@ SEED = 20261017
 PortCluster = functools.partial(Cluster, ec_backend="native")
 CASES = port_cases(
     ref_cases, Cluster=PortCluster,
-    skip=("TestMetaSubscription.test_ws_stream_receives_events",
-          "TestAsyncHedgedReadFailover.test_primary_fast_failure_fails_over",
+    skip=("TestAsyncHedgedReadFailover.test_primary_fast_failure_fails_over",
           "TestAsyncHedgedReadFailover.test_slow_primary_hedges_and_loser_is_cancelled",
           "TestAsyncHedgedReadFailover.test_all_replicas_down_returns_none_for_fallback"))
 

@@ -471,3 +471,28 @@ def test_data_plane_builds_from_the_port_tree(monkeypatch):
     with open(os.path.join(port_native, "dataplane.py"),
               encoding="utf-8") as f:
         assert "ctypes.CDLL(_b.build_dataplane(" in f.read()
+
+
+REMOTE_MOUNT_LAYER = ["rpc/meta_subscriber.py", "remote_storage/__init__.py",
+                      "remote_storage/mount.py", "remote_storage/client.py",
+                      "remote_storage/gcs_client.py",
+                      "remote_storage/azure_client.py",
+                      "remote_storage/sync.py", "remote_storage/gateway.py",
+                      "utils/rs256.py", "utils/gcp_auth.py",
+                      "shell/commands_fs.py", "shell/commands_s3.py",
+                      "shell/commands_remote.py", "shell/repl.py",
+                      "shell/env.py", "server/filer_server.py",
+                      "filer/event_log.py", "cli.py"]
+
+
+@pytest.mark.parametrize("module", REMOTE_MOUNT_LAYER)
+def test_scan_covers_the_remote_mount_layer(module):
+    """The metadata-stream and remote-mount slice's new and changed
+    modules are scanned, each has its reference at the same path, and
+    none imports jax, seaweedfs_tpu, aiohttp, requests or anything the
+    card's machine lacks."""
+    path = os.path.join(REPO, "seaweedfs_tpu_torch", module)
+    assert path in _port_python_files()
+    assert os.path.exists(os.path.join(REPO, "seaweedfs_tpu", module))
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _forbidden(n) or _outside_the_card(n)]

@@ -4,8 +4,7 @@
   reads, head, traverse, directories, delete) give the same answers in
   both packages, and both refuse a key that escapes the root;
   `parse_remote_spec` / `make_client` accept and refuse the same specs
-  (the port names the JAX package's `gcs` / `azure` REST clients as
-  not yet ported, never as an unknown type).
+  (the `gcs` / `azure` REST clients included).
 * `tier_shard_key` equal.
 * A volume's .dat tiered to an S3 bucket (a port gateway):
   `Volume.tier_upload` writes the same .vif and the same object in both
@@ -182,16 +181,34 @@ def test_make_client_refuses_as_the_reference(conf):
     for pkg in PKGS.values():
         with pytest.raises((KeyError, ValueError)) as ei:
             pkg.remote.make_client(dict(conf))
-        # the registries differ (gcs and azure are not ported): compare
-        # the messages up to the list of known types
+        # compare the messages up to the list of known types
         outs.append((ei.type, str(ei.value).split("; ")[0]))
     assert outs[1] == outs[0]
 
 
 @pytest.mark.parametrize("kind", ["gcs", "azure"])
 def test_make_client_names_the_unported_clients(kind):
-    with pytest.raises(KeyError, match="not yet in seaweedfs_tpu_torch"):
-        port_remote.make_client({"type": kind, "bucket": "b"})
+    """gcs and azure are ported now: both packages build the same client
+    from the same conf and refuse an incomplete one alike."""
+    conf = {"gcs": {"type": "gcs", "bucket": "b",
+                    "endpoint": "http://127.0.0.1:1", "token": "t"},
+            "azure": {"type": "azure", "account": "acct",
+                      "key": "a2V5", "container": "c",
+                      "endpoint": "http://127.0.0.1:1"}}[kind]
+    import seaweedfs_tpu.remote_storage as ref_pkg
+    import seaweedfs_tpu_torch.remote_storage as port_pkg
+
+    built = {}
+    for name, pkg in (("reference", ref_pkg), ("port", port_pkg)):
+        c = pkg.make_client(dict(conf))
+        built[name] = (type(c).__name__, {k: v for k, v in vars(c).items()
+                                          if isinstance(v, str)})
+        with pytest.raises(ValueError) as ei:
+            pkg.make_client({"type": kind})
+        built[name] += (str(ei.value),)
+    assert built["port"] == built["reference"]
+    assert built["port"][0] == {"gcs": "GcsRemoteClient",
+                                "azure": "AzureRemoteClient"}[kind]
 
 
 def test_make_client_builds_both_kinds(tmp_path):

@@ -384,8 +384,11 @@ def test_repl_dispatches_every_volume_command(cluster, env):
              f"ec volume {vid} not found")):
         with pytest.raises(ShellError, match=why):
             run(line)
+    # fs.ls answers now (here from the stub filer's listing); mq.topic.*
+    # is still not ported
+    assert isinstance(run("fs.ls /"), list)
     with pytest.raises(ShellError, match="unknown command"):
-        run("fs.ls /")
+        run("mq.topic.list")
 
 
 def test_vacuum_routes_answer_as_the_reference(cluster):

@@ -126,3 +126,29 @@ def swap_modules(mapping: dict, parents: bool = False):
                 delattr(pkg, leaf)
             else:
                 setattr(pkg, leaf, old)
+
+
+def within(seconds: float, fn, *args, **kwargs):
+    """fn(*args, **kwargs) on a daemon thread, failing the test (never
+    hanging the run) when it has not returned in `seconds` — a cluster's
+    start or stop that waits on a stuck websocket subscription ends up
+    here, not in the run's own time limit."""
+    import threading
+
+    out: dict = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise AssertionError(f"{getattr(fn, '__qualname__', fn)} did not "
+                             f"return within {seconds} s")
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
