@@ -366,8 +366,8 @@ Phases, each fatal on failure (exit code 1, no result line):
       relays; `volume_server_paged_reads_total` +1); a 5 MiB
       multipart/form-data POST stored with its file name and type.
       MB/s of the upload, the download and the paged GET.
-   b. `benchmark -client native -n 16384 -size 4096 -c 8` and `-client
-      python -n 2048`: writes/s and reads/s with p50 / p99.
+   b. `benchmark -client native -n 8192 -size 4096 -c 8` and `-client
+      python -n 1024`: writes/s and reads/s with p50 / p99.
    c. V, the volume holding the most of the file (at least half):
       `backup` (a full copy), 128 x 1 MiB needles added to V by fid,
       `backup` again (only the new records: the bytes pulled within 1%
@@ -392,14 +392,14 @@ Phases, each fatal on failure (exit code 1, no result line):
 17. A cloud bucket mounted under the filer (SeaweedFS's documented
    `remote.configure -type=s3` + `remote.mount`). The cloud: a second
    port cluster's S3 gateway holding bucket cloud17, seeded: 4 objects
-   of 64 MiB and 48 of 16 MiB (1 GiB) and 512 of 1-64 KiB
+   of 64 MiB and 48 of 16 MiB (1 GiB) and 256 of 1-64 KiB
    (log-uniform) under 8 prefixes. The main cluster: four in-process
    volume servers with ec_backend="cuda", a 1 GiB volume limit and a
    sqlite filer; `filer.remote.sync -dir /mnt/cloud17` and
    `filer.remote.gateway -createBucketAt cloud` run as CLI processes.
    Each step is fatal on failure:
    a. remote.configure, remote.mount, remote.meta.sync: fs.ls / fs.du
-      show the 564 objects as files, bytes summing to the cloud's;
+      show the 308 objects as files, bytes summing to the cloud's;
       entries/s.
    b. Read-through of uncached entries: the 4 large and 256 small
       objects GET sha256-equal, one ranged GET per large one equal;
@@ -420,6 +420,46 @@ Phases, each fatal on failure (exit code 1, no result line):
    h. s3.bucket.create b17: the gateway maps /buckets/b17 to cloud/b17;
       16 objects written there appear in the cloud equal;
       s3.bucket.delete -includeObjects=true removes both (waited for).
+
+18. Two data centres kept in sync (SeaweedFS's documented `filer.sync`
+   between two filers, with `filer.backup`, `filer.meta.backup`,
+   `filer.replicate` into S3 and a notification queue). dc1: three
+   in-process volume servers, a sqlite filer; dc2: four (a lost one
+   leaves 10 shards), a sqlite filer and the S3 gateway; both on
+   ec_backend="cuda", volume limit 256 MiB. `filer.sync -a dc1 -b dc2
+   -path /dc` and `filer.backup -path /dc -dir D` run as CLI
+   processes; FilerMetaBackup (sqlite), a Replicator of /dc/small into
+   s3://repl18 on dc2 and a log-queue notifier on dc1's filer in this
+   one. Each step is fatal on failure:
+   a. 14 x 16 MiB and 512 files of 1-64 KiB (log-uniform, 8
+      directories), 232 MiB, written to dc1 on 8 threads: MB/s from the
+      first PUT to the last file's create on dc2; every file
+      sha256-equal on dc2 and in D, every small one md5-equal in
+      repl18, every path in the meta backup, whose listings equal
+      dc1's.
+   b. 64 writes of 1 KiB-4 MiB 100 ms apart on dc1, then 64 on dc2: the
+      lag from the 201 to the create on the other filer, p50 / p99, each
+      way; after 5 s of quiet each of the 128 paths has exactly one
+      event, a create, in each filer's log, the mirrored one signed by
+      its origin (no bounce).
+   c. 16 deletes and 8 renames on dc1 reflected on dc2, in D and in the
+      meta backup.
+   d. The notifier's JSONL holds exactly one line per event under /dc,
+      in order; with `notification.conf` a log queue in dc1's KV,
+      `fs.meta.notify /dc/small` answers the walk's count and writes
+      one create line per entry. (Kafka, SQS and Pub/Sub are held on
+      the CPU only: their doubles need packages the card's machine
+      lacks.)
+   e. ec.encode of dc2's volumes holding the mirror: launches exactly as
+      the `.dat` sizes give (the volume servers' /metrics agree), no
+      repair queued; the tree read back sha256-equal; the server
+      holding the most shards of the largest volume stopped: the 14 big
+      files read degraded, sha256-equal (MB/s); ec.rebuild (launches >
+      0); read again, equal.
+   f. filer.sync and filer.backup stopped, 16 files written to dc1,
+      filer.sync started again: exactly those 16 reach dc2, no earlier
+      path is created twice there, its offset (`sync/<dc2's
+      signature>/offset` in dc1's KV) advanced.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -5704,8 +5744,8 @@ TOOLS_CHUNK_MB = 64              # upload -maxMB
 TOOLS_VOLUME_LIMIT = DAT_BYTES   # the master's volume size limit
 TOOLS_APPEND = 128               # 1 MiB needles added to V by fid (16c)
 TOOLS_FORM_BYTES = 5 << 20       # the multipart/form-data upload
-TOOLS_BENCH_NATIVE = 16384       # benchmark -client native -n
-TOOLS_BENCH_PYTHON = 2048        # benchmark -client python -n
+TOOLS_BENCH_NATIVE = 8192        # benchmark -client native -n
+TOOLS_BENCH_PYTHON = 1024        # benchmark -client python -n
 TOOLS_JSON_DOCS = 4096           # 16e's JSON needles
 TOOLS_THREADS = 8
 
@@ -6280,7 +6320,7 @@ def phase_tools(card: str) -> dict:
 REMOTE_BUCKET = "cloud17"
 REMOTE_MOUNT = "/mnt/cloud17"
 REMOTE_LARGE = ((4, 64 << 20), (48, 16 << 20))  # (count, bytes): 1 GiB
-REMOTE_SMALL = 512                # 1-64 KiB, log-uniform
+REMOTE_SMALL = 256                # 1-64 KiB, log-uniform
 REMOTE_PREFIXES = 8               # the small objects' prefixes
 REMOTE_SMALL_LO, REMOTE_SMALL_HI = 1 << 10, 64 << 10
 REMOTE_THROUGH_SMALL = 256        # 17b's small read-throughs
@@ -6807,6 +6847,606 @@ def phase_remote(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 18: two clusters kept in sync by filer.sync, backed up by
+# filer.backup and filer.meta.backup, mirrored into S3, notified; the
+# second cluster's mirror sealed and rebuilt through the kernel
+# ----------------------------------------------------------------------
+SYNC_ROOT = "/dc"
+SYNC_BUCKET = "repl18"
+SYNC_BIG = (14, 16 << 20)         # (count, bytes) under /dc/big
+SYNC_SMALL = 512                  # 1-64 KiB, log-uniform
+SYNC_PREFIXES = 8                 # the small files' directories
+SYNC_SMALL_LO, SYNC_SMALL_HI = 1 << 10, 64 << 10
+SYNC_LAG_WRITES = 64              # 18b, each way: 1 KiB-4 MiB
+SYNC_LAG_LO, SYNC_LAG_HI = 1 << 10, 4 << 20
+SYNC_SPACING = 0.1                # seconds between 18b's writes
+SYNC_QUIET = 5.0                  # 18b's quiet before the event count
+SYNC_DELETES, SYNC_RENAMES = 16, 8
+SYNC_RESUME = 16                  # 18f's writes while the workers are down
+SYNC_VOLUME_LIMIT = 256 << 20     # the clusters' volume size limit
+SYNC_THREADS = 8
+SYNC_DEADLINE = 120.0             # longest wait for a worker's mirror
+
+
+def _sync_files() -> list[tuple[str, int]]:
+    """(path, size) of 18a's tree, in a fixed order."""
+    n, size = SYNC_BIG
+    out = [(f"{SYNC_ROOT}/big/f-{i:02d}.bin", size) for i in range(n)]
+    rng = np.random.default_rng([SEED, 18])
+    sizes = np.exp(rng.uniform(np.log(SYNC_SMALL_LO), np.log(SYNC_SMALL_HI),
+                               SYNC_SMALL))
+    out += [(f"{SYNC_ROOT}/small/p{j % SYNC_PREFIXES}/s-{j:04d}.bin",
+             int(sz)) for j, sz in enumerate(sizes)]
+    return out
+
+
+def _sync_bytes(path: str, size: int) -> bytes:
+    """A file's bytes, regenerated from the seed on demand."""
+    digest = hashlib.sha256(path.encode()).digest()
+    return np.random.default_rng(
+        [SEED, 18, int.from_bytes(digest[:4], "big")]).bytes(size)
+
+
+def _sync_writes(tag: str, n: int, stream: int) -> dict[str, bytes]:
+    rng = np.random.default_rng([SEED, 18, stream])
+    sizes = np.exp(rng.uniform(np.log(SYNC_LAG_LO), np.log(SYNC_LAG_HI), n))
+    return {f"{SYNC_ROOT}/{tag}-{i:02d}.bin": rng.bytes(int(s))
+            for i, s in enumerate(sizes)}
+
+
+class _Landed:
+    """A filer's create events as they land (its log's sync listener):
+    path -> perf_counter() of the first create."""
+
+    def __init__(self, filer):
+        self.log = filer.meta_log
+        self.at: dict[str, float] = {}
+        self.log.sync_listeners.append(self)
+
+    def __call__(self, ev: dict) -> None:
+        ent = ev["new_entry"]
+        if ent is not None and ev["old_entry"] is None:
+            self.at.setdefault(ent["full_path"], time.perf_counter())
+
+    def close(self) -> None:
+        if self in self.log.sync_listeners:
+            self.log.sync_listeners.remove(self)
+
+
+def _events_by_path(filer, prefix: str) -> dict[str, list[dict]]:
+    out: dict[str, list[dict]] = {}
+    for ev in filer.meta_log.replay(0, prefix):
+        ent = ev["new_entry"] or ev["old_entry"]
+        out.setdefault(ent["full_path"], []).append(ev)
+    return out
+
+
+def _check_files(filer: str, files: dict[str, str], label: str,
+                 threads: int = SYNC_THREADS) -> dict:
+    """GET every path from a filer, each sha256 against `files`.
+    -> wall, bytes, MB/s."""
+    def one(path):
+        r = _filer_get(filer, path)
+        if r.status_code != 200 or _sha(r.content) != files[path]:
+            fail(f"{label}: GET {filer}{path} answered {r.status_code}, "
+                 f"{len(r.content)} B, sha256 off the source's")
+        return len(r.content)
+
+    t0 = time.perf_counter()
+    nbytes = sum(_pool_map(one, sorted(files), threads=threads))
+    wall = time.perf_counter() - t0
+    return {"wall": wall, "bytes": nbytes, "mbps": nbytes / wall / 1e6}
+
+
+def _spaced_writes(filer: str, writes: dict[str, bytes], label: str
+                   ) -> dict[str, float]:
+    """POST each write SYNC_SPACING apart. -> path -> time of its 201."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    acked = {}
+    for path, data in writes.items():
+        t0 = time.perf_counter()
+        r = session().post(f"{filer}{path}", data=data, timeout=60)
+        if r.status_code != 201:
+            fail(f"{label}: write {path} answered {r.status_code}")
+        acked[path] = time.perf_counter()
+        time.sleep(max(0.0, t0 + SYNC_SPACING - acked[path]))
+    return acked
+
+
+def phase_sync(card: str) -> dict:
+    """Phase 18: cluster A (dc1) kept in sync with cluster B (dc2) by
+    filer.sync, backed up by filer.backup (a directory) and
+    FilerMetaBackup (sqlite), its small files mirrored into B's S3
+    gateway, its events published to a log queue; B's mirror sealed,
+    read degraded and rebuilt through the kernel; filer.sync resumed
+    from its offset. -> kernel launches by step, the lags."""
+    from seaweedfs_tpu_torch.filer.entry import entry_size
+    from seaweedfs_tpu_torch.notification import LogFileQueue, attach_notifier
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.replication import Replicator, make_sink
+    from seaweedfs_tpu_torch.replication.meta_backup import FilerMetaBackup
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.commands_fs import _is_dir, _list, _walk
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke18-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    a = b = env_a = env_b = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    workers: list = []
+    landed: list[_Landed] = []
+    queue = pump = None
+    try:
+        # set-up: two clusters, the workers, the notifier
+        t0 = time.perf_counter()
+        a = Cluster(os.path.join(tmp, "dc1"), n_volume_servers=3,
+                    max_volumes=8, volume_size_limit=SYNC_VOLUME_LIMIT,
+                    pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                    topology=[("dc1", f"r{i}") for i in range(3)],
+                    with_filer=True, filer_store="sqlite")
+        b = Cluster(os.path.join(tmp, "dc2"), n_volume_servers=4,
+                    max_volumes=8, volume_size_limit=SYNC_VOLUME_LIMIT,
+                    pulse_seconds=HEAL_PULSE, ec_backend="cuda",
+                    topology=[("dc2", f"r{i}") for i in range(4)],
+                    with_filer=True, filer_store="sqlite", with_s3=True)
+        fa, fb = a.filer_url, b.filer_url
+        env_a = CommandEnv(a.master_url, filer_url=fa)
+        env_b = CommandEnv(b.master_url, filer_url=fb)
+        sig = {name: session().get(f"{f}/status", timeout=30).json()[
+            "signature"] for name, f in (("a", fa), ("b", fb))}
+        r = session().put(f"{b.s3_url}/{SYNC_BUCKET}", timeout=30)
+        if r.status_code != 200:
+            fail(f"CreateBucket {SYNC_BUCKET}: {r.status_code} {r.text}")
+        backup_dir = os.path.join(tmp, "backup")
+        events_path = os.path.join(tmp, "events.jsonl")
+        queue = LogFileQueue(events_path)
+        pump = attach_notifier(a.filer.filer, queue, SYNC_ROOT)
+        meta = FilerMetaBackup(fa, os.path.join(tmp, "meta.db"), SYNC_ROOT)
+        mirror = Replicator(fa, make_sink("s3", endpoint=b.s3_url,
+                                          bucket=SYNC_BUCKET),
+                            path_prefix=f"{SYNC_ROOT}/small")
+        for w in (meta, mirror):
+            w.start()
+            workers.append(w)
+        sync_args = ["filer.sync", "-a", fa, "-b", fb, "-path", SYNC_ROOT]
+        for name, args in (("sync", sync_args),
+                           ("backup", ["filer.backup", "-filer", fa,
+                                       "-path", SYNC_ROOT, "-dir",
+                                       backup_dir])):
+            logs[name] = os.path.join(tmp, f"{name}.log")
+            procs[name] = _spawn(args, logs[name])
+        # every stream open: A's for the sync, the backup, the meta
+        # backup and the S3 mirror; B's for the sync back
+        end = time.monotonic() + SYNC_DEADLINE
+        while len(a.filer._subscribers) < 4 or \
+                len(b.filer._subscribers) < 1:
+            if time.monotonic() > end or any(
+                    p.poll() is not None for p in procs.values()):
+                fail(f"the workers' streams: dc1 has "
+                     f"{len(a.filer._subscribers)} of 4, dc2 "
+                     f"{len(b.filer._subscribers)} of 1; " + "; ".join(
+                         f"{n} (exit {p.poll()}): {_tail(logs[n], 800)!r}"
+                         for n, p in procs.items()))
+            time.sleep(0.05)
+        walls["setup"] = time.perf_counter() - t0
+        files = _sync_files()
+        n_big = SYNC_BIG[0]
+        log(f"[18] {card}; dc1: master {a.master_url}, 3 volume servers, "
+            f"sqlite filer {fa} (signature {sig['a']}); dc2: master "
+            f"{b.master_url}, 4 volume servers, sqlite filer {fb} "
+            f"(signature {sig['b']}), s3 {b.s3_url}; both ec_backend="
+            f"'cuda', volume limit {SYNC_VOLUME_LIMIT} B; `filer.sync -a "
+            f"dc1 -b dc2 -path {SYNC_ROOT}` and `filer.backup -path "
+            f"{SYNC_ROOT}` as CLI processes; FilerMetaBackup, a Replicator "
+            f"into s3://{SYNC_BUCKET} and a log-queue notifier in process "
+            f"(streams open: dc1 {len(a.filer._subscribers)}, dc2 "
+            f"{len(b.filer._subscribers)}); set-up {walls['setup']:.3f} s")
+
+        # 18a. the mirror of a tree written on A
+        landed_b, landed_a = _Landed(b.filer.filer), _Landed(a.filer.filer)
+        landed += [landed_b, landed_a]
+        want: dict[str, str] = {}
+        md5: dict[str, str] = {}
+
+        def put(item):
+            path, size = item
+            data = _sync_bytes(path, size)
+            want[path] = _sha(data)
+            md5[path] = hashlib.md5(data).hexdigest()
+            r = session().post(f"{fa}{path}", data=data, timeout=120)
+            if r.status_code != 201:
+                fail(f"18a: write {path} answered {r.status_code}")
+            return size
+
+        t0 = time.perf_counter()
+        tree_bytes = sum(_pool_map(put, files, threads=SYNC_THREADS))
+        t_write = time.perf_counter() - t0
+        _poll(lambda: all(p in landed_b.at for p, _ in files),
+              SYNC_DEADLINE, "the tree on dc2")
+        t_mirror = max(landed_b.at[p] for p, _ in files) - t0
+        on_b = _check_files(fb, want, "18a dc2")
+        pending = set(want)
+
+        def backed_up():
+            for path in list(pending):
+                local = os.path.join(backup_dir, path[len(SYNC_ROOT) + 1:])
+                if os.path.exists(local):
+                    with open(local, "rb") as f:
+                        if _sha(f.read()) != want[path]:
+                            fail(f"18a: the backup's {path} differs")
+                    pending.discard(path)
+            return not pending
+
+        _poll(backed_up, SYNC_DEADLINE, "the tree in filer.backup's directory")
+        small = {p: h for p, h in want.items()
+                 if p.startswith(f"{SYNC_ROOT}/small/")}
+        to_s3 = set(small)
+
+        def in_s3():
+            for path in list(to_s3):
+                key = path[len(SYNC_ROOT) + len("/small/"):]
+                r = session().head(f"{b.s3_url}/{SYNC_BUCKET}/{key}",
+                                   timeout=30)
+                if r.status_code == 200:
+                    if r.headers.get("ETag", "").strip('"') != md5[path]:
+                        fail(f"18a: s3://{SYNC_BUCKET}/{key} ETag "
+                             f"{r.headers.get('ETag')} is not the md5")
+                    to_s3.discard(path)
+            return not to_s3
+
+        _poll(in_s3, SYNC_DEADLINE, f"the small files in s3://{SYNC_BUCKET}")
+        _poll(lambda: all(meta.find_entry(p) is not None for p in want),
+              SYNC_DEADLINE, "every path in the meta backup")
+        dirs = sorted({p[:i] for p in want for i in range(len(p))
+                       if p[i] == "/" and i >= len(SYNC_ROOT)})
+        for d in dirs:
+            src = [(e["full_path"], _is_dir(e),
+                    0 if _is_dir(e) else entry_size(e))
+                   for e in _list(env_a, d)]
+            got = [(e.full_path, e.is_directory,
+                    0 if e.is_directory else e.file_size)
+                   for e in meta.list_entries(d)]
+            if sorted(src) != sorted(got):
+                fail(f"18a: the meta backup's listing of {d} differs from "
+                     f"dc1's: {sorted(set(src) ^ set(got))[:4]}")
+        walls["a"] = time.perf_counter() - t0
+        log(f"[18a] {len(files)} files ({n_big} x {SYNC_BIG[1]} B, "
+            f"{SYNC_SMALL} of {SYNC_SMALL_LO}-{SYNC_SMALL_HI} B under "
+            f"{SYNC_PREFIXES} directories), {tree_bytes} B written to dc1 "
+            f"({SYNC_THREADS} threads) in {t_write:.3f} s; the last on dc2 "
+            f"{t_mirror:.3f} s after the first PUT: "
+            f"{tree_bytes / t_mirror / 1e6:.1f} MB/s mirrored; dc2 read "
+            f"back {on_b['mbps']:.1f} MB/s; every file sha256-equal on dc2 "
+            f"and in filer.backup's directory, every small file md5-equal "
+            f"in s3://{SYNC_BUCKET}; the meta backup lists "
+            f"{len(dirs)} directories as dc1 does")
+
+        # 18b. the steady lag both ways, and the loop guard
+        a_writes = _sync_writes("lag/a", SYNC_LAG_WRITES, 1)
+        b_writes = _sync_writes("lag/b", SYNC_LAG_WRITES, 2)
+        t0 = time.perf_counter()
+        acked = _spaced_writes(fa, a_writes, "18b dc1")
+        _poll(lambda: all(p in landed_b.at for p in a_writes),
+              SYNC_DEADLINE, "18b's dc1 writes on dc2")
+        acked_b = _spaced_writes(fb, b_writes, "18b dc2")
+        _poll(lambda: all(p in landed_a.at for p in b_writes),
+              SYNC_DEADLINE, "18b's dc2 writes on dc1")
+        lag_ab = [landed_b.at[p] - acked[p] for p in a_writes]
+        lag_ba = [landed_a.at[p] - acked_b[p] for p in b_writes]
+        time.sleep(SYNC_QUIET)
+        for name, c, other in (("dc1", a, "b"), ("dc2", b, "a")):
+            evs = _events_by_path(c.filer.filer, f"{SYNC_ROOT}/lag")
+            for path in list(a_writes) + list(b_writes):
+                kinds = [(e["old_entry"] is None, e["new_entry"] is None)
+                         for e in evs.get(path, [])]
+                if kinds != [(True, False)]:
+                    fail(f"18b: {name}'s log holds {len(kinds)} events for "
+                         f"{path} ({kinds}): wanted one create")
+            origin = b_writes if name == "dc1" else a_writes
+            for path in origin:
+                if sig[other] not in evs[path][0]["signatures"]:
+                    fail(f"18b: {name}'s event for {path} lacks the "
+                         f"signature of its origin: "
+                         f"{evs[path][0]['signatures']}")
+        both = {p: _sha(d) for p, d in {**a_writes, **b_writes}.items()}
+        for f in (fa, fb):
+            _check_files(f, both, "18b")
+        walls["b"] = time.perf_counter() - t0
+        log(f"[18b] {SYNC_LAG_WRITES} writes of {SYNC_LAG_LO}-{SYNC_LAG_HI} B"
+            f" {SYNC_SPACING * 1e3:.0f} ms apart on dc1: lag from dc1's 201 "
+            f"to the create on dc2 {_lat(lag_ab)}; as many on dc2: lag to "
+            f"dc1 {_lat(lag_ba)}; after {SYNC_QUIET:.0f} s of quiet each "
+            f"of the {len(both)} paths has exactly one event, a create, in "
+            f"each filer's log, each mirrored event signed by its origin; "
+            f"every file sha256-equal on both")
+
+        # 18c. deletes and renames on A
+        t0 = time.perf_counter()
+        keys = sorted(small)
+        gone = keys[:SYNC_DELETES]
+        moved = keys[SYNC_DELETES:SYNC_DELETES + SYNC_RENAMES]
+        for path in gone:
+            r = session().delete(f"{fa}{path}", timeout=60)
+            if r.status_code >= 300:
+                fail(f"18c: delete {path} answered {r.status_code}")
+        for path in moved:
+            r = session().put(f"{fa}{path}.moved",
+                              params={"mv.from": path}, timeout=60)
+            if r.status_code >= 300:
+                fail(f"18c: rename {path} answered {r.status_code}")
+
+        def local(path):
+            return os.path.join(backup_dir, path[len(SYNC_ROOT) + 1:])
+
+        def reflected():
+            if any(_filer_get(fb, p).status_code != 404 for p in gone + moved):
+                return False
+            if any(os.path.exists(local(p)) for p in gone + moved) or not \
+                    all(os.path.exists(local(p + ".moved")) for p in moved):
+                return False
+            return all(meta.find_entry(p) is None for p in gone + moved) \
+                and all(meta.find_entry(p + ".moved") is not None
+                        for p in moved)
+
+        _poll(reflected, SYNC_DEADLINE, "18c's deletes and renames mirrored",
+              step=0.2)
+        renamed = {p + ".moved": small[p] for p in moved}
+        _check_files(fb, renamed, "18c dc2")
+        for path, h in renamed.items():
+            with open(local(path), "rb") as f:
+                if _sha(f.read()) != h:
+                    fail(f"18c: the backup's {path} differs")
+        walls["c"] = time.perf_counter() - t0
+        log(f"[18c] {len(gone)} deletes and {len(moved)} renames on dc1 "
+            f"reflected on dc2, in filer.backup's directory and in the "
+            f"meta backup in {walls['c']:.3f} s; the renamed files "
+            f"sha256-equal")
+
+        # 18d. the notifier's lines, and fs.meta.notify
+        t0 = time.perf_counter()
+        root = SYNC_ROOT + "/"
+
+        def under_root():
+            return [e for e in a.filer.filer.meta_log.replay(0)
+                    if (e["directory"] + "/").startswith(root)]
+
+        def lines():
+            with open(events_path, "rb") as f:
+                return [json.loads(x) for x in f.read().splitlines()]
+
+        _poll(lambda: len(lines()) >= len(under_root()), SYNC_DEADLINE,
+              "the notifier's lines")
+        time.sleep(0.5)                 # a duplicate would land by now
+        evs, got = under_root(), lines()
+        if [(x["key"], x["message"]["ts_ns"]) for x in got] != [
+                ((e["new_entry"] or e["old_entry"])["full_path"], e["ts_ns"])
+                for e in evs]:
+            fail(f"18d: {len(got)} notifier lines for {len(evs)} events "
+                 f"under {SYNC_ROOT}, or not in their order")
+        notify_path = os.path.join(tmp, "notify.jsonl")
+        r = session().put(f"{fa}/kv/notification.conf", data=json.dumps(
+            {"kind": "log", "path": notify_path}).encode(), timeout=30)
+        if r.status_code >= 300:
+            fail(f"18d: PUT notification.conf answered {r.status_code}")
+        walked = [e["full_path"] for e in _walk(env_a, f"{SYNC_ROOT}/small")]
+        out = repl.run_command(env_a, f"fs.meta.notify {SYNC_ROOT}/small")
+        with open(notify_path, "rb") as f:
+            sent = [json.loads(x) for x in f.read().splitlines()]
+        if out != {"notified": len(walked)} or \
+                [x["key"] for x in sent] != walked or \
+                any(x["message"]["event"] != "create" for x in sent):
+            fail(f"18d: fs.meta.notify answered {out}, its queue holds "
+                 f"{len(sent)} lines; the walk finds {len(walked)} entries")
+        walls["d"] = time.perf_counter() - t0
+        log(f"[18d] the notifier wrote exactly one line per event under "
+            f"{SYNC_ROOT} ({len(got)}), in order; fs.meta.notify "
+            f"{SYNC_ROOT}/small -> {out}, one create line per walked entry")
+
+        # 18e. seal B's volumes holding the mirror
+        t0 = time.perf_counter()
+        tree = {**{p: h for p, h in want.items() if p not in gone + moved},
+                **renamed, **both}
+        entries = [e for e in _walk(env_b, SYNC_ROOT) if not _is_dir(e)]
+        if sorted(e["full_path"] for e in entries) != sorted(tree):
+            fail("18e: dc2's tree is not dc1's")
+        vids = sorted({int(c["fid"].split(",")[0])
+                       for e in entries for c in e.get("chunks", [])})
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        dat = {}
+        for vid in vids:
+            for st in b.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    dat[vid] = v.content_size()
+        repl.run_command(env_b, "lock")
+        before = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env_b, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before["kernel"]
+        own = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i for i, st in enumerate(b.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        repairs = env_b.master_get("/debug/repair")
+        if launches["encode"] <= 0 or launches["encode"] != own or \
+                scraped != launches["encode"]:
+            fail(f"18e: {launches['encode']} launches during ec.encode, "
+                 f"the sizes give {own}, /metrics says {scraped}")
+        if repairs.get("recent") or repairs.get("in_flight"):
+            fail(f"18e: a repair ran during the encode: {repairs}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env_b.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"18e: volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+        sealed = _check_files(fb, tree, "18e sealed")
+        log(f"[18e] ec.encode of dc2's {len(vids)} volumes holding the "
+            f"mirror ({dat} .dat bytes) {t_encode:.3f} s, "
+            f"{launches['encode']} launches (the sizes give {own}; "
+            f"/metrics cuda_kernel_launches {scraped}); "
+            f"{stages_since(before, t_encode)}; kernel "
+            f"{kernel_s * 1e3:.3f} ms, "
+            f"{kernel_s * 1e3 / launches['encode']:.3f} ms per launch; no "
+            f"repair queued; the tree ({len(tree)} files) read back "
+            f"sha256-equal, {sealed['mbps']:.1f} MB/s")
+        largest = max(vids, key=lambda v: (dat[v], v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        if any(len(s) > 4 for s in lost.values()):
+            fail(f"18e: {victim} holds more than m=4 shards of a volume: "
+                 f"{lost}")
+        t1 = time.perf_counter()
+        b.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env_b.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"dc2's master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t1
+        big = {p: h for p, h in want.items()
+               if p.startswith(f"{SYNC_ROOT}/big/")}
+        degraded = _check_files(fb, big, "18e degraded", threads=4)
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            if lost[vid]:
+                repl.run_command(env_b, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t1
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped = _tools_metrics(next(u for u in by_url if u != victim))[
+            "launches"]
+        if launches["rebuild"] <= 0 or scraped != launches["rebuild"]:
+            fail(f"18e: ec.rebuild: {launches['rebuild']} launches, "
+                 f"/metrics cuda_kernel_launches {scraped}")
+        for vid in vids:
+            if sorted(env_b.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"18e: volume {vid} after ec.rebuild: "
+                     f"{env_b.ec_shard_locations(vid)}")
+        healed = _check_files(fb, big, "18e rebuilt", threads=4)
+        repl.run_command(env_b, "unlock")
+        walls["e"] = time.perf_counter() - t0
+        log(f"[18e] stopped {victim} (shards {lost}); the master dropped "
+            f"them in {t_gone:.3f} s; the {len(big)} big files read "
+            f"degraded {degraded['wall']:.3f} s, {degraded['mbps']:.1f} "
+            f"MB/s; ec.rebuild {t_rebuild:.3f} s, {launches['rebuild']} "
+            f"launches; read again {healed['mbps']:.1f} MB/s; every "
+            f"sha256 equal")
+
+        # 18f. the workers stopped, writes, filer.sync resumed
+        t0 = time.perf_counter()
+        for name in ("sync", "backup"):
+            procs[name].terminate()
+            procs[name].wait(timeout=30)
+        offset_key = f"sync/{sig['b']}/offset"
+        saved = session().get(f"{fa}/kv/{offset_key}", timeout=30)
+        if saved.status_code != 200 or int(saved.content) <= 0:
+            fail(f"18f: dc1's KV {offset_key}: {saved.status_code}")
+        resume = _sync_writes("resume/r", SYNC_RESUME, 3)
+        t_down = time.time_ns()
+        for path, data in resume.items():
+            r = session().post(f"{fa}{path}", data=data, timeout=60)
+            if r.status_code != 201:
+                fail(f"18f: write {path} answered {r.status_code}")
+        logs["sync2"] = os.path.join(tmp, "sync2.log")
+        procs["sync2"] = _spawn(sync_args, logs["sync2"])
+        t1 = time.perf_counter()
+        _poll(lambda: all(p in landed_b.at for p in resume), SYNC_DEADLINE,
+              "18f's writes on dc2")
+        t_resume = time.perf_counter() - t1
+        time.sleep(1.0)                 # a replay would land by now
+        _check_files(fb, {p: _sha(d) for p, d in resume.items()}, "18f")
+        fresh = sorted(p for p, evs in _events_by_path(
+            b.filer.filer, SYNC_ROOT).items() for e in evs
+            if e["ts_ns"] > t_down and e["old_entry"] is None and
+            not _is_dir(e["new_entry"] or {}))
+        if fresh != sorted(resume):
+            fail(f"18f: dc2 took {len(fresh)} creates after the restart, "
+                 f"not exactly the {len(resume)} new files")
+        creates = {p: sum(1 for e in evs if e["old_entry"] is None)
+                   for p, evs in _events_by_path(b.filer.filer,
+                                                 SYNC_ROOT).items()
+                   if not _is_dir(evs[0]["new_entry"] or
+                                  evs[0]["old_entry"])}
+        if len(creates) < len(tree) or any(n != 1 for n in creates.values()):
+            fail(f"18f: dc2 holds a second create of "
+                 f"{[p for p, n in creates.items() if n != 1][:4]}")
+        now = int(session().get(f"{fa}/kv/{offset_key}", timeout=30).content)
+        if now <= int(saved.content):
+            fail(f"18f: {offset_key} did not advance past {saved.content}")
+        walls["f"] = time.perf_counter() - t0
+        log(f"[18f] filer.sync and filer.backup stopped at offset "
+            f"{int(saved.content)} ({offset_key} in dc1's KV); "
+            f"{len(resume)} writes on dc1; filer.sync restarted: exactly "
+            f"those {len(resume)} reached dc2 {t_resume:.3f} s after its "
+            f"start, sha256-equal, no earlier path created twice")
+        if procs["sync2"].poll() is not None:
+            fail(f"the restarted filer.sync exited: {_tail(logs['sync2'])}")
+        if mirror.failed:
+            fail(f"the S3 mirror failed {mirror.failed} events")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 18 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[18] phase 18 took {wall:.3f} s ({ {k: round(v, 3) for k, v in walls.items()} }); "
+            f"kernel launches {launches}; workers: S3 mirror applied "
+            f"{mirror.applied} / skipped {mirror.skipped} / failed "
+            f"{mirror.failed}, meta backup applied {meta.applied}; the "
+            f"seal's kernel time {kernel_s * 1e3:.3f} ms is {busy:.5%} of "
+            f"the phase wall (idle share {1 - busy:.5%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 6)
+        launches["lag_ms"] = {
+            "a_to_b": [round(float(x), 3) for x in
+                       np.percentile(lag_ab, [50, 99]) * 1e3],
+            "b_to_a": [round(float(x), 3) for x in
+                       np.percentile(lag_ba, [50, 99]) * 1e3]}
+        return launches
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        for w in workers:
+            w.stop()
+        for lnd in landed:
+            lnd.close()
+        if pump is not None:
+            pump.stop_event.set()
+            pump.join(timeout=5)
+        if queue is not None:
+            queue.close()
+        for env in (env_a, env_b):
+            if env is not None:
+                env.close()
+        for c in (b, a):
+            if c is not None:
+                c.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -6846,7 +7486,8 @@ def main() -> int:
     native_launches = timed(15, phase_native, card)
     tools_launches = timed(16, phase_tools, card)
     remote = timed(17, phase_remote, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-17 "
+    sync = timed(18, phase_sync, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-18 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -6898,6 +7539,11 @@ def main() -> int:
                                     for k in ("encode", "rebuild")},
         "remote_kernel_ms_per_launch": remote["kernel_ms_per_launch"],
         "remote_idle_share": remote["idle_share"],
+        "sync_launches": sync["encode"] + sync["rebuild"],
+        "sync_launches_by_step": {k: sync[k] for k in ("encode", "rebuild")},
+        "sync_kernel_ms_per_launch": sync["kernel_ms_per_launch"],
+        "sync_idle_share": sync["idle_share"],
+        "sync_lag_ms": sync["lag_ms"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -76,10 +76,15 @@ filer's /ws/meta_subscribe), with the reference's flags and lines:
 cloud storage, `filer.remote.gateway` (`-createBucketAt`,
 `-createBucketWithRandomSuffix`, `-include`, `-exclude`) mirrors the
 buckets under /buckets, `filer.meta.tail` (`-path`, `-pattern`) prints
-each event as one JSON line. The filer's replication subcommands
-(filer.replicate, filer.sync, filer.backup, filer.meta.backup), the
-gateways (ftp, webdav, iam, mount, mq.broker) and the global profiling
-and pushgateway flags are not here.
+each event as one JSON line. The replication workers over the same
+stream (replication/): `filer.replicate -sink kind:args` mirrors
+`-path` into one of six sinks (local, filer, s3, gcs, azure, b2),
+`filer.sync -a -b` keeps two filers in sync both ways (`-oneWay` for
+A -> B only) under `-path`, `filer.backup -dir` copies the files under
+`-path` into a local directory (its offset key names the path and the
+directory) and `filer.meta.backup -o` keeps the namespace in a sqlite
+file. The gateways (ftp, webdav, iam, mount, mq.broker) and the global
+profiling and pushgateway flags are not here.
 """
 from __future__ import annotations
 
@@ -305,8 +310,22 @@ def _master_kwargs(args) -> dict:
     }
 
 
+class _TopParser(argparse.ArgumentParser):
+    """The top-level parser, which matches no prefix of its flags. Some
+    Python 3.12 releases match every argument against those prefixes
+    before the subcommand's parser sees it, whatever allow_abbrev says,
+    so `filer.sync -a A -b B` stopped with "ambiguous option: -b could
+    match -breaker.failures, -breaker.reset" (the reference's parser
+    keeps that fault)."""
+
+    def _get_option_tuples(self, option_string):
+        # a one-letter flag with its value attached (-v2) still parses
+        return [t for t in super()._get_option_tuples(option_string)
+                if t[1] == option_string[:2]]
+
+
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
+    parser = _TopParser(
         prog="seaweedfs-tpu-torch",
         description="SeaweedFS with its erasure coding on a GPU")
     parser.add_argument(
@@ -575,7 +594,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _add_filer_worker_parsers(sub) -> None:
     """The filer's metadata-stream consumers, with the reference's
-    flags: remote-mount write-back, the bucket gateway and the tail."""
+    flags: replication, sync and backups, remote-mount write-back, the
+    bucket gateway and the tail."""
+    p = sub.add_parser("filer.replicate",
+                       help="mirror filer changes into a sink")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-path", default="/", help="source path prefix")
+    p.add_argument("-sink", required=True,
+                   help="local:<dir> | filer:<url>[,<destPath>] | "
+                        "s3:<endpoint>,<bucket>[,<prefix>] | "
+                        "gcs:<bucket>[,<prefix>[,<endpoint>]] | "
+                        "azure:<account>,<key>,<container>[,<prefix>] | "
+                        "b2:<keyId>,<appKey>,<bucket>[,<prefix>]")
+
+    p = sub.add_parser("filer.sync",
+                       help="active-active sync between two filers")
+    p.add_argument("-a", required=True, help="filer A url")
+    p.add_argument("-b", required=True, help="filer B url")
+    p.add_argument("-path", default="/")
+    p.add_argument("-oneWay", dest="one_way", action="store_true")
+
     p = sub.add_parser("filer.remote.sync",
                        help="push local writes under a remote mount "
                             "back to the cloud storage")
@@ -595,6 +633,19 @@ def _add_filer_worker_parsers(sub) -> None:
                    help="glob of bucket names to mirror, e.g. s3*")
     p.add_argument("-exclude", default="",
                    help="glob of bucket names to skip, e.g. local*")
+
+    p = sub.add_parser("filer.meta.backup",
+                       help="continuous metadata backup to sqlite")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-path", default="/")
+    p.add_argument("-o", dest="output", default="filer_meta_backup.db")
+
+    p = sub.add_parser("filer.backup",
+                       help="continuous file backup into a local dir "
+                            "(filer.replicate with a local sink)")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-path", default="/", help="source path prefix")
+    p.add_argument("-dir", required=True, help="local target directory")
 
     p = sub.add_parser("filer.meta.tail",
                        help="print the filer metadata event stream")
@@ -755,34 +806,104 @@ def main(argv: list[str] | None = None) -> int:
                      if args.filer else "")
 
 
-FILER_WORKER_COMMANDS = ("filer.remote.sync", "filer.remote.gateway",
+FILER_WORKER_COMMANDS = ("filer.replicate", "filer.sync",
+                         "filer.backup", "filer.meta.backup",
+                         "filer.remote.sync", "filer.remote.gateway",
                          "filer.meta.tail")
 
 
+def parse_sink(spec: str):
+    """-sink kind:args -> the sink, as the reference's
+    `_run_replicate` reads it; None for an unknown kind."""
+    from .replication import make_sink
+
+    kind, _, rest = spec.partition(":")
+    parts = rest.split(",")
+
+    def opt(i: int, default: str = "") -> str:
+        return parts[i] if len(parts) > i else default
+
+    if kind == "local":
+        return make_sink("local", directory=parts[0])
+    if kind == "filer":
+        return make_sink("filer", filer_url=parts[0], dest_path=opt(1, "/"))
+    if kind == "s3":
+        return make_sink("s3", endpoint=parts[0], bucket=parts[1],
+                         prefix=opt(2))
+    if kind == "gcs":
+        return make_sink("gcs", bucket=parts[0], prefix=opt(1),
+                         endpoint=opt(2))
+    if kind == "azure":
+        return make_sink("azure", account=parts[0], key=parts[1],
+                         container=parts[2], prefix=opt(3))
+    if kind == "b2":
+        return make_sink("b2", key_id=parts[0], application_key=parts[1],
+                         bucket=parts[2], prefix=opt(3))
+    return None
+
+
+def backup_offset_key(path: str, directory: str) -> str:
+    """filer.backup's per-target resume offset: two backups (different
+    -dir or -path) must not share/clobber one offset key."""
+    import hashlib
+
+    target_id = hashlib.sha256(
+        f"{path}\x00{os.path.abspath(directory)}".encode()).hexdigest()[:16]
+    return f"replication/backup/{target_id}/offset"
+
+
 def _run_filer_worker(args) -> int:
-    """Start one metadata-stream consumer against -filer and run it
-    until interrupted, printing the reference's lines."""
+    """Start one metadata-stream consumer against -filer (or -a / -b)
+    and run it until interrupted, printing the reference's lines."""
     import json
     import time
 
-    if args.cmd == "filer.remote.gateway":
+    from .replication import Replicator
+
+    line = ""
+    if args.cmd == "filer.replicate":
+        sink = parse_sink(args.sink)
+        if sink is None:
+            print(f"unknown sink kind {args.sink.partition(':')[0]!r}")
+            return 1
+        worker = Replicator(args.filer, sink, path_prefix=args.path)
+        line = f"replicating {args.filer}{args.path} -> {args.sink}"
+    elif args.cmd == "filer.sync":
+        from .replication.filer_sync import FilerSync
+
+        worker = FilerSync(args.a, args.b, path_prefix=args.path,
+                           both_ways=not args.one_way)
+        line = f"syncing {args.a} <-> {args.b} under {args.path}"
+    elif args.cmd == "filer.backup":
+        from .replication.sink import LocalSink
+
+        worker = Replicator(args.filer, LocalSink(args.dir),
+                            path_prefix=args.path,
+                            offset_key=backup_offset_key(args.path,
+                                                         args.dir))
+        line = f"backing up {args.filer}{args.path} -> {args.dir}"
+    elif args.cmd == "filer.meta.backup":
+        from .replication.meta_backup import FilerMetaBackup
+
+        worker = FilerMetaBackup(args.filer, args.output,
+                                 path_prefix=args.path)
+        line = (f"backing up {args.filer}{args.path} metadata "
+                f"to {args.output}")
+    elif args.cmd == "filer.remote.gateway":
         from .remote_storage.gateway import RemoteGateway
 
         worker = RemoteGateway(args.filer,
                                create_bucket_at=args.create_bucket_at,
                                bucket_suffix=args.bucket_suffix,
                                include=args.include, exclude=args.exclude)
-        worker.start()
-        print(f"mirroring {args.filer}/buckets to remote storage "
-              f"{worker.create_bucket_at or '(none configured)'}",
-              flush=True)
+        line = (f"mirroring {args.filer}/buckets to remote storage "
+                f"{worker.create_bucket_at or '(none configured)'}")
     elif args.cmd == "filer.remote.sync":
         from .remote_storage.sync import RemoteSyncWorker
 
         worker = RemoteSyncWorker(args.filer, args.dir)
-        worker.start()
-        print(f"pushing {args.filer}{args.dir} writes to "
-              f"storage {worker.mount.storage!r}", flush=True)
+        line = (f"pushing {args.filer}{args.dir} writes to "
+                f"storage {worker.mount.storage!r}")
     else:
         from .rpc.meta_subscriber import MetaSubscriber
 
@@ -794,7 +915,9 @@ def _run_filer_worker(args) -> int:
             print(json.dumps(ev, separators=(",", ":")), flush=True)
 
         worker = MetaSubscriber(args.filer, args.path, emit)
-        worker.start()
+    worker.start()
+    if line:
+        print(line, flush=True)
     try:
         while True:
             time.sleep(3600)

@@ -574,12 +574,20 @@ class _Server(http.server.ThreadingHTTPServer):
     request_queue_size = 128
 
     def __init__(self, addr, app: App,
-                 ssl_context: ssl.SSLContext | None = None):
+                 ssl_context: ssl.SSLContext | None = None,
+                 sock: socket.socket | None = None):
         self.app = app
         self.ssl_context = ssl_context
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
-        super().__init__(addr, _Handler)
+        if sock is None:
+            super().__init__(addr, _Handler)
+            return
+        # serve on a socket the caller bound and listens on
+        super().__init__(addr, _Handler, bind_and_activate=False)
+        self.socket.close()
+        self.socket = sock
+        self.server_address = sock.getsockname()
 
     def finish_request(self, request, client_address) -> None:
         """Runs on the connection's own thread: with TLS, the handshake
@@ -623,20 +631,25 @@ class _Server(http.server.ThreadingHTTPServer):
 class ServerThread:
     """Serve an App on (host, port) from a daemon thread; port 0 binds
     an ephemeral port, read back from `.port` / `.url` after start().
-    With `ssl_context` it serves HTTPS."""
+    With `ssl_context` it serves HTTPS. With `sock` (a bound, listening
+    socket, server/cluster.py `reserve_ports`) it serves on that socket
+    and binds nothing: a port held from reservation to serve can never
+    be taken in between."""
 
     def __init__(self, app: App, host: str = "127.0.0.1", port: int = 0,
-                 ssl_context: ssl.SSLContext | None = None):
+                 ssl_context: ssl.SSLContext | None = None,
+                 sock: socket.socket | None = None):
         self.app = app
-        self.host = host
-        self.port = port
+        self.host, self.port = sock.getsockname()[:2] if sock is not None \
+            else (host, port)
         self.ssl_context = ssl_context
+        self._sock = sock
         self._server: _Server | None = None
         self._thread: threading.Thread | None = None
 
     def start(self) -> "ServerThread":
         self._server = _Server((self.host, self.port), self.app,
-                               self.ssl_context)
+                               self.ssl_context, sock=self._sock)
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever, kwargs={"poll_interval": 0.1},

@@ -18,8 +18,9 @@ announces itself every pulse, so the master's watchdog and admin
 scripts always find it and take its DLM lock.
 
 HA layouts: `n_masters=3` starts three raft masters in the process (on
-free ports, each with its raft state under `base_dir/raft_<i>`, raft
-timing scaled by `raft_tick`), and `external_masters` takes the urls of
+ports reserve_ports holds listening until they serve, each with its
+raft state under `base_dir/raft_<i>`, raft timing scaled by
+`raft_tick`), and `external_masters` takes the urls of
 masters the caller runs (as processes, say) and starts none. Every
 volume server and the filer are then given the whole master list;
 `master_url` is the current leader's url and `master_urls` the list,
@@ -167,10 +168,12 @@ class Cluster:
             tier_remote=tier_remote,
             jwt_secret=jwt_secret)
         if not self.external_masters:
-            ports = free_ports(n_masters) if n_masters > 1 else [0]
-            peers = [f"127.0.0.1:{p}" for p in ports] \
+            # raft peers know every address before any master starts:
+            # the masters' ports are held, listening, until they serve
+            socks = reserve_ports(n_masters) if n_masters > 1 else [None]
+            peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks] \
                 if n_masters > 1 else None
-            for i, port in enumerate(ports):
+            for i, sock in enumerate(socks):
                 raft = {}
                 if peers:
                     raft_dir = os.path.join(base_dir, f"raft_{i}")
@@ -183,7 +186,7 @@ class Cluster:
                     state_dir = os.path.join(state_dir, f"master_{i}")
                 m = MasterServer(**kwargs, **raft,
                                  tier_state_dir=state_dir)
-                t = ServerThread(m.app, port=port,
+                t = ServerThread(m.app, sock=sock,
                                  ssl_context=tls.get("master")).start()
                 m.admin_scripts_url = t.url
                 self.masters.append(m)
@@ -413,9 +416,26 @@ class Cluster:
             self.master_threads[i].stop()
 
 
+def reserve_ports(n: int) -> list[socket.socket]:
+    """n listening localhost sockets on distinct free ports, held until a
+    ServerThread serves on each (`ServerThread(app, sock=s)`). A port
+    that free_ports probed and closed can be taken before its server
+    binds it — by any connection's local port, under a parallel test
+    run — and that bind then fails with EADDRINUSE."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", 0))
+        s.listen(128)
+        socks.append(s)
+    return socks
+
+
 def free_ports(n: int) -> list[int]:
-    """n distinct free localhost ports (raft peers must know every
-    address before any master starts)."""
+    """n distinct free localhost ports, for servers in other processes
+    (in-process servers take reserve_ports: a port closed here can be
+    taken before its server binds it)."""
     socks = []
     for _ in range(n):
         s = socket.socket()

@@ -9,9 +9,9 @@ command_fs_verify.go). All operate over the filer HTTP API; none require
 the admin lock (they are namespace reads/writes, not cluster topology
 mutations). `fs.meta.save` writes one JSON entry per line, the bytes
 the JAX package writes, so either package's `fs.meta.load` reads the
-other's file. `fs.meta.notify` needs the notification queues
-(notification/), which seaweedfs_tpu_torch does not have yet: it raises
-ShellError naming them.
+other's file. `fs.meta.notify` sends one create event per walked entry
+to the queue that the filer KV's `notification.conf` configures
+(notification/queues.py).
 """
 from __future__ import annotations
 
@@ -231,12 +231,24 @@ def fs_meta_change_volume_id(env: CommandEnv, path: str,
 
 def fs_meta_notify(env: CommandEnv, path: str = "/") -> dict:
     """Re-publish create events for every entry under `path` to the
-    configured notification queue (command_fs_meta_notify.go). The
-    queues (the JAX package's notification/queues.py) are not in
-    seaweedfs_tpu_torch yet."""
-    raise ShellError("fs.meta.notify needs the notification queues "
-                     "(notification/queues.py), which "
-                     "seaweedfs_tpu_torch does not have yet")
+    configured notification queue (command_fs_meta_notify.go) — used to
+    prime a fresh downstream consumer."""
+    from ..notification.queues import queue_from_config
+
+    conf = session().get(f"{_filer(env)}/kv/notification.conf",
+                         timeout=30)
+    if conf.status_code != 200:
+        raise ShellError("no notification.conf configured in the filer "
+                         "KV store")
+    q = queue_from_config(json.loads(conf.content))
+    sent = 0
+    try:
+        for e in _walk(env, path):
+            q.send(e["full_path"], {"event": "create", "entry": e})
+            sent += 1
+    finally:
+        q.close()
+    return {"notified": sent}
 
 
 def mount_configure(env: CommandEnv, dir: str = "",

@@ -6,9 +6,9 @@ port's registry holds lock / unlock, cluster.check, cluster.ps and the
 cluster.raft.* commands, the collection.* and volume.* commands (scrub,
 vacuum, replication, mount, move, the volume.tier.* remote tier, ...),
 the ec.* commands, the filer's fs.* commands and mount.configure, the
-remote.* mounts and the s3.* gateway state. `fs.meta.notify` raises
-until the notification queues are ported; the mq.topic.* commands are
-not ported and answer "unknown command".
+remote.* mounts and the s3.* gateway state; `fs.meta.notify`
+re-publishes events to notifications. The mq.topic.* commands are not
+ported and answer "unknown command".
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ HELP = """commands:
   fs.meta.save <dir> <out.jsonl>    snapshot metadata
   fs.meta.load <in.jsonl>           restore metadata
   fs.meta.cat <path>                print one entry's stored metadata
-  fs.meta.notify <dir>              (needs notification/: not ported)
+  fs.meta.notify <dir>              re-publish events to notifications
   fs.meta.changeVolumeId <dir> -mapping=old:new[,..] [-apply]
   mount.configure -dir=/d -quotaMB=N   per-mount quota (0 clears)
   fs.verify <dir>                   check chunks are readable

@@ -3,10 +3,10 @@ the JAX package's, over the doubles of tests/minicloud.py.
 
 * The reference's tests/test_cloud_remotes.py cases of the clients, the
   RS256 signer, the Azure SharedKey vector and the fake-GCS bucket
-  mounted end to end run twice, `[reference]` and `[port]`
+  mounted end to end, the gcs / azure / b2 replication sinks and B2's
+  bad credentials and 503 retry run twice, `[reference]` and `[port]`
   (tests/torch_port_cases.py rebinds the case's names; an import inside
-  a case gets the port's module). Not run: the replication sinks and
-  B2, which wait for the port's replication/.
+  a case gets the port's module).
 * Each package's client reads what the other's wrote, and both send
   the same signed Azure requests (the double checks each signature).
 * A service-account grant: both packages' token sources post the same
@@ -34,23 +34,24 @@ import seaweedfs_tpu_torch.shell.repl as port_repl
 import seaweedfs_tpu_torch.utils.rs256 as port_rs256
 from seaweedfs_tpu.remote_storage import make_client as ref_make_client
 from seaweedfs_tpu.utils import gcp_auth as ref_gcp_auth
+from seaweedfs_tpu_torch.filer.entry import Entry
 from seaweedfs_tpu_torch.remote_storage import make_client
+from seaweedfs_tpu_torch.replication.sink import make_sink
 from seaweedfs_tpu_torch.rpc import httpclient
 from seaweedfs_tpu_torch.utils import gcp_auth as port_gcp_auth
 
 from tests import test_cloud_remotes as ref_cases
 from tests.torch_port_cases import port_cases, run_case, swap_modules, within
 
-NOT_YET = ("test_sink_create_update_delete", "test_b2_bad_credentials",
-           "test_b2_upload_retries_on_503")
 PortCluster = functools.partial(port_cluster_mod.Cluster,
                                 ec_backend="native")
 # the port's HTTP errors, under the name the cases catch them by
 port_requests = types.SimpleNamespace(**{
     **vars(requests), "HTTPError": httpclient.HTTPError})
 SIDES = {
-    "reference": (port_cases(ref_cases, skip=NOT_YET), {}),
-    "port": (port_cases(ref_cases, skip=NOT_YET, make_client=make_client,
+    "reference": (port_cases(ref_cases), {}),
+    "port": (port_cases(ref_cases, make_client=make_client,
+                        make_sink=make_sink, Entry=Entry,
                         requests=port_requests),
              {"seaweedfs_tpu.utils.rs256": port_rs256,
               "seaweedfs_tpu.server.cluster": types.SimpleNamespace(
@@ -59,24 +60,27 @@ SIDES = {
               "seaweedfs_tpu.shell.repl": port_repl}),
 }
 VECTOR = "test_azure_shared_key_string_to_sign_vector"
+# the kinds the reference parametrizes its client and sink cases over
+KINDS = {"test_client_roundtrip": ("gcs", "azure"),
+         "test_sink_create_update_delete": ("gcs", "azure", "b2")}
 CASES = list(SIDES["port"][0])
 
 
 def test_every_reference_case_is_mirrored():
-    assert CASES == [k for k in port_cases(ref_cases) if k not in NOT_YET]
-    assert len(CASES) == 5
+    assert CASES == list(port_cases(ref_cases))
+    assert len(CASES) == 8
 
 
 @pytest.fixture(scope="module")
 def clouds():
-    from tests.minicloud import MiniAzure, MiniGcs
+    from tests.minicloud import MiniAzure, MiniB2, MiniGcs
 
-    g, a = MiniGcs(), MiniAzure()
-    g.store.buckets["pics"] = {}
-    a.store.buckets["pics"] = {}
-    yield {"gcs": g, "azure": a}
-    g.close()
-    a.close()
+    out = {"gcs": MiniGcs(), "azure": MiniAzure(), "b2": MiniB2()}
+    for s in out.values():
+        s.store.buckets["pics"] = {}
+    yield out
+    for s in out.values():
+        s.close()
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +100,8 @@ def clusters(tmp_path_factory):
 
 
 class _Request:
-    """request.getfixturevalue for the parametrized client case."""
+    """request.getfixturevalue for the parametrized client and sink
+    cases."""
 
     def __init__(self, clouds):
         self.clouds = clouds
@@ -116,12 +121,13 @@ def _run(side, case, fixtures):
 
 @pytest.mark.parametrize("side", list(SIDES))
 @pytest.mark.parametrize("case,kind", [
-    (c, k) for c in CASES
-    for k in (("gcs", "azure") if c == "test_client_roundtrip" else ("",))])
-def test_reference_case(case, kind, side, clouds, clusters, tmp_path):
+    (c, k) for c in CASES for k in KINDS.get(c, ("",))])
+def test_reference_case(case, kind, side, clouds, clusters, tmp_path,
+                        monkeypatch):
     fixtures = {"gcs": clouds["gcs"], "azure": clouds["azure"],
-                "request": _Request(clouds), "tmp_path": tmp_path,
-                "cluster": clusters[side]}
+                "b2": clouds["b2"], "request": _Request(clouds),
+                "tmp_path": tmp_path, "cluster": clusters[side],
+                "monkeypatch": monkeypatch}
     if kind:
         fixtures["kind"] = kind
     _run(side, case, fixtures)

@@ -437,7 +437,11 @@ def test_volume_server_beats_at_the_masters_shorter_pulse(tmp_path):
         while node not in ms.topo.nodes:
             assert time.monotonic() < deadline, "never registered"
             time.sleep(0.05)
-        assert vs.pulse_seconds == 0.2
+        # the master registers the node before its reply reaches the
+        # volume server's heartbeat thread
+        while vs.pulse_seconds != 0.2:
+            assert time.monotonic() < deadline, "kept its own pulse"
+            time.sleep(0.05)
         time.sleep(2.0)                     # 10 of the master's pulses
         assert node in ms.topo.nodes
     finally:

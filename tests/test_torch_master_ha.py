@@ -33,8 +33,10 @@ against the JAX package (tolerance 0).
 
 Every wait polls for the state it asserts, up to a deadline.
 """
+import errno
 import hashlib
 import os
+import socket
 import time
 import types
 import zlib
@@ -56,7 +58,9 @@ from seaweedfs_tpu_torch.operation import verbs
 from seaweedfs_tpu_torch.ops.codec_cuda import CudaCodec
 from seaweedfs_tpu_torch.rpc.http import ServerThread
 from seaweedfs_tpu_torch.rpc.httpclient import session
-from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+from seaweedfs_tpu_torch.server import cluster as cluster_mod
+from seaweedfs_tpu_torch.server.cluster import (Cluster, free_ports,
+                                                reserve_ports)
 from seaweedfs_tpu_torch.server.master_server import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.shell import commands_cluster, repl
@@ -117,16 +121,16 @@ def ha(tmp_path_factory):
     """The reference fixture's layout with the port's servers: three
     raft masters and one volume server heartbeating at the leader."""
     base = tmp_path_factory.mktemp("ha")
-    ports = free_ports(3)
-    peers = [f"127.0.0.1:{p}" for p in ports]
+    socks = reserve_ports(3)
+    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
     masters, threads = [], []
     vt = None
     try:
-        for me, port in zip(peers, ports):
+        for me, sock in zip(peers, socks):
             m = MasterServer(pulse_seconds=0.4, me=me, peers=peers,
                              raft_state_dir=str(base), raft_tick=RAFT_TICK)
             masters.append(m)
-            threads.append(ServerThread(m.app, port=port).start())
+            threads.append(ServerThread(m.app, sock=sock).start())
         leader = _wait(lambda: _stable_leader(peers), msg="a stable leader")
         vol_dir = os.path.join(str(base), "vol0")
         os.makedirs(vol_dir, exist_ok=True)
@@ -159,13 +163,13 @@ def test_raft_membership_round_trip(tmp_path, shell):
     cmds, env_cls = ((ref_commands_cluster, RefCommandEnv)
                      if shell == "reference"
                      else (commands_cluster, CommandEnv))
-    ports = free_ports(3)
-    peers = [f"127.0.0.1:{p}" for p in ports]
+    socks = reserve_ports(3)
+    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
     masters = [MasterServer(pulse_seconds=0.4, me=me, peers=peers,
                             raft_state_dir=str(tmp_path), raft_tick=RAFT_TICK)
                for me in peers]
-    threads = [ServerThread(m.app, port=p).start()
-               for m, p in zip(masters, ports)]
+    threads = [ServerThread(m.app, sock=s).start()
+               for m, s in zip(masters, socks)]
     try:
         leader = _wait(lambda: _stable_leader(peers), msg="a leader")
         follower = next(p for p in peers if p != leader)
@@ -198,6 +202,59 @@ def test_raft_membership_round_trip(tmp_path, shell):
     finally:
         for th in threads:
             th.stop()
+
+
+# ----------------------------------------------------------------------
+# the masters' ports: taken between the probe and the bind
+# ----------------------------------------------------------------------
+def _take(port: int) -> socket.socket:
+    """Bind a port as another process's connection would hold it as its
+    local port (no SO_REUSEADDR)."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", port))
+    return s
+
+
+def test_a_port_taken_after_free_ports_fails_the_masters_bind():
+    """The collision: free_ports closes its probe, another socket takes
+    the port, and the master's server cannot bind it."""
+    (port,) = free_ports(1)
+    thief = _take(port)
+    try:
+        with pytest.raises(OSError) as ei:
+            ServerThread(MasterServer(pulse_seconds=0.4).app,
+                         port=port).start()
+        assert ei.value.errno == errno.EADDRINUSE
+    finally:
+        thief.close()
+
+
+def test_cluster_holds_its_masters_ports_until_they_serve(tmp_path,
+                                                         monkeypatch):
+    """Cluster(n_masters=3) reserves listening sockets: a socket that
+    tries to take one of them after the reservation is refused, and each
+    master serves on its reserved port."""
+    refused = []
+
+    def reserve_then_race(n):
+        socks = reserve_ports(n)
+        for s in socks:
+            with pytest.raises(OSError) as ei:
+                _take(s.getsockname()[1])
+            refused.append((s.getsockname()[1], ei.value.errno))
+        return socks
+
+    monkeypatch.setattr(cluster_mod, "reserve_ports", reserve_then_race)
+    c = Cluster(str(tmp_path), n_volume_servers=1, n_masters=3,
+                ec_backend="numpy", raft_tick=RAFT_TICK)
+    try:
+        assert [e for _, e in refused] == [errno.EADDRINUSE] * 3
+        assert [t.port for t in c.master_threads] == [p for p, _ in refused]
+        leader = _wait(lambda: _stable_leader(
+            [t.address for t in c.master_threads]), msg="a leader")
+        assert leader in [t.address for t in c.master_threads]
+    finally:
+        c.stop()
 
 
 # ----------------------------------------------------------------------

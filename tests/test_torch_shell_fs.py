@@ -8,9 +8,7 @@ package's.
   (tests/torch_port_cases.py rebinds the case's names): ls (with
   globs), cat, du, tree, mkdir, mv, rm, meta.save / meta.load,
   meta.cat, meta.changeVolumeId, verify, cd / pwd, mount.configure, and
-  the repl's dispatch. Not run: TestFsMetaExt.test_meta_notify_to_log_queue,
-  which needs the notification queues; the port's fs.meta.notify names
-  them in a ShellError.
+  the repl's dispatch, and meta.notify into a log queue.
 * The same tree saved by both packages' fs.meta.save gives the same
   bytes, and each package's fs.meta.load restores the other's file.
 * The same fs.* command lines through both packages' repls give the
@@ -37,14 +35,13 @@ from tests.torch_port_cases import port_cases, run_case, within
 
 SEED = 20261017
 PortCluster = functools.partial(Cluster, ec_backend="native")
-NOTIFY = "TestFsMetaExt.test_meta_notify_to_log_queue"
 PORT_NAMES = dict(Cluster=PortCluster, commands_fs=commands_fs, repl=repl,
                   CommandEnv=CommandEnv, ShellError=ShellError)
 
 
 def _pick(cases: dict, classes: tuple) -> dict:
     return {k: v for k, v in cases.items()
-            if k.split(".")[0] in classes and k != NOTIFY}
+            if k.split(".")[0] in classes}
 
 
 FSV = ("TestFsCommands", "TestReplDispatch")
@@ -64,7 +61,7 @@ PKG = {"reference": dict(Cluster=RefCluster, Env=RefEnv, run=ref_run,
 
 def test_every_reference_case_is_mirrored():
     assert CASES == list(SIDES["reference"])
-    assert len(CASES) == 12
+    assert len(CASES) == 13
 
 
 @pytest.fixture(scope="module")
@@ -99,11 +96,6 @@ def envs(clusters):
 def test_reference_case(case, side, clusters, envs, tmp_path):
     run_case(SIDES[side][case], {"cluster": clusters[side],
                                  "env": envs[side], "tmp_path": tmp_path})
-
-
-def test_meta_notify_names_the_missing_queues(envs):
-    with pytest.raises(ShellError, match="notification"):
-        repl.run_command(envs["port"], "fs.meta.notify /")
 
 
 def _tree(c, root: str) -> dict[str, bytes]:

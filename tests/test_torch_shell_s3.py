@@ -128,6 +128,9 @@ def test_gateway_obeys_the_other_shell(shell, gateway, clusters):
     try:
         run(env, "s3.circuit.breaker -global='{\"writeBytes\":64}' -apply")
         _wait(lambda: c.s3.circuit_breaker.enabled, "the limit loaded")
+        # the users the previous test deleted are gone from the gateway
+        # only at its next reload; until then an anonymous PUT gets 403
+        _wait(lambda: c.s3.iam.is_open, "anonymous access")
         requests.put(f"{c.s3_url}/xlim", timeout=30)
         assert requests.put(f"{c.s3_url}/xlim/big", data=b"x" * 256,
                             timeout=30).status_code == 503
