@@ -67,6 +67,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    rebuilt shards sha256-equal, a last read pass. One line per step with
    wall s, MB/s, reads/s, p50 / p99 read latency, launches and the feed's
    stage seconds.
+7. The cluster over HTTP: a master, three volume servers on "cuda" and
+   the shell; one volume filled with 512 MiB of seeded needles through
+   assign + upload (CLUSTER_FILL_BYTES, cut from 1 GiB for phase 19's
+   room), then ec.encode, reads from every server, lost shards read
+   degraded, a partial and a full ec.rebuild, ec.decode back to a .dat
+   equal to the sealed one's live prefix; launches > 0 for each
+   command, none for a read pass.
 
 8. The mesh and the batched feeds, on every card torch sees (one card:
    a (1, 1) mesh; four: (2, 2)):
@@ -431,8 +438,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    processes; FilerMetaBackup (sqlite), a Replicator of /dc/small into
    s3://repl18 on dc2 and a log-queue notifier on dc1's filer in this
    one. Each step is fatal on failure:
-   a. 14 x 16 MiB and 512 files of 1-64 KiB (log-uniform, 8
-      directories), 232 MiB, written to dc1 on 8 threads: MB/s from the
+   a. 8 x 16 MiB and 512 files of 1-64 KiB (log-uniform, 8
+      directories), 136 MiB, written to dc1 on 8 threads: MB/s from the
       first PUT to the last file's create on dc2; every file
       sha256-equal on dc2 and in D, every small one md5-equal in
       repl18, every path in the meta backup, whose listings equal
@@ -453,13 +460,41 @@ Phases, each fatal on failure (exit code 1, no result line):
    e. ec.encode of dc2's volumes holding the mirror: launches exactly as
       the `.dat` sizes give (the volume servers' /metrics agree), no
       repair queued; the tree read back sha256-equal; the server
-      holding the most shards of the largest volume stopped: the 14 big
+      holding the most shards of the largest volume stopped: the 8 big
       files read degraded, sha256-equal (MB/s); ec.rebuild (launches >
       0); read again, equal.
    f. filer.sync and filer.backup stopped, 16 files written to dc1,
       filer.sync started again: exactly those 16 reach dc2, no earlier
       path is created twice there, its offset (`sync/<dc2's
       signature>/offset` in dc1's KV) advanced.
+
+19. An encrypted, sharded, cached filer behind S3 (SeaweedFS's
+   `filer -store leveldb -encryptVolumeData` with the port's
+   `-filer.store.shards 4 -filer.cache.entries 4096`). An in-process
+   master and four volume servers on "cuda", volume limit 64 MiB; the
+   filer and the S3 gateway as CLI processes. Each step is fatal on
+   failure:
+   a. AES-256-GCM on the host's libcrypto against the GCM
+      specification's test case 15; the filer's /status says "cipher".
+   b. 8 buckets, 1,024 objects of 1-64 KiB (log-uniform) through S3 on
+      8 threads, 8 x 16 MiB through the filer under /big: every chunk
+      read raw from its volume server is 28 B longer than its piece,
+      not the plaintext, and decrypts under its entry's key to it;
+      /debug/filer shows 4 shards whose entries sum to the entries the
+      listings walk, the buckets on more than one shard.
+   c. Every bucket listed 100 keys a page, twice: the second pass raises
+      filer_store_cache_hits_total; 32 overwrites, 16 deletes and 8
+      renames through the filer, each read back through S3 at once,
+      then every listing and every object: no stale read.
+   d. The filer process stopped and started on the same store
+      directory: every listing page as before; weedkv's
+      filer_store_compaction_seconds count.
+   e. ec.encode of every volume holding the ciphertext: launches exactly
+      as the .dat sizes give (the volume servers' /metrics agree), the
+      kernel stage in CUDA events; every object (S3) and file (filer)
+      read sealed, sha256-equal; the server holding the most shards of
+      the largest volume stopped: the big files read degraded;
+      ec.rebuild (launches > 0, /metrics agree); everything read again.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -1326,9 +1361,12 @@ def _shard_paths(cluster, vid: int) -> dict[int, str]:
 
 FILL_ASSIGN_BATCH = 64           # fids per /dir/assign?count= of a fill
 # the HTTP fills of phases 9, 11, 12, 13 and 14: cut from 1 GiB to make
-# room for phase 16 in the 1200 s limit (phase 7 keeps DAT_BYTES); every
+# room for phase 16 in the 1200 s limit (phase 7 has its own, below); every
 # launch count these phases check is derived from the filled .dat's size
 HTTP_FILL_BYTES = 256 << 20
+# phase 7's fill: cut from DAT_BYTES (1 GiB) to make room for phase 19;
+# its launch counts follow the filled .dat's size
+CLUSTER_FILL_BYTES = 512 << 20
 
 
 def _fill_volume_http(cluster, env, collection: str, seed: int,
@@ -1391,7 +1429,7 @@ def _fill_volume_http(cluster, env, collection: str, seed: int,
 
 def phase_cluster(card: str) -> dict:
     """Phase 7: the master, three volume servers and the shell over HTTP
-    at 1 GiB. -> kernel launches of each shell command."""
+    at 512 MiB. -> kernel launches of each shell command."""
     from seaweedfs_tpu_torch.ec import geometry as geo
     from seaweedfs_tpu_torch.ops import codec_cuda
     from seaweedfs_tpu_torch.server.cluster import Cluster
@@ -1412,7 +1450,8 @@ def phase_cluster(card: str) -> dict:
         log(f"[7] Cluster: master {master}, volume servers "
             f"{[th.address for th in cluster.volume_threads]}, "
             f"ec_backend='cuda', volume size limit {2 * DAT_BYTES} B")
-        w = _fill_volume_http(cluster, env, "smoke7", SEED + 7, DAT_BYTES)
+        w = _fill_volume_http(cluster, env, "smoke7", SEED + 7,
+                              CLUSTER_FILL_BYTES)
         vid, url, vol, live, dead = (w["vid"], w["url"], w["vol"],
                                      w["live"], w["dead"])
         writes, overwrites, dt = w["writes"], w["overwrites"], w["seconds"]
@@ -6854,7 +6893,8 @@ def phase_remote(card: str) -> dict:
 # ----------------------------------------------------------------------
 SYNC_ROOT = "/dc"
 SYNC_BUCKET = "repl18"
-SYNC_BIG = (14, 16 << 20)         # (count, bytes) under /dc/big
+# 8, not 14: cut to make room for phase 19 in the 1200 s limit
+SYNC_BIG = (8, 16 << 20)          # (count, bytes) under /dc/big
 SYNC_SMALL = 512                  # 1-64 KiB, log-uniform
 SYNC_PREFIXES = 8                 # the small files' directories
 SYNC_SMALL_LO, SYNC_SMALL_HI = 1 << 10, 64 << 10
@@ -7447,6 +7487,544 @@ def phase_sync(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 19: an encrypted, sharded, cached filer behind S3; its volumes
+# (AES-GCM ciphertext) sealed and rebuilt through the kernel
+# ----------------------------------------------------------------------
+STORES_SHARDS = 4                 # -filer.store.shards
+STORES_CACHE = 4096               # -filer.cache.entries
+STORES_BUCKETS = 8
+STORES_OBJECTS = 1024             # 1-64 KiB, log-uniform, over the buckets
+STORES_OBJ_LO, STORES_OBJ_HI = 1 << 10, 64 << 10
+STORES_BIG = (8, 16 << 20)        # (count, bytes) through the filer, /big
+STORES_PAGE = 100                 # max-keys of 19c's listings
+STORES_OVERWRITES, STORES_DELETES, STORES_RENAMES = 32, 16, 8
+STORES_VOLUME_LIMIT = 64 << 20    # the master's volume size limit
+STORES_THREADS = 8
+STORES_DEADLINE = 60.0            # longest wait for a process to serve
+
+
+def _stores_objects() -> dict[str, bytes]:
+    """The buckets' objects: "/bucket/key" -> bytes, from the seed."""
+    rng = np.random.default_rng([SEED, 19])
+    sizes = np.exp(rng.uniform(np.log(STORES_OBJ_LO), np.log(STORES_OBJ_HI),
+                               STORES_OBJECTS))
+    return {f"/s19-b{i % STORES_BUCKETS}/p{(i // STORES_BUCKETS) % 4}/"
+            f"o-{i:04d}.bin": rng.bytes(int(n)) for i, n in enumerate(sizes)}
+
+
+def _stores_big(i: int) -> bytes:
+    return np.random.default_rng([SEED, 19, 1, i]).bytes(STORES_BIG[1])
+
+
+def _list_bucket(s3, bucket: str, page: int = STORES_PAGE) -> list[str]:
+    """ListObjectsV2 of a bucket, `page` keys a request."""
+    keys, token = [], ""
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    while True:
+        q = f"?list-type=2&max-keys={page}" + (
+            f"&continuation-token={token}" if token else "")
+        resp = s3("GET", f"/{bucket}{q}")
+        if resp.status_code != 200:
+            fail(f"ListObjectsV2 {bucket}: {resp.status_code} {resp.text}")
+        root = ET.fromstring(resp.content)
+        keys += [c.find(ns + "Key").text for c in root.findall(ns + "Contents")]
+        nxt = root.find(ns + "NextContinuationToken")
+        if nxt is None:
+            return keys
+        token = nxt.text
+
+
+def _filer_pages(filer: str, d: str, limit: int = STORES_PAGE) -> list:
+    """Every listing page of a filer directory, entries whole."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    pages, last = [], ""
+    while True:
+        r = session().get(f"{filer}{d}/", params={"limit": str(limit),
+                                                   "lastFileName": last},
+                          timeout=30)
+        if r.status_code != 200:
+            fail(f"listing {d}: {r.status_code} {r.text}")
+        body = r.json()
+        pages.append(body["entries"])
+        if not body["shouldDisplayLoadMore"]:
+            return pages
+        last = body["lastFileName"]
+
+
+def _metric(text: str, name: str) -> float:
+    """The sum of a metric's samples in a /metrics exposition."""
+    import re
+
+    return sum(float(m.group(1)) for m in re.finditer(
+        rf"^{re.escape(name)}(?:{{[^}}]*}})? (\S+)$", text, re.M))
+
+
+def phase_stores(card: str) -> dict:
+    """Phase 19: the port's CLI filer over a 4-shard leveldb store behind
+    the cache, with -encryptVolumeData, and the CLI S3 gateway over it;
+    the volumes of its ciphertext sealed, read degraded and rebuilt
+    through the kernel. -> kernel launches by step."""
+    from seaweedfs_tpu_torch.filer import sharded_store
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.utils import cipher
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke19-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    cluster = env = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    try:
+        # 19a. the cipher on this host's libcrypto, the cluster, the
+        # filer and the gateway as processes of the CLI
+        t0 = time.perf_counter()
+        key = bytes.fromhex("feffe9928665731c6d6a8f9467308308"
+                            "feffe9928665731c6d6a8f9467308308")
+        iv = bytes.fromhex("cafebabefacedbaddecaf888")
+        pt = bytes.fromhex(
+            "d9313225f88406e5a55909c5aff5269a86a7a9531534f7da2e4c303d8a318a72"
+            "1c3c0c95956809532fcf0e2449a6b525b16aedf5aa0de657ba637b391aafd255")
+        want_ct = bytes.fromhex(
+            "522dc1f099567d07f47f37a32a84427d643a8cdcbfe5c0c97598a2bd2555d1aa"
+            "8cb08e48590dbb3da7b08b1056828838c5f61e6393ba7a0abcc9f662898015ad"
+            "b094dac5d93471bdec1a502270e3cc6c")
+        sealed_vec = cipher._encrypt_with_nonce(pt, key, iv)
+        if sealed_vec != iv + want_ct or cipher.decrypt(sealed_vec, key) != pt:
+            fail("AES-256-GCM on this host's libcrypto misses the GCM "
+                 "specification's test case 15")
+        lib = cipher._libcrypto()
+        cluster = Cluster(os.path.join(tmp, "main"), n_volume_servers=4,
+                          max_volumes=8, volume_size_limit=STORES_VOLUME_LIMIT,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda")
+        fport, sport = free_ports(2)
+        filer = f"http://127.0.0.1:{fport}"
+        gateway = f"http://127.0.0.1:{sport}"
+        store_dir = os.path.join(tmp, "filerdb")
+        filer_args = ["filer", "-port", str(fport), "-master",
+                      cluster.master_url, "-store", "leveldb", "-store.path",
+                      store_dir, "-filer.store.shards", str(STORES_SHARDS),
+                      "-filer.cache.entries", str(STORES_CACHE),
+                      "-encryptVolumeData"]
+        s3_conf = os.path.join(tmp, "s3.json")
+        with open(s3_conf, "w") as f:
+            json.dump(S3_CONFIG, f)
+
+        def start(name: str, args: list[str], port: int) -> float:
+            """Spawn a CLI process; wait until its port listens (a TCP
+            connect: refused HTTP polls would open the client's breaker
+            for the peer, ROADMAP Queue 3 item 8)."""
+            import socket
+
+            t1 = time.perf_counter()
+            logs[name] = os.path.join(tmp, f"{name}.log")
+            procs[name] = _spawn(args, logs[name])
+
+            def up():
+                if procs[name].poll() is not None:
+                    fail(f"the {name} process exited: {_tail(logs[name])}")
+                try:
+                    socket.create_connection(("127.0.0.1", port), 1).close()
+                    return True
+                except OSError:
+                    return False
+            _poll(up, STORES_DEADLINE, f"the {name} process listening")
+            return time.perf_counter() - t1
+
+        t_filer = start("filer", filer_args, fport)
+        status = _get_json(f"{filer}/status")
+        if status.get("cipher") is not True:
+            fail(f"the filer's /status {status}: no cipher")
+        t_s3 = start("s3", ["s3", "-port", str(sport), "-filer", filer,
+                            "-config", s3_conf], sport)
+        env = CommandEnv(cluster.master_url, filer_url=filer)
+        s3 = _S3Client(gateway)
+        walls["a"] = time.perf_counter() - t0
+        log(f"[19] {card}; libcrypto {lib._name}: the GCM specification's "
+            f"test case 15 (AES-256, no AAD) exact; master "
+            f"{cluster.master_url}, 4 volume servers ec_backend='cuda', "
+            f"volume limit {STORES_VOLUME_LIMIT} B; `{' '.join(filer_args[:1] + filer_args[5:])}` "
+            f"on {filer} (listening after {t_filer:.3f} s), `s3` on "
+            f"{gateway} ({t_s3:.3f} s); set-up {walls['a']:.3f} s")
+
+        # 19b. the writes: the buckets' objects through S3, the big
+        # files through the filer
+        objects = _stores_objects()
+        big = {f"/big/f-{i}.bin": _stores_big(i) for i in range(STORES_BIG[0])}
+        buckets = sorted({p.split("/")[1] for p in objects})
+        t0 = time.perf_counter()
+        for b in buckets:
+            r = s3("PUT", f"/{b}")
+            if r.status_code != 200:
+                fail(f"CreateBucket {b}: {r.status_code} {r.text}")
+        lat: list[float] = []
+
+        def put(path):
+            t1 = time.perf_counter()
+            r = s3("PUT", path, objects[path])
+            if r.status_code != 200 or r.headers.get("ETag", "").strip(
+                    '"') != hashlib.md5(objects[path]).hexdigest():
+                fail(f"19b: PUT {path}: {r.status_code} "
+                     f"ETag {r.headers.get('ETag')}")
+            lat.append(time.perf_counter() - t1)
+
+        _pool_map(put, sorted(objects), threads=STORES_THREADS)
+        t_objects = time.perf_counter() - t0
+        t1 = time.perf_counter()
+
+        def post(path):
+            r = session().post(f"{filer}{path}", data=big[path], timeout=300)
+            if r.status_code != 201:
+                fail(f"19b: POST {path}: {r.status_code} {r.text}")
+
+        _pool_map(post, sorted(big), threads=4)
+        t_big = time.perf_counter() - t1
+        obj_bytes = sum(map(len, objects.values()))
+        big_bytes = sum(map(len, big.values()))
+        # every chunk on its volume server is ciphertext of its piece
+        t1 = time.perf_counter()
+        files = ["/big"] + [f"/buckets/{b}/p{j}" for b in buckets
+                            for j in range(4)]
+        entries = {e["full_path"]: e for d in files
+                   for pg in _filer_pages(filer, d) for e in pg}
+        if sorted(entries) != sorted([f"/buckets{p}" for p in objects]
+                                     + list(big)):
+            fail("19b: the filer's listings are not the written files")
+        vid_url: dict[str, str] = {}
+
+        def check_chunks(full):
+            e = entries[full]
+            data = big.get(full) or objects[full[len("/buckets"):]]
+            if e.get("content") or not e.get("chunks"):
+                fail(f"19b: {full} is inlined or has no chunks")
+            for ch in e["chunks"]:
+                vid = ch["fid"].split(",")[0]
+                if vid not in vid_url:
+                    vid_url[vid] = _get_json(
+                        f"{cluster.master_url}/dir/lookup",
+                        volumeId=vid)["locations"][0]["url"]
+                raw = session().get(f"http://{vid_url[vid]}/{ch['fid']}",
+                                    timeout=60).content
+                piece = data[ch["offset"]:ch["offset"] + ch["size"]]
+                if not ch.get("cipher_key") or len(raw) != len(piece) + 28 \
+                        or raw[12:-16] == piece or \
+                        cipher.decrypt(raw, bytes.fromhex(
+                            ch["cipher_key"])) != piece:
+                    fail(f"19b: chunk {ch['fid']} of {full} on its volume "
+                         "server is not the AES-GCM ciphertext of its piece")
+            return len(e["chunks"])
+
+        n_chunks = sum(_pool_map(check_chunks, sorted(entries),
+                                 threads=STORES_THREADS))
+        t_chunks = time.perf_counter() - t1
+        debug = _get_json(f"{filer}/debug/filer", timeout=30)
+        snap = debug["snapshot"]
+        shards = snap["inner"]["per_shard"]
+        walked = sum(len(p) for d in ["", "/buckets", "/big"] + [
+            f"/buckets/{b}" for b in buckets] + [
+            f"/buckets/{b}/p{j}" for b in buckets for j in range(4)]
+            for p in _filer_pages(filer, d))
+        ring = sharded_store._HashRing(STORES_SHARDS)
+        homes = {b: ring.shard_for(f"buckets/{b}") for b in buckets}
+        per = [s["entries"] for s in shards]
+        if debug["store"] != "cached-sharded" or snap["kind"] != "cache" or \
+                len(shards) != STORES_SHARDS or sum(per) != walked or \
+                len(set(homes.values())) < 2 or \
+                any(per[h] == 0 for h in homes.values()):
+            fail(f"19b: /debug/filer {debug['store']}: per-shard entries "
+                 f"{per} (sum {sum(per)}), the listings walk {walked}; the "
+                 f"buckets' shards {homes}")
+        walls["b"] = time.perf_counter() - t0
+        log(f"[19b] {len(objects)} objects of {STORES_OBJ_LO}-"
+            f"{STORES_OBJ_HI} B ({obj_bytes} B) into {len(buckets)} buckets "
+            f"through S3 on {STORES_THREADS} threads: {t_objects:.3f} s, "
+            f"{len(objects) / t_objects:.1f} objects/s, "
+            f"{obj_bytes / t_objects / 1e6:.2f} MB/s, PUT {_lat(lat)}; "
+            f"{STORES_BIG[0]} x {STORES_BIG[1]} B through the filer "
+            f"{t_big:.3f} s, {big_bytes / t_big / 1e6:.1f} MB/s; all "
+            f"{n_chunks} chunks read raw from their volume servers "
+            f"({t_chunks:.3f} s): each the AES-GCM ciphertext of its "
+            f"piece, 28 B longer, decrypted under its entry's key; "
+            f"/debug/filer: {debug['store']}, per-shard entries {per} "
+            f"summing to the {walked} entries the listings walk, the "
+            f"buckets on shards {sorted(set(homes.values()))}")
+
+        # 19c. the cache: listings twice, then mutations with no stale read
+        t0 = time.perf_counter()
+        hits0 = _metric(session().get(f"{filer}/metrics", timeout=30).text,
+                        "filer_store_cache_hits_total")
+        live = dict(objects)
+
+        def list_all(label: str) -> float:
+            t1 = time.perf_counter()
+            for b in buckets:
+                got = _list_bucket(s3, b)
+                exp = sorted(p.split("/", 2)[2] for p in live
+                             if p.split("/")[1] == b)
+                if got != exp:
+                    fail(f"{label}: ListObjectsV2 {b} ({STORES_PAGE} a "
+                         f"page) gave {len(got)} keys, "
+                         f"{len(set(got) ^ set(exp))} off")
+            return time.perf_counter() - t1
+
+        t_list1 = list_all("19c first")
+        hits1 = _metric(session().get(f"{filer}/metrics", timeout=30).text,
+                        "filer_store_cache_hits_total")
+        t_list2 = list_all("19c second")
+        hits2 = _metric(session().get(f"{filer}/metrics", timeout=30).text,
+                        "filer_store_cache_hits_total")
+        if hits2 <= hits1:
+            fail(f"19c: the second listing pass raised "
+                 f"filer_store_cache_hits_total {hits0} -> {hits1} -> {hits2}")
+        rng = np.random.default_rng([SEED, 19, 2])
+        order = [sorted(objects)[int(i)] for i in rng.permutation(len(objects))]
+        over = order[:STORES_OVERWRITES]
+        gone = order[STORES_OVERWRITES:STORES_OVERWRITES + STORES_DELETES]
+        moved = order[STORES_OVERWRITES + STORES_DELETES:
+                      STORES_OVERWRITES + STORES_DELETES + STORES_RENAMES]
+        for path in over:
+            # read first, so the cache holds the old entry
+            if _sha(s3("GET", path).content) != _sha(live[path]):
+                fail(f"19c: GET {path} before its overwrite")
+            data = rng.bytes(int(rng.integers(STORES_OBJ_LO, STORES_OBJ_HI)))
+            r = session().post(f"{filer}/buckets{path}", data=data,
+                               timeout=60)
+            if r.status_code != 201:
+                fail(f"19c: overwrite {path}: {r.status_code}")
+            live[path] = data
+            if _sha(s3("GET", path).content) != _sha(data):
+                fail(f"19c: a stale read of {path} after its overwrite")
+        for path in gone:
+            s3("HEAD", path)
+            r = session().delete(f"{filer}/buckets{path}", timeout=60)
+            if r.status_code >= 300:
+                fail(f"19c: delete {path}: {r.status_code}")
+            del live[path]
+            if s3("GET", path).status_code != 404:
+                fail(f"19c: {path} still read after its delete")
+        for path in moved:
+            dst = path.replace("/o-", "/moved-")
+            r = session().put(f"{filer}/buckets{dst}",
+                              params={"mv.from": f"/buckets{path}"},
+                              timeout=60)
+            if r.status_code >= 300:
+                fail(f"19c: rename {path}: {r.status_code} {r.text}")
+            live[dst] = live.pop(path)
+            if s3("GET", path).status_code != 404 or \
+                    _sha(s3("GET", dst).content) != _sha(live[dst]):
+                fail(f"19c: a stale read after renaming {path} to {dst}")
+        t_list3 = list_all("19c after the mutations")
+        lat = []
+
+        def get(path):
+            t1 = time.perf_counter()
+            r = s3("GET", path)
+            if r.status_code != 200 or _sha(r.content) != _sha(live[path]):
+                fail(f"19c: GET {path}: {r.status_code}, a stale read")
+            lat.append(time.perf_counter() - t1)
+            return len(r.content)
+
+        t1 = time.perf_counter()
+        nbytes = sum(_pool_map(get, sorted(live), threads=STORES_THREADS))
+        t_get = time.perf_counter() - t1
+        stats = _get_json(f"{filer}/debug/filer", timeout=30)["snapshot"][
+            "cache"]
+        walls["c"] = time.perf_counter() - t0
+        log(f"[19c] every bucket listed {STORES_PAGE} keys a page: "
+            f"{t_list1:.3f} s, then {t_list2:.3f} s from the cache "
+            f"(filer_store_cache_hits_total {hits0:.0f} -> {hits1:.0f} -> "
+            f"{hits2:.0f}); {len(over)} overwrites, {len(gone)} deletes "
+            f"and {len(moved)} renames through the filer, each read back "
+            f"through S3 at once with no stale read; listings after "
+            f"{t_list3:.3f} s; all {len(live)} objects GET "
+            f"{t_get:.3f} s, {len(live) / t_get:.1f} objects/s, "
+            f"{nbytes / t_get / 1e6:.2f} MB/s, {_lat(lat)}; cache {stats}")
+
+        # 19d. the store on disk: the filer process stopped and started
+        # again on the same directory
+        t0 = time.perf_counter()
+        dirs = ["", "/buckets", "/big"] + [f"/buckets/{b}" for b in buckets] \
+            + [f"/buckets/{b}/p{j}" for b in buckets for j in range(4)]
+        before = {d: _filer_pages(filer, d) for d in dirs}
+        metrics_text = session().get(f"{filer}/metrics", timeout=30).text
+        compactions = _metric(metrics_text,
+                              "filer_store_compaction_seconds_count")
+        procs["filer"].terminate()
+        procs["filer"].wait(timeout=30)
+        t_down = time.perf_counter() - t0
+        t_restart = start("filer", filer_args, fport)
+        after = {d: _filer_pages(filer, d) for d in dirs}
+        if after != before:
+            bad = [d for d in dirs if after[d] != before[d]]
+            fail(f"19d: after the filer's restart the listings of {bad} "
+                 "differ")
+        _poll(lambda: s3("GET", f"/{buckets[0]}?list-type=2&max-keys=1"
+                         ).status_code == 200, STORES_DEADLINE,
+              "the gateway through the restarted filer")
+        t_back = time.perf_counter() - t0 - t_down - t_restart
+        walls["d"] = time.perf_counter() - t0
+        log(f"[19d] the filer stopped (SIGTERM, {t_down:.3f} s) and "
+            f"started again on {store_dir} in {t_restart:.3f} s: every "
+            f"listing page of {len(dirs)} directories "
+            f"({sum(len(p) for v in before.values() for p in v)} entries, "
+            f"{STORES_PAGE} a page) as before; the gateway served again "
+            f"{t_back:.3f} s later; weedkv's filer_store_compaction_seconds "
+            f"count before the stop {compactions:.0f}")
+
+        # 19e. seal the volumes of the ciphertext; read sealed, degraded
+        # and rebuilt
+        t0 = time.perf_counter()
+        chunks = [ch for p, pages in after.items() for pg in pages
+                  for e in pg for ch in e.get("chunks", [])]
+        vids = sorted({int(ch["fid"].split(",")[0]) for ch in chunks})
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        dat = {}
+        for vid in vids:
+            for st in cluster.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    dat[vid] = v.content_size()
+        repl.run_command(env, "lock")
+        before_stages = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before_stages["kernel"]
+        own = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i
+                  for i, st in enumerate(cluster.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        if launches["encode"] <= 0 or launches["encode"] != own or \
+                scraped != launches["encode"]:
+            fail(f"19e: {launches['encode']} launches during ec.encode, "
+                 f"the .dat sizes give {own}, /metrics says {scraped}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"19e: volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+
+        def read_all(label: str) -> tuple[dict, dict]:
+            lat_o: list[float] = []
+
+            def one(path):
+                t1 = time.perf_counter()
+                r = s3("GET", path)
+                if r.status_code != 200 or _sha(r.content) != \
+                        _sha(live[path]):
+                    fail(f"{label}: GET {path}: {r.status_code}, sha256 off")
+                lat_o.append(time.perf_counter() - t1)
+                return len(r.content)
+
+            t1 = time.perf_counter()
+            nb = sum(_pool_map(one, sorted(live), threads=STORES_THREADS))
+            wo = time.perf_counter() - t1
+            files = _check_files(filer, {p: _sha(d) for p, d in big.items()},
+                                 label, threads=4)
+            return ({"wall": wo, "bytes": nb, "mbps": nb / wo / 1e6,
+                     "rate": len(live) / wo, "lat": lat_o}, files)
+
+        sealed_o, sealed_f = read_all("19e sealed")
+        largest = max(vids, key=lambda v: (dat[v], v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        if any(len(s) > 4 for s in lost.values()):
+            fail(f"19e: {victim} holds more than m=4 shards of a volume: "
+                 f"{lost}")
+        t1 = time.perf_counter()
+        cluster.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"the master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t1
+        degraded = _check_files(filer, {p: _sha(d) for p, d in big.items()},
+                                "19e degraded", threads=STORES_THREADS)
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            if lost[vid]:
+                repl.run_command(env, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t1
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped_r = _tools_metrics(next(u for u in by_url if u != victim))[
+            "launches"]
+        if launches["rebuild"] <= 0 or scraped_r != launches["rebuild"]:
+            fail(f"19e: ec.rebuild: {launches['rebuild']} launches, the "
+                 f"volume servers' cuda_kernel_launches {scraped_r}")
+        for vid in vids:
+            if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"19e: volume {vid} after ec.rebuild: "
+                     f"{env.ec_shard_locations(vid)}")
+        healed_o, healed_f = read_all("19e rebuilt")
+        repl.run_command(env, "unlock")
+        walls["e"] = time.perf_counter() - t0
+        log(f"[19e] ec.encode of the {len(vids)} volumes holding the "
+            f"ciphertext ({dat} .dat bytes) {t_encode:.3f} s, "
+            f"{launches['encode']} launches (the sizes give {own}; "
+            f"/metrics cuda_kernel_launches {scraped}); kernel "
+            f"{kernel_s * 1e3:.3f} ms (CUDA events), "
+            f"{kernel_s * 1e3 / launches['encode']:.3f} ms per launch; "
+            f"read sealed: {len(live)} objects through S3 "
+            f"{sealed_o['wall']:.3f} s, {sealed_o['rate']:.1f} objects/s, "
+            f"{sealed_o['mbps']:.2f} MB/s, {_lat(sealed_o['lat'])}; the "
+            f"{len(big)} files through the filer {sealed_f['mbps']:.1f} "
+            f"MB/s; stopped {victim} (shards {lost}), dropped in "
+            f"{t_gone:.3f} s; the files read degraded "
+            f"{degraded['mbps']:.1f} MB/s; ec.rebuild {t_rebuild:.3f} s, "
+            f"{launches['rebuild']} launches (/metrics {scraped_r}); read "
+            f"again: objects "
+            f"{healed_o['mbps']:.2f} MB/s, {_lat(healed_o['lat'])}, files "
+            f"{healed_f['mbps']:.1f} MB/s; every sha256 equal")
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                fail(f"the {name} process exited: {_tail(logs[name])}")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 19 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[19] phase 19 took {wall:.3f} s "
+            f"({ {k: round(v, 3) for k, v in walls.items()} }); kernel "
+            f"launches {launches}; the seal's kernel time "
+            f"{kernel_s * 1e3:.3f} ms is {busy:.5%} of the phase wall "
+            f"(idle share {1 - busy:.5%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 6)
+        return launches
+    finally:
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        if env is not None:
+            env.close()
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -7487,7 +8065,8 @@ def main() -> int:
     tools_launches = timed(16, phase_tools, card)
     remote = timed(17, phase_remote, card)
     sync = timed(18, phase_sync, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-18 "
+    stores = timed(19, phase_stores, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-19 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -7544,6 +8123,11 @@ def main() -> int:
         "sync_kernel_ms_per_launch": sync["kernel_ms_per_launch"],
         "sync_idle_share": sync["idle_share"],
         "sync_lag_ms": sync["lag_ms"],
+        "stores_launches": stores["encode"] + stores["rebuild"],
+        "stores_launches_by_step": {k: stores[k]
+                                    for k in ("encode", "rebuild")},
+        "stores_kernel_ms_per_launch": stores["kernel_ms_per_launch"],
+        "stores_idle_share": stores["idle_share"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

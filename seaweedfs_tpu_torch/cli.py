@@ -525,10 +525,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-master", default="http://127.0.0.1:9333",
                    help="comma-separated masters")
     p.add_argument("-store", default="memory",
-                   help="metadata store: memory | sqlite")
+                   help="metadata store: memory | sqlite | leveldb | "
+                        "redis | redis_cluster (seed list in "
+                        "-store.host) | etcd | mongodb | cassandra | "
+                        "mysql | mysql2 | postgres | postgres2 "
+                        "(per-bucket tables, O(1) bucket drop) | "
+                        "rocksdb (needs librocksdb)")
     p.add_argument("-store.path", dest="store_path", default=":memory:")
+    p.add_argument("-store.host", dest="store_host", default="")
+    p.add_argument("-store.port", dest="store_port", type=int, default=0)
+    p.add_argument("-store.user", dest="store_user", default="",
+                   help="db username (mysql/postgres/cassandra)")
+    p.add_argument("-store.password", dest="store_password", default="")
+    p.add_argument("-store.database", dest="store_database", default="")
+    _add_store_layout_flags(p, "-store")
     p.add_argument("-collection", default="")
     p.add_argument("-replication", default="")
+    p.add_argument("-encryptVolumeData", dest="encrypt_volume_data",
+                   action="store_true",
+                   help="encrypt chunk data on volume servers "
+                        "(AES-256-GCM, per-chunk keys in filer metadata)")
     p.add_argument("-maxMB", dest="max_mb", type=int, default=8,
                    help="split uploads into chunks of this many MiB")
     p.add_argument("-saveToFilerLimit", dest="save_to_filer_limit",
@@ -560,8 +576,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=8080)
     p.add_argument("-filer", action="store_true")
     p.add_argument("-filer.port", dest="filer_port", type=int, default=8888)
-    p.add_argument("-filer.store", dest="filer_store", default="sqlite",
-                   help="metadata store: memory | sqlite")
+    p.add_argument("-filer.store", dest="filer_store", default="sqlite")
+    _add_store_layout_flags(p, "-filer.store")
     p.add_argument("-s3", action="store_true")
     p.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
     p.add_argument("-s3.config", dest="s3_config", default="",
@@ -979,6 +995,28 @@ def _add_dataplane_flag(p) -> None:
                         "library builds")
 
 
+def _add_store_layout_flags(p, kind_flag: str) -> None:
+    """-filer.store.shards and -filer.cache.*, over the store that
+    `kind_flag` names."""
+    p.add_argument("-filer.store.shards", dest="filer_store_shards",
+                   type=int, default=0,
+                   help="partition the filer namespace across N "
+                        f"independent {kind_flag} engines (bucket/"
+                        "first-segment routing, consistent-hash ring; "
+                        "compaction stays per-shard); 0 = single store")
+    p.add_argument("-filer.cache.entries", dest="filer_cache_entries",
+                   type=int, default=0,
+                   help="read-through metadata cache: max cached "
+                        "entries (positive + negative), exactly "
+                        "invalidated via the meta event log; "
+                        "0 = cache off")
+    p.add_argument("-filer.cache.pages", dest="filer_cache_pages",
+                   type=int, default=0,
+                   help="read-through metadata cache: max cached "
+                        "directory-listing pages; 0 = default when "
+                        "-filer.cache.entries is set, else off")
+
+
 def _add_filer_native_flags(p, default: str, note: str) -> None:
     p.add_argument("-filer.native", dest="filer_native", default=default,
                    choices=["auto", "native", "python"],
@@ -1151,6 +1189,9 @@ def _run_server(args) -> int:
         filer_dir = os.path.join(args.dir, "filer")
         os.makedirs(filer_dir, exist_ok=True)
         store_path = os.path.join(filer_dir, "filer.db")
+        store_kw = dict(store_shards=args.filer_store_shards,
+                        cache_entries=args.filer_cache_entries,
+                        cache_pages=args.filer_cache_pages)
         if args.filer_native != "python" and native_volume:
             from .filer.native_front import NativeFilerFront
 
@@ -1160,7 +1201,8 @@ def _run_server(args) -> int:
             # directly: its filer calls carry queries, which the front
             # would only relay)
             ft, fs = _start_filer(args, mt.url, 0, store=args.filer_store,
-                                  store_path=store_path, host="127.0.0.1")
+                                  store_path=store_path, host="127.0.0.1",
+                                  **store_kw)
             fs._native_front = NativeFilerFront(
                 fs, mt.url, args.filer_port, ft.port, listen_ip=args.ip,
                 workers=args.filer_native_workers)
@@ -1170,7 +1212,7 @@ def _run_server(args) -> int:
         else:
             ft, fs = _start_filer(args, mt.url, args.filer_port,
                                   store=args.filer_store,
-                                  store_path=store_path)
+                                  store_path=store_path, **store_kw)
         threads.insert(0, ft)
         if args.s3:
             if args.s3_native != "python" and native_volume:
@@ -1237,13 +1279,22 @@ def _run_filer(args) -> int:
             "-filer.native=native needs an in-process volume store: use "
             "the combined `server` command with -dataplane native")
 
+    store_options = {k: v for k, v in (
+        ("host", args.store_host), ("port", args.store_port),
+        ("user", args.store_user), ("password", args.store_password),
+        ("database", args.store_database)) if v}
     t, _ = _start_filer(args, args.master, args.port, store=args.store,
-                     store_path=args.store_path,
-                     collection=args.collection,
-                     replication=args.replication,
-                     chunk_size=args.max_mb << 20,
-                     save_to_filer_limit=args.save_to_filer_limit,
-                     ssl_context=_ssl_ctx(args))
+                        store_path=args.store_path,
+                        collection=args.collection,
+                        replication=args.replication,
+                        chunk_size=args.max_mb << 20,
+                        store_options=store_options,
+                        cipher=args.encrypt_volume_data,
+                        save_to_filer_limit=args.save_to_filer_limit,
+                        store_shards=args.filer_store_shards,
+                        cache_entries=args.filer_cache_entries,
+                        cache_pages=args.filer_cache_pages,
+                        ssl_context=_ssl_ctx(args))
     _start_span_pusher(_http(args.master.split(",")[0].strip()), "filer",
                        t.address)
     run_apps_forever([t])

@@ -5,8 +5,8 @@ Equivalent of SeaweedFS weed/filer/filechunks.go:183-307
 (NonOverlappingVisibleIntervals / ViewFromChunks) and
 filechunk_manifest.go (manifest chunks compressing huge chunk lists).
 Later-modified chunks shadow earlier ones wherever they overlap.
-Not here: encrypted chunks (-encryptVolumeData); a manifest chunk with
-a cipher key raises NotImplementedError.
+A manifest chunk with a cipher key (-encryptVolumeData) is decrypted
+before it is parsed.
 """
 from __future__ import annotations
 
@@ -175,11 +175,11 @@ def resolve_chunk_manifest(
         if not c.is_chunk_manifest:
             out.append(c)
             continue
-        if c.cipher_key:
-            raise NotImplementedError(
-                f"manifest chunk {c.fid} is encrypted: -encryptVolumeData "
-                "is not ported")
         raw = read_fn(c.fid)
+        if c.cipher_key:
+            from ..utils import cipher as _cipher
+
+            raw = _cipher.decrypt(raw, c.cipher_key)
         payload = json.loads(raw)
         nested = [FileChunk.from_dict(d) for d in payload["chunks"]]
         out.extend(resolve_chunk_manifest(read_fn, nested))

@@ -16,8 +16,8 @@ read whose every location failed drops the fid's cached locations
 port's master client has no KeepConnected stream to learn that a server
 died. `iter_content` yields a range piece by piece for streamed replies,
 where the reference's aiohttp handler wrote the pieces itself.
-Not here: encrypted chunks (-encryptVolumeData) raise
-NotImplementedError.
+Encrypted chunks (-encryptVolumeData) are always read whole and
+decrypted (utils/cipher.py); the reader's cache holds plaintext.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Callable, Iterator
 
 from ..rpc.httpclient import session
-from ..utils import metrics
+from ..utils import cipher, metrics
 
 from .entry import FileChunk
 from .filechunks import resolve_chunk_manifest, view_from_chunks
@@ -183,17 +183,14 @@ class ChunkStreamReader:
         self.lookup = lookup
         self.chunks = resolve_chunk_manifest(
             lambda fid: read_fid(lookup, fid), chunks)
-        if any(c.cipher_key for c in self.chunks):
-            raise NotImplementedError(
-                "encrypted chunks: -encryptVolumeData is not ported")
         self._cache: dict[str, bytes] = {}
         self._cache_order: list[str] = []
         self._cache_chunks = cache_chunks
         self.pattern = ReaderPattern()
         self._readahead = readahead
-        self._prefetch = {}  # fid -> Future[bytes]
+        self._prefetch = {}  # fid -> Future[bytes] (plaintext chunks)
         self._pool = None
-        # offset-ordered chunks, for next-chunk readahead
+        # offset-ordered plain chunks, for next-chunk readahead
         self._seq = sorted(
             (c for c in self.chunks if not c.is_chunk_manifest),
             key=lambda c: c.offset)
@@ -209,21 +206,27 @@ class ChunkStreamReader:
             self._cache.pop(self._cache_order.pop(0), None)
         return data
 
-    def _chunk_bytes(self, fid: str) -> bytes:
+    def _chunk_bytes(self, fid: str, cipher_key: bytes = b"") -> bytes:
         if fid in self._cache:
             return self._cache[fid]
         fut = self._prefetch.pop(fid, None)
-        if fut is not None:
+        if fut is not None and not cipher_key:
             try:
                 return self._cache_put(fid, fut.result(timeout=60))
             except Exception:  # noqa: BLE001 — readahead is best-effort
                 pass
-        return self._cache_put(fid, read_fid(self.lookup, fid))
+        data = read_fid(self.lookup, fid)
+        if cipher_key:
+            # stored bytes are nonce||AES-GCM ciphertext; the cache
+            # holds PLAINTEXT so repeat reads don't re-decrypt
+            data = cipher.decrypt(data, cipher_key)
+        return self._cache_put(fid, data)
 
     def _maybe_readahead(self, cur_fid: str, limit_off: int) -> None:
         """Sequential mode: start fetching the chunk AFTER `cur_fid`
         on a background thread so network and assembly overlap
-        (reader_cache.go MaybeCache). One chunk ahead, best-effort.
+        (reader_cache.go MaybeCache). One chunk ahead, best-effort,
+        plain chunks only (ciphered ones must decrypt whole anyway).
         `limit_off` bounds the prefetch to chunks this read actually
         touches — a per-request reader must never fetch a chunk past
         its range just to throw it away on close()."""
@@ -234,7 +237,7 @@ class ChunkStreamReader:
             if c.fid == cur_fid and i + 1 < len(self._seq):
                 nxt = self._seq[i + 1]
                 break
-        if nxt is None or nxt.offset >= limit_off \
+        if nxt is None or nxt.offset >= limit_off or nxt.cipher_key \
                 or nxt.fid in self._cache or nxt.fid in self._prefetch:
             return
         if self._pool is None:
@@ -262,13 +265,15 @@ class ChunkStreamReader:
         streaming = self.pattern.is_streaming
         for v in views:
             full = v.view_size >= chunk_sizes.get(v.fid, 0)
-            whole = (v.fid in self._cache or full or
+            whole = (v.cipher_key or v.fid in self._cache or full or
                      v.fid in self._prefetch or streaming)
             if whole:
                 self._maybe_readahead(v.fid, limit_off or offset + size)
-                # warmed-up sequential readers take whole chunks so the
-                # NEXT sub-chunk reads hit the cache, not the network
-                data = self._chunk_bytes(v.fid)
+                # ciphered chunks must always come back whole (a ranged
+                # read of GCM ciphertext cannot decrypt); warmed-up
+                # sequential readers take whole chunks too so the NEXT
+                # sub-chunk reads hit the cache instead of the network
+                data = self._chunk_bytes(v.fid, v.cipher_key)
                 piece = data[v.offset_in_chunk:
                              v.offset_in_chunk + v.view_size]
             else:

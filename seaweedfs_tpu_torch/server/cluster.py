@@ -12,7 +12,8 @@ master's redundancy watchdog (with `repair_enabled`, lost replicas and
 shards are rebuilt without an operator), `admin_scripts` its
 maintenance timer. `stop()` stops both before the volume servers, so
 the teardown never reads as lost servers. `with_filer` adds a filer
-(`filer_store` memory or sqlite) and `with_s3` the S3 gateway over it
+(`filer_store` memory, sqlite or leveldb; `filer_cipher` for
+-encryptVolumeData) and `with_s3` the S3 gateway over it
 (`s3_config` its identities), as the reference's harness; the filer
 announces itself every pulse, so the master's watchdog and admin
 scripts always find it and take its DLM lock.
@@ -102,6 +103,7 @@ class Cluster:
                  repair_grace: float = 0.0,
                  with_filer: bool = False,
                  filer_store: str = "memory",
+                 filer_cipher: bool = False,
                  with_s3: bool = False,
                  s3_config: dict | None = None,
                  filer_native: bool = False,
@@ -239,14 +241,21 @@ class Cluster:
             self.filer: FilerServer | None = None
             self.filer_thread: ServerThread | None = None
             if with_filer or with_s3:
-                store_path = os.path.join(base_dir, "filer.db") \
-                    if filer_store == "sqlite" else ":memory:"
+                # distinct path per kind: sqlite wants a FILE, weedkv a
+                # DIRECTORY — sharing one name would wedge a base_dir
+                # that switches store kinds across restarts
+                store_path = ":memory:"
+                if filer_store == "sqlite":
+                    store_path = os.path.join(base_dir, "filer.db")
+                elif filer_store == "leveldb":
+                    store_path = os.path.join(base_dir, "filerdb")
                 # announce every pulse: the master forgets a member
                 # after 3 silent pulses, and a filer it forgot leaves
                 # the watchdog with a process-local lock
                 self.filer = FilerServer(self.master_urls,
                                          store=filer_store,
                                          store_path=store_path,
+                                         cipher=filer_cipher,
                                          announce_pulse=pulse_seconds)
                 self.filer_thread = ServerThread(
                     self.filer.app, ssl_context=tls.get("filer")).start()

@@ -71,8 +71,13 @@ filer.conf rule, as they move bytes, not content. A KV write of the
 conf drops the cached conf and clients at once (another filer's edit
 is seen within _REMOTE_CONF_TTL).
 
-Not here: -encryptVolumeData, the sharded and caching stores, the
-browser (text/html) listing view.
+-encryptVolumeData seals every chunk with AES-256-GCM under a key of
+its own (utils/cipher.py), kept in the entry; reads decrypt whole
+chunks. `-filer.store.shards` wraps the store kind in `sharded`, and
+`-filer.cache.*` puts the read-through CachingStore in front of it,
+invalidated by the meta log's sync listener.
+
+Not here: the browser (text/html) listing view.
 """
 from __future__ import annotations
 
@@ -94,21 +99,23 @@ from typing import Callable
 
 from ..cluster.lock_manager import (DistributedLockManager, LockMoved,
                                     LockNotOwned, RingEmpty)
-from ..filer import (Entry, FileChunk, Filer, etag_chunks, iter_content,
-                     maybe_manifestize, norm_path, read_fid,
-                     resolve_chunk_manifest, stream_content)
+from ..filer import (CachingStore, Entry, FileChunk, Filer, etag_chunks,
+                     iter_content, make_store, maybe_manifestize,
+                     norm_path, read_fid, resolve_chunk_manifest,
+                     stream_content)
 from ..filer.filechunks import MANIFEST_BATCH
 from ..filer.filer import DirectoryNotEmptyError
 from ..filer.filer_conf import CONF_KEY as FILER_CONF_KEY
 from ..filer.filer_conf import FilerConf
+from ..filer.store_cache import DEFAULT_ENTRIES, DEFAULT_PAGES
 from ..operation import verbs
 from ..rpc.http import (App, Request, Response, debug_index_factory,
                         server_middlewares,
                         json_response, text_response)
 from ..rpc.httpclient import session
 from ..rpc.websocket import WebSocket, upgrade
-from ..utils import (compression, extheaders, glog, httprange, metrics, qos,
-                     retry, tracing)
+from ..utils import (cipher as cip, compression, extheaders, glog,
+                     httprange, metrics, qos, retry, tracing)
 from ..wdclient.client import MasterClient
 
 DEFAULT_CHUNK_SIZE = 8 << 20  # autochunk default (`-maxMB=8` upstream)
@@ -169,7 +176,12 @@ class FilerServer:
                  chunk_size: int = DEFAULT_CHUNK_SIZE,
                  signature: int = 0,
                  announce_pulse: float = 3.0,
-                 save_to_filer_limit: int = 0):
+                 store_options: dict | None = None,
+                 cipher: bool = False,
+                 save_to_filer_limit: int = 0,
+                 store_shards: int = 0,
+                 cache_entries: int = 0,
+                 cache_pages: int = 0):
         self.masters = MasterClient(master_url)
         self.collection = collection
         self.replication = replication
@@ -178,8 +190,31 @@ class FilerServer:
         # the metadata entry (entry.content) — zero volume round trips
         # for tiny files (command/filer.go:85, uploadReaderToChunks:83)
         self.save_to_filer_limit = save_to_filer_limit
+        # -encryptVolumeData: every chunk this filer writes is AES-GCM
+        # ciphertext under a per-chunk key kept in the entry metadata
+        # (filer_server_handlers_write_cipher.go; util/cipher.go)
+        self.cipher = cipher
+        # -filer.store.shards: partition the namespace across N child
+        # engines of the requested kind (filer/sharded_store.py) so
+        # compaction parallelizes and stays per-shard
+        if store_shards > 1 and isinstance(store, str) \
+                and store != "sharded":
+            store = make_store("sharded", path=store_path,
+                               shards=store_shards, child=store,
+                               child_options=store_options or {})
         self.filer = Filer(store, on_delete_chunks=self._delete_chunks,
-                           signature=signature, path=store_path)
+                           signature=signature, path=store_path,
+                           **(store_options or {}))
+        # -filer.cache.*: read-through entry + listing-page cache,
+        # exactly invalidated through the meta event log (zero
+        # staleness for the Python and the native mutation paths)
+        if cache_entries > 0 or cache_pages > 0:
+            cached = CachingStore(
+                self.filer.store,
+                entries=cache_entries or DEFAULT_ENTRIES,
+                pages=cache_pages or DEFAULT_PAGES)
+            cached.attach(self.filer.meta_log)
+            self.filer.store = cached
         # this filer's address is set by the runner once the listen
         # socket is bound (the volume servers' store.port likewise)
         self.address = ""
@@ -414,14 +449,22 @@ class FilerServer:
     def _upload_chunk(self, data: bytes, name: str, collection: str,
                       replication: str, ttl: str, disk_type: str = "",
                       fsync: bool = False,
-                      data_center: str = "") -> tuple[str, str]:
-        """-> (fid, etag). A compressible name is shipped so the volume
-        server stores the chunk gzipped; opaque payloads omit it."""
+                      data_center: str = "") -> tuple[str, str, bytes]:
+        """-> (fid, etag, cipher_key). A compressible name is shipped
+        so the volume server stores the chunk gzipped; opaque payloads
+        omit it. With -encryptVolumeData the volume server receives only
+        ciphertext (never compressed); the etag stays the md5 of the
+        PLAINTEXT so content addressing (S3 ETag, sync signatures) is
+        cipher-independent."""
         etag = hashlib.md5(data).hexdigest()
+        ckey = b""
+        if self.cipher:
+            ckey = cip.gen_cipher_key()
+            data = cip.encrypt(data, ckey)
         params = {}
         if fsync:  # ?fsync=true / filer.conf rule: durable before ack
             params["fsync"] = "true"
-        if name and compression.is_compressible(
+        if not self.cipher and name and compression.is_compressible(
                 mimetypes.guess_type(name)[0] or "", name):
             params["name"] = name
         last = ""
@@ -437,7 +480,7 @@ class FilerServer:
                                       params=params, headers=headers,
                                       timeout=60)
                 if resp.status_code < 300:
-                    return fid, etag
+                    return fid, etag, ckey
                 last = f"{resp.status_code} {resp.text}"
             except OSError as e:
                 last = str(e)
@@ -540,8 +583,9 @@ class FilerServer:
         True while a PUT here would be a pure default single-chunk
         create — no filer.conf rule (ttl, fsync, read-only, per-path
         collection...), no -saveToFilerLimit inlining, no replicated
-        default placement — so the front may take PUT/DELETE itself."""
-        if self.save_to_filer_limit > 0 or \
+        default placement, no -encryptVolumeData — so the front may
+        take PUT/DELETE itself."""
+        if self.cipher or self.save_to_filer_limit > 0 or \
                 self.replication not in ("", "000"):
             return False
         try:
@@ -838,16 +882,19 @@ class FilerServer:
         md5_all = hashlib.md5() if content_md5 \
             or "fullmd5" in req.query else None
         # inline threshold: the per-request ?saveInside=true or the
-        # filer-wide -saveToFilerLimit
+        # filer-wide -saveToFilerLimit; never under -encryptVolumeData
+        # (inline bytes would bypass the cipher)
         inline_limit = 0
         save_inside = req.query.get("saveInside", "")
-        if save_inside == "true":
-            inline_limit = self.chunk_size
-        elif save_inside == "false":
-            # explicit opt-out: S3 multipart parts must keep chunks
-            inline_limit = 0
-        elif self.save_to_filer_limit > 0:
-            inline_limit = min(self.save_to_filer_limit, self.chunk_size)
+        if not self.cipher:
+            if save_inside == "true":
+                inline_limit = self.chunk_size
+            elif save_inside == "false":
+                # explicit opt-out: S3 multipart parts must keep chunks
+                inline_limit = 0
+            elif self.save_to_filer_limit > 0:
+                inline_limit = min(self.save_to_filer_limit,
+                                   self.chunk_size)
 
         chunks: list[FileChunk] = []
         pending: list[tuple[int, int, Future]] = []
@@ -856,9 +903,10 @@ class FilerServer:
 
         def collect_oldest() -> None:
             poff, psize, fut = pending.pop(0)
-            fid, etag = fut.result()
+            fid, etag, ckey = fut.result()
             chunks.append(FileChunk(fid=fid, offset=poff, size=psize,
-                                    mtime_ns=time.time_ns(), etag=etag))
+                                    mtime_ns=time.time_ns(), etag=etag,
+                                    cipher_key=ckey))
 
         try:
             while True:
@@ -895,7 +943,7 @@ class FilerServer:
             for poff, psize, fut in pending:
                 fut.cancel()
                 try:
-                    fid, _etag = fut.result()
+                    fid = fut.result()[0]
                     chunks.append(FileChunk(fid=fid, offset=poff,
                                             size=psize, mtime_ns=0))
                 except BaseException:  # noqa: BLE001 — never uploaded
@@ -909,10 +957,13 @@ class FilerServer:
             return json_response({"error": "Content-MD5 mismatch"},
                                  status=400)
         if len(chunks) >= MANIFEST_BATCH:
-            chunks = maybe_manifestize(
-                lambda b: self._upload_chunk(
+            def save_manifest(b: bytes) -> tuple[str, bytes]:
+                fid, _etag, ckey = self._upload_chunk(
                     b, filename, collection, replication, ttl, disk_type,
-                    fsync=fsync, data_center=data_center)[0], chunks)
+                    fsync=fsync, data_center=data_center)
+                return fid, ckey
+
+            chunks = maybe_manifestize(save_manifest, chunks)
         # extended attributes carried on the upload itself (atomic with
         # the entry create): the S3 gateway ships x-amz-meta-* so
         extended = {k.lower()[len("x-seaweed-ext-"):]:
@@ -973,11 +1024,12 @@ class FilerServer:
                     {"error": f"remote object {meta['key']} ended at "
                               f"{offset}, expected {size} bytes"},
                     status=502)
-            fid, etag = self._upload_chunk(piece, name, entry.collection,
-                                           entry.replication, "")
+            fid, etag, ckey = self._upload_chunk(
+                piece, name, entry.collection, entry.replication, "")
             chunks.append(FileChunk(fid=fid, offset=offset,
                                     size=len(piece),
-                                    mtime_ns=time.time_ns(), etag=etag))
+                                    mtime_ns=time.time_ns(), etag=etag,
+                                    cipher_key=ckey))
             offset += len(piece)
         entry.chunks = chunks
         self.filer.create_entry(entry, signatures=signatures)
@@ -1082,21 +1134,22 @@ class FilerServer:
         return json_response({
             "master": self.master_url, "store": self.filer.store.name,
             "signature": self.filer.meta_log.signature,
-            "cipher": False})
+            # mounts/clients writing chunks directly must match the
+            # filer's encryption (GetFilerConfiguration.cipher)
+            "cipher": self.cipher})
 
     def handle_debug_filer(self, req: Request) -> Response:
-        """GET /debug/filer — the metadata store: its kind and, where
-        the store can count them cheaply, its entries."""
+        """GET /debug/filer — metadata-store snapshot: shard geometry
+        and sizes, cache hit/negative/evict counters, compaction debt
+        (segments awaiting merge per engine)."""
+        from ..filer.sharded_store import _child_snapshot
+
         store = self.filer.store
         snap = getattr(store, "debug_snapshot", None)
-        if snap is not None:
-            body = snap()
-        else:
-            dirs = getattr(store, "_dirs", None)     # the memory store
-            body = {"kind": store.name,
-                    "entries": sum(len(v) for v in dirs.values())
-                    if dirs is not None else None}
-        return json_response({"store": store.name, "snapshot": body})
+        return json_response({
+            "store": store.name,
+            "snapshot": snap() if snap else _child_snapshot(store),
+        })
 
     def handle_debug_ec(self, req: Request) -> Response:
         """GET /debug/ec — the codec router's probe curve and
@@ -1106,6 +1159,11 @@ class FilerServer:
         return json_response(ec_backend.probe_snapshot())
 
     def handle_metrics(self, req: Request) -> Response:
+        # sharded/cached stores refresh their gauges per scrape so the
+        # master's federation picks up live per-shard + cache numbers
+        publish = getattr(self.filer.store, "publish_metrics", None)
+        if publish is not None:
+            publish()
         # per-tenant demand sketches -> workload_tenant_* gauges: tenant
         # demand rides the federation to the master's aggregator
         qos.export_demand_metrics()
