@@ -364,8 +364,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    hold 5, past m = 4). Launches in a volume process are read from its
    /metrics (`cuda_kernel_launches`); the CLI's subcommands run here
    through `cli.main`. Each step is fatal on failure:
-   a. `upload -maxMB 64` of one seeded 1 GiB file into a collection
-      pinned to one grown volume: 16 chunk needles and a ?cm=true
+   a. `upload -maxMB 64` of one seeded 512 MiB file into a collection
+      pinned to one grown volume: 8 chunk needles and a ?cm=true
       manifest; `download` of the manifest fid sha256-equal; a 3-range
       GET across chunk boundaries relayed by the front answers 206
       multipart/byteranges, each part equal; one 64 MiB chunk through
@@ -495,6 +495,38 @@ Phases, each fatal on failure (exit code 1, no result line):
       read sealed, sha256-equal; the server holding the most shards of
       the largest volume stopped: the big files read degraded;
       ec.rebuild (launches > 0, /metrics agree); everything read again.
+20. S3 buckets a browser and the public use (SeaweedFS's documented
+   `weed filer` + `weed s3`): an in-process master and four volume
+   servers on "cuda", volume limit 64 MiB; `filer -store leveldb` and
+   `s3 -config` as CLI processes, probed by a TCP connect. Each step is
+   fatal on failure:
+   b. s20-pub set public-read by x-amz-acl and by an AccessControlPolicy
+      body (GET ?acl: the owner's FULL_CONTROL and AllUsers READ); 256
+      objects of 1-64 KiB (log-uniform) by signed PUTs; an unsigned GET
+      and HEAD of each answers 200 with its bytes; an unsigned PUT,
+      ?acl, listing and DELETE, and an unsigned GET in a private bucket,
+      403 AccessDenied.
+   c. s20-tag: 256 objects, half PUT with x-amz-tagging (which the
+      reference's gateway does not store: GET ?tagging is empty), every
+      one tagged by PUT ?tagging, 32 cleared by DELETE ?tagging; every
+      GET ?tagging equal to what was set.
+   d. s20-form: 256 objects of 1-64 KiB and 4 of 16 MiB by browser form
+      uploads signed with a POST policy (bucket, starts-with, content-
+      length-range), each read back equal; an expired policy, a key
+      outside starts-with and a file past content-length-range answer
+      the reference's 403 AccessDenied / 403 / 400 EntityTooLarge.
+   e. PUT ?lifecycle (Days 7 on tmp/) writes the TTL rule into
+      filer.conf, GET mirrors it, DELETE takes it out; ownership
+      controls PUT / GET / DELETE; bucket policy and CORS, object ACL,
+      retention, legal hold and object lock answer 501 NotImplemented;
+      the filer's text/html listing of /buckets/s20-pub links exactly
+      its 256 keys.
+   f. ec.encode of every volume of the three buckets: one launch a
+      volume (the volume servers' /metrics agree), the kernel stage in
+      CUDA events; the server holding the most shards of s20-pub's
+      largest volume stopped: the unsigned GET + HEAD pass again,
+      degraded; ec.rebuild (launches > 0, /metrics agree); the pass
+      again, and every object of the three buckets equal.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -3020,6 +3052,30 @@ def _tail(path: str, n: int = 2000) -> str:
             return f.read()[-n:].decode("utf-8", "replace")
     except OSError:
         return ""
+
+
+def _serve_cli(procs: dict, logs: dict, tmp: str, name: str,
+               args: list[str], port: int, deadline: float) -> float:
+    """Spawn a CLI process into procs[name] (its log in logs[name]) and
+    wait until its port listens: a TCP connect, since HTTP polls of a
+    port not yet listening would open the client's breaker for the peer
+    (ROADMAP Queue 3 item 8). -> seconds taken."""
+    import socket
+
+    t1 = time.perf_counter()
+    logs[name] = os.path.join(tmp, f"{name}.log")
+    procs[name] = _spawn(args, logs[name])
+
+    def up():
+        if procs[name].poll() is not None:
+            fail(f"the {name} process exited: {_tail(logs[name])}")
+        try:
+            socket.create_connection(("127.0.0.1", port), 1).close()
+            return True
+        except OSError:
+            return False
+    _poll(up, deadline, f"the {name} process listening")
+    return time.perf_counter() - t1
 
 
 def _raft_events(paths: list[str]) -> str:
@@ -5778,7 +5834,7 @@ def phase_native(card: str) -> dict:
 
 
 TOOLS_SERVERS = 4                # volume processes (see phase_tools)
-TOOLS_FILE_BYTES = DAT_BYTES     # the chunked file: 1 GiB
+TOOLS_FILE_BYTES = DAT_BYTES // 2  # the chunked file: 512 MiB
 TOOLS_CHUNK_MB = 64              # upload -maxMB
 TOOLS_VOLUME_LIMIT = DAT_BYTES   # the master's volume size limit
 TOOLS_APPEND = 128               # 1 MiB needles added to V by fid (16c)
@@ -5906,7 +5962,7 @@ def phase_tools(card: str) -> dict:
             f"{sorted(procs)}, registered with native fronts in "
             f"{walls['start']:.3f} s")
 
-        # 16a. a 1 GiB file through `upload -maxMB 64`
+        # 16a. a 512 MiB file through `upload -maxMB 64`
         path = os.path.join(tmp, "smoke16.bin")
         rng = np.random.default_rng([SEED, 16])
         piece = TOOLS_CHUNK_MB << 20
@@ -7618,25 +7674,8 @@ def phase_stores(card: str) -> dict:
             json.dump(S3_CONFIG, f)
 
         def start(name: str, args: list[str], port: int) -> float:
-            """Spawn a CLI process; wait until its port listens (a TCP
-            connect: refused HTTP polls would open the client's breaker
-            for the peer, ROADMAP Queue 3 item 8)."""
-            import socket
-
-            t1 = time.perf_counter()
-            logs[name] = os.path.join(tmp, f"{name}.log")
-            procs[name] = _spawn(args, logs[name])
-
-            def up():
-                if procs[name].poll() is not None:
-                    fail(f"the {name} process exited: {_tail(logs[name])}")
-                try:
-                    socket.create_connection(("127.0.0.1", port), 1).close()
-                    return True
-                except OSError:
-                    return False
-            _poll(up, STORES_DEADLINE, f"the {name} process listening")
-            return time.perf_counter() - t1
+            return _serve_cli(procs, logs, tmp, name, args, port,
+                              STORES_DEADLINE)
 
         t_filer = start("filer", filer_args, fport)
         status = _get_json(f"{filer}/status")
@@ -8025,6 +8064,563 @@ def phase_stores(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 20: S3 buckets a browser and the public use; their volumes
+# sealed and rebuilt through the kernel
+# ----------------------------------------------------------------------
+FORM_OBJECTS = 256                # objects of each bucket, 1-64 KiB
+FORM_OBJ_LO, FORM_OBJ_HI = 1 << 10, 64 << 10
+FORM_BIG = (4, 16 << 20)          # (count, bytes) of 20d's large uploads
+FORM_UNTAGGED = 32                # 20c's DELETE ?tagging
+FORM_VOLUME_LIMIT = 64 << 20      # the master's volume size limit
+FORM_CHUNK = 8 << 20              # the CLI filer's -maxMB chunk size
+FORM_THREADS = 8
+FORM_DEADLINE = 60.0              # longest wait for a process to serve
+_ALL_USERS = "http://acs.amazonaws.com/groups/global/AllUsers"
+
+
+def _form_objects(n: int) -> list[bytes]:
+    """20b-d's small objects, from the seed: 1-64 KiB, log-uniform."""
+    rng = np.random.default_rng([SEED, 20, n])
+    sizes = np.exp(rng.uniform(np.log(FORM_OBJ_LO), np.log(FORM_OBJ_HI),
+                               FORM_OBJECTS))
+    return [rng.bytes(int(k)) for k in sizes]
+
+
+def _form_post(url: str, fields: dict, name: str, data: bytes):
+    """A browser's multipart/form-data POST: the fields, then the file."""
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+
+    boundary = "----smoke20" + hashlib.md5(
+        name.encode() + data[:64]).hexdigest()
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; '
+             f'name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                 f'name="file"; filename="{name}"\r\nContent-Type: '
+                 f'application/octet-stream\r\n\r\n'.encode() + data +
+                 f'\r\n--{boundary}--\r\n'.encode())
+    return session().post(
+        url, data=b"".join(parts), timeout=(5.0, 300.0),
+        headers={"Content-Type":
+                 f"multipart/form-data; boundary={boundary}"})
+
+
+def _form_policy(bucket: str, prefix: str, hi: int,
+                 expire_in: float = 600.0) -> dict:
+    """The signed fields of a POST policy for keys under `prefix`."""
+    import base64
+
+    from seaweedfs_tpu_torch.s3.sigv4_client import sign_policy
+
+    doc = {"expiration": time.strftime(
+        "%Y-%m-%dT%H:%M:%SZ", time.gmtime(time.time() + expire_in)),
+        "conditions": [{"bucket": bucket}, ["starts-with", "$key", prefix],
+                       ["content-length-range", 1, hi]]}
+    return sign_policy(base64.b64encode(json.dumps(doc).encode()).decode(),
+                       S3_KEY, S3_SECRET)
+
+
+def _s3_code(resp) -> str:
+    try:
+        return ET.fromstring(resp.content).findtext("Code") or ""
+    except ET.ParseError:
+        return ""
+
+
+def _tag_set(resp) -> dict:
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    root = ET.fromstring(resp.content)
+    return {t.findtext(ns + "Key"): t.findtext(ns + "Value") or ""
+            for t in root.iter(ns + "Tag")}
+
+
+def phase_form(card: str) -> dict:
+    """Phase 20: the CLI filer on leveldb and the CLI S3 gateway over an
+    in-process master and four volume servers on "cuda"; a public-read
+    bucket read without a signature, tagged objects, browser form
+    uploads, lifecycle and ownership; the buckets' volumes sealed, read
+    degraded and rebuilt through the kernel. -> kernel launches by
+    step."""
+    import html.parser
+
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke20-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    cluster = env = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    pub, tag, form = "s20-pub", "s20-tag", "s20-form"
+    try:
+        # 20a. the cluster, then the filer and the gateway as processes
+        # of the CLI, probed by a TCP connect
+        t0 = time.perf_counter()
+        cluster = Cluster(os.path.join(tmp, "main"), n_volume_servers=4,
+                          max_volumes=8, volume_size_limit=FORM_VOLUME_LIMIT,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda")
+        fport, sport = free_ports(2)
+        filer = f"http://127.0.0.1:{fport}"
+        gateway = f"http://127.0.0.1:{sport}"
+        s3_conf = os.path.join(tmp, "s3.json")
+        with open(s3_conf, "w") as f:
+            json.dump(S3_CONFIG, f)
+
+        def start(name: str, args: list[str], port: int) -> float:
+            return _serve_cli(procs, logs, tmp, name, args, port,
+                              FORM_DEADLINE)
+
+        t_filer = start("filer", [
+            "filer", "-port", str(fport), "-master", cluster.master_url,
+            "-store", "leveldb", "-store.path",
+            os.path.join(tmp, "filerdb")], fport)
+        t_s3 = start("s3", ["s3", "-port", str(sport), "-filer", filer,
+                            "-config", s3_conf], sport)
+        env = CommandEnv(cluster.master_url, filer_url=filer)
+        s3 = _S3Client(gateway)
+
+        def anon(method: str, path: str, data: bytes | None = None):
+            return session().request(method, gateway + path, data=data,
+                                     timeout=(5.0, 300.0))
+        walls["a"] = time.perf_counter() - t0
+        log(f"[20] {card}; master {cluster.master_url}, 4 volume servers "
+            f"ec_backend='cuda', volume limit {FORM_VOLUME_LIMIT} B; "
+            f"`filer -store leveldb` on {filer} (listening after "
+            f"{t_filer:.3f} s), `s3` on {gateway} ({t_s3:.3f} s); set-up "
+            f"{walls['a']:.3f} s")
+
+        # 20b. a public-read bucket: signed PUTs, unsigned GETs and HEADs
+        t0 = time.perf_counter()
+        for b in (pub, tag, form):
+            r = s3("PUT", f"/{b}")
+            if r.status_code != 200:
+                fail(f"CreateBucket {b}: {r.status_code} {r.text}")
+        r = s3("PUT", f"/{pub}?acl", headers={"x-amz-acl": "public-read"})
+        if r.status_code != 200:
+            fail(f"20b: PUT ?acl x-amz-acl public-read: {r.status_code} "
+                 f"{r.text}")
+        acl_xml = (
+            "<AccessControlPolicy><Owner><ID>seaweedfs_tpu</ID></Owner>"
+            "<AccessControlList><Grant><Grantee><ID>seaweedfs_tpu</ID>"
+            "</Grantee><Permission>FULL_CONTROL</Permission></Grant>"
+            f"<Grant><Grantee><URI>{_ALL_USERS}</URI></Grantee>"
+            "<Permission>READ</Permission></Grant></AccessControlList>"
+            "</AccessControlPolicy>").encode()
+        r = s3("PUT", f"/{pub}?acl", acl_xml)
+        if r.status_code != 200:
+            fail(f"20b: PUT ?acl AccessControlPolicy: {r.status_code} "
+                 f"{r.text}")
+        r = s3("GET", f"/{pub}?acl")
+        grants = [(g.findtext(".//{*}ID") or g.findtext(".//{*}URI"),
+                   g.findtext("{*}Permission"))
+                  for g in ET.fromstring(r.content).iter(
+                      "{http://s3.amazonaws.com/doc/2006-03-01/}Grant")]
+        if r.status_code != 200 or grants != [
+                ("seaweedfs_tpu", "FULL_CONTROL"), (_ALL_USERS, "READ")]:
+            fail(f"20b: GET ?acl {r.status_code}: grants {grants}")
+        objects = {f"/{pub}/o-{i:04d}.bin": d
+                   for i, d in enumerate(_form_objects(0))}
+        lat_put: list[float] = []
+
+        def put(path, headers=None):
+            t1 = time.perf_counter()
+            r = s3("PUT", path, objects[path], headers=headers)
+            if r.status_code != 200 or r.headers.get("ETag", "").strip(
+                    '"') != hashlib.md5(objects[path]).hexdigest():
+                fail(f"PUT {path}: {r.status_code} {r.headers.get('ETag')}")
+            lat_put.append(time.perf_counter() - t1)
+
+        t1 = time.perf_counter()
+        _pool_map(put, sorted(objects), threads=FORM_THREADS)
+        t_put = time.perf_counter() - t1
+        pub_keys = sorted(objects)
+
+        def anon_pass(label: str) -> dict:
+            lat_o: list[float] = []
+
+            def one(path):
+                t1 = time.perf_counter()
+                r = anon("GET", path)
+                if r.status_code != 200 or r.content != objects[path]:
+                    fail(f"{label}: unsigned GET {path}: {r.status_code}, "
+                         f"{len(r.content)} B")
+                lat_o.append(time.perf_counter() - t1)
+                h = anon("HEAD", path)
+                if h.status_code != 200 or int(h.headers.get(
+                        "Content-Length", -1)) != len(objects[path]):
+                    fail(f"{label}: unsigned HEAD {path}: {h.status_code} "
+                         f"{h.headers.get('Content-Length')}")
+                return len(r.content)
+
+            t1 = time.perf_counter()
+            nb = sum(_pool_map(one, pub_keys, threads=FORM_THREADS))
+            w = time.perf_counter() - t1
+            return {"wall": w, "rate": len(pub_keys) / w,
+                    "mbps": nb / w / 1e6, "lat": lat_o}
+
+        healthy = anon_pass("20b")
+        tag_objects = {f"/{tag}/t-{i:04d}.bin": d
+                       for i, d in enumerate(_form_objects(1))}
+        objects.update(tag_objects)
+        refusals = {
+            "unsigned PUT": anon("PUT", f"/{pub}/new.bin", b"x"),
+            "unsigned GET ?acl": anon("GET", f"/{pub}?acl"),
+            "unsigned listing": anon("GET", f"/{pub}"),
+            "unsigned DELETE": anon("DELETE", pub_keys[0]),
+        }
+        put(sorted(tag_objects)[0])
+        refusals["unsigned GET, private bucket"] = anon(
+            "GET", sorted(tag_objects)[0])
+        for what, r in refusals.items():
+            if r.status_code != 403 or _s3_code(r) != "AccessDenied":
+                fail(f"20b: {what}: {r.status_code} {_s3_code(r)}")
+        walls["b"] = time.perf_counter() - t0
+        log(f"[20b] {pub} public-read by x-amz-acl and by an "
+            f"AccessControlPolicy body; GET ?acl grants {grants}; "
+            f"{len(pub_keys)} signed PUTs of {FORM_OBJ_LO}-{FORM_OBJ_HI} B "
+            f"on {FORM_THREADS} threads {t_put:.3f} s, "
+            f"{len(pub_keys) / t_put:.1f} objects/s, PUT {_lat(lat_put)}; "
+            f"unsigned GET + HEAD of each: {healthy['rate']:.1f} objects/s, "
+            f"{healthy['mbps']:.2f} MB/s, GET {_lat(healthy['lat'])}, every "
+            f"object equal; refused 403 AccessDenied: {sorted(refusals)}")
+
+        # 20c. tags: an x-amz-tagging header on half the PUTs (the
+        # reference's gateway stores none from it), PUT ?tagging on all
+        t0 = time.perf_counter()
+        rng = np.random.default_rng([SEED, 20, 3])
+        tkeys = sorted(tag_objects)
+        _pool_map(lambda p: put(p, {"x-amz-tagging": "via=header"}),
+                  tkeys[1:len(tkeys) // 2], threads=FORM_THREADS)
+        _pool_map(put, tkeys[len(tkeys) // 2:], threads=FORM_THREADS)
+        header_tags = {p: _tag_set(s3("GET", f"{p}?tagging"))
+                       for p in tkeys[:len(tkeys) // 2]}
+        if any(header_tags.values()):
+            fail(f"20c: an x-amz-tagging header left tags: "
+                 f"{next(t for t in header_tags.values() if t)}")
+        want_tags = {p: {f"k{j}": f"v{int(rng.integers(1 << 20))}"
+                         for j in range(1 + i % 3)}
+                     for i, p in enumerate(tkeys)}
+
+        def set_tags(p):
+            body = "".join(f"<Tag><Key>{k}</Key><Value>{v}</Value></Tag>"
+                           for k, v in want_tags[p].items())
+            r = s3("PUT", f"{p}?tagging",
+                   f"<Tagging><TagSet>{body}</TagSet></Tagging>".encode())
+            if r.status_code != 200:
+                fail(f"20c: PUT {p}?tagging: {r.status_code} {r.text}")
+
+        _pool_map(set_tags, tkeys, threads=FORM_THREADS)
+        untag = tkeys[::len(tkeys) // FORM_UNTAGGED][:FORM_UNTAGGED]
+        for p in untag:
+            r = s3("DELETE", f"{p}?tagging")
+            if r.status_code != 204:
+                fail(f"20c: DELETE {p}?tagging: {r.status_code}")
+            want_tags[p] = {}
+        got_tags = dict(zip(tkeys, _pool_map(
+            lambda p: _tag_set(s3("GET", f"{p}?tagging")), tkeys,
+            threads=FORM_THREADS)))
+        if got_tags != want_tags:
+            bad = [p for p in tkeys if got_tags[p] != want_tags[p]]
+            fail(f"20c: GET ?tagging differs from what was set for "
+                 f"{len(bad)} objects, e.g. {bad[0]}: {got_tags[bad[0]]}")
+        walls["c"] = time.perf_counter() - t0
+        log(f"[20c] {len(tkeys)} objects in {tag}: "
+            f"{len(header_tags)} PUT with x-amz-tagging (GET ?tagging: an "
+            f"empty TagSet, as the reference's gateway stores none from "
+            f"the header), every one tagged by PUT ?tagging (1-3 tags), "
+            f"{len(untag)} cleared by DELETE ?tagging (204); every GET "
+            f"?tagging equal to what was set; {walls['c']:.3f} s")
+
+        # 20d. browser form uploads signed by a POST policy
+        t0 = time.perf_counter()
+        form_objects = {f"/{form}/f/o-{i:04d}.bin": d
+                        for i, d in enumerate(_form_objects(2))}
+        big = {f"/{form}/f/big-{i}.bin":
+               np.random.default_rng([SEED, 20, 4, i]).bytes(FORM_BIG[1])
+               for i in range(FORM_BIG[0])}
+        fields = _form_policy(form, "f/", 2 * FORM_BIG[1])
+        lat_form: list[float] = []
+
+        def form_etag(data: bytes) -> str:
+            """The filer's ETag of a form upload, as the reference's
+            gateway answers it: the md5 of one chunk, else ETagChunks of
+            the filer's FORM_CHUNK pieces."""
+            pieces = [data[i:i + FORM_CHUNK]
+                      for i in range(0, len(data), FORM_CHUNK)]
+            if len(pieces) == 1:
+                return hashlib.md5(data).hexdigest()
+            joined = b"".join(hashlib.md5(p).digest() for p in pieces)
+            return f"{hashlib.md5(joined).hexdigest()}-{len(pieces)}"
+
+        def upload(path, data):
+            t1 = time.perf_counter()
+            r = _form_post(f"{gateway}/{form}",
+                           {**fields, "key": path.split("/", 2)[2]},
+                           path.rsplit("/", 1)[1], data)
+            if r.status_code != 204 or r.headers.get("ETag", "").strip(
+                    '"') != form_etag(data):
+                fail(f"20d: form upload {path}: {r.status_code} "
+                     f"{r.headers.get('ETag')} {r.text[:200]}")
+            return time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        lat_form = _pool_map(lambda p: upload(p, form_objects[p]),
+                             sorted(form_objects), threads=FORM_THREADS)
+        t_form = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _pool_map(lambda p: upload(p, big[p]), sorted(big), threads=4)
+        t_big = time.perf_counter() - t1
+        form_objects.update(big)
+        objects.update(form_objects)
+
+        def check(path):
+            r = s3("GET", path)
+            if r.status_code != 200 or _sha(r.content) != _sha(objects[path]):
+                fail(f"20d: GET {path}: {r.status_code}, sha256 off")
+
+        _pool_map(check, sorted(form_objects), threads=FORM_THREADS)
+        refused = {
+            "expired policy": (_form_post(
+                f"{gateway}/{form}", {**_form_policy(form, "f/", 1 << 20,
+                                                     expire_in=-60),
+                                      "key": "f/late.bin"}, "late.bin",
+                b"late"), 403, "AccessDenied"),
+            "key outside starts-with": (_form_post(
+                f"{gateway}/{form}", {**fields, "key": "g/out.bin"},
+                "out.bin", b"out"), 403, "AccessDenied"),
+            "past content-length-range": (_form_post(
+                f"{gateway}/{form}", {**_form_policy(form, "f/", 1 << 10),
+                                      "key": "f/big.bin"}, "big.bin",
+                bytes(4 << 10)), 400, "EntityTooLarge")}
+        for what, (r, status, code) in refused.items():
+            if (r.status_code, _s3_code(r)) != (status, code):
+                fail(f"20d: {what}: {r.status_code} {_s3_code(r)}, the "
+                     f"reference answers {status} {code}")
+        for k in ("f/late.bin", "g/out.bin", "f/big.bin"):
+            if s3("HEAD", f"/{form}/{k}").status_code != 404:
+                fail(f"20d: a refused upload stored {k}")
+        walls["d"] = time.perf_counter() - t0
+        big_bytes = FORM_BIG[0] * FORM_BIG[1]
+        log(f"[20d] {FORM_OBJECTS} form uploads of {FORM_OBJ_LO}-"
+            f"{FORM_OBJ_HI} B on {FORM_THREADS} threads {t_form:.3f} s, "
+            f"{FORM_OBJECTS / t_form:.1f} objects/s, {_lat(lat_form)}; "
+            f"{FORM_BIG[0]} x {FORM_BIG[1]} B on 4 threads {t_big:.3f} s, "
+            f"{big_bytes / t_big / 1e6:.1f} MB/s; every object read back "
+            f"equal; refused as the reference refuses: "
+            f"{ {k: (v[1], v[2]) for k, v in refused.items()} }")
+
+        # 20e. lifecycle and ownership; the 501 set; the HTML listing
+        t0 = time.perf_counter()
+        rule = ("<LifecycleConfiguration><Rule><ID>tmp</ID><Status>Enabled"
+                "</Status><Filter><Prefix>tmp/</Prefix></Filter><Expiration>"
+                "<Days>7</Days></Expiration></Rule></LifecycleConfiguration>")
+        r = s3("PUT", f"/{tag}?lifecycle", rule.encode())
+        if r.status_code != 200:
+            fail(f"20e: PUT ?lifecycle: {r.status_code} {r.text}")
+        conf = session().get(f"{filer}/kv/filer.conf", timeout=30)
+        rules = [x for x in json.loads(conf.content)["rules"]
+                 if x["location_prefix"].startswith(f"/buckets/{tag}/")]
+        if [(x["location_prefix"], x["ttl"]) for x in rules] != [
+                (f"/buckets/{tag}/tmp/", "7d")]:
+            fail(f"20e: filer.conf after PUT ?lifecycle: {rules}")
+        got = s3("GET", f"/{tag}?lifecycle")
+        days = [d.text for d in ET.fromstring(got.content).iter()
+                if d.tag.endswith("Days")]
+        prefixes = [d.text for d in ET.fromstring(got.content).iter()
+                    if d.tag.endswith("Prefix")]
+        if got.status_code != 200 or (days, prefixes) != (["7"], ["tmp/"]):
+            fail(f"20e: GET ?lifecycle {got.status_code} {got.text}")
+        if s3("DELETE", f"/{tag}?lifecycle").status_code != 204:
+            fail("20e: DELETE ?lifecycle")
+        conf = json.loads(session().get(f"{filer}/kv/filer.conf",
+                                        timeout=30).content)
+        if any(x["ttl"] for x in conf["rules"]
+               if x["location_prefix"].startswith(f"/buckets/{tag}/")) or \
+                s3("GET", f"/{tag}?lifecycle").status_code != 404:
+            fail(f"20e: filer.conf after DELETE ?lifecycle: {conf}")
+        own = ("<OwnershipControls><Rule><ObjectOwnership>"
+               "BucketOwnerEnforced</ObjectOwnership></Rule>"
+               "</OwnershipControls>").encode()
+        steps = [s3("PUT", f"/{pub}?ownershipControls", own).status_code,
+                 s3("GET", f"/{pub}?ownershipControls"),
+                 s3("DELETE", f"/{pub}?ownershipControls").status_code,
+                 s3("GET", f"/{pub}?ownershipControls").status_code]
+        if steps[0] != 200 or steps[1].status_code != 200 or \
+                b"BucketOwnerEnforced" not in steps[1].content or \
+                steps[2:] != [204, 404]:
+            fail(f"20e: ownership controls: {steps}")
+        refused_501 = {}
+        for method, q in (("GET", f"/{pub}?policy"), ("GET", f"/{pub}?cors"),
+                          ("GET", f"{pub_keys[0]}?acl"),
+                          ("GET", f"{pub_keys[0]}?retention"),
+                          ("GET", f"{pub_keys[0]}?legal-hold"),
+                          ("GET", f"{pub_keys[0]}?object-lock")):
+            r = s3(method, q)
+            refused_501[q.rsplit("?", 1)[1]] = (r.status_code, _s3_code(r))
+        if set(refused_501.values()) != {(501, "NotImplemented")}:
+            fail(f"20e: the sub-resources the reference refuses: "
+                 f"{refused_501}")
+
+        class Links(html.parser.HTMLParser):
+            def __init__(self):
+                super().__init__()
+                self.hrefs = []
+
+            def handle_starttag(self, t, attrs):
+                if t == "a":
+                    self.hrefs.append(dict(attrs)["href"])
+
+        page = session().get(f"{filer}/buckets/{pub}", timeout=30,
+                             headers={"Accept": "text/html"})
+        links = Links()
+        links.feed(page.text)
+        listed = sorted(h.rsplit("/", 1)[1] for h in links.hrefs[1:])
+        if page.status_code != 200 or not page.headers.get(
+                "Content-Type", "").startswith("text/html") or \
+                listed != [p.rsplit("/", 1)[1] for p in pub_keys]:
+            fail(f"20e: the filer's HTML listing of /buckets/{pub}: "
+                 f"{page.status_code}, {len(listed)} links")
+        walls["e"] = time.perf_counter() - t0
+        log(f"[20e] PUT ?lifecycle (Days 7 on tmp/) put "
+            f"{[(x['location_prefix'], x['ttl']) for x in rules]} into "
+            f"filer.conf, GET ?lifecycle mirrored it, DELETE took it out; "
+            f"ownership controls PUT/GET/DELETE {steps[0]}/"
+            f"{steps[1].status_code}/{steps[2]}, then {steps[3]}; 501 "
+            f"NotImplemented: {sorted(refused_501)}; the filer's text/html "
+            f"listing of /buckets/{pub} links exactly its {len(listed)} "
+            f"keys; {walls['e']:.3f} s")
+
+        # 20f. seal the three buckets' volumes; anonymous reads degraded
+        # and rebuilt
+        t0 = time.perf_counter()
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        vids = sorted({v for b in (pub, tag, form)
+                       for v in _bucket_vids(env, b)})
+        dat = {}
+        for vid in vids:
+            for st in cluster.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    dat[vid] = v.content_size()
+        repl.run_command(env, "lock")
+        before_stages = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before_stages["kernel"]
+        want = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i
+                  for i, st in enumerate(cluster.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        if launches["encode"] <= 0 or launches["encode"] != want or \
+                launches["encode"] != len(vids) or \
+                scraped != launches["encode"]:
+            fail(f"20f: {launches['encode']} launches sealing {len(vids)} "
+                 f"volumes, the .dat sizes give {want}, /metrics "
+                 f"cuda_kernel_launches {scraped}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"20f: volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+        pub_vids = set(_bucket_vids(env, pub)) or set(vids)
+        largest = max(pub_vids, key=lambda v: (dat.get(v, 0), v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        if any(len(s) > 4 for s in lost.values()):
+            fail(f"20f: {victim} holds more than m=4 shards of a volume: "
+                 f"{lost}")
+        t1 = time.perf_counter()
+        cluster.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"the master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t1
+        degraded = anon_pass("20f degraded")
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            if lost[vid]:
+                repl.run_command(env, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t1
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped_r = _tools_metrics(next(u for u in by_url if u != victim))[
+            "launches"]
+        if launches["rebuild"] <= 0 or scraped_r != launches["rebuild"]:
+            fail(f"20f: ec.rebuild: {launches['rebuild']} launches, the "
+                 f"volume servers' cuda_kernel_launches {scraped_r}")
+        for vid in vids:
+            if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"20f: volume {vid} after ec.rebuild: "
+                     f"{env.ec_shard_locations(vid)}")
+        rebuilt = anon_pass("20f rebuilt")
+        _pool_map(check, sorted(form_objects) + tkeys, threads=FORM_THREADS)
+        repl.run_command(env, "unlock")
+        walls["f"] = time.perf_counter() - t0
+        log(f"[20f] ec.encode of the {len(vids)} volumes of {pub}, {tag} "
+            f"and {form} ({dat} .dat bytes) {t_encode:.3f} s, "
+            f"{launches['encode']} launches (one a volume; /metrics "
+            f"cuda_kernel_launches {scraped}); kernel {kernel_s * 1e3:.3f} "
+            f"ms (CUDA events), {kernel_s * 1e3 / launches['encode']:.3f} "
+            f"ms per launch; stopped {victim} (shards {lost}), dropped in "
+            f"{t_gone:.3f} s; unsigned GET + HEAD of {pub} degraded: "
+            f"{degraded['rate']:.1f} objects/s, {degraded['mbps']:.2f} "
+            f"MB/s, GET {_lat(degraded['lat'])}; ec.rebuild "
+            f"{t_rebuild:.3f} s, {launches['rebuild']} launches (/metrics "
+            f"{scraped_r}); rebuilt: "
+            f"{rebuilt['rate']:.1f} objects/s, {rebuilt['mbps']:.2f} MB/s, "
+            f"GET {_lat(rebuilt['lat'])}; every object of the three "
+            f"buckets equal")
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                fail(f"the {name} process exited: {_tail(logs[name])}")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 20 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[20] phase 20 took {wall:.3f} s "
+            f"({ {k: round(v, 3) for k, v in walls.items()} }); kernel "
+            f"launches {launches}; the seal's kernel time "
+            f"{kernel_s * 1e3:.3f} ms is {busy:.5%} of the phase wall "
+            f"(idle share {1 - busy:.5%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 6)
+        return launches
+    finally:
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        if env is not None:
+            env.close()
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -8066,7 +8662,8 @@ def main() -> int:
     remote = timed(17, phase_remote, card)
     sync = timed(18, phase_sync, card)
     stores = timed(19, phase_stores, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-19 "
+    forms = timed(20, phase_form, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-20 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -8128,6 +8725,11 @@ def main() -> int:
                                     for k in ("encode", "rebuild")},
         "stores_kernel_ms_per_launch": stores["kernel_ms_per_launch"],
         "stores_idle_share": stores["idle_share"],
+        "form_launches": forms["encode"] + forms["rebuild"],
+        "form_launches_by_step": {k: forms[k]
+                                  for k in ("encode", "rebuild")},
+        "form_kernel_ms_per_launch": forms["kernel_ms_per_launch"],
+        "form_idle_share": forms["idle_share"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -530,6 +530,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "-store.host) | etcd | mongodb | cassandra | "
                         "mysql | mysql2 | postgres | postgres2 "
                         "(per-bucket tables, O(1) bucket drop) | "
+                        "elastic | arangodb | hbase | tikv | ydb | "
                         "rocksdb (needs librocksdb)")
     p.add_argument("-store.path", dest="store_path", default=":memory:")
     p.add_argument("-store.host", dest="store_host", default="")

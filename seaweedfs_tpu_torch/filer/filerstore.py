@@ -464,7 +464,9 @@ class _GatedStore(FilerStore):
 # redis_cluster_store.py, cassandra_store.py (CQL v4 via cql_lite.py),
 # abstract_sql.py (mysql / postgres over mysql_lite.py / pg_lite.py),
 # etcd_store.py (v3 JSON gateway), mongodb_store.py (OP_MSG via
-# bson_lite.py), rocksdb_store.py (ctypes on librocksdb, gated at run
-# time as in the reference). Not yet ported: elastic, arangodb, hbase,
-# tikv, ydb. _GatedStore remains for stores whose native library is
+# bson_lite.py), elastic_store.py (ES7 REST), arangodb_store.py (HTTP
+# documents + AQL), hbase_store.py (Thrift1 via thrift_lite.py),
+# tikv_store.py and ydb_store.py (gRPC via utils/grpc_lite.py),
+# rocksdb_store.py (ctypes on librocksdb, gated at run time as in the
+# reference). _GatedStore remains for stores whose native library is
 # absent at runtime.

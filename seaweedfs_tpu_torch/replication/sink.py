@@ -11,7 +11,6 @@ know the source's chunk layout.
 """
 from __future__ import annotations
 
-import base64
 import hashlib
 import os
 import shutil
@@ -20,7 +19,7 @@ import urllib.parse
 from typing import Callable
 
 from ..filer.entry import Entry
-from ..rpc.httpclient import Response, session
+from ..rpc.httpclient import Response, basic_auth, session
 
 DataReader = Callable[[], bytes]
 
@@ -30,13 +29,6 @@ def _prefixed_key(prefix: str, path: str) -> str:
     shared by every flat-keyspace sink."""
     key = path.lstrip("/")
     return f"{prefix}/{key}" if prefix else key
-
-
-def basic_auth(user: str, password: str) -> str:
-    """The Authorization value `requests` sends for auth=(user,
-    password): latin-1 bytes joined by a colon, base64."""
-    raw = b":".join((user.encode("latin1"), password.encode("latin1")))
-    return "Basic " + base64.b64encode(raw).decode()
 
 
 class ReplicationSink:

@@ -54,6 +54,7 @@ context manager it closes on exit.
 """
 from __future__ import annotations
 
+import base64
 import http.client
 import json as _json
 import os
@@ -462,3 +463,44 @@ def session() -> Session:
     if s is None:
         s = _local.session = Session()
     return s
+
+
+def basic_auth(user: str, password: str) -> str:
+    """The Authorization value `requests` sends for auth=(user,
+    password): latin-1 bytes joined by a colon, base64."""
+    raw = b":".join((user.encode("latin1"), password.encode("latin1")))
+    return "Basic " + base64.b64encode(raw).decode()
+
+
+class SharedSession:
+    """What a store calls of one `requests.Session` that many threads
+    share: each call goes through the calling thread's `session()`,
+    with `auth = (user, password)` sent as basic auth when set."""
+
+    def __init__(self) -> None:
+        self.auth: tuple[str, str] | None = None
+
+    def request(self, method: str, url: str, headers: dict | None = None,
+                **kw) -> Response:
+        hdrs = dict(headers or {})
+        if self.auth is not None:
+            hdrs.setdefault("Authorization", basic_auth(*self.auth))
+        return session().request(method, url, headers=hdrs, **kw)
+
+    def get(self, url: str, **kw) -> Response:
+        return self.request("GET", url, **kw)
+
+    def head(self, url: str, **kw) -> Response:
+        return self.request("HEAD", url, **kw)
+
+    def post(self, url: str, **kw) -> Response:
+        return self.request("POST", url, **kw)
+
+    def put(self, url: str, **kw) -> Response:
+        return self.request("PUT", url, **kw)
+
+    def delete(self, url: str, **kw) -> Response:
+        return self.request("DELETE", url, **kw)
+
+    def close(self) -> None:
+        """The pools belong to the threads' sessions: nothing to free."""

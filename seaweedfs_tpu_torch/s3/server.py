@@ -43,9 +43,16 @@ length answers 411 MissingContentLength (a DELETE carries none and
 keeps working). /debug/qos serves the qos registry; /metrics exports
 the tenants' demand gauges.
 
-Not here, each answering S3's NotImplemented (501): bucket ACL, policy,
-CORS, lifecycle and ownership controls; object ACL, tagging, retention,
-legal hold and object lock; POST-policy (browser form) uploads.
+The bucket sub-resources: the canned ACL (`private` / `public-read`,
+by x-amz-acl or an AccessControlPolicy body; an object of a public-read
+bucket answers an unsigned GET or HEAD), the lifecycle (Days-based
+expiration rules kept as TTL rules of `filer.conf`) and the ownership
+controls; object tagging (`s3_tag_*` extended attributes); POST-policy
+(browser form) uploads, authenticated by the signed policy document.
+Bucket policy and CORS, object ACL, retention, legal hold and object
+lock answer S3's NotImplemented (501), as the reference's own gateway
+answers them (s3api_bucket_skip_handlers.go,
+s3api_object_skip_handlers.go).
 
 SelectObjectContent (POST ?select&select-type=2) runs the volume
 server's query engine (query/) over a JSON object of at most
@@ -72,8 +79,8 @@ from ..rpc.http import (App, Request, Response, debug_index_factory,
                         json_response, server_middlewares, text_response)
 from ..rpc.httpclient import RequestException, session
 from ..utils import extheaders, glog, metrics, qos, retry, tracing
-from .auth import (ACTION_ADMIN, ACTION_LIST, ACTION_READ, ACTION_WRITE,
-                   IdentityAccessManagement, S3AuthError)
+from .auth import (ACTION_ADMIN, ACTION_LIST, ACTION_READ, ACTION_TAGGING,
+                   ACTION_WRITE, IdentityAccessManagement, S3AuthError)
 from .circuit_breaker import CircuitBreaker, CircuitOpen
 
 XMLNS = "http://s3.amazonaws.com/doc/2006-03-01/"
@@ -105,11 +112,9 @@ ERR_NO_SUCH_UPLOAD = ("NoSuchUpload", "upload id not found", 404)
 ERR_NOT_IMPLEMENTED = ("NotImplemented",
                        "this sub-resource is not implemented", 501)
 
-# sub-resources the reference routes that the port answers 501
-_BUCKET_UNPORTED = ("policy", "cors", "acl", "lifecycle",
-                    "ownershipControls")
-_OBJECT_UNPORTED = ("tagging", "acl", "retention", "legal-hold",
-                    "object-lock")
+# sub-resources the reference's gateway answers 501 too
+_BUCKET_REFUSED = ("policy", "cors")
+_OBJECT_REFUSED = ("acl", "retention", "legal-hold", "object-lock")
 
 
 def _xml(tag: str, *children, text: str | None = None,
@@ -157,6 +162,83 @@ def _error_response(code: str, message: str, status: int,
 def _src_bucket_of(src: str) -> str:
     """Bucket name out of an x-amz-copy-source header value."""
     return urllib.parse.unquote(src.lstrip("/")).partition("/")[0]
+
+
+OWNER_ID = "seaweedfs_tpu"
+
+
+def _clear_bucket_ttls(conf, prefix_root: str) -> bool:
+    """Drop the TTLs a bucket's lifecycle owns from the filer conf:
+    rules that carry only a ttl are removed, rules that also hold other
+    fs.configure settings (replication, readOnly, ...) keep those and
+    just lose the ttl. Returns whether anything changed."""
+    from ..filer.filer_conf import PathConf
+
+    changed = False
+    for r in list(conf.rules):
+        if not (r.location_prefix.startswith(prefix_root) and r.ttl):
+            continue
+        changed = True
+        bare = PathConf(location_prefix=r.location_prefix, ttl=r.ttl)
+        if r == bare:
+            conf.delete_rule(r.location_prefix)
+        else:
+            r.ttl = ""
+    return changed
+
+
+def _canned_from_acl_xml(payload: bytes) -> str:
+    """Map an AccessControlPolicy body onto the modeled canned ACLs:
+    owner-only FULL_CONTROL -> private, plus AllUsers READ ->
+    public-read; any grant to another principal is unsupported
+    (returned verbatim so the caller rejects with NotImplemented)."""
+    if not payload.strip():
+        return "private"
+    try:
+        root = ET.fromstring(payload)
+    except ET.ParseError:
+        raise S3Error("MalformedACLError", "bad ACL XML", 400)
+    grants = []
+    for g in root.iter():
+        if not g.tag.endswith("Grant"):
+            continue
+        uri = perm = gid = ""
+        for el in g.iter():
+            if el.tag.endswith("URI") and el.text:
+                uri = el.text
+            if el.tag.split("}")[-1] == "ID" and el.text:
+                gid = el.text
+            if el.tag.endswith("Permission") and el.text:
+                perm = el.text
+        grants.append((uri, gid, perm))
+    public = ("http://acs.amazonaws.com/groups/global/AllUsers", "",
+              "READ")
+    # the owner grant must actually name the owner (or no principal at
+    # all); FULL_CONTROL for any other canonical ID is a real grant to
+    # someone else and must not be silently dropped
+    owner_full = [(u, i, p) for u, i, p in grants
+                  if p == "FULL_CONTROL" and not u
+                  and i in ("", OWNER_ID)]
+    other = [g for g in grants if g != public and g not in owner_full]
+    if other:
+        return "unsupported-grants"
+    return "public-read" if public in grants else "private"
+
+
+def _ttl_to_days(ttl: str) -> int:
+    """'5d'/'48h'/'60m'... -> whole days, 0 when under a day (mirrors
+    the reference's ttl.Minutes()/60/24 truncation,
+    s3api_bucket_handlers.go:338)."""
+    if not ttl:
+        return 0
+    units = {"m": 60, "h": 3600, "d": 86400, "w": 7 * 86400,
+             "M": 30 * 86400, "y": 365 * 86400}
+    try:
+        secs = int(ttl[:-1]) * units[ttl[-1]] if ttl[-1] in units \
+            else int(ttl)
+    except (ValueError, KeyError):
+        return 0
+    return secs // 86400
 
 
 def _iso(ts: float) -> str:
@@ -359,13 +441,24 @@ class S3ApiServer:
                          payload: bytes) -> Response:
         if req.method == "POST" and bucket and not key \
                 and req.content_type.startswith("multipart/form-data"):
-            # browser form upload (POST policy)
-            raise S3Error("NotImplemented",
-                          "POST-policy form uploads are not implemented",
-                          501)
-        identity, stream_ctx = self.iam.authenticate_ctx(
-            req.method, req.path, dict(req.query), _header_dict(req),
-            hashlib.sha256(payload).hexdigest())
+            # browser form upload (POST policy) authenticates via the
+            # signed policy document, not headers
+            return self._post_policy_upload(req, bucket, payload)
+        try:
+            identity, stream_ctx = self.iam.authenticate_ctx(
+                req.method, req.path, dict(req.query), _header_dict(req),
+                hashlib.sha256(payload).hexdigest())
+        except S3AuthError:
+            # anonymous request: a public-read bucket ACL grants
+            # AllUsers READ, so an unsigned object GET/HEAD in such a
+            # bucket is served
+            if req.method in ("GET", "HEAD") and bucket and key and \
+                    not set(req.query) & {"acl", "tagging", "uploads",
+                                          "uploadId"} \
+                    and self._bucket_is_public_read(bucket):
+                identity, stream_ctx = None, None
+            else:
+                raise
         if stream_ctx is not None:
             # aws-chunked framed body (SigV4 streaming upload): verify
             # the chunk-signature chain and unwrap to the real bytes
@@ -387,8 +480,17 @@ class S3ApiServer:
 
     def _bucket_op(self, req, bucket, q, payload, check) -> Response:
         m = req.method
-        if any(sub in q for sub in _BUCKET_UNPORTED):
+        if any(sub in q for sub in _BUCKET_REFUSED):
             raise S3Error(*ERR_NOT_IMPLEMENTED)
+        if "acl" in q:
+            check(ACTION_READ if m == "GET" else ACTION_ADMIN)
+            return self._bucket_acl_op(m, bucket, req, payload)
+        if "lifecycle" in q:
+            check(ACTION_READ if m == "GET" else ACTION_ADMIN)
+            return self._lifecycle_op(m, bucket, payload)
+        if "ownershipControls" in q:
+            check(ACTION_READ if m == "GET" else ACTION_ADMIN)
+            return self._ownership_op(m, bucket, payload)
         if m == "PUT":
             check(ACTION_ADMIN)
             return self._put_bucket(bucket)
@@ -444,7 +546,10 @@ class S3ApiServer:
         if m == "GET" and "uploadId" in q:
             check(ACTION_READ)
             return self._list_parts(bucket, key, q["uploadId"])
-        if any(sub in q for sub in _OBJECT_UNPORTED):
+        if "tagging" in q:
+            check(ACTION_TAGGING)
+            return self._tagging_op(m, bucket, key, payload)
+        if any(sub in q for sub in _OBJECT_REFUSED):
             raise S3Error(*ERR_NOT_IMPLEMENTED)
         if m == "POST" and "select" in q:
             check(ACTION_READ)
@@ -559,6 +664,14 @@ class S3ApiServer:
             raise S3Error(*ERR_NO_SUCH_KEY)
         return resp.json()
 
+    def _bucket_is_public_read(self, bucket: str) -> bool:
+        try:
+            meta = self._require_bucket(bucket)
+        except S3Error:
+            return False
+        ext = meta.get("extended", {}) or {}
+        return ext.get("s3_acl") == "public-read"
+
     # -- service / bucket -----------------------------------------------
     def _list_buckets(self) -> Response:
         resp = self._filer("GET", self.filer_url + BUCKETS_DIR + "/")
@@ -629,7 +742,282 @@ class S3ApiServer:
             out.append(e)
         return _xml_response(out)
 
+    # -- bucket sub-resources -------------------------------------------
+    def _update_bucket_meta(self, bucket: str, mutate) -> dict:
+        """Read-modify-write the bucket directory entry's extended
+        attributes (the reference keeps bucket metadata on the bucket
+        entry too, s3api/bucket_metadata.go)."""
+        # read-modify-write must start from a FRESH entry, never the
+        # TTL cache — a stale snapshot would silently drop a concurrent
+        # metadata update
+        self._invalidate_bucket(bucket)
+        meta = self._require_bucket(bucket)
+        ext = dict(meta.get("extended", {}))
+        mutate(ext)
+        meta["extended"] = ext
+        meta.pop("full_path", None)
+        resp = self._filer("PUT", self._fpath(bucket) + "?meta=1",
+                           json=meta)
+        self._invalidate_bucket(bucket)
+        if resp.status_code >= 300:
+            raise S3Error("AccessDenied" if resp.status_code == 403
+                          else "InternalError", resp.text,
+                          resp.status_code)
+        return ext
+
+    def _bucket_acl_op(self, m: str, bucket: str, req,
+                       payload: bytes) -> Response:
+        """Canned-ACL subset, like the reference's
+        Get/PutBucketAclHandler (s3api_bucket_handlers.go:252-313):
+        only `private` and `public-read` are modeled."""
+        if m == "PUT":
+            canned = req.headers.get("x-amz-acl", "")
+            if not canned:
+                # no canned header: the intent is in the XML body — map
+                # the grant sets we model, reject the rest rather than
+                # silently recording an ACL the caller didn't ask for
+                canned = _canned_from_acl_xml(payload)
+            if canned not in ("private", "public-read"):
+                raise S3Error("NotImplemented",
+                              f"canned acl {canned!r} not supported",
+                              501)
+            self._update_bucket_meta(
+                bucket, lambda ext: ext.__setitem__("s3_acl", canned))
+            return Response(status=200)
+        if m == "GET":
+            meta = self._require_bucket(bucket)
+            canned = meta.get("extended", {}).get("s3_acl", "private")
+            owner = _xml("Owner")
+            owner.append(_leaf("ID", "seaweedfs_tpu"))
+            grants = ET.Element("AccessControlList")
+
+            def grant(grantee_children, permission):
+                g = ET.Element("Grant")
+                grantee = ET.Element("Grantee")
+                grantee.set("xmlns:xsi",
+                            "http://www.w3.org/2001/XMLSchema-instance")
+                for c in grantee_children:
+                    grantee.append(c)
+                g.append(grantee)
+                g.append(_leaf("Permission", permission))
+                grants.append(g)
+
+            grant([_leaf("ID", "seaweedfs_tpu")], "FULL_CONTROL")
+            if canned == "public-read":
+                grant([_leaf("URI", "http://acs.amazonaws.com/groups/"
+                             "global/AllUsers")], "READ")
+            root = _xml("AccessControlPolicy", owner, grants)
+            return _xml_response(root)
+        raise S3Error("MethodNotAllowed", f"{m} on ?acl", 405)
+
+    def _lifecycle_op(self, m: str, bucket: str,
+                      payload: bytes) -> Response:
+        """Bucket lifecycle <-> filer.conf TTL rules. GET mirrors the
+        reference (s3api_bucket_handlers.go:315: rules derived from the
+        filer conf's TTLs for the bucket's collection); PUT goes one
+        step further and writes Days-based expiration rules back as
+        per-prefix TTL rules; DELETE drops them (reference DELETE is a
+        204 no-op)."""
+        from ..filer.filer_conf import CONF_KEY, FilerConf, PathConf
+
+        self._require_bucket(bucket)
+        prefix_root = f"{BUCKETS_DIR}/{bucket}/"
+        resp = self._filer("GET", f"{self.filer_url}/kv/{CONF_KEY}")
+        conf = FilerConf.from_json(resp.content) \
+            if resp.status_code == 200 else FilerConf()
+
+        if m == "GET":
+            # only whole-day TTLs surface as lifecycle rules (the
+            # reference truncates the same way and skips day-0 rules,
+            # s3api_bucket_handlers.go:338-341)
+            rules = [r for r in conf.rules
+                     if r.location_prefix.startswith(prefix_root)
+                     and r.ttl and _ttl_to_days(r.ttl) > 0]
+            if not rules:
+                raise S3Error("NoSuchLifecycleConfiguration",
+                              "no lifecycle configuration", 404)
+            root = _xml("LifecycleConfiguration")
+            for r in rules:
+                days = _ttl_to_days(r.ttl)
+                rule = ET.Element("Rule")
+                rule.append(_leaf("Status", "Enabled"))
+                filt = ET.Element("Filter")
+                filt.append(_leaf(
+                    "Prefix", r.location_prefix[len(prefix_root):]))
+                rule.append(filt)
+                exp = ET.Element("Expiration")
+                exp.append(_leaf("Days", str(days)))
+                rule.append(exp)
+                root.append(rule)
+            return _xml_response(root)
+
+        if m == "PUT":
+            try:
+                root = ET.fromstring(payload)
+            except ET.ParseError as e:
+                raise S3Error("MalformedXML", str(e), 400)
+            # S3 PUT replaces the entire configuration: clear this
+            # bucket's previous TTLs before adding the new set — but
+            # only the ttl field, so fs.configure settings that share a
+            # rule (replication, readOnly, ...) survive
+            _clear_bucket_ttls(conf, prefix_root)
+            put_any = False
+            for rule in root.iter():
+                if not rule.tag.endswith("Rule"):
+                    continue
+                status = _find(rule, "Status")
+                if status is None or status.text != "Enabled":
+                    continue
+                days = None
+                for exp in rule.iter():
+                    if exp.tag.endswith("Expiration"):
+                        d = _find(exp, "Days")
+                        if d is not None and d.text:
+                            try:
+                                days = int(d.text)
+                            except ValueError:
+                                raise S3Error(
+                                    "MalformedXML",
+                                    f"bad Days {d.text!r}", 400)
+                            if days <= 0:
+                                raise S3Error(
+                                    "InvalidArgument",
+                                    "Days must be positive", 400)
+                if days is None:
+                    raise S3Error("NotImplemented",
+                                  "only Days-based expiration is "
+                                  "supported", 501)
+                prefix = ""
+                for el in rule.iter():
+                    if el.tag.endswith("Prefix") and el.text:
+                        prefix = el.text
+                loc = prefix_root + prefix
+                existing = next((r for r in conf.rules
+                                 if r.location_prefix == loc), None)
+                if existing is not None:
+                    existing.ttl = f"{days}d"
+                else:
+                    conf.set_rule(PathConf(location_prefix=loc,
+                                           ttl=f"{days}d"))
+                put_any = True
+            if not put_any:
+                raise S3Error("MalformedXML",
+                              "no enabled rules with expiration", 400)
+            self._filer("PUT", f"{self.filer_url}/kv/{CONF_KEY}",
+                        data=conf.to_json().encode())
+            return Response(status=200)
+
+        if m == "DELETE":
+            if _clear_bucket_ttls(conf, prefix_root):
+                self._filer("PUT", f"{self.filer_url}/kv/{CONF_KEY}",
+                            data=conf.to_json().encode())
+            return Response(status=204)
+        raise S3Error("MethodNotAllowed", f"{m} on ?lifecycle", 405)
+
+    def _ownership_op(self, m: str, bucket: str,
+                      payload: bytes) -> Response:
+        """Bucket ownership controls, stored on the bucket entry
+        (s3api_bucket_handlers.go:382-498)."""
+        valid = ("BucketOwnerPreferred", "ObjectWriter",
+                 "BucketOwnerEnforced")
+        if m == "PUT":
+            try:
+                root = ET.fromstring(payload)
+            except ET.ParseError as e:
+                raise S3Error("MalformedXML", str(e), 400)
+            ownership = ""
+            for el in root.iter():
+                if el.tag.endswith("ObjectOwnership") and el.text:
+                    ownership = el.text
+            if ownership not in valid:
+                raise S3Error("InvalidRequest",
+                              f"ownership must be one of {valid}", 400)
+            self._update_bucket_meta(
+                bucket,
+                lambda ext: ext.__setitem__("s3_ownership", ownership))
+            return Response(status=200)
+        if m == "GET":
+            meta = self._require_bucket(bucket)
+            ownership = meta.get("extended", {}).get("s3_ownership", "")
+            if not ownership:
+                raise S3Error("OwnershipControlsNotFoundError",
+                              "no ownership controls", 404)
+            root = _xml("OwnershipControls")
+            rule = ET.Element("Rule")
+            rule.append(_leaf("ObjectOwnership", ownership))
+            root.append(rule)
+            return _xml_response(root)
+        if m == "DELETE":
+            self._update_bucket_meta(
+                bucket, lambda ext: ext.pop("s3_ownership", None))
+            return Response(status=204)
+        raise S3Error("MethodNotAllowed",
+                      f"{m} on ?ownershipControls", 405)
+
     # -- object ---------------------------------------------------------
+    def _post_policy_upload(self, req: Request, bucket: str,
+                            payload: bytes) -> Response:
+        """Browser form upload with a signed POST policy
+        (s3api_object_handlers_postpolicy.go + policy/post-policy.go):
+        the form carries key/policy/credential/signature fields plus the
+        file; authentication is the SigV4 signature over the base64
+        policy document, and the decoded policy's expiration and key /
+        content-length conditions are enforced."""
+        import base64
+
+        from .sigv4_client import verify_policy_signature
+
+        fields, file_data, file_name = _parse_form(
+            payload, req.headers.get("Content-Type", ""))
+        key = fields.get("key", "")
+        if not key:
+            raise S3Error("InvalidArgument",
+                          "form upload needs a key field", 400)
+        key = key.replace("${filename}", file_name or "file")
+        if not self.iam.is_open:
+            for f in ("policy", "x-amz-credential", "x-amz-signature"):
+                if f not in fields:
+                    raise S3Error("AccessDenied",
+                                  f"form upload missing {f}", 403)
+            access_key = fields["x-amz-credential"].split("/")[0]
+            identity, secret = self.iam.lookup(access_key)
+            # signature first: answering permission questions before
+            # proving possession of the secret would let anyone probe
+            # which access keys can write where
+            if not verify_policy_signature(
+                    fields["policy"], fields["x-amz-credential"],
+                    fields["x-amz-signature"], secret):
+                raise S3Error("SignatureDoesNotMatch",
+                              "policy signature mismatch", 403)
+            if not identity.allows(ACTION_WRITE, bucket):
+                raise S3Error("AccessDenied",
+                              f"write denied on {bucket}", 403)
+            try:
+                policy = json.loads(base64.b64decode(fields["policy"]))
+            except (ValueError, json.JSONDecodeError):
+                raise S3Error("InvalidPolicyDocument",
+                              "policy is not base64 JSON", 400)
+            _check_policy(policy, bucket, key, len(file_data))
+        self._require_bucket(bucket)
+        mime = fields.get("Content-Type", fields.get("content-type", ""))
+        headers = {"Content-Type": mime} if mime else {}
+        resp = self._filer("POST", self._fpath(bucket, key),
+                           params={"collection": bucket},
+                           data=file_data, headers=headers)
+        if resp.status_code >= 300:
+            raise S3Error("InternalError", resp.text, 500)
+        etag = resp.json().get("etag", "")
+        status = int(fields.get("success_action_status", "204"))
+        if status not in (200, 201, 204):
+            status = 204
+        if status == 201:
+            root = _xml("PostResponse")
+            root.append(_leaf("Bucket", bucket))
+            root.append(_leaf("Key", key))
+            root.append(_leaf("ETag", f'"{etag}"'))
+            return _xml_response(root, status=201)
+        return Response(status=status, headers={"ETag": f'"{etag}"'})
+
     def _put_object(self, bucket: str, key: str, payload: bytes,
                     req: Request) -> Response:
         self._require_bucket(bucket)
@@ -1096,3 +1484,109 @@ class S3ApiServer:
                                        for ch in e.get("chunks", []))))
             root.append(p)
         return _xml_response(root)
+
+    def _tagging_op(self, method: str, bucket: str, key: str,
+                    payload: bytes) -> Response:
+        meta = self._entry_meta(bucket, key)
+        ext = meta.get("extended", {})
+        if method == "GET":
+            root = _xml("Tagging")
+            tagset = ET.Element("TagSet")
+            for k, v in ext.items():
+                if k.startswith("s3_tag_"):
+                    t = ET.Element("Tag")
+                    t.append(_leaf("Key", k[len("s3_tag_"):]))
+                    t.append(_leaf("Value", v))
+                    tagset.append(t)
+            root.append(tagset)
+            return _xml_response(root)
+        ext = {k: v for k, v in ext.items()
+               if not k.startswith("s3_tag_")}
+        if method == "PUT":
+            root = ET.fromstring(payload)
+            for t in root.iter():
+                if t.tag.endswith("Tag"):
+                    k_el = _find(t, "Key")
+                    v_el = _find(t, "Value")
+                    if k_el is not None and v_el is not None:
+                        ext[f"s3_tag_{k_el.text}"] = v_el.text or ""
+        meta["extended"] = ext
+        meta.pop("full_path", None)
+        self._filer("PUT", self._fpath(bucket, key) + "?meta=1",
+                    json=meta)
+        return Response(status=200 if method == "PUT" else 204)
+
+
+def _parse_form(payload: bytes, content_type: str) \
+        -> tuple[dict, bytes, str]:
+    """multipart/form-data body -> (fields, file bytes, file name)."""
+    import email
+    import email.policy
+
+    msg = email.message_from_bytes(
+        b"Content-Type: " + content_type.encode() + b"\r\n\r\n"
+        + payload, policy=email.policy.HTTP)
+    fields: dict[str, str] = {}
+    file_data, file_name = b"", ""
+    for part in msg.iter_parts():
+        name = part.get_param("name", header="content-disposition")
+        if not name:
+            continue
+        body = part.get_payload(decode=True) or b""
+        if name == "file":
+            file_data = body
+            file_name = part.get_filename("") or ""
+        else:
+            fields[name] = body.decode("utf-8", "replace")
+    return fields, file_data, file_name
+
+
+def _check_policy(policy: dict, bucket: str, key: str,
+                  size: int) -> None:
+    """Enforce a decoded POST policy's expiration + conditions
+    (policy/post-policy.go). A signed policy is a bearer credential:
+    expiration is mandatory and bucket conditions must be honored, or a
+    leaked form could be replayed forever / against other buckets."""
+    import calendar
+
+    exp = policy.get("expiration", "")
+    if not exp:
+        raise S3Error("InvalidPolicyDocument",
+                      "policy must carry an expiration", 400)
+    try:
+        dead = calendar.timegm(time.strptime(
+            exp.split(".")[0].rstrip("Z"), "%Y-%m-%dT%H:%M:%S"))
+    except ValueError:
+        raise S3Error("InvalidPolicyDocument",
+                      f"bad expiration {exp!r}", 400)
+    if time.time() > dead:
+        raise S3Error("AccessDenied", "policy expired", 403)
+
+    values = {"key": key, "bucket": bucket}
+
+    def enforce(op: str, field: str, val) -> None:
+        got = values.get(field)
+        if got is None:
+            return  # fields we don't model (acl, content-type, ...)
+        if op == "eq" and got != val:
+            raise S3Error("AccessDenied",
+                          f"{field} must equal {val!r}", 403)
+        if op == "starts-with" and not got.startswith(val):
+            raise S3Error("AccessDenied",
+                          f"{field} must start with {val!r}", 403)
+
+    for cond in policy.get("conditions", []):
+        if isinstance(cond, dict):
+            for ck, cv in cond.items():
+                enforce("eq", ck, cv)
+        elif isinstance(cond, list) and len(cond) == 3:
+            op, field = cond[0], str(cond[1]).lstrip("$")
+            if op == "content-length-range":
+                lo, hi = int(cond[1]), int(cond[2])
+                if not lo <= size <= hi:
+                    raise S3Error(
+                        "EntityTooLarge" if size > hi
+                        else "EntityTooSmall",
+                        f"size {size} outside [{lo}, {hi}]", 400)
+            else:
+                enforce(op, field, cond[2])

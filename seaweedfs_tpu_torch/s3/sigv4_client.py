@@ -6,7 +6,7 @@ compatible with the gateway's verifier and with AWS. One departure: a
 query value the url already escapes (`prefix=tier-ec%2Fc%2F7`) is
 decoded before it is escaped for the canonical request, as AWS and
 both gateways do; the reference escapes it twice. The POST-policy
-helpers of the reference's module wait with POST-policy uploads.
+helpers sign and verify a browser form's policy document.
 """
 from __future__ import annotations
 
@@ -74,3 +74,40 @@ def sign_headers(method: str, url: str, access_key: str,
             f"SignedHeaders={signed}, Signature={signature}"),
     }
 
+
+def verify_policy_signature(policy_b64: str, credential: str,
+                            signature: str, secret: str) -> bool:
+    """Verify a POST-policy SigV4 signature: the string-to-sign is the
+    base64 policy itself, signed with the standard derived key
+    (post-policy-fanout of auth_signature_v4.go)."""
+    parts = credential.split("/")
+    if len(parts) != 5:
+        return False
+    _ak, datestamp, region, service, terminal = parts
+    if terminal != "aws4_request":
+        return False
+    key = _hmac(_hmac(_hmac(_hmac(
+        ("AWS4" + secret).encode(), datestamp), region), service),
+        "aws4_request")
+    want = hmac.new(key, policy_b64.encode(),
+                    hashlib.sha256).hexdigest()
+    return hmac.compare_digest(want, signature)
+
+
+def sign_policy(policy_b64: str, access_key: str, secret: str,
+                region: str = "us-east-1",
+                datestamp: str | None = None) -> dict:
+    """Client side: produce the form fields for a POST-policy upload."""
+    import time as _time
+    datestamp = datestamp or _time.strftime("%Y%m%d", _time.gmtime())
+    credential = f"{access_key}/{datestamp}/{region}/s3/aws4_request"
+    key = _hmac(_hmac(_hmac(_hmac(
+        ("AWS4" + secret).encode(), datestamp), region), "s3"),
+        "aws4_request")
+    sig = hmac.new(key, policy_b64.encode(),
+                   hashlib.sha256).hexdigest()
+    return {"policy": policy_b64,
+            "x-amz-credential": credential,
+            "x-amz-algorithm": "AWS4-HMAC-SHA256",
+            "x-amz-date": f"{datestamp}T000000Z",
+            "x-amz-signature": sig}

@@ -77,7 +77,9 @@ chunks. `-filer.store.shards` wraps the store kind in `sharded`, and
 `-filer.cache.*` puts the read-through CachingStore in front of it,
 invalidated by the meta log's sync listener.
 
-Not here: the browser (text/html) listing view.
+A directory GET that accepts text/html and not application/json gets
+the reference's browser listing: an HTML table with escaped names,
+percent-encoded links and a next-page link that keeps the filters.
 """
 from __future__ import annotations
 
@@ -752,6 +754,51 @@ class FilerServer:
         entries = self.filer.list_entries(
             path, start_from=last, limit=limit, prefix=prefix,
             name_pattern=pattern, name_pattern_exclude=pattern_exclude)
+        accept = req.headers.get("Accept", "")
+        if "text/html" in accept and "application/json" not in accept:
+            # browser view (server/filer_ui/ equivalent); API clients
+            # send Accept: application/json (or nothing) and get JSON.
+            # Names are client-chosen: escape text and percent-encode
+            # hrefs or an uploaded filename becomes stored XSS.
+            import html as _html
+            import urllib.parse as _up
+
+            rows = []
+            for e in entries:
+                label = _html.escape(
+                    e.name + ("/" if e.is_directory else ""))
+                href = (_up.quote(path.rstrip("/"), safe="/") + "/"
+                        + _up.quote(e.name, safe=""))
+                size = "-" if e.is_directory else f"{e.file_size:,}"
+                mtime = time.strftime("%Y-%m-%d %H:%M:%S",
+                                      time.localtime(e.mtime))
+                rows.append(
+                    f'<tr><td><a href="{href}">{label}</a></td>'
+                    f"<td>{size}</td><td>{mtime}</td></tr>")
+            up = path.rstrip("/").rsplit("/", 1)[0] or "/"
+            more = ""
+            if len(entries) == limit:  # browser pagination — keep the
+                # listing filters on the next-page link
+                qs = {"lastFileName": entries[-1].name,
+                      "limit": str(limit)}
+                for k, v in (("prefix", prefix),
+                             ("namePattern", pattern),
+                             ("namePatternExclude", pattern_exclude)):
+                    if v:
+                        qs[k] = v
+                more = (f'<p><a href="?{_up.urlencode(qs)}">'
+                        f"next page &raquo;</a></p>")
+            page = (f"<html><body><h1>seaweedfs-tpu filer</h1>"
+                    f"<p>{_html.escape(path)}</p>"
+                    f'<p><a href="{_up.quote(up, safe="/")}">..</a>'
+                    f"</p>"
+                    f"<table border=1 cellpadding=4><tr><th>name</th>"
+                    f"<th>size</th><th>modified</th></tr>"
+                    f"{''.join(rows)}</table>{more}</body></html>")
+            # aiohttp's text= reply names its charset
+            return Response(page.encode(),
+                            content_type="text/html; charset=utf-8",
+                            headers={"X-Seaweed-Entry": "dir"})
         # a short page proves end-of-directory (list_entries pages past
         # expired/filtered entries itself); only a FULL page needs the
         # one-entry probe to drive the more-flag honestly

@@ -89,8 +89,8 @@ def test_reference_case(case, side, tmp_path, tmp_path_factory):
     fn = CASES[side][case]
     if case == "TestStatusUis.test_volume_and_filer_ui_pages" and \
             side == "port":
-        # the filer's HTML listing is not in the port: the volume
-        # server's page is this slice's, so run the case's volume half
+        # the master's UI page is not in the port: run the case's
+        # volume and filer halves
         fn = _volume_ui_case
     with swap_modules(swaps, parents=True):
         run_case(fn, {"tmp_path": tmp_path,
@@ -99,7 +99,7 @@ def test_reference_case(case, side, tmp_path, tmp_path_factory):
 
 def _volume_ui_case(tmp_path_factory):
     c = PortCluster(str(tmp_path_factory.mktemp("ui")), n_volume_servers=1,
-                    volume_size_limit=16 << 20)
+                    volume_size_limit=16 << 20, with_filer=True)
     try:
         a = verbs.assign(c.master_url)
         verbs.upload(a, b"ui-test")
@@ -108,6 +108,14 @@ def _volume_ui_case(tmp_path_factory):
             assert r.status_code == 200
             assert "volume server" in r.text and "<table" in r.text
             assert f"<tr><td>{a.fid.split(',')[0]}</td>" in r.text
+        requests.post(f"{c.filer_url}/docs/page.txt", data=b"x",
+                      timeout=10)
+        r = requests.get(f"{c.filer_url}/docs", timeout=10,
+                         headers={"Accept": "text/html"})
+        assert "page.txt" in r.text and "<table" in r.text
+        r = requests.get(f"{c.filer_url}/docs", timeout=10,
+                         headers={"Accept": "application/json"})
+        assert r.json()["entries"]
     finally:
         c.stop()
 

@@ -36,7 +36,7 @@ from seaweedfs_tpu_torch.rpc.httpclient import session
 from seaweedfs_tpu_torch.server.cluster import free_ports
 from seaweedfs_tpu_torch.server.master_server import MasterServer
 
-TICK = 0.08  # raft timeouts scaled down for test speed
+TICK = 0.5  # raft timeouts scaled down for test speed
 
 
 def make_cluster(n, tmp_path=None, tick=TICK):

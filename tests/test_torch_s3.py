@@ -2,8 +2,7 @@
 
 * The cases of tests/test_s3.py run unchanged against the port's
   `Cluster(with_s3=True)` (tests/torch_port_cases.py rebinds `Cluster`,
-  `sign_request` and `presign_url`), but the tagging case: tagging is
-  one of the operations the port answers 501.
+  `sign_request` and `presign_url`), the tagging case included.
 * The same SigV4-signed requests (tests/s3v4client.py, a clean-room
   signer) to a reference and a port gateway get the same statuses and
   XML (timestamps and upload ids masked): bucket CRUD, ListObjects v1
@@ -11,8 +10,12 @@
   range, head, copy, delete, DeleteObjects and the whole multipart
   path; an aws-chunked signed upload, a presigned GET, a bad signature,
   a tampered body.
-* The port answers S3's NotImplemented (501) for every operation the
-  reference routes that it does not port.
+* The sub-resources the port once answered 501 for (the names of the
+  two tests below stay from then) answer what the reference answers:
+  bucket policy and CORS, object ACL, retention, legal hold and object
+  lock 501 in both; ACL, lifecycle, ownership controls, tagging and
+  form uploads as the reference serves them
+  (tests/test_torch_s3_subresources.py holds them in full).
 * `sign_request` / `presign_url` / `encode_chunked` byte-equal to the
   reference's for seeded inputs at a pinned clock.
 * A multipart object whose parts span several filer chunks: GET, HEAD
@@ -53,8 +56,7 @@ PortCluster = functools.partial(Cluster, ec_backend="native")
 
 CASES = port_cases(ref_cases, Cluster=PortCluster,
                    sign_request=auth.sign_request,
-                   presign_url=auth.presign_url,
-                   skip=("TestTagging.test_put_get_delete",))
+                   presign_url=auth.presign_url)
 
 
 @pytest.fixture(scope="module")
@@ -279,19 +281,34 @@ def test_auth_answers_as_the_reference(pair):
     ("GET", "/np/k.txt", {"object-lock": ""})])
 def test_unported_operations_answer_not_implemented(pair, method, path,
                                                     params):
-    port = pair[1]
-    cl = S3V4Client(port.s3_url, AK, SK)
-    cl.put("/np")
-    cl.put("/np/k.txt", b"k")
-    r = cl.request(method, path, params)
-    assert r.status == 501
-    assert ET.fromstring(r.body).find("Code").text == "NotImplemented"
+    """Each answers as the reference's gateway: the six sub-resources
+    the reference refuses with 501 as well, the rest served."""
+    out = []
+    for c in pair:
+        cl = S3V4Client(c.s3_url, AK, SK)
+        cl.put("/np")
+        cl.put("/np/k.txt", b"k")
+        out.append(_answer(cl.request(method, path, params)))
+    assert out[1] == out[0]
+    refused = {"policy", "cors", "retention", "legal-hold", "object-lock"}
+    if set(params) & refused or (path == "/np/k.txt" and "acl" in params):
+        assert out[1][0] == 501
+        assert out[1][1][2][0][:2] == ("Code", "NotImplemented")
+    else:
+        assert out[1][0] < 500
 
 
 def test_post_policy_form_upload_answers_not_implemented(pair):
-    r = requests.post(f"{pair[1].s3_url}/np", files={"file": b"x"},
-                      data={"key": "k"}, timeout=10)
-    assert r.status_code == 501
+    """A form upload without a policy to a gateway with identities:
+    refused as the reference refuses it (403 AccessDenied), no longer
+    501."""
+    got = []
+    for c in pair:
+        r = requests.post(f"{c.s3_url}/np", files={"file": b"x"},
+                          data={"key": "k"}, timeout=10)
+        got.append((r.status_code, _xml(r.content)))
+    assert got[1] == got[0]
+    assert got[1][0] == 403
 
 
 class _FixedClock(_dt.datetime):

@@ -4,8 +4,8 @@ secured cluster run in both packages, with tolerance 0.
 
 * The reference's unit, integration and KV-reload cases of
   tests/test_s3_breaker_policy.py run on the port
-  (tests/torch_port_cases.py; the POST-policy cases stay out, the port
-  answers those uploads 501).
+  (tests/torch_port_cases.py; its POST-policy cases run in
+  tests/test_torch_s3_subresources.py).
 * Seeded sequences of nested acquires and releases (read / write,
   global and per-bucket counts and bytes) through both breakers give
   the same admissions and the same refusals (scope and limit).

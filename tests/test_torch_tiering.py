@@ -634,11 +634,14 @@ def test_lost_cold_holder_rebuilt_and_offloaded_again(pkg, tmp_path):
     assert out["offloads"] == 2
 
 
-def _gauge(text: str, name: str) -> float:
+def _gauge(text: str, name: str, collection: str) -> float:
+    """The gauge of one collection. Both packages keep their gauges
+    process-wide, so an earlier cluster's collections stay listed."""
+    head = f'{name}{{collection="{collection}"}} '
     for line in text.splitlines():
-        if line.startswith(name + "{") or line.startswith(name + " "):
+        if line.startswith(head):
             return float(line.rsplit(" ", 1)[1])
-    raise KeyError(name)
+    raise KeyError(head)
 
 
 def test_volume_server_metrics_count_ec_bytes(tmp_path):
@@ -662,8 +665,8 @@ def test_volume_server_metrics_count_ec_bytes(tmp_path):
             text = requests.get(f"{c.volume_url(0)}/metrics",
                                 timeout=10).text
             ecv = c.stores[0].ec_volumes[vid]
-            out[name] = (_gauge(text, "volume_server_ec_shards"),
-                         _gauge(text, "volume_server_ec_bytes"), ecv)
+            out[name] = (_gauge(text, "volume_server_ec_shards", "m"),
+                         _gauge(text, "volume_server_ec_bytes", "m"), ecv)
         finally:
             c.stop()
     assert out["port"][0] == out["reference"][0] == 14
