@@ -527,6 +527,40 @@ Phases, each fatal on failure (exit code 1, no result line):
       largest volume stopped: the unsigned GET + HEAD pass again,
       degraded; ec.rebuild (launches > 0, /metrics agree); the pass
       again, and every object of the three buckets equal.
+21. The filer's protocol gateways: an in-process master and four volume
+   servers on "cuda", volume limit 64 MiB; `filer -store leveldb`,
+   `s3 -config`, `webdav`, `ftp -user`, `iam` and `mq.broker -master`
+   as CLI processes, probed by a TCP connect. Each step is fatal on
+   failure:
+   b. WebDAV: 8 collections (MKCOL; a second MKCOL 405); 512 PUTs of
+      1-64 KiB (log-uniform) on 8 threads, a GET of each sha256-equal;
+      64 MOVEs (the source then 404) and 64 COPYs (412 onto a file with
+      Overwrite F); PROPFIND Depth 1 of each collection lists exactly
+      its files and sizes; a LOCK: a foreign token's PUT, LOCK and
+      DELETE 423, the holder's PUT 201, UNLOCK 204; 4 x 16 MiB PUT and
+      GET.
+   c. FTP (`ftplib`): 4 sessions STOR 256 files of 1-64 KiB and RETR
+      each; 2 x 16 MiB STOR, RETR whole and with REST from mid-file;
+      RNFR / RNTO, DELE, MKD and a recursive RMD; LIST of each
+      directory equal to the filer's listing.
+   d. IAM: CreateUser, CreateAccessKey, PutUserPolicy (Read and Write
+      on one bucket); the seconds until the CLI S3 gateway takes a
+      signed PUT with the new key; 403 in another bucket; refused after
+      DeleteAccessKey; the KV document as the reference writes it.
+   e. mq: `mq.topic.create` of 4 partitions from the shell; 16,384
+      records of 64 B-4 KiB (keys from 1,024; every 16th value not
+      UTF-8) in batches of 256 from 4 threads; 256 single publishes (ack
+      p50 / p99); a subscription of each partition from 0 returns every
+      acked (partition, offset) once with its value; SIGINT: exit 0;
+      the broker started again keeps the offsets, new publishes
+      continue them, the replay is equal.
+   f. ec.encode of every volume holding the phase's data: one launch a
+      volume (the volume servers' /metrics agree), the kernel stage in
+      CUDA events; the server holding the most shards of the largest
+      volume stopped: a WebDAV GET of every file, an FTP RETR of the
+      big ones and the mq replay of one partition, degraded, all equal;
+      ec.rebuild (launches > 0, /metrics agree); the same pass rebuilt,
+      and every partition replayed.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -547,6 +581,7 @@ import tarfile
 import tempfile
 import threading
 import time
+import urllib.parse
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -8621,6 +8656,733 @@ def phase_form(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 21: the filer's protocol gateways (WebDAV, FTP, IAM, the mq
+# broker) as CLI processes; their files and records sealed, read
+# degraded and rebuilt through the kernel
+# ----------------------------------------------------------------------
+GW_COLLECTIONS = 8                # 21b's WebDAV collections (MKCOL)
+GW_DAV_FILES = 512                # 21b's PUTs, 1-64 KiB, log-uniform
+GW_OBJ_LO, GW_OBJ_HI = 1 << 10, 64 << 10
+GW_MOVES = GW_COPIES = 64         # 21b's MOVEs and COPYs
+GW_BIG = (4, 16 << 20)            # (count, bytes) of 21b's large PUTs
+GW_FTP_SESSIONS = 4               # 21c's concurrent FTP sessions
+GW_FTP_FILES = 256                # 21c's STORs, 1-64 KiB, log-uniform
+GW_FTP_BIG = (2, 16 << 20)        # (count, bytes) of 21c's large STORs
+GW_MQ_PARTITIONS = 4
+GW_MQ_RECORDS = 16384             # 21e's records, 64 B-4 KiB, log-uniform
+GW_MQ_LO, GW_MQ_HI = 64, 4 << 10
+GW_MQ_KEYS = 1024
+GW_MQ_BATCH = 256                 # records per batched publish
+GW_MQ_THREADS = 4
+GW_MQ_SINGLE = 256                # 21e's single publishes (ack p50 / p99)
+GW_MQ_AFTER = 1024                # records published after the restart
+GW_VOLUME_LIMIT = 64 << 20        # the master's volume size limit
+GW_THREADS = 8
+GW_DEADLINE = 60.0                # longest wait for a process to serve
+GW_USER = ("smoke21", "smoke21-ftp-password")
+
+
+def _gw_sizes(n: int, lo: int, hi: int, salt: int) -> list[bytes]:
+    """Seeded payloads, log-uniform in [lo, hi]."""
+    rng = np.random.default_rng([SEED, 21, salt])
+    sizes = np.exp(rng.uniform(np.log(lo), np.log(hi), n))
+    return [rng.bytes(int(k)) for k in sizes]
+
+
+def _gw_records() -> list[dict]:
+    """21e's records, from the seed: keys from GW_MQ_KEYS, values
+    64 B-4 KiB; every 16th value is not UTF-8 and goes as value64."""
+    import base64
+
+    rng = np.random.default_rng([SEED, 21, 5])
+    keys = rng.integers(GW_MQ_KEYS, size=GW_MQ_RECORDS)
+    out = []
+    for i, v in enumerate(_gw_sizes(GW_MQ_RECORDS, GW_MQ_LO, GW_MQ_HI, 6)):
+        rec = {"key": f"user-{int(keys[i]):04d}"}
+        if i % 16 == 0:
+            rec["value64"] = base64.b64encode(b"\xff" + v).decode()
+        else:
+            rec["value"] = v.hex()[:len(v)]
+        out.append(rec)
+    return out
+
+
+def _gw_value(rec: dict) -> str:
+    """A published record's value as a subscription carries it."""
+    import base64
+
+    if "value64" in rec:
+        return "v64:" + rec["value64"]
+    return "v:" + rec["value"]
+
+
+def phase_gateways(card: str) -> dict:
+    """Phase 21: the CLI filer on leveldb, the CLI S3 gateway and the
+    four protocol gateways (webdav, ftp, iam, mq.broker) as processes
+    over an in-process master and four volume servers on "cuda"; WebDAV
+    and FTP files, IAM keys and mq records; their volumes sealed, read
+    degraded and rebuilt through the kernel. -> kernel launches by step
+    and the phase's numbers."""
+    import ftplib
+    import io
+    import re
+    import signal
+
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv, ShellError
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke21-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    cluster = env = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    try:
+        # 21a. the cluster, then the filer, the S3 gateway and the four
+        # gateways as processes of the CLI, probed by a TCP connect
+        t0 = time.perf_counter()
+        cluster = Cluster(os.path.join(tmp, "main"), n_volume_servers=4,
+                          max_volumes=8, volume_size_limit=GW_VOLUME_LIMIT,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda")
+        fport, sport, dport, ftport, iport, bport = free_ports(6)
+        filer = f"http://127.0.0.1:{fport}"
+        gateway = f"http://127.0.0.1:{sport}"
+        dav = f"http://127.0.0.1:{dport}"
+        iam = f"http://127.0.0.1:{iport}/"
+        broker = f"http://127.0.0.1:{bport}"
+        s3_conf = os.path.join(tmp, "s3.json")
+        with open(s3_conf, "w") as f:
+            json.dump(S3_CONFIG, f)
+
+        def start(name: str, args: list[str], port: int) -> float:
+            return _serve_cli(procs, logs, tmp, name, args, port,
+                              GW_DEADLINE)
+
+        broker_argv = ["mq.broker", "-port", str(bport), "-filer", filer,
+                       "-master", cluster.master_url]
+        took = {"filer": start("filer", [
+            "filer", "-port", str(fport), "-master", cluster.master_url,
+            "-store", "leveldb", "-store.path",
+            os.path.join(tmp, "filerdb")], fport)}
+        for name, args, port in (
+                ("s3", ["s3", "-port", str(sport), "-filer", filer,
+                        "-config", s3_conf], sport),
+                ("webdav", ["webdav", "-port", str(dport), "-filer", filer],
+                 dport),
+                ("ftp", ["ftp", "-port", str(ftport), "-filer", filer,
+                         "-user", ":".join(GW_USER)], ftport),
+                ("iam", ["iam", "-port", str(iport), "-filer", filer], iport),
+                ("mq.broker", broker_argv, bport)):
+            took[name] = start(name, args, port)
+        env = CommandEnv(cluster.master_url, filer_url=filer)
+        s3 = _S3Client(gateway)
+        walls["a"] = time.perf_counter() - t0
+        log(f"[21] {card}; master {cluster.master_url}, 4 volume servers "
+            f"ec_backend='cuda', volume limit {GW_VOLUME_LIMIT} B; CLI "
+            f"processes listening after (s) "
+            f"{ {k: round(v, 3) for k, v in took.items()} }: `filer -store "
+            f"leveldb`, `s3 -config`, `webdav`, `ftp -user`, `iam`, "
+            f"`mq.broker -master`; set-up {walls['a']:.3f} s")
+
+        def req(method: str, url: str, **kw):
+            return session().request(method, url, timeout=(5.0, 300.0),
+                                     **kw)
+
+        # 21b. WebDAV: collections, small files, moves, copies, a lock,
+        # large files
+        t0 = time.perf_counter()
+        cols = [f"/dav21/c{i}" for i in range(GW_COLLECTIONS)]
+        if req("MKCOL", dav + "/dav21").status_code != 201:
+            fail("21b: MKCOL /dav21")
+        for c in cols:
+            r = req("MKCOL", dav + c)
+            if r.status_code != 201:
+                fail(f"21b: MKCOL {c}: {r.status_code}")
+        if req("MKCOL", dav + cols[0]).status_code != 405:
+            fail("21b: MKCOL of an existing collection: not 405")
+        files = {f"{cols[i % GW_COLLECTIONS]}/f-{i:04d}.bin": d for i, d in
+                 enumerate(_gw_sizes(GW_DAV_FILES, GW_OBJ_LO, GW_OBJ_HI, 1))}
+        lat_put: list[float] = []
+
+        def dav_put(path: str) -> None:
+            t1 = time.perf_counter()
+            r = req("PUT", dav + path, data=files[path])
+            if r.status_code != 201:
+                fail(f"21b: PUT {path}: {r.status_code}")
+            lat_put.append(time.perf_counter() - t1)
+
+        t1 = time.perf_counter()
+        _pool_map(dav_put, sorted(files), threads=GW_THREADS)
+        t_put = time.perf_counter() - t1
+
+        def dav_pass(label: str, paths: list[str]) -> dict:
+            lat: list[float] = []
+
+            def one(path: str) -> int:
+                t1 = time.perf_counter()
+                r = req("GET", dav + path)
+                if r.status_code != 200 or \
+                        _sha(r.content) != _sha(files[path]):
+                    fail(f"{label}: WebDAV GET {path}: {r.status_code}, "
+                         f"{len(r.content)} B of {len(files[path])}")
+                lat.append(time.perf_counter() - t1)
+                return len(r.content)
+
+            t1 = time.perf_counter()
+            nb = sum(_pool_map(one, paths, threads=GW_THREADS))
+            w = time.perf_counter() - t1
+            return {"wall": w, "rate": len(paths) / w, "mbps": nb / w / 1e6,
+                    "lat": lat}
+
+        small = sorted(files)
+        healthy = dav_pass("21b", small)
+        # MOVE and COPY: each of a seeded choice, into the next collection
+        rng = np.random.default_rng([SEED, 21, 2])
+        picked = [small[int(i)] for i in rng.permutation(len(small))[
+            :GW_MOVES + GW_COPIES]]
+        for n, src in enumerate(picked):
+            col = cols[(cols.index(src.rsplit("/", 1)[0]) + 1) %
+                       GW_COLLECTIONS]
+            op = "MOVE" if n < GW_MOVES else "COPY"
+            dest = f"{col}/{op.lower()}-{src.rsplit('/', 1)[1]}"
+            r = req(op, dav + src, headers={"Destination": dav + dest})
+            if r.status_code != 201:
+                fail(f"21b: {op} {src} -> {dest}: {r.status_code}")
+            files[dest] = files[src]
+            if op == "MOVE":
+                del files[src]
+        for path in picked[:GW_MOVES]:
+            if req("GET", dav + path).status_code != 404:
+                fail(f"21b: {path} still answers after its MOVE")
+        r = req("COPY", dav + picked[-1], headers={
+            "Destination": dav + picked[-2], "Overwrite": "F"})
+        if r.status_code != 412:
+            fail(f"21b: COPY onto an existing file, Overwrite F: "
+                 f"{r.status_code}")
+        # PROPFIND Depth 1 of each collection: exactly its files, sizes
+        listed = {}
+        for c in cols:
+            r = req("PROPFIND", dav + c, headers={"Depth": "1"})
+            if r.status_code != 207:
+                fail(f"21b: PROPFIND {c}: {r.status_code}")
+            hrefs = re.findall(rb"<D:href>([^<]*)</D:href>", r.content)
+            sizes = re.findall(rb"<D:getcontentlength>(\d+)<", r.content)
+            got = dict(zip((h.decode() for h in hrefs[1:]),
+                           (int(s) for s in sizes[1:])))
+            want = {p: len(d) for p, d in files.items()
+                    if p.rsplit("/", 1)[0] == c}
+            if hrefs[0].decode() != c + "/" or got != want:
+                fail(f"21b: PROPFIND {c}: {len(got)} entries, "
+                     f"{len(want)} expected")
+            listed[c] = len(got)
+        # a lock: a foreign token's PUT and LOCK get 423, the holder's
+        # PUT goes through, UNLOCK frees it
+        locked = sorted(files)[0]
+        lock = req("LOCK", dav + locked)
+        token = lock.headers.get("Lock-Token", "")
+        foreign = "(<opaquelocktoken:00000000-0000-0000-0000-000000000000>)"
+        refused = (req("PUT", dav + locked, data=b"x").status_code,
+                   req("PUT", dav + locked, data=b"x",
+                       headers={"If": foreign}).status_code,
+                   req("LOCK", dav + locked,
+                       headers={"If": foreign}).status_code,
+                   req("DELETE", dav + locked).status_code)
+        held = req("PUT", dav + locked, data=files[locked],
+                   headers={"If": f"({token})"}).status_code
+        unlocked = req("UNLOCK", dav + locked,
+                       headers={"Lock-Token": token}).status_code
+        if lock.status_code != 200 or refused != (423,) * 4 or \
+                held != 201 or unlocked != 204:
+            fail(f"21b: LOCK {lock.status_code}, refused {refused}, the "
+                 f"holder's PUT {held}, UNLOCK {unlocked}")
+        # large files
+        big = {f"/dav21/big-{i}.bin":
+               np.random.default_rng([SEED, 21, 3, i]).bytes(GW_BIG[1])
+               for i in range(GW_BIG[0])}
+        files.update(big)
+        t1 = time.perf_counter()
+        _pool_map(dav_put, sorted(big), threads=GW_BIG[0])
+        t_big_put = time.perf_counter() - t1
+        big_get = dav_pass("21b big", sorted(big))
+        walls["b"] = time.perf_counter() - t0
+        big_bytes = GW_BIG[0] * GW_BIG[1]
+        log(f"[21b] WebDAV: {GW_COLLECTIONS} MKCOLs; {GW_DAV_FILES} PUTs "
+            f"of {GW_OBJ_LO}-{GW_OBJ_HI} B on {GW_THREADS} threads "
+            f"{t_put:.3f} s, {GW_DAV_FILES / t_put:.1f} files/s, PUT "
+            f"{_lat(lat_put)}; GET of each {healthy['rate']:.1f} files/s, "
+            f"{healthy['mbps']:.2f} MB/s, GET {_lat(healthy['lat'])}, "
+            f"sha256-equal; {GW_MOVES} MOVEs, {GW_COPIES} COPYs (412 with "
+            f"Overwrite F); PROPFIND Depth 1 of each collection exactly "
+            f"its files and sizes {listed}; LOCK: a foreign token's PUT, "
+            f"LOCK and DELETE 423, the holder's PUT 201, UNLOCK 204; "
+            f"{GW_BIG[0]} x {GW_BIG[1]} B PUT {big_bytes / t_big_put / 1e6:.1f} "
+            f"MB/s, GET {big_get['mbps']:.1f} MB/s; {walls['b']:.3f} s")
+
+        # 21c. FTP: four sessions, small files, large files, a resumed
+        # RETR, renames, deletes, directories, the listing
+        t0 = time.perf_counter()
+
+        def ftp_login() -> ftplib.FTP:
+            f = ftplib.FTP()
+            f.connect("127.0.0.1", ftport, timeout=120)
+            f.login(*GW_USER)
+            return f
+
+        ftp_files = {f"/ftp21/s{i % GW_FTP_SESSIONS}/f-{i:04d}.bin": d
+                     for i, d in enumerate(_gw_sizes(
+                         GW_FTP_FILES, GW_OBJ_LO, GW_OBJ_HI, 4))}
+        top = ftp_login()
+        top.mkd("/ftp21")
+        for s in range(GW_FTP_SESSIONS):
+            top.mkd(f"/ftp21/s{s}")
+
+        def session_run(s: int) -> list[float]:
+            f = ftp_login()
+            lat = []
+            try:
+                f.cwd(f"/ftp21/s{s}")
+                mine = sorted(p for p in ftp_files
+                              if p.startswith(f"/ftp21/s{s}/"))
+                for p in mine:
+                    t1 = time.perf_counter()
+                    f.storbinary(f"STOR {p.rsplit('/', 1)[1]}",
+                                 io.BytesIO(ftp_files[p]))
+                    lat.append(time.perf_counter() - t1)
+                for p in mine:
+                    buf = io.BytesIO()
+                    f.retrbinary(f"RETR {p.rsplit('/', 1)[1]}", buf.write)
+                    if _sha(buf.getvalue()) != _sha(ftp_files[p]):
+                        fail(f"21c: RETR {p}: {len(buf.getvalue())} B, "
+                             f"sha256 off")
+            finally:
+                f.quit()
+            return lat
+
+        t1 = time.perf_counter()
+        lat_stor = [x for lat in _pool_map(session_run,
+                                           range(GW_FTP_SESSIONS),
+                                           threads=GW_FTP_SESSIONS)
+                    for x in lat]
+        t_ftp = time.perf_counter() - t1
+        ftp_big = {f"/ftp21/big-{i}.bin":
+                   np.random.default_rng([SEED, 21, 7, i]).bytes(
+                       GW_FTP_BIG[1]) for i in range(GW_FTP_BIG[0])}
+        t1 = time.perf_counter()
+        for p, d in ftp_big.items():
+            top.storbinary(f"STOR {p}", io.BytesIO(d), blocksize=1 << 20)
+        t_ftp_big = time.perf_counter() - t1
+        ftp_files.update(ftp_big)
+
+        def ftp_big_pass(label: str) -> float:
+            t1 = time.perf_counter()
+            f = ftp_login()
+            try:
+                for p, d in ftp_big.items():
+                    buf = io.BytesIO()
+                    f.retrbinary(f"RETR {p}", buf.write, blocksize=1 << 20)
+                    if _sha(buf.getvalue()) != _sha(d):
+                        fail(f"{label}: RETR {p}: sha256 off")
+                mid = GW_FTP_BIG[1] // 2 + 12345
+                buf = io.BytesIO()
+                p = sorted(ftp_big)[0]
+                f.retrbinary(f"RETR {p}", buf.write, rest=mid)
+                if buf.getvalue() != ftp_big[p][mid:]:
+                    fail(f"{label}: RETR {p} with REST {mid}")
+            finally:
+                f.quit()
+            return len(ftp_big) * GW_FTP_BIG[1] / (time.perf_counter() -
+                                                    t1) / 1e6
+
+        ftp_mbps = ftp_big_pass("21c")
+        # renames, a delete, a directory made and removed recursively
+        small_ftp = sorted(p for p in ftp_files if p not in ftp_big)
+        src = small_ftp[0]
+        top.rename(src, src + ".renamed")
+        ftp_files[src + ".renamed"] = ftp_files.pop(src)
+        gone = small_ftp[1]
+        top.delete(gone)
+        del ftp_files[gone]
+        top.mkd("/ftp21/tmp")
+        top.storbinary("STOR /ftp21/tmp/x.bin", io.BytesIO(b"x" * 100))
+        top.rmd("/ftp21/tmp")
+        if "tmp" in top.nlst("/ftp21"):
+            fail("21c: RMD left /ftp21/tmp")
+        # LIST of each directory: the filer's own listing, name for name
+        # and size for size
+        for d in ["/ftp21"] + [f"/ftp21/s{s}" for s in
+                               range(GW_FTP_SESSIONS)]:
+            lines: list[str] = []
+            top.retrlines(f"LIST {d}", lines.append)
+            got = {ln.split()[-1]: int(ln.split()[4]) for ln in lines}
+            entries = session().get(f"{filer}{d}", params={
+                "limit": "10000"}, headers={"Accept": "application/json"},
+                timeout=30).json()["entries"]
+            want = {e["full_path"].rsplit("/", 1)[1]:
+                    0 if e.get("mode", 0) & 0o40000 else
+                    max([c["offset"] + c["size"]
+                         for c in e.get("chunks") or []] or [0])
+                    for e in entries}
+            mine = {p.rsplit("/", 1)[1]: len(v) for p, v in ftp_files.items()
+                    if p.rsplit("/", 1)[0] == d}
+            if got != want or any(got.get(k) != v for k, v in mine.items()):
+                fail(f"21c: LIST {d}: {len(got)} lines, the filer lists "
+                     f"{len(want)}")
+        top.quit()
+        walls["c"] = time.perf_counter() - t0
+        log(f"[21c] FTP: {GW_FTP_SESSIONS} sessions, {GW_FTP_FILES} STORs "
+            f"of {GW_OBJ_LO}-{GW_OBJ_HI} B then a RETR of each "
+            f"{t_ftp:.3f} s (STOR {_lat(lat_stor)}), sha256-equal; "
+            f"{GW_FTP_BIG[0]} x {GW_FTP_BIG[1]} B STOR "
+            f"{GW_FTP_BIG[0] * GW_FTP_BIG[1] / t_ftp_big / 1e6:.1f} MB/s, "
+            f"RETR and a REST from mid-file {ftp_mbps:.1f} MB/s; RNFR/RNTO, "
+            f"DELE, MKD and a recursive RMD; LIST of each directory equal "
+            f"to the filer's listing; {walls['c']:.3f} s")
+
+        # 21d. IAM: a user, a key and a policy; the S3 gateway (the CLI
+        # process reloads identities every 5 s) takes the key, refuses
+        # it on another bucket, and refuses it once deleted
+        t0 = time.perf_counter()
+        for b in ("s21-iam", "s21-other"):
+            r = s3("PUT", f"/{b}")
+            if r.status_code != 200:
+                fail(f"21d: CreateBucket {b}: {r.status_code} {r.text}")
+
+        def iam_call(**form):
+            r = req("POST", iam, data=urllib.parse.urlencode(form),
+                    headers={"Content-Type":
+                             "application/x-www-form-urlencoded"})
+            if r.status_code != 200:
+                fail(f"21d: IAM {form.get('Action')}: {r.status_code} "
+                     f"{r.text}")
+            return r.text
+
+        iam_call(Action="CreateUser", UserName="smoke21")
+        body = iam_call(Action="CreateAccessKey", UserName="smoke21")
+        ak = re.search(r"<AccessKeyId>([^<]+)<", body).group(1)
+        sk = re.search(r"<SecretAccessKey>([^<]+)<", body).group(1)
+        iam_call(Action="PutUserPolicy", UserName="smoke21",
+                 PolicyName="rw", PolicyDocument=json.dumps({
+                     "Statement": [{"Effect": "Allow",
+                                    "Action": ["s3:GetObject",
+                                               "s3:PutObject"],
+                                    "Resource": "arn:aws:s3:::s21-iam/*"}]}))
+        t_policy = time.perf_counter()
+        minted = _S3Client(gateway, ak, sk)
+        payload = b"minted by iam"
+        _poll(lambda: minted("PUT", "/s21-iam/k.bin", payload).status_code
+              == 200, 30.0, "21d: the S3 gateway taking the minted key",
+              step=0.1)
+        t_taken = time.perf_counter() - t_policy
+        got = minted("GET", "/s21-iam/k.bin")
+        other = minted("PUT", "/s21-other/k.bin", payload)
+        if got.content != payload or other.status_code != 403:
+            fail(f"21d: GET with the minted key {got.status_code}, PUT in "
+                 f"another bucket {other.status_code}")
+        iam_call(Action="DeleteAccessKey", UserName="smoke21",
+                 AccessKeyId=ak)
+        t_del = time.perf_counter()
+        _poll(lambda: minted("PUT", "/s21-iam/k2.bin",
+                             payload).status_code == 403, 30.0,
+              "21d: the S3 gateway refusing the deleted key", step=0.1)
+        t_refused = time.perf_counter() - t_del
+        doc = json.loads(session().get(f"{filer}/kv/s3/identities",
+                                       timeout=30).content)
+        if [(i["name"], i["credentials"], i["actions"])
+                for i in doc["identities"]] != [
+                ("smoke21", [], ["Read:s21-iam", "Write:s21-iam"])]:
+            fail(f"21d: the identities document: {doc}")
+        walls["d"] = time.perf_counter() - t0
+        log(f"[21d] IAM: CreateUser, CreateAccessKey, PutUserPolicy (Read "
+            f"and Write on s21-iam); the CLI S3 gateway took a signed PUT "
+            f"with the new key {t_taken:.3f} s after the policy, answered "
+            f"403 in s21-other; after DeleteAccessKey it refused the key "
+            f"in {t_refused:.3f} s; s3/identities in the filer KV as the "
+            f"reference writes it; {walls['d']:.3f} s")
+
+        # 21e. mq: a topic from the shell, batched and single publishes,
+        # a subscription of each partition, a SIGINT and a restart
+        t0 = time.perf_counter()
+
+        def shell(line: str):
+            """The shell's command, run again while the membership lists
+            no broker (it drops one between announces, ROADMAP Queue 3
+            item 10)."""
+            end = time.monotonic() + 30
+            while True:
+                try:
+                    return repl.run_command(env, line)
+                except ShellError as e:
+                    if "no mq broker registered" not in str(e) or \
+                            time.monotonic() > end:
+                        raise
+                    time.sleep(0.05)
+
+        conf = shell(f"mq.topic.create -namespace=smoke -topic=t21 "
+                     f"-partitions={GW_MQ_PARTITIONS}")
+        if conf != {"namespace": "smoke", "name": "t21",
+                    "partitions": GW_MQ_PARTITIONS}:
+            fail(f"21e: mq.topic.create: {conf}")
+        records = _gw_records()
+        pub = f"{broker}/topics/smoke/t21/publish"
+        acked: dict[tuple[int, int], str] = {}
+        acked_lock = threading.Lock()
+
+        def publish(batch: list[dict]) -> list[dict]:
+            r = req("POST", pub, json={"records": batch})
+            if r.status_code != 200:
+                fail(f"21e: publish: {r.status_code} {r.text[:200]}")
+            acks = r.json()["acks"]
+            with acked_lock:
+                for rec, a in zip(batch, acks):
+                    k = (a["partition"], a["offset"])
+                    if k in acked:
+                        fail(f"21e: offset {k} acked twice")
+                    acked[k] = _gw_value(rec)
+            return acks
+
+        batches = [records[i:i + GW_MQ_BATCH]
+                   for i in range(0, len(records), GW_MQ_BATCH)]
+        t1 = time.perf_counter()
+        _pool_map(publish, batches, threads=GW_MQ_THREADS)
+        t_batch = time.perf_counter() - t1
+        mq_bytes = sum(len(r.get("value", r.get("value64", "")))
+                       for r in records)
+        singles = _gw_records()[:GW_MQ_SINGLE]
+        lat_ack: list[float] = []
+        for rec in singles:
+            t1 = time.perf_counter()
+            publish([rec])
+            lat_ack.append(time.perf_counter() - t1)
+
+        def replay(p: int, label: str) -> dict[int, str]:
+            r = req("GET", f"{broker}/topics/smoke/t21/subscribe",
+                    params={"partition": str(p), "offset": "0",
+                            "idle_timeout": "0.5"})
+            if r.status_code != 200:
+                fail(f"{label}: subscribe p{p}: {r.status_code}")
+            out: dict[int, str] = {}
+            for line in r.content.splitlines():
+                rec = json.loads(line)
+                if rec["o"] in out:
+                    fail(f"{label}: p{p} offset {rec['o']} twice")
+                out[rec["o"]] = ("v64:" + rec["v64"]) if "v64" in rec \
+                    else "v:" + rec["v"]
+            return out
+
+        def check_replay(label: str, parts=range(GW_MQ_PARTITIONS)) -> float:
+            t1 = time.perf_counter()
+            got = _pool_map(lambda p: (p, replay(p, label)), list(parts),
+                            threads=GW_MQ_PARTITIONS)
+            w = time.perf_counter() - t1
+            for p, recs in got:
+                want = {o: v for (q, o), v in acked.items() if q == p}
+                if recs != want:
+                    miss = sorted(set(want) - set(recs))[:5]
+                    odd = sorted(o for o in recs
+                                 if recs[o] != want.get(o))[:5]
+                    fail(f"{label}: p{p} replayed {len(recs)} of "
+                         f"{len(want)} acked records; missing {miss}, "
+                         f"differing {odd}")
+            return w
+
+        t_replay = check_replay("21e")
+        n_acked = len(acked)
+        # the key's partition: md5 of the key, modulo the partitions
+        sample = records[0]
+        hp = int(hashlib.md5(sample["key"].encode()).hexdigest(), 16) % \
+            GW_MQ_PARTITIONS
+        if not any(q == hp and v == _gw_value(sample)
+                   for (q, _), v in acked.items()):
+            fail("21e: a key's records are not in its md5 partition")
+        before = shell("mq.topic.describe -namespace=smoke -topic=t21")
+        # SIGINT: the broker flushes its tail and leaves; then again
+        t1 = time.perf_counter()
+        procs["mq.broker"].send_signal(signal.SIGINT)
+        rc = procs["mq.broker"].wait(timeout=60)
+        if rc != 0:
+            fail(f"21e: the broker exited {rc} on SIGINT: "
+                 f"{_tail(logs['mq.broker'])}")
+        del procs["mq.broker"]
+        t_restart = start("mq.broker", broker_argv, bport)
+        after = shell("mq.topic.describe -namespace=smoke -topic=t21")
+        t_back = time.perf_counter() - t1
+        if after != before or sum(s["next_offset"] for s in
+                                  after["state"]) != n_acked:
+            fail(f"21e: offsets after the restart {after['state']}, "
+                 f"before {before['state']}, {n_acked} acked")
+        more = _gw_sizes(GW_MQ_AFTER, GW_MQ_LO, GW_MQ_HI, 8)
+        acks = publish([{"key": f"user-{i % GW_MQ_KEYS:04d}",
+                         "value": v.hex()[:len(v)]}
+                        for i, v in enumerate(more)])
+        nxt = {s["partition"]: s["next_offset"] for s in after["state"]}
+        for p in range(GW_MQ_PARTITIONS):
+            offs = [a["offset"] for a in acks if a["partition"] == p]
+            if offs != list(range(nxt[p], nxt[p] + len(offs))):
+                fail(f"21e: p{p} offsets after the restart {offs[:3]}..., "
+                     f"expected from {nxt[p]}")
+        t_replay2 = check_replay("21e after the restart")
+        walls["e"] = time.perf_counter() - t0
+        log(f"[21e] mq: `mq.topic.create` of {GW_MQ_PARTITIONS} partitions "
+            f"from the shell; {GW_MQ_RECORDS} records of {GW_MQ_LO}-"
+            f"{GW_MQ_HI} B (keys from {GW_MQ_KEYS}) in batches of "
+            f"{GW_MQ_BATCH} from {GW_MQ_THREADS} threads {t_batch:.3f} s, "
+            f"{GW_MQ_RECORDS / t_batch:.1f} records/s, "
+            f"{mq_bytes / t_batch / 1e6:.2f} MB/s; {GW_MQ_SINGLE} single "
+            f"publishes, ack {_lat(lat_ack)}; a subscription of each "
+            f"partition from 0 returned every acked (partition, offset) "
+            f"once with its value ({n_acked} records, {t_replay:.3f} s); "
+            f"SIGINT: exit 0, listening again after {t_restart:.3f} s "
+            f"({t_back:.3f} s to the describe), offsets "
+            f"{[s['next_offset'] for s in after['state']]} kept, "
+            f"{GW_MQ_AFTER} more continue them; the replay equal again "
+            f"({t_replay2:.3f} s); {walls['e']:.3f} s")
+
+        # 21f. seal every volume that holds the phase's data; read it
+        # degraded and rebuilt
+        t0 = time.perf_counter()
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        dat = {}
+        for vid in sorted({int(v) for n in env.data_nodes()
+                           for v in n.get("collections", {})}):
+            for st in cluster.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    if v.content_size() > 8:    # past the super block
+                        dat[vid] = v.content_size()
+        vids = sorted(dat)
+        repl.run_command(env, "lock")
+        before_stages = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before_stages["kernel"]
+        want = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i
+                  for i, st in enumerate(cluster.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        if launches["encode"] <= 0 or launches["encode"] != want or \
+                launches["encode"] != len(vids) or \
+                scraped != launches["encode"]:
+            fail(f"21f: {launches['encode']} launches sealing {len(vids)} "
+                 f"volumes, the .dat sizes give {want}, /metrics "
+                 f"cuda_kernel_launches {scraped}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"21f: volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+        largest = max(vids, key=lambda v: (dat[v], v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        if any(len(s) > 4 for s in lost.values()):
+            fail(f"21f: {victim} holds more than m=4 shards of a volume: "
+                 f"{lost}")
+
+        def sealed_pass(label: str) -> dict:
+            t1 = time.perf_counter()
+            dav_out = dav_pass(label, sorted(files))
+            ftp_mb = ftp_big_pass(label)
+            t2 = time.perf_counter()
+            check_replay(label, parts=[0])
+            return {"dav": dav_out, "ftp_mbps": ftp_mb,
+                    "mq_s": time.perf_counter() - t2,
+                    "wall": time.perf_counter() - t1}
+
+        t1 = time.perf_counter()
+        cluster.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"the master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t1
+        degraded = sealed_pass("21f degraded")
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            if lost[vid]:
+                repl.run_command(env, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t1
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped_r = _tools_metrics(next(u for u in by_url if u != victim))[
+            "launches"]
+        if launches["rebuild"] <= 0 or scraped_r != launches["rebuild"]:
+            fail(f"21f: ec.rebuild: {launches['rebuild']} launches, the "
+                 f"volume servers' cuda_kernel_launches {scraped_r}")
+        for vid in vids:
+            if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"21f: volume {vid} after ec.rebuild: "
+                     f"{env.ec_shard_locations(vid)}")
+        rebuilt = sealed_pass("21f rebuilt")
+        check_replay("21f rebuilt, every partition")
+        repl.run_command(env, "unlock")
+        walls["f"] = time.perf_counter() - t0
+        log(f"[21f] ec.encode of the {len(vids)} volumes holding the "
+            f"phase's data ({dat} .dat bytes) {t_encode:.3f} s, "
+            f"{launches['encode']} launches (one a volume; /metrics "
+            f"cuda_kernel_launches {scraped}); kernel "
+            f"{kernel_s * 1e3:.3f} ms (CUDA events), "
+            f"{kernel_s * 1e3 / max(1, launches['encode']):.3f} ms per "
+            f"launch; stopped {victim} (shards {lost}), dropped in "
+            f"{t_gone:.3f} s; degraded: WebDAV GET of all "
+            f"{len(files)} files {degraded['dav']['rate']:.1f} files/s "
+            f"({degraded['dav']['mbps']:.2f} MB/s, GET "
+            f"{_lat(degraded['dav']['lat'])}), FTP RETR of the big ones "
+            f"{degraded['ftp_mbps']:.1f} MB/s, the mq replay of p0 "
+            f"{degraded['mq_s']:.3f} s, all equal; ec.rebuild "
+            f"{t_rebuild:.3f} s, {launches['rebuild']} launches (/metrics "
+            f"{scraped_r}); rebuilt: {rebuilt['dav']['rate']:.1f} files/s "
+            f"({rebuilt['dav']['mbps']:.2f} MB/s, GET "
+            f"{_lat(rebuilt['dav']['lat'])}), FTP {rebuilt['ftp_mbps']:.1f} "
+            f"MB/s, p0 {rebuilt['mq_s']:.3f} s; every partition replayed "
+            f"equal")
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                fail(f"the {name} process exited: {_tail(logs[name])}")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 21 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[21] phase 21 took {wall:.3f} s "
+            f"({ {k: round(v, 3) for k, v in walls.items()} }); kernel "
+            f"launches {launches}; the seal's kernel time "
+            f"{kernel_s * 1e3:.3f} ms is {busy:.5%} of the phase wall "
+            f"(idle share {1 - busy:.5%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 6)
+        return launches
+    finally:
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        if env is not None:
+            env.close()
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -8663,7 +9425,8 @@ def main() -> int:
     sync = timed(18, phase_sync, card)
     stores = timed(19, phase_stores, card)
     forms = timed(20, phase_form, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-20 "
+    gateways = timed(21, phase_gateways, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-21 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -8730,6 +9493,11 @@ def main() -> int:
                                   for k in ("encode", "rebuild")},
         "form_kernel_ms_per_launch": forms["kernel_ms_per_launch"],
         "form_idle_share": forms["idle_share"],
+        "gateways_launches": gateways["encode"] + gateways["rebuild"],
+        "gateways_launches_by_step": {k: gateways[k]
+                                      for k in ("encode", "rebuild")},
+        "gateways_kernel_ms_per_launch": gateways["kernel_ms_per_launch"],
+        "gateways_idle_share": gateways["idle_share"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -83,8 +83,18 @@ stream (replication/): `filer.replicate -sink kind:args` mirrors
 A -> B only) under `-path`, `filer.backup -dir` copies the files under
 `-path` into a local directory (its offset key names the path and the
 directory) and `filer.meta.backup -o` keeps the namespace in a sqlite
-file. The gateways (ftp, webdav, iam, mount, mq.broker) and the global
-profiling and pushgateway flags are not here.
+file.
+
+The gateways over the filer, with the reference's flags and defaults:
+`ftp` (port 8021, `-filer.path`, `-user user:password`, anonymous
+without it; ftpd/), `webdav` (7333, `-filer.path`; webdav/, HTTPS from
+`-security`, its spans pushed to the master its filer names), `iam`
+(8111; iam/, HTTPS from `-security`) and `mq.broker` (17777,
+`-master`, where it announces itself as a `broker`; mq/). Each runs
+until interrupted: stop a broker with SIGINT, which flushes its
+unflushed records (a SIGTERM loses them, as the reference's does). The
+FUSE mount (`mount`, `fuse`) and the global profiling and pushgateway
+flags are not here.
 """
 from __future__ import annotations
 
@@ -604,9 +614,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "the raft leader among them")
     p.add_argument("-filer", default="",
                    help="filer address for the cluster-wide admin lock")
+    _add_gateway_parsers(sub)
     _add_filer_worker_parsers(sub)
     _add_tool_parsers(sub)
     return parser
+
+
+def _add_gateway_parsers(sub) -> None:
+    """The gateways over the filer (the reference's cli.py:577-582,
+    :643-658)."""
+    p = sub.add_parser("ftp", help="start an FTP gateway")
+    p.add_argument("-port", type=int, default=8021)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-filer.path", dest="filer_path", default="/")
+    p.add_argument("-user", default="",
+                   help="user:password (empty = anonymous)")
+
+    p = sub.add_parser("mq.broker", help="start a message-queue broker")
+    p.add_argument("-port", type=int, default=17777)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-master", default="http://127.0.0.1:9333")
+
+    p = sub.add_parser("webdav", help="start a WebDAV gateway")
+    p.add_argument("-port", type=int, default=7333)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-filer.path", dest="filer_path", default="/")
+
+    p = sub.add_parser("iam", help="start an IAM API server")
+    p.add_argument("-port", type=int, default=8111)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
 
 
 def _add_filer_worker_parsers(sub) -> None:
@@ -817,12 +857,15 @@ def main(argv: list[str] | None = None) -> int:
         return _run_s3(args)
     if args.cmd in FILER_WORKER_COMMANDS:
         return _run_filer_worker(args)
+    if args.cmd in GATEWAY_COMMANDS:
+        return _run_gateway(args)
     from .shell.repl import run_shell
 
     return run_shell(args.master, filer_url=_http(args.filer)
                      if args.filer else "")
 
 
+GATEWAY_COMMANDS = ("ftp", "mq.broker", "webdav", "iam")
 FILER_WORKER_COMMANDS = ("filer.replicate", "filer.sync",
                          "filer.backup", "filer.meta.backup",
                          "filer.remote.sync", "filer.remote.gateway",
@@ -1313,6 +1356,62 @@ def _run_s3(args) -> int:
     # pusher on the master across failovers
     filer = _http(args.filer)
     _start_span_pusher(lambda: master_from_filer(filer), "s3", t.address)
+    run_apps_forever([t])
+    return 0
+
+
+def _run_gateway(args) -> int:
+    """ftp, mq.broker, webdav and iam (the reference's cli.py
+    :1116-1170): serve until interrupted."""
+    from .rpc.http import ServerThread, run_apps_forever
+
+    if args.cmd == "ftp":
+        import time
+
+        from .ftpd import FtpServer
+
+        users = {}
+        if args.user:
+            u, _, pw = args.user.partition(":")
+            users[u] = pw
+        f = FtpServer(args.filer, port=args.port, host=args.ip,
+                      root=args.filer_path, users=users,
+                      anonymous=not users).start()
+        print(f"ftp gateway listening on {args.ip}:{f.port}", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            f.stop()
+        return 0
+    if args.cmd == "mq.broker":
+        from .mq.broker import BrokerServer
+
+        b = BrokerServer(args.filer, args.master)
+        t = ServerThread(b.app, host=args.ip, port=args.port).start()
+        b.address = t.address
+        print(f"mq broker listening on {t.url}", flush=True)
+        run_apps_forever([t])
+        return 0
+    if args.cmd == "webdav":
+        from .rpc.trace_push import master_from_filer
+        from .webdav.server import WebDavServer
+
+        w = WebDavServer(args.filer, root=args.filer_path)
+        t = ServerThread(w.app, host=args.ip, port=args.port,
+                         ssl_context=_ssl_ctx(args)).start()
+        print(f"webdav listening on {t.url}", flush=True)
+        filer = _http(args.filer)
+        _start_span_pusher(lambda: master_from_filer(filer), "webdav",
+                           t.address)
+        run_apps_forever([t])
+        return 0
+    from .iam.server import IamApiServer
+
+    i = IamApiServer(args.filer)
+    t = ServerThread(i.app, host=args.ip, port=args.port,
+                     ssl_context=_ssl_ctx(args)).start()
+    print(f"iam api listening on {t.url}", flush=True)
     run_apps_forever([t])
     return 0
 

@@ -10,7 +10,11 @@ keep-alive, daemon threads, handlers that are plain functions
 rebuild) therefore runs on the connection's own thread, where the
 reference ran it in `asyncio.to_thread`.
 
-Every request passes through `App.handle`, which runs the app's
+Every request, whatever its method (WebDAV's PROPFIND, MKCOL, MOVE,
+COPY, LOCK as much as GET), passes through `App.handle`; a route
+registered for method "*" takes any method (aiohttp's `web.route("*",
+...)`), and a method no route takes answers the App's 405 on a known
+path, 404 otherwise, as aiohttp does. `App.handle` runs the app's
 middlewares around the route's handler, in the reference's order
 (`server_middlewares`): tracing (a server span named after the handler,
 utils/tracing.py) → deadline (utils/retry.py: a passed `X-Sw-Deadline`
@@ -267,6 +271,9 @@ def file_response(path: str, offset: int = 0, length: int | None = None,
     return Response(status=200, content_type="application/octet-stream",
                     file=(path, offset, length), pace=pace)
 
+
+# an HTTP method is a token (RFC 9110 §5.6.2)
+_TOKEN = re.compile(r"[!#$%&'*+.^_`|~0-9A-Za-z-]+")
 
 _PARAM = re.compile(r"\{(\w+)(?::([^{}]*(?:\{[^{}]*\}[^{}]*)*))?\}")
 
@@ -560,6 +567,15 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             _close_stream(resp)
 
     do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _dispatch
+
+    def __getattr__(self, name: str):
+        # every other method (OPTIONS, PROPFIND, MKCOL, MOVE, COPY, LOCK,
+        # ...) goes through the route table as well, as aiohttp routes
+        # any method: an App that routes none of them answers its own
+        # 405 / 404, never the standard library's 501
+        if name.startswith("do_") and _TOKEN.fullmatch(name[3:]):
+            return self._dispatch
+        raise AttributeError(name)
 
 
 def _close_stream(resp: Response) -> None:

@@ -65,7 +65,9 @@ S3 gateway (s3/native_front.py) or filer (filer/native_front.py) front
 on the public port, the Python app demoted to a loopback backend it
 relays to; `s3_url` and `filer_url` name the fronts, `s3_front` and
 `filer_front` are their control planes, and `filer_thread.url` stays
-the Python filer. The fronts speak plain HTTP. Not here: the broker.
+the Python filer. The fronts speak plain HTTP. `start_broker()` adds
+an mq broker over the filer (mq/broker.py), registered with the master
+as the reference's is; `broker_thread.url` is its address.
 """
 from __future__ import annotations
 
@@ -198,6 +200,8 @@ class Cluster:
         self.stores: list[Store] = []
         self.filer_thread = self.s3_thread = None
         self.s3_front = self.filer_front = None
+        self.broker = None
+        self.broker_thread: ServerThread | None = None
         try:
             for i in range(n_volume_servers):
                 dirs = []
@@ -286,6 +290,16 @@ class Cluster:
         except BaseException:
             self.stop()
             raise
+
+    def start_broker(self) -> str:
+        """Start an in-process mq broker against this cluster's filer.
+        -> its url."""
+        from ..mq.broker import BrokerServer
+
+        self.broker = BrokerServer(self.filer_url, self.master_url)
+        self.broker_thread = ServerThread(self.broker.app).start()
+        self.broker.address = self.broker_thread.address
+        return self.broker_thread.url
 
     # -- masters ----------------------------------------------------------
     @property
@@ -416,7 +430,7 @@ class Cluster:
         for front in (self.s3_front, self.filer_front):
             if front is not None:
                 front.stop()
-        for t in (self.s3_thread, self.filer_thread):
+        for t in (self.broker_thread, self.s3_thread, self.filer_thread):
             if t is not None:
                 t.stop()
         for t in self.volume_threads:

@@ -6,9 +6,9 @@ port's registry holds lock / unlock, cluster.check, cluster.ps and the
 cluster.raft.* commands, the collection.* and volume.* commands (scrub,
 vacuum, replication, mount, move, the volume.tier.* remote tier, ...),
 the ec.* commands, the filer's fs.* commands and mount.configure, the
-remote.* mounts and the s3.* gateway state; `fs.meta.notify`
-re-publishes events to notifications. The mq.topic.* commands are not
-ported and answer "unknown command".
+remote.* mounts, the s3.* gateway state and the mq.topic.* commands
+(the broker found through the cluster's membership); `fs.meta.notify`
+re-publishes events to notifications.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import json
 import shlex
 
 from ..remote_storage.client import parse_remote_spec
-from . import (commands_cluster, commands_ec, commands_fs,
+from . import (commands_cluster, commands_ec, commands_fs, commands_mq,
                commands_remote, commands_s3, commands_volume)
 from .env import CommandEnv, ShellError
 
@@ -93,6 +93,10 @@ HELP = """commands:
   s3.clean.uploads [-timeAgo=86400] abort stale multipart uploads
   s3.circuit.breaker [-global='{"writeCount":32}'
                       -bucket=B -bucketConf='{...}' -delete -apply]
+  mq.topic.list                     list message-queue topics
+  mq.topic.create [-namespace=ns] -topic=T [-partitions=4]
+  mq.topic.describe [-namespace=ns] -topic=T
+  mq.topic.delete [-namespace=ns] -topic=T
   help / exit
 """
 
@@ -343,6 +347,26 @@ def run_command(env: CommandEnv, line: str) -> object:
             bucket_conf=opts.get("bucketConf", ""),
             delete=opts.get("delete", "") == "true",
             apply=opts.get("apply", "") == "true")
+    # -- message queue --------------------------------------------------
+    if cmd == "mq.topic.list":
+        return commands_mq.mq_topic_list(env)
+    if cmd == "mq.topic.create":
+        ns = opts.get("namespace", "default")
+        name = opts.get("topic", "")
+        if not name:  # positional `ns/topic` or bare `topic`
+            p = arg(0)
+            if "/" in p:
+                ns, _, name = p.partition("/")
+            else:
+                name = p
+        return commands_mq.mq_topic_create(
+            env, ns, name, int(opts.get("partitions", "4")))
+    if cmd == "mq.topic.describe":
+        return commands_mq.mq_topic_describe(
+            env, opts.get("namespace", "default"), opts["topic"])
+    if cmd == "mq.topic.delete":
+        return commands_mq.mq_topic_delete(
+            env, opts.get("namespace", "default"), opts["topic"])
     if cmd == "help":
         return HELP
     raise ShellError(f"unknown command {cmd!r} (try `help`)")

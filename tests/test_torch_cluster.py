@@ -571,10 +571,10 @@ def test_cli_server_and_shell(tmp_path):
         for fid, data in live.items():
             assert _get(f"http://{out['server']}/{fid}").content == data
         # the fs.* commands answer (they need a filer, and say so);
-        # mq.topic.* is still not ported
+        # mq.topic.* answers too, and with no broker registered says so
         with pytest.raises(ShellError, match="needs a filer"):
             repl.run_command(env, "fs.ls /")
-        with pytest.raises(ShellError, match="unknown command"):
+        with pytest.raises(ShellError, match="no mq broker registered"):
             repl.run_command(env, "mq.topic.list")
     finally:
         proc.terminate()

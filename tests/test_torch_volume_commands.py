@@ -384,10 +384,10 @@ def test_repl_dispatches_every_volume_command(cluster, env):
              f"ec volume {vid} not found")):
         with pytest.raises(ShellError, match=why):
             run(line)
-    # fs.ls answers now (here from the stub filer's listing); mq.topic.*
-    # is still not ported
+    # fs.ls answers now (here from the stub filer's listing); so does
+    # mq.topic.*, which finds no broker registered here
     assert isinstance(run("fs.ls /"), list)
-    with pytest.raises(ShellError, match="unknown command"):
+    with pytest.raises(ShellError, match="no mq broker registered"):
         run("mq.topic.list")
 
 
