@@ -561,6 +561,42 @@ Phases, each fatal on failure (exit code 1, no result line):
       big ones and the mq replay of one partition, degraded, all equal;
       ec.rebuild (launches > 0, /metrics agree); the same pass rebuilt,
       and every partition replayed.
+22. The FUSE mount: an in-process master and four volume servers on
+   "cuda", volume limit 64 MiB; `filer -store leveldb` as a CLI process
+   run with the global `-metrics.address` (a pushgateway in this
+   script, `-metrics.intervalSec 1`), `-cpuprofile` and `-memprofile`.
+   Before any mount, a probe: /dev/fuse opens read-write, libfuse.so.2
+   loads, fusermount is on PATH; `[22] fuse: kernel` when all three
+   hold, and every step runs through a `mount` process of the CLI and
+   ordinary OS file I/O at its mountpoint; `[22] fuse: library (<the
+   check that failed>)` otherwise, and every step runs through a WeedFS
+   in this process. Each step is fatal on failure:
+   a. `mount -cacheDir <empty> -writeMemoryLimitMB 8`: seconds from its
+      spawn to os.path.ismount.
+   b. 8 directories, 256 files of 1-64 KiB (log-uniform) by
+      create+write+close on 8 threads (files/s, p50 / p99); a read of
+      each sha256-equal; each directory's listing equal to the filer's;
+      a file PUT through the filer's HTTP in the mount's listing (the
+      seconds the metadata subscription takes).
+   c. 4 x 16 MiB written in 1 MiB blocks and read back (MB/s); 8 MiB
+      of 48 seeded 128 KiB random writes over a preallocated file,
+      fsync'd, read back equal (the reference's fio gate); rename,
+      symlink and readlink, hardlink, truncate, chmod and a user.*
+      xattr, each held against the filer's entry; statvfs.
+   d. fusermount -u: the mount process exits 0 within 10 s; every file
+      reads sha256-equal through the filer's HTTP.
+   e. ec.encode of every volume holding the phase's files: one launch a
+      volume (the volume servers' /metrics agree), the kernel stage in
+      CUDA events.
+   f. The server holding the most shards of the largest volume stopped;
+      a new mount process with a fresh, empty -cacheDir reads every
+      file degraded, sha256-equal (files/s, p99, MB/s of the large
+      ones), and unmounts with exit 0.
+   g. ec.rebuild (launches > 0, /metrics agree); the same pass through
+      yet another fresh mount.
+   h. SIGINT stops the filer with exit 0; the pushgateway got PUT
+      /metrics/job/filer carrying filer_request_seconds; the cProfile
+      dump loads with pstats; the tracemalloc report is not empty.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -9383,6 +9419,738 @@ def phase_gateways(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 22: the FUSE mount, a CLI `mount` process through the kernel
+# (or WeedFS in this process, where the machine cannot mount), over a
+# CLI filer run with the global profiling and pushgateway flags; the
+# mounted files sealed, read degraded and rebuilt through the kernel
+# ----------------------------------------------------------------------
+FUSE_ROOT = "/fuse22"             # the phase's directory in the mount
+FUSE_DIRS = 8                     # 22b's directories
+FUSE_FILES = 256                  # 22b's files, 1-64 KiB, log-uniform
+                                  # (cut from 512: PERF.md §4)
+FUSE_LO, FUSE_HI = 1 << 10, 64 << 10
+FUSE_BIG = (4, 16 << 20)          # (count, bytes) of 22c's sequential files
+FUSE_BLOCK = 1 << 20              # their write size (fio bs=1m)
+FUSE_RANDOM = 8 << 20             # 22c's random-write file, as the
+FUSE_RANDOM_BLOCK = 128 << 10     # reference's fio case: 48 writes of
+FUSE_RANDOM_WRITES = 48           # 128 KiB (fio bs=128k)
+FUSE_READ = 128 << 10             # the kernel's FUSE read size
+FUSE_WRITE_LIMIT_MB = 8           # mount -writeMemoryLimitMB
+FUSE_VOLUME_LIMIT = 64 << 20      # the master's volume size limit
+FUSE_THREADS = 8
+FUSE_DEADLINE = 60.0              # longest wait for a process or a mount
+FUSE_XATTR = ("user.smoke22", b"phase 22 \x00\xff")
+
+
+def _fuse_probe() -> str:
+    """'' when this machine can make a kernel FUSE mount, else the first
+    check that failed: /dev/fuse opens read-write, libfuse.so.2 loads,
+    fusermount is on PATH."""
+    from seaweedfs_tpu_torch.mount import fuse_ctypes
+
+    try:
+        os.close(os.open("/dev/fuse", os.O_RDWR))
+    except OSError as e:
+        return f"/dev/fuse does not open O_RDWR: {e.strerror}"
+    if not fuse_ctypes.libfuse_available():
+        return "libfuse.so.2 is not available"
+    if shutil.which("fusermount") is None:
+        return "fusermount is not on PATH"
+    return ""
+
+
+class _KernelMount:
+    """A mountpoint served by a `mount` process: ordinary OS file I/O."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def _p(self, path: str) -> str:
+        return self.root + path
+
+    def mkdir(self, path: str) -> None:
+        os.mkdir(self._p(path))
+
+    def write(self, path: str, data: bytes, block: int = 1 << 20) -> None:
+        with open(self._p(path), "wb") as f:
+            for off in range(0, len(data), block):
+                f.write(data[off:off + block])
+
+    def random_writes(self, path: str, size: int, writes) -> None:
+        """Preallocate `size` zero bytes, then write each (offset,
+        block) in place and fsync (the reference's fio randwrite)."""
+        self.write(path, bytes(size))
+        with open(self._p(path), "r+b") as f:
+            for off, blk in writes:
+                f.seek(off)
+                f.write(blk)
+            os.fsync(f.fileno())
+
+    def read(self, path: str) -> bytes:
+        with open(self._p(path), "rb") as f:
+            return f.read()
+
+    def size(self, path: str) -> int:
+        return os.stat(self._p(path)).st_size
+
+    def listdir(self, path: str) -> list[str]:
+        return sorted(os.listdir(self._p(path)))
+
+    def rename(self, old: str, new: str) -> None:
+        os.rename(self._p(old), self._p(new))
+
+    def symlink(self, target: str, link: str) -> None:
+        os.symlink(target, self._p(link))
+
+    def readlink(self, path: str) -> str:
+        return os.readlink(self._p(path))
+
+    def link(self, src: str, dst: str) -> None:
+        os.link(self._p(src), self._p(dst))
+
+    def truncate(self, path: str, length: int) -> None:
+        os.truncate(self._p(path), length)
+
+    def chmod(self, path: str, mode: int) -> None:
+        os.chmod(self._p(path), mode)
+
+    def setxattr(self, path: str, name: str, value: bytes) -> None:
+        os.setxattr(self._p(path), name, value)
+
+    def getxattr(self, path: str, name: str) -> bytes:
+        return os.getxattr(self._p(path), name)
+
+    def statvfs(self) -> tuple[int, int]:
+        sv = os.statvfs(self.root)
+        return sv.f_bsize, sv.f_blocks
+
+
+class _LibraryMount:
+    """The same operations on a WeedFS in this process, handle by
+    handle, as the kernel would issue them."""
+
+    def __init__(self, fs):
+        self.fs = fs
+
+    def mkdir(self, path: str) -> None:
+        self.fs.mkdir(path)
+
+    def write(self, path: str, data: bytes, block: int = 1 << 20) -> None:
+        fh = self.fs.create(path)
+        for off in range(0, len(data), block):
+            self.fs.write(fh, off, data[off:off + block])
+        self.fs.release(fh)
+
+    def random_writes(self, path: str, size: int, writes) -> None:
+        fh = self.fs.create(path)
+        for off in range(0, size, 1 << 20):
+            self.fs.write(fh, off, bytes(min(1 << 20, size - off)))
+        for off, blk in writes:
+            self.fs.write(fh, off, blk)
+        self.fs.flush(fh)
+        self.fs.release(fh)
+
+    def read(self, path: str) -> bytes:
+        """Sequential reads of FUSE_READ bytes, as the kernel sends a
+        reader's read(2) on to the mount."""
+        fh = self.fs.open(path)
+        try:
+            size = self.fs.getattr(path)["st_size"]
+            return b"".join(self.fs.read(fh, off, min(FUSE_READ, size - off))
+                            for off in range(0, size, FUSE_READ))
+        finally:
+            self.fs.release(fh)
+
+    def size(self, path: str) -> int:
+        return self.fs.getattr(path)["st_size"]
+
+    def listdir(self, path: str) -> list[str]:
+        return sorted(n for n in self.fs.readdir(path)
+                      if n not in (".", ".."))
+
+    def rename(self, old: str, new: str) -> None:
+        self.fs.rename(old, new)
+
+    def symlink(self, target: str, link: str) -> None:
+        self.fs.symlink(target, link)
+
+    def readlink(self, path: str) -> str:
+        return self.fs.readlink(path)
+
+    def link(self, src: str, dst: str) -> None:
+        self.fs.link(src, dst)
+
+    def truncate(self, path: str, length: int) -> None:
+        self.fs.truncate(path, length)
+
+    def chmod(self, path: str, mode: int) -> None:
+        self.fs.chmod(path, mode)
+
+    def setxattr(self, path: str, name: str, value: bytes) -> None:
+        self.fs.setxattr(path, name, value)
+
+    def getxattr(self, path: str, name: str) -> bytes:
+        return self.fs.getxattr(path, name)
+
+    def statvfs(self) -> tuple[int, int]:
+        d = self.fs.statfs()
+        return d["f_bsize"], d["f_blocks"]
+
+
+class _Pushgateway:
+    """A Prometheus pushgateway stand-in on a loopback port: it keeps
+    every PUT's path and body."""
+
+    def __init__(self):
+        import http.server
+
+        received = self.received = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_PUT(self):
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length", 0)))
+                received.append((self.path, body))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.port = self.server.server_port
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def phase_mount(card: str) -> dict:
+    """Phase 22: the CLI filer on leveldb, run with -metrics.address,
+    -cpuprofile and -memprofile, over an in-process master and four
+    volume servers on "cuda"; a `mount` process of the CLI (or, where
+    the machine cannot mount, WeedFS in this process) takes a home
+    directory's small files and the reference's fio writes; the volumes
+    they land in sealed, read degraded through a fresh mount and rebuilt
+    through the kernel. -> kernel launches by step and the phase's
+    numbers."""
+    import base64
+    import pstats
+    import signal
+
+    from seaweedfs_tpu_torch.mount.weedfs import WeedFS
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster, free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke22-")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+    cluster = env = gateway = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    mounts: list = []       # (mountpoint or WeedFS, process or None)
+    try:
+        # 22a. the probe, decided up front; the cluster, the CLI filer
+        # and the first mount
+        missing = _fuse_probe()
+        kernel = not missing
+        log("[22] fuse: kernel" if kernel else f"[22] fuse: library "
+            f"({missing})")
+        t0 = time.perf_counter()
+        cluster = Cluster(os.path.join(tmp, "main"), n_volume_servers=4,
+                          max_volumes=8, volume_size_limit=FUSE_VOLUME_LIMIT,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda")
+        gateway = _Pushgateway()
+        (fport,) = free_ports(1)
+        filer = f"http://127.0.0.1:{fport}"
+        prof = os.path.join(tmp, "filer.prof")
+        memprof = os.path.join(tmp, "filer.mem")
+        t_filer = _serve_cli(procs, logs, tmp, "filer", [
+            "-metrics.address", f"127.0.0.1:{gateway.port}",
+            "-metrics.intervalSec", "1", "-cpuprofile", prof,
+            "-memprofile", memprof,
+            "filer", "-port", str(fport), "-master", cluster.master_url,
+            "-store", "leveldb", "-store.path",
+            os.path.join(tmp, "filerdb")], fport, FUSE_DEADLINE)
+        env = CommandEnv(cluster.master_url, filer_url=filer)
+
+        def mount(label: str):
+            """A mount of the filer with a fresh, empty cache directory.
+            -> (the file operations, seconds to serving)."""
+            cache = os.path.join(tmp, f"cache-{label}")
+            os.mkdir(cache)
+            t1 = time.perf_counter()
+            if not kernel:
+                fs = WeedFS(filer, cache_dir=cache,
+                            write_memory_limit=FUSE_WRITE_LIMIT_MB << 20)
+                mounts.append((fs, None))
+                return _LibraryMount(fs), time.perf_counter() - t1
+            mnt = os.path.join(tmp, f"mnt-{label}")
+            os.mkdir(mnt)
+            logs[label] = os.path.join(tmp, f"{label}.log")
+            proc = _spawn(["mount", "-filer", filer, "-dir", mnt,
+                           "-cacheDir", cache, "-writeMemoryLimitMB",
+                           str(FUSE_WRITE_LIMIT_MB)], logs[label])
+            mounts.append((mnt, proc))
+
+            def up():
+                if proc.poll() is not None:
+                    fail(f"the {label} mount process exited "
+                         f"{proc.returncode}: {_tail(logs[label])}")
+                return os.path.ismount(mnt)
+            _poll(up, FUSE_DEADLINE, f"{mnt} mounted", step=0.02)
+            return _KernelMount(mnt), time.perf_counter() - t1
+
+        def unmount(label: str) -> float:
+            """Unmount the newest mount; the process must exit 0 within
+            10 s. -> seconds to its exit."""
+            where, proc = mounts.pop()
+            t1 = time.perf_counter()
+            if proc is None:
+                where.destroy()
+                return time.perf_counter() - t1
+            r = subprocess.run(["fusermount", "-u", where],
+                               capture_output=True, text=True, timeout=30)
+            if r.returncode != 0:
+                fail(f"22: fusermount -u {where}: {r.stderr.strip()}")
+            try:
+                rc = proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                fail(f"22: the {label} mount process still runs 10 s after "
+                     f"its unmount: {_tail(logs[label])}")
+            if rc != 0:
+                fail(f"22: the {label} mount process exited {rc}: "
+                     f"{_tail(logs[label])}")
+            return time.perf_counter() - t1
+
+        fs, t_mount = mount("mount-a")
+        walls["a"] = time.perf_counter() - t0
+        log(f"[22a] {card}; master {cluster.master_url}, 4 volume servers "
+            f"ec_backend='cuda', volume limit {FUSE_VOLUME_LIMIT} B; "
+            f"`-metrics.address -metrics.intervalSec 1 -cpuprofile "
+            f"-memprofile filer -store leveldb` listening after "
+            f"{t_filer:.3f} s; `mount -cacheDir <empty> -writeMemoryLimitMB "
+            f"{FUSE_WRITE_LIMIT_MB}` "
+            + ("mounted (os.path.ismount) " if kernel else
+               "as WeedFS in this process, serving ")
+            + f"{t_mount:.3f} s after its spawn; set-up {walls['a']:.3f} s")
+
+        # 22b. a home directory's small files on 8 threads
+        t0 = time.perf_counter()
+        model: dict[str, bytes] = {}
+        fs.mkdir(FUSE_ROOT)
+        dirs = [f"{FUSE_ROOT}/d{i}" for i in range(FUSE_DIRS)]
+        for d in dirs:
+            fs.mkdir(d)
+        small = {f"{dirs[i % FUSE_DIRS]}/f-{i:04d}.bin": d for i, d in
+                 enumerate(_gw_sizes(FUSE_FILES, FUSE_LO, FUSE_HI, 22))}
+        lat_w: list[float] = []
+
+        def create(path: str) -> None:
+            t1 = time.perf_counter()
+            fs.write(path, small[path])
+            lat_w.append(time.perf_counter() - t1)
+
+        t1 = time.perf_counter()
+        _pool_map(create, sorted(small), threads=FUSE_THREADS)
+        t_create = time.perf_counter() - t1
+        model.update(small)
+
+        def read_pass(label: str, paths: list[str], mnt) -> dict:
+            lat: list[float] = []
+
+            def one(path: str) -> int:
+                t1 = time.perf_counter()
+                got = mnt.read(path)
+                if _sha(got) != _sha(model[path]):
+                    fail(f"{label}: {path}: {len(got)} B of "
+                         f"{len(model[path])}, sha256 off")
+                lat.append(time.perf_counter() - t1)
+                return len(got)
+
+            t1 = time.perf_counter()
+            nb = sum(_pool_map(one, paths, threads=FUSE_THREADS))
+            w = time.perf_counter() - t1
+            return {"wall": w, "rate": len(paths) / w, "mbps": nb / w / 1e6,
+                    "lat": lat}
+
+        healthy = read_pass("22b", sorted(small), fs)
+
+        def filer_names(d: str) -> list[str]:
+            entries = session().get(f"{filer}{d}", params={
+                "limit": "10000"}, headers={"Accept": "application/json"},
+                timeout=30).json()["entries"]
+            return sorted(e["full_path"].rsplit("/", 1)[1] for e in entries)
+
+        for d in dirs:
+            got, want = fs.listdir(d), filer_names(d)
+            if got != want or len(got) != FUSE_FILES // FUSE_DIRS:
+                fail(f"22b: listing {d}: the mount {len(got)} names, the "
+                     f"filer {len(want)}")
+        # a file PUT through the filer's HTTP reaches the mount's listing
+        # through the metadata subscription
+        via_http = f"{dirs[0]}/from-http.bin"
+        model[via_http] = np.random.default_rng([SEED, 22, 2]).bytes(5000)
+        t1 = time.perf_counter()
+        r = session().post(f"{filer}{via_http}", data=model[via_http],
+                           timeout=30)
+        if r.status_code >= 300:
+            fail(f"22b: PUT {via_http} through the filer: {r.status_code}")
+        _poll(lambda: "from-http.bin" in fs.listdir(dirs[0]), 30.0,
+              "22b: the filer's PUT in the mount's listing", step=0.01)
+        t_seen = time.perf_counter() - t1
+        walls["b"] = time.perf_counter() - t0
+        log(f"[22b] {FUSE_DIRS} directories, {FUSE_FILES} files of "
+            f"{FUSE_LO}-{FUSE_HI} B (log-uniform) by create+write+close on "
+            f"{FUSE_THREADS} threads {t_create:.3f} s, "
+            f"{FUSE_FILES / t_create:.1f} files/s, {_lat(lat_w)}; a read of "
+            f"each {healthy['rate']:.1f} files/s ({_lat(healthy['lat'])}), "
+            f"sha256-equal; each directory's listing equal to the filer's; "
+            f"a PUT through the filer in the mount's listing after "
+            f"{t_seen:.3f} s (the metadata subscription); "
+            f"{walls['b']:.3f} s")
+
+        # 22c. the fio gate's writes: large sequential files in 1 MiB
+        # blocks, a verified random-write file; then POSIX operations,
+        # each held against the filer's entry
+        t0 = time.perf_counter()
+        big = {f"{FUSE_ROOT}/big-{i}.bin":
+               np.random.default_rng([SEED, 22, 3, i]).bytes(FUSE_BIG[1])
+               for i in range(FUSE_BIG[0])}
+        t1 = time.perf_counter()
+        for path, data in big.items():
+            fs.write(path, data, FUSE_BLOCK)
+        t_big_w = time.perf_counter() - t1
+        model.update(big)
+        t1 = time.perf_counter()
+        for path in big:
+            if _sha(fs.read(path)) != _sha(model[path]):
+                fail(f"22c: {path} read back: sha256 off")
+        t_big_r = time.perf_counter() - t1
+        big_bytes = FUSE_BIG[0] * FUSE_BIG[1]
+        rng = np.random.default_rng([SEED, 22, 4])
+        rand_path = f"{FUSE_ROOT}/random.bin"
+        shadow = bytearray(FUSE_RANDOM)
+        writes = []
+        for _ in range(FUSE_RANDOM_WRITES):
+            off = int(rng.integers(0, (FUSE_RANDOM - FUSE_RANDOM_BLOCK)
+                                   // 4096)) * 4096
+            blk = rng.bytes(FUSE_RANDOM_BLOCK)
+            shadow[off:off + len(blk)] = blk
+            writes.append((off, blk))
+        t1 = time.perf_counter()
+        fs.random_writes(rand_path, FUSE_RANDOM, writes)
+        t_rand = time.perf_counter() - t1
+        model[rand_path] = bytes(shadow)
+        if _sha(fs.read(rand_path)) != _sha(model[rand_path]):
+            fail("22c: the random-write file read back: sha256 off")
+
+        def entry(path: str) -> dict | None:
+            r = session().get(f"{filer}{path}", params={"meta": "1"},
+                              timeout=30)
+            if r.status_code == 404:
+                return None
+            if r.status_code != 200:
+                fail(f"22c: the filer's entry of {path}: {r.status_code}")
+            return r.json()
+
+        def extent(e: dict) -> int:
+            return max([c["offset"] + c["size"] for c in
+                        e.get("chunks") or []] or [0])
+
+        checked = []
+        src = sorted(small)[0]
+        dst = f"{FUSE_ROOT}/d1/renamed.bin"
+        fs.rename(src, dst)
+        model[dst] = model.pop(src)
+        if entry(src) is not None or entry(dst) is None or \
+                _sha(fs.read(dst)) != _sha(model[dst]):
+            fail(f"22c: rename {src} -> {dst}")
+        checked.append("rename")
+        fs.symlink("big-0.bin", f"{FUSE_ROOT}/sym")
+        e = entry(f"{FUSE_ROOT}/sym") or {}
+        if fs.readlink(f"{FUSE_ROOT}/sym") != "big-0.bin" or \
+                e.get("symlink_target") != "big-0.bin":
+            fail(f"22c: symlink: readlink, the entry's target "
+                 f"{e.get('symlink_target')!r}")
+        checked.append("symlink+readlink")
+        hard_src = sorted(small)[1]
+        hard = f"{FUSE_ROOT}/hard.bin"
+        fs.link(hard_src, hard)
+        model[hard] = model[hard_src]
+        e, e_src = entry(hard) or {}, entry(hard_src) or {}
+        if not e.get("hard_link_id") or \
+                e.get("hard_link_id") != e_src.get("hard_link_id") or \
+                _sha(fs.read(hard)) != _sha(model[hard]):
+            fail(f"22c: hardlink {hard_src} -> {hard}: {e}")
+        checked.append("hardlink")
+        cut = f"{FUSE_ROOT}/big-{FUSE_BIG[0] - 1}.bin"
+        length = FUSE_BIG[1] // 3 + 123
+        fs.truncate(cut, length)
+        model[cut] = model[cut][:length]
+        e = entry(cut) or {}
+        if extent(e) != length or fs.size(cut) != length:
+            fail(f"22c: truncate {cut} to {length}: the entry's extent "
+                 f"{extent(e)}, the mount's size {fs.size(cut)}")
+        checked.append("truncate")
+        fs.chmod(dst, 0o640)
+        e = entry(dst) or {}
+        if e.get("mode", 0) & 0o7777 != 0o640:
+            fail(f"22c: chmod 640: the entry's mode {e.get('mode', 0):o}")
+        checked.append("chmod")
+        name, value = FUSE_XATTR
+        fs.setxattr(dst, name, value)
+        e = entry(dst) or {}
+        if fs.getxattr(dst, name) != value or \
+                e.get("extended", {}).get("xattr-" + name) != \
+                base64.b64encode(value).decode():
+            fail(f"22c: xattr {name}: the entry's extended "
+                 f"{e.get('extended')}")
+        checked.append("xattr")
+        bsize, blocks = fs.statvfs()
+        if bsize <= 0 or blocks <= 0:
+            fail(f"22c: statvfs: f_bsize {bsize}, f_blocks {blocks}")
+        checked.append("statvfs")
+        walls["c"] = time.perf_counter() - t0
+        log(f"[22c] {FUSE_BIG[0]} x {FUSE_BIG[1]} B in {FUSE_BLOCK} B blocks "
+            f"written {big_bytes / t_big_w / 1e6:.1f} MB/s, read back "
+            f"{big_bytes / t_big_r / 1e6:.1f} MB/s, sha256-equal; "
+            f"{FUSE_RANDOM} B of {FUSE_RANDOM_WRITES} seeded "
+            f"{FUSE_RANDOM_BLOCK} B random writes (preallocated, fsync) "
+            f"{t_rand:.3f} s, read back equal; {', '.join(checked)} held "
+            f"against the filer's entries (statvfs f_bsize {bsize}, "
+            f"f_blocks {blocks}); {walls['c']:.3f} s")
+
+        # 22d. unmount: the process exits 0, and every file reads equal
+        # through the filer's HTTP, so the dirty pages were flushed
+        t0 = time.perf_counter()
+        t_exit = unmount("mount-a")
+
+        def filer_read(path: str) -> int:
+            r = _filer_get(filer, path)
+            if r.status_code != 200 or _sha(r.content) != _sha(model[path]):
+                fail(f"22d: GET {path} through the filer: {r.status_code}, "
+                     f"{len(r.content)} B of {len(model[path])}")
+            return len(r.content)
+
+        nb = sum(_pool_map(filer_read, sorted(model), threads=FUSE_THREADS))
+        walls["d"] = time.perf_counter() - t0
+        log(f"[22d] " + ("fusermount -u: the mount process exited 0 "
+                         if kernel else "WeedFS.destroy() returned ")
+            + f"after {t_exit:.3f} s; all {len(model)} files ({nb} B) read "
+            f"sha256-equal through the filer's HTTP; {walls['d']:.3f} s")
+
+        # 22e. seal every volume that holds the phase's data
+        t0 = time.perf_counter()
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        dat = {}
+        for vid in sorted({int(v) for n in env.data_nodes()
+                           for v in n.get("collections", {})}):
+            for st in cluster.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    if v.content_size() > 8:    # past the super block
+                        dat[vid] = v.content_size()
+        vids = sorted(dat)
+        repl.run_command(env, "lock")
+        before_stages = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before_stages["kernel"]
+        want = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i
+                  for i, st in enumerate(cluster.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        if launches["encode"] <= 0 or launches["encode"] != want or \
+                launches["encode"] != len(vids) or \
+                scraped != launches["encode"]:
+            fail(f"22e: {launches['encode']} launches sealing {len(vids)} "
+                 f"volumes, the .dat sizes give {want}, /metrics "
+                 f"cuda_kernel_launches {scraped}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"22e: volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+        walls["e"] = time.perf_counter() - t0
+        log(f"[22e] ec.encode of the {len(vids)} volumes holding the "
+            f"phase's files ({dat} .dat bytes) {t_encode:.3f} s, "
+            f"{launches['encode']} launches (one a volume; /metrics "
+            f"cuda_kernel_launches {scraped}); kernel "
+            f"{kernel_s * 1e3:.3f} ms (CUDA events), "
+            f"{kernel_s * 1e3 / max(1, launches['encode']):.3f} ms per "
+            f"launch; {walls['e']:.3f} s")
+
+        # 22f. a server lost; every file read through a fresh mount
+        t0 = time.perf_counter()
+        largest = max(vids, key=lambda v: (dat[v], v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        if any(len(s) > 4 for s in lost.values()):
+            fail(f"22f: {victim} holds more than m=4 shards of a volume: "
+                 f"{lost}")
+        t1 = time.perf_counter()
+        cluster.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"the master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t1
+        paths_small = sorted(p for p in model if p not in big and
+                             p != rand_path)
+        paths_big = sorted(big) + [rand_path]
+        big_total = sum(len(model[p]) for p in paths_big)
+
+        def sealed_pass(label: str) -> dict:
+            mnt, t_up = mount(label)
+            out = {"mount": t_up}
+            out["small"] = read_pass(label, paths_small, mnt)
+            t1 = time.perf_counter()
+            for path in paths_big:
+                if _sha(mnt.read(path)) != _sha(model[path]):
+                    fail(f"{label}: {path}: sha256 off")
+            out["big_mbps"] = big_total / (time.perf_counter() - t1) / 1e6
+            out["exit"] = unmount(label)
+            return out
+
+        degraded = sealed_pass("mount-f")
+        walls["f"] = time.perf_counter() - t0
+        log(f"[22f] stopped {victim} (shards {lost}), dropped in "
+            f"{t_gone:.3f} s; a fresh mount (empty -cacheDir, "
+            + ("a new process" if kernel else "a new WeedFS")
+            + f") up in {degraded['mount']:.3f} s read all "
+            f"{len(paths_small)} small files degraded "
+            f"{degraded['small']['rate']:.1f} files/s "
+            f"({degraded['small']['mbps']:.2f} MB/s, "
+            f"{_lat(degraded['small']['lat'])}) and the {len(paths_big)} "
+            f"large ones {degraded['big_mbps']:.1f} MB/s, all sha256-equal; "
+            + ("unmounted, exit 0" if kernel else "destroyed")
+            + f" after {degraded['exit']:.3f} s; {walls['f']:.3f} s")
+
+        # 22g. rebuild through the kernel; the pass again, rebuilt
+        t0 = time.perf_counter()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            if lost[vid]:
+                repl.run_command(env, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t1
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped_r = _tools_metrics(next(u for u in by_url if u != victim))[
+            "launches"]
+        if launches["rebuild"] <= 0 or scraped_r != launches["rebuild"]:
+            fail(f"22g: ec.rebuild: {launches['rebuild']} launches, the "
+                 f"volume servers' cuda_kernel_launches {scraped_r}")
+        for vid in vids:
+            if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"22g: volume {vid} after ec.rebuild: "
+                     f"{env.ec_shard_locations(vid)}")
+        repl.run_command(env, "unlock")
+        rebuilt = sealed_pass("mount-g")
+        walls["g"] = time.perf_counter() - t0
+        log(f"[22g] ec.rebuild {t_rebuild:.3f} s, {launches['rebuild']} "
+            f"launches (/metrics {scraped_r}); another fresh mount read "
+            f"every file rebuilt: small {rebuilt['small']['rate']:.1f} "
+            f"files/s ({_lat(rebuilt['small']['lat'])}), large "
+            f"{rebuilt['big_mbps']:.1f} MB/s, all sha256-equal; "
+            f"{walls['g']:.3f} s")
+
+        # 22h. the filer stopped by SIGINT: its push, its profiles
+        t0 = time.perf_counter()
+        procs["filer"].send_signal(signal.SIGINT)
+        try:
+            rc = procs["filer"].wait(timeout=FUSE_DEADLINE)
+        except subprocess.TimeoutExpired:
+            fail(f"22h: the filer still runs {FUSE_DEADLINE:.0f} s after "
+                 f"SIGINT")
+        t_stop = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"22h: the filer exited {rc} on SIGINT: "
+                 f"{_tail(logs['filer'])}")
+        del procs["filer"]
+        pushes = [b for p, b in list(gateway.received)
+                  if p == "/metrics/job/filer"]
+        if not pushes or b"filer_request_seconds" not in pushes[-1]:
+            fail(f"22h: the pushgateway got {len(gateway.received)} PUTs, "
+                 f"{len(pushes)} to /metrics/job/filer, the last without "
+                 f"filer_request_seconds")
+        stats = pstats.Stats(prof)
+        mem_lines = open(memprof).read().splitlines()
+        if stats.total_calls <= 0 or not mem_lines:
+            fail(f"22h: the cProfile dump has {stats.total_calls} calls, "
+                 f"the tracemalloc report {len(mem_lines)} lines")
+        walls["h"] = time.perf_counter() - t0
+        log(f"[22h] SIGINT: the filer exited 0 after {t_stop:.3f} s; the "
+            f"pushgateway took {len(pushes)} PUTs /metrics/job/filer "
+            f"(the last {len(pushes[-1])} B, with filer_request_seconds); "
+            f"the cProfile dump loads with pstats ({stats.total_calls} "
+            f"calls); the tracemalloc report has {len(mem_lines)} lines; "
+            f"{walls['h']:.3f} s")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 22 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[22] phase 22 took {wall:.3f} s "
+            f"({ {k: round(v, 3) for k, v in walls.items()} }); fuse "
+            f"{'kernel' if kernel else 'library'}; kernel launches "
+            f"{launches}; the seal's kernel time {kernel_s * 1e3:.3f} ms "
+            f"is {busy:.5%} of the phase wall (idle share "
+            f"{1 - busy:.5%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 6)
+        launches["fuse"] = "kernel" if kernel else "library"
+        return launches
+    finally:
+        for where, proc in mounts:
+            if proc is None:
+                where.destroy()
+                continue
+            subprocess.run(["fusermount", "-u", "-z", where],
+                           capture_output=True)
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        if gateway is not None:
+            gateway.close()
+        if env is not None:
+            env.close()
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -9426,7 +10194,8 @@ def main() -> int:
     stores = timed(19, phase_stores, card)
     forms = timed(20, phase_form, card)
     gateways = timed(21, phase_gateways, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-21 "
+    mounted = timed(22, phase_mount, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-22 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -9498,6 +10267,12 @@ def main() -> int:
                                       for k in ("encode", "rebuild")},
         "gateways_kernel_ms_per_launch": gateways["kernel_ms_per_launch"],
         "gateways_idle_share": gateways["idle_share"],
+        "mount_launches": mounted["encode"] + mounted["rebuild"],
+        "mount_launches_by_step": {k: mounted[k]
+                                   for k in ("encode", "rebuild")},
+        "mount_kernel_ms_per_launch": mounted["kernel_ms_per_launch"],
+        "mount_idle_share": mounted["idle_share"],
+        "mount_fuse": mounted["fuse"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -92,9 +92,23 @@ without it; ftpd/), `webdav` (7333, `-filer.path`; webdav/, HTTPS from
 (8111; iam/, HTTPS from `-security`) and `mq.broker` (17777,
 `-master`, where it announces itself as a `broker`; mq/). Each runs
 until interrupted: stop a broker with SIGINT, which flushes its
-unflushed records (a SIGTERM loses them, as the reference's does). The
-FUSE mount (`mount`, `fuse`) and the global profiling and pushgateway
-flags are not here.
+unflushed records (a SIGTERM loses them, as the reference's does).
+
+The FUSE mount (mount/): `mount -filer F -dir D` serves the filer
+directory `-filer.path` at the mountpoint D through the kernel
+(libfuse.so.2 over ctypes) until `fusermount -u D`, with
+`-cacheDir` (the chunk cache's disk tier and the dirty pages' swap
+file), `-writeMemoryLimitMB` (dirty RAM per open file),
+`-collection`, `-replication`, `-o` (fuse options) and
+`-disableXAttr`; `fuse D -o filer=F,filer.path=/d,ro` is the
+/sbin/mount.fuse helper form, which takes filer, filer.path,
+collection, replication, cacheDir and disableXAttr from `-o` and
+passes the rest to fuse. Profiling and metrics, as global flags:
+`-cpuprofile FILE` writes a cProfile dump of the subcommand when it
+returns, `-memprofile FILE` a tracemalloc report of its top
+allocations, and `-metrics.address HOST:PORT` PUTs the process's
+metrics to that Prometheus pushgateway as job <subcommand> every
+`-metrics.intervalSec` seconds.
 """
 from __future__ import annotations
 
@@ -339,9 +353,26 @@ def build_parser() -> argparse.ArgumentParser:
         prog="seaweedfs-tpu-torch",
         description="SeaweedFS with its erasure coding on a GPU")
     parser.add_argument(
+        "-cpuprofile", default="",
+        help="write a cProfile dump here on exit (the reference's "
+             "grace.SetupProfiling, util/grace/pprof.go:11); place "
+             "BEFORE the subcommand")
+    parser.add_argument(
         "-v", dest="verbosity", type=int, default=0,
         help="log verbosity for glog.v() messages; place BEFORE the "
              "subcommand")
+    parser.add_argument(
+        "-memprofile", default="",
+        help="write a tracemalloc top-allocations report here on exit "
+             "(the reference's -memprofile); place BEFORE the "
+             "subcommand")
+    parser.add_argument(
+        "-metrics.address", dest="metrics_address", default="",
+        help="Prometheus pushgateway address to push metrics to "
+             "(stats/metrics.go pusher); place BEFORE the subcommand")
+    parser.add_argument(
+        "-metrics.intervalSec", dest="metrics_interval", type=float,
+        default=15.0)
     parser.add_argument(
         "-trace.slowThreshold", dest="trace_slow_threshold", type=float,
         default=1.0,
@@ -615,9 +646,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-filer", default="",
                    help="filer address for the cluster-wide admin lock")
     _add_gateway_parsers(sub)
+    _add_mount_parsers(sub)
     _add_filer_worker_parsers(sub)
     _add_tool_parsers(sub)
     return parser
+
+
+def _add_mount_parsers(sub) -> None:
+    """The FUSE mount and its mount.fuse helper form (the reference's
+    cli.py:660-690)."""
+    p = sub.add_parser("mount", help="FUSE-mount a filer directory")
+    p.add_argument("-filer", default="http://127.0.0.1:8888")
+    p.add_argument("-filer.path", dest="filer_path", default="/")
+    p.add_argument("-dir", required=True, help="local mountpoint")
+    p.add_argument("-cacheDir", dest="cache_dir", default="")
+    p.add_argument("-writeMemoryLimitMB", dest="write_memory_limit_mb",
+                   type=int, default=64,
+                   help="dirty-write RAM cap per open file; writes past "
+                        "it spill to a swap file (0 = 64MB default)")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-o", dest="mount_options", default="",
+                   help="extra comma-separated fuse options "
+                        "(allow_other, ro, ...)")
+    p.add_argument("-disableXAttr", dest="disable_xattr",
+                   action="store_true",
+                   help="disable extended attribute support "
+                        "(get/set/list/remove return ENOTSUP)")
+
+    p = sub.add_parser(
+        "fuse",
+        help="/sbin/mount.fuse-style mount helper: "
+             "`fuse <mountpoint> -o filer=...,filer.path=/,ro` "
+             "(the reference's weed fuse, command/fuse.go) — lets "
+             "/etc/fstab mount a filer via `mount -t fuse.seaweedfs`")
+    p.add_argument("mountpoint")
+    p.add_argument("-o", dest="fuse_options", default="",
+                   help="comma-separated key=value options; recognised: "
+                        "filer, filer.path, collection, replication, "
+                        "cacheDir; everything else passes to fuse")
 
 
 def _add_gateway_parsers(sub) -> None:
@@ -837,8 +904,43 @@ def main(argv: list[str] | None = None) -> int:
     from .utils import glog
 
     glog.set_verbosity(args.verbosity)
+    if args.metrics_address:
+        from .utils import metrics
+
+        metrics.start_push(args.metrics_address, job=args.cmd,
+                           interval_seconds=args.metrics_interval)
     apply_env_flags(args)
     apply_global_flags(args)
+    if args.memprofile:
+        import tracemalloc
+
+        # one frame: the report groups allocations by line, which reads
+        # the newest frame only; the reference's 16 frames made a
+        # filer ten times slower for the same report
+        tracemalloc.start(1)
+    try:
+        if args.cpuprofile:
+            import cProfile
+
+            prof = cProfile.Profile()
+            prof.enable()
+            try:
+                return _dispatch(args, parser)
+            finally:
+                prof.disable()
+                prof.dump_stats(args.cpuprofile)
+                print(f"cpu profile written to {args.cpuprofile}")
+        return _dispatch(args, parser)
+    finally:
+        if args.memprofile:
+            snap = tracemalloc.take_snapshot()
+            with open(args.memprofile, "w") as f:
+                for stat in snap.statistics("lineno")[:200]:
+                    f.write(f"{stat}\n")
+            print(f"memory profile written to {args.memprofile}")
+
+
+def _dispatch(args, parser) -> int:
     if args.cmd in TOOL_COMMANDS:
         sub = next(a for a in parser._actions
                    if isinstance(a, argparse._SubParsersAction))
@@ -859,6 +961,8 @@ def main(argv: list[str] | None = None) -> int:
         return _run_filer_worker(args)
     if args.cmd in GATEWAY_COMMANDS:
         return _run_gateway(args)
+    if args.cmd in ("mount", "fuse"):
+        return _run_mount(args)
     from .shell.repl import run_shell
 
     return run_shell(args.master, filer_url=_http(args.filer)
@@ -1413,6 +1517,49 @@ def _run_gateway(args) -> int:
                      ssl_context=_ssl_ctx(args)).start()
     print(f"iam api listening on {t.url}", flush=True)
     run_apps_forever([t])
+    return 0
+
+
+def fuse_options(spec: str) -> tuple[dict, str]:
+    """`fuse`'s -o: the options the mount takes itself (their defaults
+    filled in) and the rest, passed on to fuse (the reference's
+    cli.py:1183-1193)."""
+    known = {"filer": "http://127.0.0.1:8888", "filer.path": "/",
+             "collection": "", "replication": "", "cacheDir": "",
+             "disableXAttr": ""}
+    passthrough = []
+    for opt in (spec or "").split(","):
+        if not opt:
+            continue
+        k, sep, v = opt.partition("=")
+        if k in known:
+            known[k] = v if sep else "true"
+        else:
+            passthrough.append(opt)
+    return known, ",".join(passthrough)
+
+
+def _run_mount(args) -> int:
+    """mount and fuse (the reference's cli.py:1171-1200): serve until
+    the mountpoint is unmounted."""
+    from .mount.fuse_adapter import mount
+
+    if args.cmd == "mount":
+        mount(args.filer, args.dir, root=args.filer_path,
+              options=args.mount_options or None,
+              cache_dir=args.cache_dir or None,
+              collection=args.collection, replication=args.replication,
+              write_memory_limit=(args.write_memory_limit_mb
+                                  or 64) << 20,
+              disable_xattr=args.disable_xattr)
+        return 0
+    known, passthrough = fuse_options(args.fuse_options)
+    mount(known["filer"], args.mountpoint, root=known["filer.path"],
+          options=passthrough or None,
+          cache_dir=known["cacheDir"] or None,
+          collection=known["collection"],
+          replication=known["replication"],
+          disable_xattr=known["disableXAttr"] == "true")
     return 0
 
 

@@ -1,9 +1,10 @@
 """Minimal Prometheus-style metrics registry.
 
 Equivalent role to the reference's weed/stats/metrics.go:31-140: counters,
-gauges and latency histograms rendered in the text exposition format.
-Stdlib-only copy of seaweedfs_tpu/utils/metrics.py without the
-pushgateway loop, which no module of the port uses yet.
+gauges and latency histograms rendered in the text exposition format,
+and the pushgateway loop behind the CLI's -metrics.address. Stdlib-only
+copy of seaweedfs_tpu/utils/metrics.py: the loop PUTs through
+urllib.request where the reference's uses `requests`.
 """
 from __future__ import annotations
 
@@ -127,3 +128,70 @@ def counter_value(name: str, labels: dict | None = None) -> float:
     `_count` are counters too), 0.0 when it was never touched."""
     with _lock:
         return _counters.get(_key(name, labels), 0.0)
+
+
+# -- pushgateway loop ---------------------------------------------------
+# The reference's JoinCluster...Start... pusher (stats/metrics.go):
+# servers can periodically PUT their rendered metrics to a Prometheus
+# pushgateway instead of (or besides) being scraped.
+
+_push_thread = None
+_push_stop = None
+_push_lock = threading.Lock()  # start/stop may race across threads
+
+
+def start_push(gateway_url: str, job: str,
+               interval_seconds: float = 15.0,
+               instance: str = "") -> None:
+    """Start the background pusher (idempotent while one is alive).
+    Each iteration renders the LIVE registry, so counters registered
+    after start_push ride along without a restart."""
+    global _push_thread, _push_stop
+    import urllib.request
+
+    url = gateway_url.rstrip("/")
+    if not url.startswith("http"):
+        url = "http://" + url
+    url += f"/metrics/job/{job}"
+    if instance:
+        url += f"/instance/{instance}"
+
+    with _push_lock:
+        if _push_thread is not None and _push_thread.is_alive():
+            return
+        stop = threading.Event()  # captured locally: stop_push nulling
+                                  # the global must not crash a loop
+
+        # no proxy: the gateway is addressed directly, as the
+        # port's rpc/httpclient addresses every peer
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+        def loop():
+            while not stop.wait(interval_seconds):
+                req = urllib.request.Request(
+                    url, data=render().encode(), method="PUT",
+                    headers={"Content-Type": "text/plain"})
+                try:
+                    with opener.open(req, timeout=10) as resp:
+                        resp.read()
+                except OSError:
+                    pass  # gateway outages must never hurt the server
+
+        _push_stop = stop
+        _push_thread = threading.Thread(target=loop, name="metrics-push",
+                                        daemon=True)
+        _push_thread.start()
+
+
+def stop_push(timeout: float = 5.0) -> None:
+    """Signal the pusher and join it (bounded); safe to start_push
+    again — and a no-op when called before any start_push."""
+    global _push_thread, _push_stop
+    with _push_lock:
+        thread, stop = _push_thread, _push_stop
+        _push_thread = None
+        _push_stop = None
+    if stop is not None:
+        stop.set()
+    if thread is not None:
+        thread.join(timeout)

@@ -6,11 +6,13 @@ JAX package where both run.
   tests/test_scaffold_metrics.py that concern the subcommands and pages
   the port has run twice, `[reference]` and `[port]` (the spawned
   `python -m seaweedfs_tpu` runs the port's package through
-  tests/torch_port_procs): autocomplete for zsh, unautocomplete and
-  update, scaffold's templates and its CLI, the volume server's status
-  page. Left out: the gateway metrics, ftp, the filer's HTML listings,
-  -memprofile and the pushgateway loop (none of them is in the port),
-  and the bash listing of every subcommand (it names ftp and fuse).
+  tests/torch_port_procs): the bash listing of every subcommand (it
+  names fuse and ftp), autocomplete for zsh, unautocomplete and update,
+  -memprofile's report, the pushgateway loop behind -metrics.address,
+  scaffold's templates and its CLI, the volume server's status page.
+  Left out: the gateway metrics and the filer's HTML listings.
+* `fuse <mnt> -o filer=...,filer.path=/d,ro` splits its options as the
+  reference's does: the mount's own, their defaults, the rest for fuse.
 * Multipart/form-data POSTs — seeded forms as the reference's clients
   encode them, and hand-framed ones (a preamble, no filename, a part
   without Content-Type, a UTF-8 filename, a quoted boundary) — go to
@@ -43,6 +45,7 @@ from seaweedfs_tpu_torch.server.cluster import Cluster
 from seaweedfs_tpu_torch.shell import repl
 from seaweedfs_tpu_torch.shell.env import CommandEnv
 from seaweedfs_tpu_torch.storage.types import parse_file_id
+from seaweedfs_tpu_torch.utils import metrics
 
 from tests import test_cli_misc as ref_misc
 from tests import test_scaffold_metrics as ref_scaffold
@@ -51,8 +54,11 @@ from tests.torch_port_cases import port_cases, run_case, swap_modules
 
 SEED = 20261017
 PortCluster = functools.partial(Cluster, ec_backend="native")
-MISC = ("TestVerbs.test_autocomplete_zsh",
-        "TestVerbs.test_unautocomplete_and_update")
+MISC = ("TestVerbs.test_autocomplete_lists_all_subcommands",
+        "TestVerbs.test_autocomplete_zsh",
+        "TestVerbs.test_unautocomplete_and_update",
+        "TestVerbs.test_memprofile_written",
+        "TestMetricsPush.test_push_loop_delivers")
 SCAFFOLD = ("TestScaffold.test_all_templates_render",
             "TestScaffold.test_unknown_raises",
             "TestScaffold.test_cli_prints_and_writes",
@@ -84,7 +90,8 @@ def test_the_chosen_cases_exist():
 @pytest.mark.parametrize("side", list(CASES))
 @pytest.mark.parametrize("case", list(MISC + SCAFFOLD))
 def test_reference_case(case, side, tmp_path, tmp_path_factory):
-    swaps = {"seaweedfs_tpu.operation.verbs": verbs} \
+    swaps = {"seaweedfs_tpu.operation.verbs": verbs,
+             "seaweedfs_tpu.utils.metrics": metrics} \
         if side == "port" else {}
     fn = CASES[side][case]
     if case == "TestStatusUis.test_volume_and_filer_ui_pages" and \
@@ -323,3 +330,36 @@ def test_cli_lists_the_tools():
     assert set(cli.TOOL_COMMANDS) <= set(sub.choices)
     for name in scaffold.TEMPLATES:
         assert scaffold.scaffold(name) == ref_scaffold.scaffold(name)
+
+
+_FUSE_OPTIONS = ["", "filer=http://f:1,filer.path=/d,ro",
+                 "ro,allow_other,cacheDir=/c,collection=pics,replication=001",
+                 "disableXAttr,filer=f:2,max_read=131072,,filer.path=/"]
+
+
+@pytest.mark.parametrize("spec", _FUSE_OPTIONS)
+def test_fuse_options_split_as_the_references(spec, monkeypatch):
+    """`fuse <mnt> -o spec`: the reference's dispatch hands its mount()
+    the same filer, root, fuse options and mount keywords as the
+    port's."""
+    import seaweedfs_tpu.mount.fuse_adapter as ref_adapter
+    from seaweedfs_tpu import cli as ref_cli
+
+    from seaweedfs_tpu_torch.mount import fuse_adapter
+
+    got = {}
+
+    def grab(side):
+        def mount(filer_url, mountpoint, root="/", options=None, **kw):
+            got[side] = (filer_url, mountpoint, root, options, kw)
+        return mount
+
+    monkeypatch.setattr(ref_adapter, "mount", grab("reference"))
+    monkeypatch.setattr(fuse_adapter, "mount", grab("port"))
+    argv = ["fuse", "/mnt/x"] + (["-o", spec] if spec else [])
+    assert ref_cli.main(list(argv)) == 0
+    assert cli.main(list(argv)) == 0
+    assert got["port"] == got["reference"]
+    if spec == _FUSE_OPTIONS[1]:
+        assert got["port"][:4] == ("http://f:1", "/mnt/x", "/d", "ro")
+

@@ -247,7 +247,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             "seaweedfs_tpu_torch/operation/tools.py",
             "seaweedfs_tpu_torch/operation/backup.py",
             "seaweedfs_tpu_torch/s3/eventstream.py",
-            "seaweedfs_tpu_torch/scaffold.py"} <= rel
+            "seaweedfs_tpu_torch/scaffold.py",
+            "seaweedfs_tpu_torch/mount/weedfs.py",
+            "seaweedfs_tpu_torch/mount/fuse_ctypes.py"} <= rel
     bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
            for path in files for line, n in _imports(path) if _forbidden(n)]
     assert not bad, bad
