@@ -597,6 +597,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    h. SIGINT stops the filer with exit 0; the pushgateway got PUT
       /metrics/job/filer carrying filer_request_seconds; the cProfile
       dump loads with pstats; the tracemalloc report is not empty.
+23. The last modules, the analyzer and the image renditions:
+   a. `python -m seaweedfs_tpu_torch.analysis --json` from the
+      repository root exits 0 with no finding over 175 files or more,
+      and `--list-rules` names the 12 rules; its wall beside the
+      reference's 10 s lint gate.
+   b. An image store (Haystack's photo workload): an in-process master
+      and four volume servers on "cuda", volume limit 64 MiB; 256
+      images of 32 KiB-2 MiB (log-uniform), PNG, GIF and BMP in turn,
+      written by hand with zlib and struct, POSTed from 8 threads.
+   c. A GET of every image with ?width=&height=&mode=fit, one in four
+      cropped first (crop_x1..crop_y2). Without PIL (`[23] renditions:
+      stored bytes`) every answer is the stored bytes, as the
+      reference's; with PIL (`[23] renditions: PIL`) the size in each
+      answer's header (PNG IHDR, GIF screen, BMP header) is the one
+      asked for. Images/s, p50 / p99, MB/s.
+   d. ec.encode of the image volumes through the kernel (launches > 0,
+      the volume servers' /metrics agree); the server holding the most
+      shards of the largest volume stopped; pass c again degraded,
+      every answer equal to c's; the spans of the 5 slowest GETs from
+      /debug/traces beside the p99.
+   e. ec.rebuild (launches > 0, /metrics agree); pass c again, equal;
+      every live volume server's volume_server_in_flight_*_bytes reads
+      0.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -10151,6 +10174,462 @@ def phase_mount(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+IMG_COUNT = 256                   # the store's images
+IMG_LO, IMG_HI = 32 << 10, 2 << 20  # their sizes, log-uniform
+IMG_CROP_EVERY = 4                # one GET in four is cropped first
+IMG_VOLUME_LIMIT = 64 << 20       # the master's volume size limit
+IMG_THREADS = 8
+IMG_COLLECTION = "photos"
+IMG_SLOWEST = 5                   # 23d's slowest GETs whose spans print
+LINT_GATE_S = 10.0                # the reference's lint-time gate
+LINT_MIN_FILES = 175
+LINT_RULES = ("async-hygiene", "cli-flag-help", "context-propagation",
+              "device-sync", "dp-faults", "label-cardinality",
+              "lock-discipline", "metric-names", "raw-requests",
+              "resource-safety", "session-timeout", "torch-hygiene")
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
+
+
+def _png(w: int, h: int, rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG, rows unfiltered, in stored deflate blocks
+    (level 0: noise does not compress)."""
+    import struct
+    import zlib
+
+    raw = np.zeros((h, 1 + 3 * w), dtype=np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                              0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 0))
+            + _png_chunk(b"IEND", b""))
+
+
+def _bmp(w: int, h: int, rgb: np.ndarray) -> bytes:
+    """A 24-bit bottom-up BMP (BITMAPINFOHEADER)."""
+    import struct
+
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), dtype=np.uint8)
+    rows[:, :3 * w] = rgb.reshape(h, w, 3)[:, :, ::-1].reshape(h, 3 * w)
+    pixels = rows[::-1].tobytes()
+    return (b"BM" + struct.pack("<IHHI", 54 + len(pixels), 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(pixels),
+                          2835, 2835, 0, 0)
+            + pixels)
+
+
+def _gif(w: int, h: int, idx: np.ndarray) -> bytes:
+    """A 256-colour GIF89a whose LZW stream holds only literal codes:
+    9-bit codes, a clear code before every 250 pixels, so the
+    decoder's table never widens the code."""
+    import struct
+
+    palette = np.arange(256, dtype=np.uint8).repeat(3).tobytes()
+    n = w * h
+    runs = -(-n // 250)
+    codes = np.full(n + runs + 1, 256, dtype=np.uint16)
+    pos = np.arange(n) + np.arange(n) // 250 + 1
+    codes[pos] = idx
+    codes[-1] = 257                           # end of information
+    # 8 codes of 9 bits are 9 bytes of the little-endian stream: the
+    # first 63 bits and the last code's low bit make one uint64, the
+    # last code's other 8 bits the ninth byte
+    groups = -(-len(codes) // 8)
+    c = np.zeros(groups * 8, dtype=np.uint64)
+    c[:len(codes)] = codes
+    c = c.reshape(groups, 8)
+    lo = np.zeros(groups, dtype=np.uint64)
+    for j in range(7):
+        lo |= c[:, j] << np.uint64(9 * j)
+    lo |= (c[:, 7] & np.uint64(1)) << np.uint64(63)
+    packed = np.empty((groups, 9), dtype=np.uint8)
+    packed[:, :8] = lo.astype("<u8").view(np.uint8).reshape(groups, 8)
+    packed[:, 8] = (c[:, 7] >> np.uint64(1)).astype(np.uint8)
+    data = packed.tobytes()[:-(-len(codes) * 9 // 8)]
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + palette
+            + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0)
+            + b"\x08" + blocks + b"\x00;")
+
+
+def _img_size(data: bytes) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR, a GIF's screen descriptor or a
+    BMP's header."""
+    import struct
+
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return struct.unpack(">II", data[16:24])
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return struct.unpack("<HH", data[6:10])
+    if data[:2] == b"BM":
+        w, h = struct.unpack("<ii", data[18:26])
+        return w, abs(h)
+    fail(f"23: an answer that is no PNG, GIF or BMP: {data[:8]!r}")
+
+
+def _images() -> list[dict]:
+    """The store's seeded images: PNG, GIF and BMP in turn, each close
+    to its log-uniform size. -> [{name, mime, data, w, h, query}]."""
+    rng = np.random.default_rng([SEED, 23])
+    sizes = np.exp(rng.uniform(np.log(IMG_LO), np.log(IMG_HI), IMG_COUNT))
+    out = []
+    for i, size in enumerate(sizes):
+        kind = ("png", "gif", "bmp")[i % 3]
+        pixels = int(size * 8 / 9) if kind == "gif" else int(size) // 3
+        w = max(8, int((pixels * 4 / 3) ** 0.5))
+        h = max(8, pixels // w)
+        if kind == "gif":
+            data = _gif(w, h, rng.integers(0, 256, w * h, dtype=np.uint8))
+        else:
+            rgb = rng.integers(0, 256, 3 * w * h, dtype=np.uint8)
+            data = (_png if kind == "png" else _bmp)(w, h, rgb)
+        query = {"width": max(1, w // 4), "height": max(1, h // 5),
+                 "mode": "fit"}
+        if i % IMG_CROP_EVERY == 0:
+            x1, y1 = w // 8, h // 8
+            query.update(crop_x1=x1, crop_y1=y1, crop_x2=x1 + w // 2,
+                         crop_y2=y1 + h // 2)
+        out.append({"name": f"img-{i:03d}.{kind}", "mime": f"image/{kind}",
+                    "data": data, "w": w, "h": h, "query": query})
+    return out
+
+
+def _fit_size(img: dict) -> tuple[int, int]:
+    """The size a fit rendition of `img` has: its crop first (png and
+    gif only, as the reference crops), then PIL's ImageOps.contain."""
+    q, w, h = img["query"], img["w"], img["h"]
+    if "crop_x2" in q and img["mime"] != "image/bmp":
+        w, h = q["crop_x2"] - q["crop_x1"], q["crop_y2"] - q["crop_y1"]
+    bw, bh = q["width"], q["height"]
+    if w / h != bw / bh:
+        if w / h > bw / bh:
+            nh = round(h / w * bw)
+            if nh != bh:
+                bh = nh
+        else:
+            nw = round(w / h * bh)
+            if nw != bw:
+                bw = nw
+    return bw, bh
+
+
+def phase_images(card: str) -> dict:
+    """Phase 23: the analyzer over the checkout, then an image store of
+    four volume servers on "cuda" whose renditions are read healthy,
+    degraded with a server lost after the volumes were sealed through
+    the kernel, and rebuilt. -> kernel launches by step and the phase's
+    numbers."""
+    import importlib.util
+    import re
+
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.ops import codec_cuda
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import Cluster
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke23-")
+    launches: dict = {}
+    walls: dict[str, float] = {}
+    cluster = env = None
+    ring = tracing._buffer_size
+    try:
+        # 23a. the analyzer, as the lint gate runs it
+        t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+
+        def analysis(*args) -> subprocess.CompletedProcess:
+            return subprocess.run(
+                [sys.executable, "-m", "seaweedfs_tpu_torch.analysis",
+                 *args], cwd=root, capture_output=True, text=True,
+                timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+        out = analysis("--json")
+        t_lint = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"23a: the analyzer exited {out.returncode}: "
+                 f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+        doc = json.loads(out.stdout)
+        if doc["findings"] or doc["files_scanned"] < LINT_MIN_FILES:
+            fail(f"23a: {len(doc['findings'])} findings over "
+                 f"{doc['files_scanned']} files: {doc['findings'][:5]}")
+        rules = analysis("--list-rules")
+        names = tuple(line.split()[0] for line in
+                      rules.stdout.splitlines() if line.strip())
+        if rules.returncode != 0 or names != LINT_RULES:
+            fail(f"23a: --list-rules exited {rules.returncode}: {names}")
+        launches["analysis"] = {"files": doc["files_scanned"],
+                                "findings": len(doc["findings"]),
+                                "seconds": round(t_lint, 3)}
+        walls["a"] = time.perf_counter() - t0
+        log(f"[23a] python -m seaweedfs_tpu_torch.analysis --json: exit 0, "
+            f"0 findings ({doc['suppressed']} suppressed on their lines), "
+            f"{doc['files_scanned']} files in {t_lint:.3f} s (the "
+            f"reference's lint gate: {LINT_GATE_S:.0f} s); --list-rules "
+            f"names the {len(names)} rules; {walls['a']:.3f} s")
+
+        # 23b. the image store
+        t0 = time.perf_counter()
+        pil = importlib.util.find_spec("PIL") is not None
+        if pil:
+            from importlib import metadata
+
+            try:
+                pil_version = metadata.version("pillow")
+            except metadata.PackageNotFoundError:
+                pil_version = "of unknown version"
+            log(f"[23] renditions: PIL (pillow {pil_version}, found by "
+                f"importlib, not imported here)")
+        else:
+            log("[23] renditions: stored bytes (no PIL on this machine)")
+        cluster = Cluster(os.path.join(tmp, "img"), n_volume_servers=4,
+                          max_volumes=8, volume_size_limit=IMG_VOLUME_LIMIT,
+                          pulse_seconds=HEAL_PULSE, ec_backend="cuda")
+        env = CommandEnv(cluster.master_url)
+        t1 = time.perf_counter()
+        imgs = _images()
+        t_make = time.perf_counter() - t1
+        total = sum(len(im["data"]) for im in imgs)
+
+        def put(im: dict) -> None:
+            a = verbs.assign(cluster.master_url, collection=IMG_COLLECTION)
+            verbs.upload(a, im["data"], name=im["name"], mime=im["mime"])
+            im["fid"] = a.fid
+
+        t1 = time.perf_counter()
+        _pool_map(put, imgs, threads=IMG_THREADS)
+        t_put = time.perf_counter() - t1
+        walls["b"] = time.perf_counter() - t0
+        log(f"[23b] {card}; master {cluster.master_url}, 4 volume servers "
+            f"ec_backend='cuda', volume limit {IMG_VOLUME_LIMIT} B; "
+            f"{IMG_COUNT} images (PNG, GIF, BMP) of {IMG_LO}-{IMG_HI} B "
+            f"(log-uniform), {total} B, made in {t_make:.3f} s and POSTed "
+            f"on {IMG_THREADS} threads in {t_put:.3f} s "
+            f"({total / t_put / 1e6:.1f} MB/s); {walls['b']:.3f} s")
+
+        def server_of(fid: str) -> str:
+            vid = int(fid.split(",")[0])
+            locs = env.master_get("/dir/lookup", volumeId=vid)["locations"]
+            return locs[0]["url"]
+
+        def get_pass(label: str, want: dict | None, traced: bool = False
+                     ) -> dict:
+            """A rendition GET of every image; -> rate, latencies, the
+            answers' sha256 and, when traced, each GET's trace id."""
+            lat: dict[str, float] = {}
+            shas: dict[str, str] = {}
+            tids: dict[str, str] = {}
+            urls = {im["fid"]: server_of(im["fid"]) for im in imgs}
+
+            def one(im: dict) -> int:
+                headers = {}
+                if traced:
+                    tid = os.urandom(16).hex()
+                    tids[im["fid"]] = tid
+                    headers["traceparent"] = \
+                        f"00-{tid}-{os.urandom(8).hex()}-01"
+                t1 = time.perf_counter()
+                r = session().get(f"http://{urls[im['fid']]}/{im['fid']}",
+                                  params=im["query"], headers=headers,
+                                  timeout=60)
+                lat[im["fid"]] = time.perf_counter() - t1
+                if r.status_code != 200:
+                    fail(f"{label}: GET {im['name']}: {r.status_code}")
+                body = r.content
+                if not pil and body != im["data"]:
+                    fail(f"{label}: {im['name']} without PIL: "
+                         f"{len(body)} B, not the stored {len(im['data'])}")
+                if pil and _img_size(body) != _fit_size(im):
+                    fail(f"{label}: {im['name']} {im['query']}: "
+                         f"{_img_size(body)}, not {_fit_size(im)}")
+                shas[im["fid"]] = _sha(body)
+                if want is not None and shas[im["fid"]] != want[im["fid"]]:
+                    fail(f"{label}: {im['name']}: the answer differs from "
+                         f"the healthy one")
+                return len(body)
+
+            t1 = time.perf_counter()
+            nb = sum(_pool_map(one, imgs, threads=IMG_THREADS))
+            w = time.perf_counter() - t1
+            return {"wall": w, "rate": len(imgs) / w, "mbps": nb / w / 1e6,
+                    "lat": lat, "sha": shas, "tids": tids}
+
+        def say(p: dict) -> str:
+            return (f"{p['rate']:.1f} images/s ({_lat(list(p['lat'].values()))}"
+                    f"), {p['mbps']:.1f} MB/s")
+
+        # 23c. renditions, healthy
+        t0 = time.perf_counter()
+        healthy = get_pass("23c", None)
+        cropped = sum(1 for im in imgs if "crop_x2" in im["query"])
+        walls["c"] = time.perf_counter() - t0
+        log(f"[23c] {IMG_COUNT} GETs ?width=&height=&mode=fit ({cropped} "
+            f"cropped first) on {IMG_THREADS} threads: {say(healthy)}; "
+            + ("each answer the stored bytes" if not pil else
+               "each answer's header size the one asked for")
+            + f"; {walls['c']:.3f} s")
+
+        # 23d. seal through the kernel, lose a server, read degraded
+        t0 = time.perf_counter()
+        time.sleep(3 * HEAL_PULSE)      # heartbeats carry final sizes
+        vids = sorted({int(im["fid"].split(",")[0]) for im in imgs})
+        dat = {}
+        for vid in vids:
+            for st in cluster.stores:
+                v = st.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    dat[vid] = v.content_size()
+        if len(vids) < 2:
+            fail(f"23d: the images landed in {len(vids)} volume(s)")
+        repl.run_command(env, "lock")
+        before_stages = feed_stage_seconds()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            repl.run_command(env, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        launches["encode"] = codec_cuda.coded_matmul.launches
+        kernel_s = feed_stage_seconds()["kernel"] - before_stages["kernel"]
+        want = sum(_encode_launches(dat[v]) for v in vids)
+        by_url = {f"{st.ip}:{st.port}": i
+                  for i, st in enumerate(cluster.stores)}
+        scraped = _tools_metrics(next(iter(by_url)))["launches"]
+        if launches["encode"] <= 0 or launches["encode"] != want or \
+                scraped != launches["encode"]:
+            fail(f"23d: {launches['encode']} launches sealing {len(vids)} "
+                 f"volumes, the .dat sizes give {want}, /metrics "
+                 f"cuda_kernel_launches {scraped}")
+        held: dict[str, list[tuple[int, int]]] = {u: [] for u in by_url}
+        for vid in vids:
+            locs = env.ec_shard_locations(vid)
+            if sorted(locs) != list(range(14)):
+                fail(f"23d: volume {vid} after ec.encode: {locs}")
+            for sid, urls in locs.items():
+                held[urls[0]].append((vid, sid))
+        largest = max(vids, key=lambda v: (dat[v], v))
+        victim = max(held, key=lambda u: (sum(1 for v, _ in held[u]
+                                              if v == largest), u))
+        lost = {vid: sorted(s for v, s in held[victim] if v == vid)
+                for vid in vids}
+        t1 = time.perf_counter()
+        cluster.volume_threads[by_url[victim]].stop()
+        _poll(lambda: all(len(env.ec_shard_locations(v)) ==
+                          14 - len(lost[v]) for v in vids),
+              HEAL_DEADLINE, f"the master drops {victim}'s shards")
+        t_gone = time.perf_counter() - t1
+        tracing.configure(buffer_size=1 << 16)
+        degraded = get_pass("23d", healthy["sha"], traced=True)
+        slow = sorted(degraded["lat"], key=degraded["lat"].get)[
+            -IMG_SLOWEST:][::-1]
+        peer = next(u for u in by_url if u != victim)
+        traces = {t["trace_id"]: t["spans"] for t in session().get(
+            f"http://{peer}/debug/traces", params={"limit": 1 << 16},
+            timeout=60).json()["traces"]}
+        walls["d"] = time.perf_counter() - t0
+        log(f"[23d] ec.encode of the {len(vids)} image volumes ({dat} .dat "
+            f"bytes) {t_encode:.3f} s, {launches['encode']} launches "
+            f"(/metrics {scraped}); kernel {kernel_s * 1e3:.3f} ms (CUDA "
+            f"events); stopped {victim} (shards {lost}), dropped in "
+            f"{t_gone:.3f} s; every rendition again, degraded, equal to "
+            f"23c's: {say(degraded)}; {walls['d']:.3f} s")
+        p99 = np.percentile(np.array(list(degraded["lat"].values())), 99)
+        log(f"[23d] the {IMG_SLOWEST} slowest degraded GETs beside the p99 "
+            f"{p99 * 1e3:.3f} ms, their spans from /debug/traces (ms from "
+            f"the GET's start):")
+        for fid in slow:
+            spans = traces.get(degraded["tids"][fid], [])
+            t_root = min((sp["start"] for sp in spans), default=0.0)
+            by_name: dict[str, list[float]] = {}
+            for sp in spans:
+                by_name.setdefault(
+                    re.sub(r"\d+\.\d+\.\d+\.\d+:\d+", "<peer>", sp["name"]),
+                    []).append(sp["duration"])
+            summary = ", ".join(
+                f"{n} x{len(d)} {sum(d) * 1e3:.1f} ms (max "
+                f"{max(d) * 1e3:.1f})" for n, d in sorted(by_name.items()))
+            first = "; ".join(
+                f"+{(sp['start'] - t_root) * 1e3:.1f} {sp['name']} "
+                f"{sp['duration'] * 1e3:.1f}" for sp in spans[:8])
+            log(f"  {fid} {degraded['lat'][fid] * 1e3:.3f} ms, "
+                f"{len(spans)} spans: {summary} | {first}")
+
+        # 23e. rebuild through the kernel; the pass again; the gauges
+        t0 = time.perf_counter()
+        codec_cuda.coded_matmul.launches = 0
+        t1 = time.perf_counter()
+        for vid in vids:
+            if lost[vid]:
+                repl.run_command(env, f"ec.rebuild -volumeId={vid}")
+        t_rebuild = time.perf_counter() - t1
+        launches["rebuild"] = codec_cuda.coded_matmul.launches
+        scraped_r = _tools_metrics(peer)["launches"]
+        if launches["rebuild"] <= 0 or scraped_r != launches["rebuild"]:
+            fail(f"23e: ec.rebuild: {launches['rebuild']} launches, the "
+                 f"volume servers' cuda_kernel_launches {scraped_r}")
+        for vid in vids:
+            if sorted(env.ec_shard_locations(vid)) != list(range(14)):
+                fail(f"23e: volume {vid} after ec.rebuild: "
+                     f"{env.ec_shard_locations(vid)}")
+        repl.run_command(env, "unlock")
+        rebuilt = get_pass("23e", healthy["sha"])
+        gauges = {}
+        for url in by_url:
+            if url == victim:
+                continue
+            text = session().get(f"http://{url}/metrics", timeout=30).text
+            for kind in ("upload", "download"):
+                m = re.search(rf"^volume_server_in_flight_{kind}_bytes "
+                              rf"(\S+)$", text, re.M)
+                gauges[(url, kind)] = float(m.group(1)) if m else None
+        if any(v != 0 for v in gauges.values()):
+            fail(f"23e: in-flight gauges after the passes: {gauges}")
+        walls["e"] = time.perf_counter() - t0
+        log(f"[23e] ec.rebuild {t_rebuild:.3f} s, {launches['rebuild']} "
+            f"launches (/metrics {scraped_r}); every rendition rebuilt, "
+            f"equal: {say(rebuilt)}; volume_server_in_flight_upload_bytes "
+            f"and _download_bytes 0 on the {len(gauges) // 2} live "
+            f"servers; {walls['e']:.3f} s")
+        wall = time.perf_counter() - t_phase
+        busy = kernel_s / wall
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 23 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[23] phase 23 took {wall:.3f} s "
+            f"({ {k: round(v, 3) for k, v in walls.items()} }); renditions "
+            f"{'PIL' if pil else 'stored bytes'}; kernel launches "
+            f"{ {k: launches[k] for k in ('encode', 'rebuild')} }; the "
+            f"seal's kernel time {kernel_s * 1e3:.3f} ms is {busy:.5%} of "
+            f"the phase wall (idle share {1 - busy:.5%}); {card}")
+        launches["kernel_ms_per_launch"] = round(
+            kernel_s * 1e3 / max(1, launches["encode"]), 3)
+        launches["idle_share"] = round(1 - busy, 6)
+        launches["renditions"] = "PIL" if pil else "stored bytes"
+        return launches
+    finally:
+        tracing.configure(buffer_size=ring)
+        if env is not None:
+            env.close()
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -10195,7 +10674,8 @@ def main() -> int:
     forms = timed(20, phase_form, card)
     gateways = timed(21, phase_gateways, card)
     mounted = timed(22, phase_mount, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-22 "
+    pictures = timed(23, phase_images, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-23 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -10273,6 +10753,13 @@ def main() -> int:
         "mount_kernel_ms_per_launch": mounted["kernel_ms_per_launch"],
         "mount_idle_share": mounted["idle_share"],
         "mount_fuse": mounted["fuse"],
+        "images_launches": pictures["encode"] + pictures["rebuild"],
+        "images_launches_by_step": {k: pictures[k]
+                                    for k in ("encode", "rebuild")},
+        "images_kernel_ms_per_launch": pictures["kernel_ms_per_launch"],
+        "images_idle_share": pictures["idle_share"],
+        "images_renditions": pictures["renditions"],
+        "analysis": pictures["analysis"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

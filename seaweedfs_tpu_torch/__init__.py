@@ -59,6 +59,11 @@ Layout:
                 circuit breakers, seeded fault injection, the repair
                 token bucket, HTTP range parsing, upload compression,
                 header armor
+    images/     on-read renditions (resize, crop) of image needles,
+                with PIL where it is installed, the stored bytes where
+                it is not
+    analysis/   the static analyzer of this package and its rules
+                (`python -m seaweedfs_tpu_torch.analysis`)
 
 Entry points run on the GPU (device "cuda") unless the caller asks for
 the CPU; without a GPU they raise instead of falling back.

@@ -362,6 +362,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="log verbosity for glog.v() messages; place BEFORE the "
              "subcommand")
     parser.add_argument(
+        "-vmodule", default="",
+        help="per-file log levels, e.g. store=2,volume_server=3")
+    parser.add_argument(
         "-memprofile", default="",
         help="write a tracemalloc top-allocations report here on exit "
              "(the reference's -memprofile); place BEFORE the "
@@ -438,6 +441,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="seconds an open breaker waits before its half-open "
              "probe (default 5); place BEFORE the subcommand")
     parser.add_argument(
+        "-hedge.delay", dest="hedge_delay", type=float, default=None,
+        help="seconds a replica read waits before hedging to an "
+             "alternate location (default 0.35); place BEFORE the "
+             "subcommand")
+    parser.add_argument(
         "-qos.enabled", dest="qos_enabled", action="store_true",
         help="per-tenant QoS + overload shedding at the s3/filer "
              "gateway edge (tenant = access key at s3, first path "
@@ -477,6 +485,26 @@ def build_parser() -> argparse.ArgumentParser:
              "('{\"default\": {\"rate\":...}, \"tenants\": {\"akid\": "
              "{\"rate\":..., \"priority\":...}}}'), hot-reloaded on "
              "mtime change; place BEFORE the subcommand")
+    parser.add_argument(
+        "-telemetry.enabled", dest="telemetry_enabled",
+        type=lambda s: s.lower() not in ("0", "false", "no"),
+        default=True,
+        help="record workload sketches (per-volume heat histograms, "
+             "per-tenant demand) and ship them on the heartbeat; "
+             "false disables every record path (default true); "
+             "place BEFORE the subcommand")
+    parser.add_argument(
+        "-telemetry.alpha", dest="telemetry_alpha", type=float,
+        default=None,
+        help="relative-error bound of the quantile sketches: any "
+             "reported quantile is within alpha of the true value "
+             "(default 0.01 = 1%%); place BEFORE the subcommand")
+    parser.add_argument(
+        "-telemetry.window", dest="telemetry_window", type=float,
+        default=None,
+        help="sliding-window horizon in seconds for workload "
+             "sketches; older samples age out (default 300); place "
+             "BEFORE the subcommand")
     parser.add_argument(
         "-security", default="",
         help="path to a security config JSON (scaffold "
@@ -553,6 +581,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-rack", default="DefaultRack")
     p.add_argument("-disk", default="hdd",
                    help="disk class of this server (hdd | ssd)")
+    p.add_argument("-concurrentUploadLimitMB", dest="upload_limit_mb",
+                   type=int, default=256,
+                   help="limit total in-flight upload bytes (0 = off)")
+    p.add_argument("-concurrentDownloadLimitMB",
+                   dest="download_limit_mb", type=int, default=256,
+                   help="limit total in-flight download bytes (0 = off)")
     p.add_argument("-jwt.secret", dest="jwt_secret", default="",
                    help="HS256 secret for write authorization; must "
                         "match the master's -jwt.secret")
@@ -904,6 +938,7 @@ def main(argv: list[str] | None = None) -> int:
     from .utils import glog
 
     glog.set_verbosity(args.verbosity)
+    glog.set_vmodule(args.vmodule)
     if args.metrics_address:
         from .utils import metrics
 
@@ -1108,9 +1143,9 @@ def apply_env_flags(args) -> None:
 
 
 def apply_global_flags(args) -> None:
-    """The process-wide tracing, fault-injection, retry, breaker and
-    qos settings (the reference's cli.py:826-864)."""
-    from .utils import faults, retry, tracing
+    """The process-wide tracing, fault-injection, retry, breaker, hedge,
+    qos and telemetry settings (the reference's cli.py:826-867)."""
+    from .utils import faults, retry, sketch, tracing
 
     tracing.configure(slow_threshold=args.trace_slow_threshold,
                       buffer_size=args.trace_buffer_size,
@@ -1122,7 +1157,8 @@ def apply_global_flags(args) -> None:
                     max_delay=args.retry_max_delay,
                     edge_budget=args.retry_edge_budget,
                     breaker_failures=args.breaker_failures,
-                    breaker_reset=args.breaker_reset)
+                    breaker_reset=args.breaker_reset,
+                    hedge_delay=args.hedge_delay)
     from .utils import qos
 
     qos.configure(enabled=args.qos_enabled or None,
@@ -1132,6 +1168,9 @@ def apply_global_flags(args) -> None:
                   max_delay=args.qos_max_delay,
                   request_floor=args.qos_request_floor,
                   spec=args.qos_spec or None)
+    sketch.configure(enabled=args.telemetry_enabled,
+                     alpha=args.telemetry_alpha,
+                     window=args.telemetry_window)
 
 
 def _add_dataplane_flag(p) -> None:
@@ -1302,6 +1341,9 @@ def _run_volume(args) -> int:
                           args.mserver, max_volumes=args.max,
                           data_center=args.dataCenter, rack=args.rack,
                           disk_type=args.disk, jwt_secret=args.jwt_secret,
+                          concurrent_upload_limit=args.upload_limit_mb << 20,
+                          concurrent_download_limit=args.download_limit_mb
+                          << 20,
                           **_commit_kwargs(args))
     _start_span_pusher(_http(args.mserver.split(",")[0].strip()),
                        "volume", vs.store.public_url)

@@ -6,7 +6,8 @@ chunk list into ranged HTTP reads against volume servers, with manifest
 resolution, a small per-reader chunk cache and one-chunk readahead
 (reader_cache.go's role). A fid on several volume servers (replicas, or
 the holders of an EC volume's shards, which read through their
-degraded-read ladder) is read hedged: first success wins.
+degraded-read ladder) is read hedged: first success wins, the next
+replica fired after retry.HEDGE_DELAY (-hedge.delay).
 
 Departures from the reference, for the port's client: a volume server
 that no longer holds the volume answers 301 to its new home, which
@@ -26,16 +27,13 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Callable, Iterator
 
 from ..rpc.httpclient import session
-from ..utils import cipher, metrics
+from ..utils import cipher, metrics, retry
 
 from .entry import FileChunk
 from .filechunks import resolve_chunk_manifest, view_from_chunks
 
 LookupFn = Callable[[str], str]  # fid -> full http url
 
-# seconds the primary replica gets before a hedged read fires the next
-# (the reference's retry.HEDGE_DELAY default)
-HEDGE_DELAY = 0.35
 # largest piece iter_content yields
 PIECE = 8 << 20
 
@@ -161,7 +159,7 @@ def read_fid(lookup: LookupFn, fid: str, offset: int = 0,
         urls = _replica_urls(lookup, fid)
         if len(urls) == 1:
             return fetch(urls[0])
-        return _hedged_fetch(fetch, urls, HEDGE_DELAY)
+        return _hedged_fetch(fetch, urls, retry.HEDGE_DELAY)
 
     try:
         return once()

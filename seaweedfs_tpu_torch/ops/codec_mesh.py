@@ -42,8 +42,8 @@ import torch
 from ..utils import metrics
 from . import bits
 from .codec_cuda import CudaCodec
-from .codec_torch import (DeviceLane, gather_lanes, host_tensor,
-                          staged_feed, xor_matmul)
+from .codec_torch import (DeviceLane, _readback, gather_lanes,
+                          host_tensor, staged_feed, xor_matmul)
 
 
 def _mesh_kernel(a_bits: torch.Tensor, stripes: torch.Tensor
@@ -128,7 +128,7 @@ class MeshCodec:
                     codec._coef_mats(coef), x, plan)))
         for codec, cs, res in results:
             with _on(codec):
-                out[:, cs] = res.cpu().numpy()
+                out[:, cs] = _readback(res)
         return out
 
     def coded_matmul_stream(self, coef: np.ndarray, blocks,

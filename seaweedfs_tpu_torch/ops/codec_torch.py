@@ -109,6 +109,13 @@ def _into(out: torch.Tensor | None, result: torch.Tensor) -> torch.Tensor:
     return result if out is None else out.copy_(result)
 
 
+def _readback(t: torch.Tensor) -> np.ndarray:
+    """One device result as a host array (the reference's
+    codec_jax._readback): the one-shot calls' drain site, which waits
+    for the result by contract."""
+    return t.cpu().numpy()
+
+
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
     """Zero-copy uint8 CPU tensor over a host array (copied only when the
     array is read-only or strided, e.g. a memmap view)."""
@@ -250,7 +257,7 @@ class TorchCodec:
         plan = self._plan_for(coef, shards.nbytes)
         mats = self._coef_mats(coef)
         out = self._run(mats, host_tensor(shards).to(self.device), plan)
-        return out.cpu().numpy()
+        return _readback(out)
 
     def coded_matmul_stream(self, coef: np.ndarray, blocks,
                             depth: int = 2):

@@ -459,6 +459,11 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             return
         try:
             self._reply(resp)
+        except BaseException:
+            # a reply cut before its body started still closes its
+            # stream, which may hold a resource (an in-flight tally)
+            _close_stream(resp)
+            raise
         finally:
             if req.refused:
                 self._linger()

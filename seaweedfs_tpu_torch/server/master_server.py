@@ -626,7 +626,11 @@ class MasterServer:
                                           "value": vid}):
                     raise NoFreeSlots("lost raft leadership mid-grow")
             for node in nodes:
-                resp = session().post(
+                # the allocation stays under _grow_lock, as the
+                # reference holds its grow lock across the same POST
+                # (server/master_server.py:440-475): two grows must not
+                # both pick a node's last free slot
+                resp = session().post(  # sw-lint: disable=lock-discipline
                     f"http://{node.url}/admin/assign_volume",
                     json={"volume": vid, "collection": collection,
                           "replication": replication,

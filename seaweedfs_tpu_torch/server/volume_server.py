@@ -127,8 +127,21 @@ admin routes
 /admin/volume_tail and /admin/volume_tail_receive (what `backup` and
 a tailing replica pull) and the status page at / and /ui/index.html
 are the reference's. The native front relays each of these to this
-app. Image parameters (width, height, crop_*) are not served: the
-port has no images module.
+app.
+
+In-flight limits (the reference's -concurrentUploadLimitMB /
+-concurrentDownloadLimitMB, volume_server.go:24-28): a GET or HEAD by
+fid counts its needle's size, a POST or PUT its Content-Length, on a
+byte tally (InFlightLimiter); while a tally is over its limit a new
+request waits, and after 30 s it answers 429. A streamed reply keeps
+its bytes on the tally until it is sent. /metrics exports both tallies
+as `volume_server_in_flight_{upload,download}_bytes`. Requests the
+native front answers are not counted, as in the reference.
+
+Image renditions (images/, the reference's :798-840): a whole-body
+GET with `crop_x1..crop_y2` crops a png, jpeg or gif first, then
+`width` / `height` / `mode` resize it; a gzipped body is inflated
+before. Without PIL the stored bytes are served, as the reference's.
 """
 from __future__ import annotations
 
@@ -144,6 +157,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 
 import numpy as np
 
+from .. import images
 from ..ec import geometry as geo
 from ..ec.decoder import find_dat_size, write_dat_file, write_idx_from_ecx
 from ..rpc.http import (App, Request, Response, debug_index_factory,
@@ -229,6 +243,61 @@ def _named_leader(resp) -> str:
         return ""
 
 
+class InFlightLimiter:
+    """Byte-based in-flight accounting with backpressure on a
+    `threading.Condition` (the reference's InFlightLimiter, after
+    volume_server.go:24-28 inFlightUpload/DownloadDataSize and its
+    sync.Cond): a request WAITS while the tally is over the limit (so
+    one oversized request cannot starve), is admitted as soon as it
+    drops to the limit, and is refused after `timeout` seconds of
+    waiting. limit <= 0 means account only (no backpressure)."""
+
+    def __init__(self, limit: int, timeout: float = 30.0):
+        self.limit = limit
+        self.timeout = timeout
+        self.value = 0
+        self._cond = threading.Condition()
+
+    def wait_admit(self) -> bool:
+        if self.limit <= 0:
+            return True
+        with self._cond:
+            return self._cond.wait_for(lambda: self.value <= self.limit,
+                                       self.timeout)
+
+    def add(self, n: int) -> None:
+        with self._cond:
+            self.value += n
+
+    def release(self, n: int) -> None:
+        with self._cond:
+            self.value -= n
+            self._cond.notify_all()
+
+
+class _ReleasedOnClose:
+    """A streamed reply's body that gives its bytes back to an
+    InFlightLimiter once the reply is done: the reference's handler
+    holds the tally while it writes a streamed body."""
+
+    def __init__(self, stream, release):
+        self._stream = stream
+        self._release = release
+
+    def __iter__(self):
+        return iter(self._stream)
+
+    def close(self) -> None:
+        release, self._release = self._release, None
+        try:
+            close = getattr(self._stream, "close", None)
+            if close is not None:
+                close()
+        finally:
+            if release is not None:
+                release()
+
+
 class VolumeServer:
     # age limits of the cached EC holder map: any read, and the retry
     # after a fan-out that came back short
@@ -244,9 +313,13 @@ class VolumeServer:
                  jwt_secret: str = "",
                  commit_durability: str = "buffered",
                  commit_max_delay: float = 0.002,
-                 commit_max_bytes: int = 4 << 20):
+                 commit_max_bytes: int = 4 << 20,
+                 concurrent_upload_limit: int = 256 << 20,
+                 concurrent_download_limit: int = 256 << 20):
         self.store = store
         self.guard = Guard(jwt_secret)
+        self._upload_flight = InFlightLimiter(concurrent_upload_limit)
+        self._download_flight = InFlightLimiter(concurrent_download_limit)
         # the group-commit pipeline runs in every mode: buffered rides
         # it for the .idx flush cadence, batch gates acks on the
         # covering fsync (sync fsyncs inline and never enqueues)
@@ -624,12 +697,40 @@ class VolumeServer:
         except ValueError as e:
             return text_response(str(e), status=400)
         if req.method in ("GET", "HEAD"):
-            return self._read_fid(req, vid, key, cookie)
+            # byte-based in-flight download backpressure
+            # (volume_server.go:25 + the handlers' cond-var wait)
+            return self._in_flight(
+                self._download_flight, "too many in-flight downloads",
+                self.store.needle_size(vid, key),
+                lambda: self._read_fid(req, vid, key, cookie))
         if req.method in ("POST", "PUT"):
-            return self._write_fid(req, fid, vid, key, cookie)
+            return self._in_flight(
+                self._upload_flight, "too many in-flight uploads",
+                req.content_length or 0,
+                lambda: self._write_fid(req, fid, vid, key, cookie))
         if req.method == "DELETE":
             return self._delete_fid(req, fid, vid, key)
         return Response(status=405)
+
+    @staticmethod
+    def _in_flight(flight: InFlightLimiter, refusal: str, est: int,
+                   serve) -> Response:
+        """Run `serve` with `est` bytes on the `flight` tally: 429 with
+        `refusal` when the tally stays over its limit, and a streamed
+        reply keeps its bytes on the tally until it is sent."""
+        if not flight.wait_admit():
+            return text_response(refusal, status=429)
+        flight.add(est)
+        resp = None
+        try:
+            resp = serve()
+        finally:
+            if resp is None or resp.stream is None:
+                flight.release(est)
+        if resp.stream is not None:
+            resp.stream = _ReleasedOnClose(resp.stream,
+                                           lambda: flight.release(est))
+        return resp
 
     @staticmethod
     def _needle_headers(n) -> dict:
@@ -831,6 +932,7 @@ class VolumeServer:
                                   time.perf_counter() - start)
         headers = self._needle_headers(n)
         body = n.data
+        is_gzip = n.is_compressed
         ct = n.mime.decode() if n.mime else "application/octet-stream"
         if n.is_chunk_manifest and req.query.get("cm") != "false":
             # a chunked file: the body is a manifest of sub-fids,
@@ -838,12 +940,13 @@ class VolumeServer:
             # tryHandleChunkedFile); ?cm=false serves the manifest
             try:
                 return self._serve_chunked_manifest(
-                    req, body, n.is_compressed, headers)
+                    req, body, is_gzip, headers)
             except (ValueError, KeyError, LookupError, OSError) as e:
                 return text_response(f"chunked manifest: {e}",
                                      status=500)
+        body, is_gzip = self._rendition(req, body, is_gzip, ct)
         rng = req.headers.get("Range")
-        if n.is_compressed:
+        if is_gzip:
             # ranges address the original bytes: inflate for them and
             # for clients that do not take gzip
             if rng or "gzip" not in (req.headers.get("Accept-Encoding")
@@ -872,6 +975,44 @@ class VolumeServer:
                 headers["Content-Type"] = mct  # carries the boundary
                 return Response(mbody, 206, headers)
         return Response(body, 200, headers)
+
+    @staticmethod
+    def _rendition(req: Request, body: bytes, is_gzip: bool,
+                   ct: str) -> tuple[bytes, bool]:
+        """The image renditions (handlers_read.go:294-353, the
+        reference's :798-840): crop first, then resize, as its
+        conditionallyCropImages -> conditionallyResizeImages chain; a
+        compressed image is inflated before PIL sees it. -> (body,
+        still gzipped)."""
+        q = req.query
+        if "crop_x2" in q or "crop_y2" in q:
+            try:
+                x1 = int(q.get("crop_x1", "0") or 0)
+                y1 = int(q.get("crop_y1", "0") or 0)
+                x2 = int(q.get("crop_x2", "0") or 0)
+                y2 = int(q.get("crop_y2", "0") or 0)
+            except ValueError:
+                x1 = y1 = x2 = y2 = 0
+            croppable = ct.split(";")[0].strip().lower() in (
+                "image/png", "image/jpeg", "image/gif")
+            if x2 > x1 and y2 > y1 and croppable:
+                if is_gzip:
+                    body, is_gzip = gzip.decompress(body), False
+                with tracing.span("images.cropped"):
+                    body = images.cropped(body, ct, x1, y1, x2, y2)
+        if "width" in q or "height" in q:
+            try:
+                want_w = int(q.get("width", "0") or 0)
+                want_h = int(q.get("height", "0") or 0)
+            except ValueError:
+                want_w = want_h = 0  # the reference ignores bad sizes
+            if images.is_image_mime(ct) and (want_w or want_h):
+                if is_gzip:
+                    body, is_gzip = gzip.decompress(body), False
+                with tracing.span("images.resized"):
+                    body = images.resized(body, ct, want_w, want_h,
+                                          q.get("mode", ""))
+        return body, is_gzip
 
     def _write_fid(self, req: Request, fid: str, vid: int, key: int,
                    cookie: int) -> Response:
@@ -2045,6 +2186,10 @@ class VolumeServer:
         metrics.gauge_set(
             "volume_server_max_volumes",
             sum(l.max_volumes for l in self.store.locations))
+        metrics.gauge_set("volume_server_in_flight_upload_bytes",
+                          self._upload_flight.value)
+        metrics.gauge_set("volume_server_in_flight_download_bytes",
+                          self._download_flight.value)
         metrics.gauge_set("write_commit_queue_depth",
                           self.commit.snapshot()["queue_depth"])
         # the CUDA kernel's launches in this process (its wrapper's

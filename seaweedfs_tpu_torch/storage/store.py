@@ -24,6 +24,9 @@ Where the codecs run:
   `ec_backend` says. This is the reference's own routing, not a
   fallback: the device is never tried for it, because a dispatch and
   its transfers are latency with no throughput to gain at that size.
+  Each interval's gather and decode is a span, `ec.degraded_interval`,
+  and the decode alone `ec.reconstruct`, under the GET's server span
+  beside the shard fetches' client spans (/debug/traces).
 
 The cold tier (the master's tiering controller's offload and recall
 arms): `tier_offload_ec` moves this server's local shards of an EC
@@ -50,6 +53,7 @@ from ..ec.backend import cpu_backend_name as ec_cpu_backend
 from ..ec.encoder import rebuild_ec_files, write_ec_files, write_sorted_ecx
 from ..ec.volume import EcVolume
 from ..utils import sketch as _sketch
+from ..utils import tracing
 from .disk_location import DiskLocation
 from .needle import Needle
 from .super_block import ReplicaPlacement
@@ -492,7 +496,10 @@ class Store:
             data = self.remote_shard_reader(ecv.vid, sid, off, iv.size)
             if data is not None:
                 return data
-        return self._reconstruct_interval(ecv, sid, off, iv.size)
+        # the degraded read's gather and decode, one span (the shard
+        # fetches below it are the client's spans)
+        with tracing.span("ec.degraded_interval"):
+            return self._reconstruct_interval(ecv, sid, off, iv.size)
 
     def _reconstruct_interval(self, ecv: EcVolume, missing_sid: int,
                               offset: int, size: int) -> bytes:
@@ -576,8 +583,9 @@ class Store:
             raise IOError(
                 f"cannot reconstruct shard {missing_sid} of volume "
                 f"{ecv.vid}: only {len(rows)} shards reachable")
-        rec = self._rs_for(ecv, interval=True).reconstruct(
-            rows, [missing_sid])
+        with tracing.span("ec.reconstruct"):
+            rec = self._rs_for(ecv, interval=True).reconstruct(
+                rows, [missing_sid])
         return rec[missing_sid].tobytes()
 
     def _reconstruct_planned(self, ecv: EcVolume, missing_sid: int,
@@ -616,8 +624,9 @@ class Store:
                         rows[sid] = np.frombuffer(data, dtype=np.uint8)
         if set(rows) != set(plan.reads):
             return None
-        rec = self._rs_for(ecv, interval=True).reconstruct(
-            rows, [missing_sid])
+        with tracing.span("ec.reconstruct"):
+            rec = self._rs_for(ecv, interval=True).reconstruct(
+                rows, [missing_sid])
         return rec[missing_sid].tobytes()
 
     def _rs_for(self, ecv: EcVolume, *,

@@ -391,6 +391,9 @@ DEFAULT = RetryPolicy()
 # (and by operation.verbs.upload_data); generous on purpose — it bounds
 # runaway work (a dead peer chain), not ordinary large uploads
 EDGE_BUDGET = 300.0
+# hedged replica reads (filer/stream.py) fire the alternate after this
+# many seconds (-hedge.delay)
+HEDGE_DELAY = 0.35
 
 
 def configure(max_attempts: int | None = None,
@@ -398,9 +401,10 @@ def configure(max_attempts: int | None = None,
               max_delay: float | None = None,
               edge_budget: float | None = None,
               breaker_failures: int | None = None,
-              breaker_reset: float | None = None) -> None:
-    """Apply the -retry.* / -breaker.* CLI flags."""
-    global DEFAULT, EDGE_BUDGET
+              breaker_reset: float | None = None,
+              hedge_delay: float | None = None) -> None:
+    """Apply the -retry.* / -breaker.* / -hedge.* CLI flags."""
+    global DEFAULT, EDGE_BUDGET, HEDGE_DELAY
     kw = {}
     if max_attempts is not None:
         kw["max_attempts"] = max(1, int(max_attempts))
@@ -416,6 +420,8 @@ def configure(max_attempts: int | None = None,
         _registry.config.failure_threshold = max(1, int(breaker_failures))
     if breaker_reset is not None:
         _registry.config.reset_timeout = float(breaker_reset)
+    if hedge_delay is not None:
+        HEDGE_DELAY = float(hedge_delay)
 
 
 def policy() -> RetryPolicy:

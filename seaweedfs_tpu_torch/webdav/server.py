@@ -223,27 +223,35 @@ class WebDavServer:
         if _is_dir(entry):
             return Response(status=405)  # collection GET
         r = self._filer("GET", full, headers=headers, stream=True)
-        # the reference passes ETag, Content-Range, Last-Modified and
-        # Accept-Ranges on, compared case for case with aiohttp's
-        # spelling of the names, which is "Etag": no ETag ever passes
-        resp_headers = {k: r.headers[k] for k in
-                        ("Content-Range", "Last-Modified", "Accept-Ranges")
-                        if r.headers.get(k) is not None}
-        if req.method == "HEAD":
-            r.close()
-            resp_headers["Content-Length"] = \
-                r.headers.get("Content-Length") or "0"
-            return Response(status=r.status_code, headers=resp_headers)
-        # stream: a 20 GB download must not sit in the gateway's memory
-        # before its first byte goes out
-        length = r.headers.get("Content-Length")
-        if length is not None:
-            resp_headers["Content-Length"] = length
-        # aiohttp's StreamResponse names this type when given none
-        resp_headers["Content-Type"] = "application/octet-stream"
-        return Response(status=r.status_code, headers=resp_headers,
-                        stream=_Relay(r),
-                        length=int(length) if length is not None else None)
+        relay = None  # owns the filer reply once the body streams
+        try:
+            # the reference passes ETag, Content-Range, Last-Modified
+            # and Accept-Ranges on, compared case for case with
+            # aiohttp's spelling of the names, which is "Etag": no ETag
+            # ever passes
+            resp_headers = {k: r.headers[k] for k in
+                            ("Content-Range", "Last-Modified",
+                             "Accept-Ranges")
+                            if r.headers.get(k) is not None}
+            if req.method == "HEAD":
+                resp_headers["Content-Length"] = \
+                    r.headers.get("Content-Length") or "0"
+                return Response(status=r.status_code,
+                                headers=resp_headers)
+            # stream: a 20 GB download must not sit in the gateway's
+            # memory before its first byte goes out
+            length = r.headers.get("Content-Length")
+            if length is not None:
+                resp_headers["Content-Length"] = length
+            # aiohttp's StreamResponse names this type when given none
+            resp_headers["Content-Type"] = "application/octet-stream"
+            size = int(length) if length is not None else None
+            relay = _Relay(r)
+            return Response(status=r.status_code, headers=resp_headers,
+                            stream=relay, length=size)
+        finally:
+            if relay is None:
+                r.close()
 
     def do_put(self, req: Request) -> Response:
         path = "/" + req.match_info["path"]

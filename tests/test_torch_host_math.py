@@ -7,7 +7,8 @@ jax or seaweedfs_tpu (the image imports jax into every process, so
 sys.modules cannot tell), of aiohttp,
 requests and the libraries under them (the card's machine has none of
 them), and of anything beyond the standard library, numpy, torch and
-triton."""
+triton — but for PIL, which images/__init__.py alone may import, inside
+a function and under a handler of ImportError, as the reference does."""
 import ast
 import json
 import os
@@ -224,6 +225,44 @@ def _outside_the_card(name: str) -> bool:
     return top not in sys.stdlib_module_names and top not in _CARD_PACKAGES
 
 
+# PIL (an image codec library) is taken the reference's way: imported
+# inside resized / cropped, within a try whose handler catches
+# ImportError, so a host without it serves the stored bytes
+_PIL_MODULE = "seaweedfs_tpu_torch/images/__init__.py"
+
+
+def _catches_import_error(handler: ast.ExceptHandler) -> bool:
+    kinds = handler.type.elts if isinstance(handler.type, ast.Tuple) \
+        else [handler.type]
+    return any(isinstance(k, ast.Name)
+               and k.id in ("ImportError", "ModuleNotFoundError")
+               for k in kinds)
+
+
+def _guarded_imports(path: str) -> set[int]:
+    """Lines of the imports made inside a function, within the body of
+    a try whose handler catches ImportError."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    out = set()
+    for func in ast.walk(tree):
+        if not isinstance(func, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        for node in ast.walk(func):
+            if isinstance(node, ast.Try) and \
+                    any(map(_catches_import_error, node.handlers)):
+                out |= {sub.lineno for stmt in node.body
+                        for sub in ast.walk(stmt)
+                        if isinstance(sub, (ast.Import, ast.ImportFrom))}
+    return out
+
+
+def _sanctioned(path: str, line: int, name: str) -> bool:
+    return (name.split(".")[0] == "PIL"
+            and os.path.relpath(path, REPO) == _PIL_MODULE
+            and line in _guarded_imports(path))
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_python_files()
     assert len(files) >= 15, files
@@ -249,7 +288,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             "seaweedfs_tpu_torch/s3/eventstream.py",
             "seaweedfs_tpu_torch/scaffold.py",
             "seaweedfs_tpu_torch/mount/weedfs.py",
-            "seaweedfs_tpu_torch/mount/fuse_ctypes.py"} <= rel
+            "seaweedfs_tpu_torch/mount/fuse_ctypes.py",
+            "seaweedfs_tpu_torch/images/__init__.py",
+            "seaweedfs_tpu_torch/analysis/engine.py"} <= rel
     bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
            for path in files for line, n in _imports(path) if _forbidden(n)]
     assert not bad, bad
@@ -261,8 +302,43 @@ def test_port_imports_only_what_the_card_has():
     numpy, torch and triton."""
     bad = [f"{os.path.relpath(path, REPO)}:{line} {n}"
            for path in _port_python_files()
-           for line, n in _imports(path) if _outside_the_card(n)]
+           for line, n in _imports(path)
+           if _outside_the_card(n) and not _sanctioned(path, line, n)]
     assert not bad, bad
+
+
+def test_pil_is_imported_only_lazily_by_images():
+    path = os.path.join(REPO, _PIL_MODULE)
+    pil = [line for line, n in _imports(path) if n.startswith("PIL")]
+    assert len(pil) == 2 and set(pil) <= _guarded_imports(path)
+    assert [os.path.relpath(p, REPO) for p in _port_python_files()
+            for line, n in _imports(p)
+            if n.split(".")[0] == "PIL"] == [_PIL_MODULE] * 2
+
+
+@pytest.mark.parametrize("src,guarded", [
+    ("from PIL import Image\n", False),
+    ("try:\n    import PIL\nexcept ImportError:\n    PIL = None\n",
+     False),
+    ("def f():\n    from PIL import Image\n    return Image\n", False),
+    ("def f():\n    try:\n        from PIL import Image\n"
+     "    except Exception:\n        return None\n", False),
+    ("def f():\n    try:\n        pass\n    except ImportError:\n"
+     "        from PIL import Image\n", False),
+    ("def f():\n    try:\n        from PIL import Image\n"
+     "    except (OSError, ImportError):\n        return None\n", True),
+])
+def test_a_pil_import_elsewhere_is_refused(src, guarded, tmp_path):
+    """Only a guarded import inside a function counts as lazy, and only
+    in images/__init__.py: the same import in any other file, or a
+    top-level one, is refused."""
+    path = tmp_path / "m.py"
+    path.write_text(src)
+    (line, name), = [(ln, n) for ln, n in _imports(str(path))
+                     if n.startswith("PIL")]
+    assert _outside_the_card(name)
+    assert (line in _guarded_imports(str(path))) == guarded
+    assert not _sanctioned(str(path), line, name)
 
 
 def test_import_scan_catches_forbidden_names():
