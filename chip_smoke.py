@@ -248,9 +248,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    c. The tiering controller's seal (POST /debug/tiering): one
       attempt, exactly ec.encode's launches (1 at 256 MiB), no repair
       during it, 14 shards sha256-equal to the fault-free encode.
-   d. The server with the fewest shards stopped: the master's breaker
-      for it reads open in its topology dump and at /debug/breakers
-      (its federation scrape trips it); the watchdog's partial rebuild
+   d. The server with the fewest shards stopped: it leaves the
+      master's topology dump as its heartbeat stream closes (the
+      master's breaker for it reported); the watchdog's partial rebuild
       in one attempt with one launch per 4 MiB chunk of a shard (7 at
       256 MiB), 14 live shards, rebuilt ones sha256-equal; 512 degraded
       reads run meanwhile; the server restarted at its address (an
@@ -620,6 +620,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    e. ec.rebuild (launches > 0, /metrics agree); pass c again, equal;
       every live volume server's volume_server_in_flight_*_bytes reads
       0.
+
+24. The heartbeat stream at SeaweedFS's default pulse: a `master`
+   process with no -pulseSeconds (5 s), -repair.enabled, -repair.grace
+   3 (clear of ec.encode's partial mounts), and four `volume -dataplane
+   python -ec.backend cuda` processes, each holding one /ws/heartbeat
+   stream (the native front's two blocking relay workers stall
+   concurrent degraded reads across processes: ROADMAP Queue 3 item
+   13). Each step is fatal on failure:
+   a. The processes, spawned together, listening (a TCP connect) and
+      registered.
+   b. A 256 MiB volume filled over HTTP (1 KiB-1 MiB needles, 8
+      threads) and sealed by ec.encode: launches from the processes'
+      /metrics equal to what the .dat's size gives; each shard's
+      sha256; no repair during the seal.
+   c. A writer assigning and uploading into a volume on every server;
+      the server holding the fewest shards SIGKILLed. Detection: from
+      the kill until /dir/lookup drops it (under 1 s) and until
+      UnderParity lists the volume, beside when the killed process was
+      reaped; the assigns naming the dead server before the detection,
+      and 0 after it; the watchdog's rebuild.
+   d. Its launches (> 0, the survivors' /metrics); 14 shards listed,
+      sha256-equal to the sealed ones; every live needle of the volume
+      and every needle the writer had acked on a live server read back
+      byte-equal.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -2346,7 +2370,7 @@ def phase_heal(card: str) -> dict:
         bad = [sid for sid in range(14) if sha256(now[sid]) != orig[sid]]
         log(f"[9a] killed {victim} ({HEAL_TOPOLOGY[by_url[victim]]}, "
             f"shards {lost}): detection {t_seen - t_kill:.3f} s (kill -> "
-            f"UnderParity lists it; 5 silent pulses of {HEAL_PULSE} s), "
+            f"UnderParity lists it; stream closed, pulse {HEAL_PULSE} s), "
             f"repair {t_done - t_seen:.3f} s (deficit -> 14 live shards; "
             f"the first {HEAL_GRACE} s are the grace, "
             f"{t_done - t_seen - HEAL_GRACE:.3f} s after it); "
@@ -2980,7 +3004,8 @@ def phase_s3(card: str) -> dict:
         before_heal = sum(1 for x in degraded["lat"] if x[1] <= t_done)
         log(f"[10c] killed {victim} ({HEAL_TOPOLOGY[by_url[victim]]}, "
             f"shards {per_vid}): detection {t_seen - t_kill:.3f} s (kill "
-            f"-> UnderParity lists it), repair {t_done - t_seen:.3f} s "
+            f"-> UnderParity lists it; stream closed), repair "
+            f"{t_done - t_seen:.3f} s "
             f"(deficit -> 14 live shards on every volume, grace 0); the "
             f"watchdog's rebuilds: "
             f"{[(x['volume'], x['detail'].get('rebuilt'), x['detail'].get('mode'), x['seconds']) for x in recs]}"
@@ -3424,8 +3449,9 @@ def phase_ha(card: str) -> int:
         bad = [sid for sid in range(14)
                if sha256(now_paths[sid]) != orig[sid]]
         log(f"[11d] stopped {victim} ({HEAL_TOPOLOGY[by_url[victim]]}, "
-            f"shards {lost}): detection {t_seen - t_stop:.3f} s, repair "
-            f"{t_done - t_seen:.3f} s by the new leader's watchdog (mode "
+            f"shards {lost}): detection {t_seen - t_stop:.3f} s (stream "
+            f"closed), repair {t_done - t_seen:.3f} s by the new leader's "
+            f"watchdog (mode "
             f"{rec['detail'].get('mode')!r}, rebuilt "
             f"{rec['detail'].get('rebuilt')} on "
             f"{rec['detail'].get('rebuilder')}, {rec['seconds']} s, "
@@ -3872,7 +3898,8 @@ def phase_tier(card: str) -> dict:
         reader = env.ec_shard_locations(vid)[lost[0]][0]
         st = _get_pass(sample, lambda f: reader, live, "12e")
         log(f"[12e] stopped {victim} (shards {lost}): detection "
-            f"{t_seen - t_kill:.3f} s, repair {t_done - t_seen:.3f} s "
+            f"{t_seen - t_kill:.3f} s (stream closed), repair "
+            f"{t_done - t_seen:.3f} s "
             f"(-> 14 live shards); the watchdog's rebuild {rec['seconds']} "
             f"s, {rec['bytes']} B, mode {rec['detail'].get('mode')!r} on "
             f"{rec['detail'].get('rebuilder')}, every survivor's byte "
@@ -4335,29 +4362,27 @@ def phase_chaos(card: str) -> dict:
         reads_thread = threading.Thread(target=read_degraded, daemon=True)
         with _KernelEvents() as rebuild_ev:
             reads_thread.start()
-            # the master's federation scrape (every CHAOS_SCRAPE s)
-            # trips its breaker for the dead peer while it is still
-            # registered (5 pulses)
+            # the dead peer leaves the master's topology dump as its
+            # heartbeat stream closes, before the federation scrape
+            # (every CHAOS_SCRAPE s) can trip the master's breaker for
+            # it; that breaker's state then is reported
             seen = {}
 
-            def breaker_open():
+            def unregistered():
                 st = _get_json(f"{master}/dir/status") or {}
                 nodes = [n for dc in st.get("Topology", {}).get(
                     "datacenters", []) for rk in dc["racks"]
                     for n in rk["nodes"] if n["url"] == victim]
-                if nodes and nodes[0].get("breaker") == retry.OPEN:
-                    seen.setdefault("topology", time.monotonic() - t_kill)
+                if not st or nodes:
+                    return False
+                seen["topology"] = time.monotonic() - t_kill
                 brs = (_get_json(f"{master}/debug/breakers") or {}).get(
                     "breakers", [])
-                if any(b["peer"] == victim and b["state"] == retry.OPEN
-                       for b in brs):
-                    seen.setdefault("debug", time.monotonic() - t_kill)
-                if not nodes and "topology" not in seen:
-                    fail(f"{victim} unregistered before the master's "
-                         f"breaker read open in its topology dump")
-                return len(seen) == 2
-            _poll(breaker_open, HEAL_DEADLINE,
-                  f"the master's breaker for {victim} open", step=0.02)
+                seen["debug"] = next((b["state"] for b in brs
+                                      if b["peer"] == victim), "none")
+                return True
+            _poll(unregistered, HEAL_DEADLINE,
+                  f"{victim} out of the master's topology dump", step=0.02)
 
             def deficit():
                 st = env.master_get("/cluster/status")
@@ -4406,13 +4431,14 @@ def phase_chaos(card: str) -> dict:
         here = {b["peer"]: b for b in session().get(
             f"{cluster.volume_url(0 if vi else 1)}/debug/breakers",
             timeout=10).json()["breakers"]}
-        log(f"[13d] stopped {victim} (shards {lost}): the master's "
-            f"breaker read open in its topology dump "
-            f"{seen['topology']:.3f} s and at /debug/breakers "
-            f"{seen['debug']:.3f} s after the stop; this process's "
+        log(f"[13d] stopped {victim} (shards {lost}): out of the "
+            f"master's topology dump {seen['topology']:.3f} s after the "
+            f"stop (stream closed), the master's breaker for it then "
+            f"{seen['debug']!r} at /debug/breakers; this process's "
             f"breaker {here.get(victim, {}).get('state')!r} (trips "
             f"{here.get(victim, {}).get('trips')}); detection "
-            f"{t_seen - t_kill:.3f} s, repair {t_done - t_seen:.3f} s; "
+            f"{t_seen - t_kill:.3f} s (stream closed), repair "
+            f"{t_done - t_seen:.3f} s; "
             f"the watchdog's rebuild {rec['seconds']} s (attempt "
             f"{rec['attempts']}), {rec['detail'].get('mode')!r} "
             f"on {rec['detail'].get('rebuilder')}; kernel launches "
@@ -5302,7 +5328,8 @@ def phase_secure(card: str) -> dict:
             f"{vsnap['fsyncs']} fsyncs, "
             f"{vsnap['commits'] / vsnap['fsyncs']:.2f} writes per fsync "
             f"({acked_at_snap} acked by then); detection "
-            f"{t_seen - t_kill:.3f} s, repair {t_done - t_seen:.3f} s, the "
+            f"{t_seen - t_kill:.3f} s (stream closed), repair "
+            f"{t_done - t_seen:.3f} s, the "
             f"watchdog's rebuild of {lost_sids} {rec['seconds']} s "
             f"({rec['detail'].get('mode')!r} on "
             f"{rec['detail'].get('rebuilder')}); kernel launches "
@@ -10630,6 +10657,383 @@ def phase_images(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 24: the heartbeat stream at the default pulse: a SIGKILLed
+# volume process dropped when its stream closes, rebuilt by the watchdog
+# ----------------------------------------------------------------------
+STREAM_SERVERS = 4               # CLI volume processes
+STREAM_GRACE = 3.0               # -repair.grace: clear of ec.encode's
+#                                  partial mounts (Queue 3 item 4; the
+#                                  encode took 1.1 s on the card)
+STREAM_INTERVAL = 1.0            # -repair.interval
+STREAM_WRITES = (1 << 10, 16 << 10)  # the writer's needles, log-uniform
+STREAM_THREADS = 8
+STREAM_DEADLINE = 60.0           # longest wait for a process or a repair
+
+
+def phase_stream(card: str) -> dict:
+    """Phase 24: a CLI master at SeaweedFS's 5 s default pulse with the
+    watchdog's repairs on and four CLI volume processes on "cuda" (on
+    the Python data plane: the native front's two blocking relay workers
+    stall concurrent degraded reads across processes); a
+    256 MiB volume filled over HTTP and sealed through the kernel; a
+    writer assigning into another collection while the server holding
+    the fewest shards is SIGKILLed. -> kernel launches by step and the
+    phase's numbers."""
+    import signal
+    import socket
+
+    from seaweedfs_tpu_torch.operation import verbs
+    from seaweedfs_tpu_torch.rpc.httpclient import session
+    from seaweedfs_tpu_torch.server.cluster import free_ports
+    from seaweedfs_tpu_torch.shell import repl
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+
+    t_phase = time.perf_counter()
+    on_card = card != "cpu"
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else None
+    tmp = tempfile.mkdtemp(prefix="ec-smoke24-")
+    out: dict = {}
+    walls: dict[str, float] = {}
+    env = None
+    procs: dict[str, subprocess.Popen] = {}
+    logs: dict[str, str] = {}
+    stop_writer = threading.Event()
+    writer = None
+    try:
+        # 24a. the processes, spawned together (a volume server retries
+        # its stream until the master listens): the master with no
+        # -pulseSeconds
+        t0 = time.perf_counter()
+        mport, *vports = free_ports(1 + STREAM_SERVERS)
+        murl = f"http://127.0.0.1:{mport}"
+        logs["master"] = os.path.join(tmp, "master.log")
+        procs["master"] = _spawn(
+            ["master", "-ip", "127.0.0.1", "-port", str(mport),
+             "-repair.enabled", "-repair.interval", str(STREAM_INTERVAL),
+             "-repair.grace", str(STREAM_GRACE)], logs["master"])
+        env = CommandEnv(murl)
+        dirs: dict[str, str] = {}
+        for port in vports:
+            url = f"127.0.0.1:{port}"
+            dirs[url] = os.path.join(tmp, f"v{port}")
+            os.makedirs(dirs[url])
+            logs[url] = os.path.join(tmp, f"v{port}.log")
+            procs[url] = _spawn(
+                ["volume", "-ip", "127.0.0.1", "-port", str(port),
+                 "-dir", dirs[url], "-max", "8", "-mserver",
+                 f"127.0.0.1:{mport}", "-dataplane", "python",
+                 "-ec.backend", "cuda" if on_card else "native"],
+                logs[url], card=on_card)
+
+        def warm_master() -> None:
+            # the master's first /cluster/status imports the mesh module
+            # (torch, 13 s on a slow host): paid beside the volume
+            # processes' start and the fill, not inside ec.encode (whose
+            # shell reads /cluster/status) or the detection
+            end = time.monotonic() + STREAM_DEADLINE
+            while time.monotonic() < end:
+                try:
+                    socket.create_connection(("127.0.0.1", mport),
+                                             1).close()
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            _get_json(f"{murl}/cluster/status", timeout=STREAM_DEADLINE)
+
+        warm = threading.Thread(target=warm_master, name="smoke24-warm",
+                                daemon=True)
+        warm.start()
+
+        def listening() -> bool:
+            for url, pr in procs.items():
+                if pr.poll() is not None:
+                    fail(f"24a: the {url} process exited: "
+                         f"{_tail(logs[url])}")
+            try:
+                for port in (mport, *vports):
+                    socket.create_connection(("127.0.0.1", port),
+                                             1).close()
+                return True
+            except OSError:
+                return False
+
+        _poll(listening, STREAM_DEADLINE, "24a: the processes listening")
+        t_listen = time.perf_counter() - t0
+
+        def registered() -> set[str]:
+            # /dir/status, not /cluster/status: the latter's first call
+            # imports the mesh module (torch) in the master process
+            topo = env.master_get("/dir/status")["Topology"]
+            return {n["url"] for dc in topo["datacenters"]
+                    for rk in dc["racks"] for n in rk["nodes"]}
+
+        _poll(lambda: registered() == set(dirs), STREAM_DEADLINE,
+              "24a: every volume process registered")
+        wd = env.master_get("/debug/repair")
+        walls["a"] = time.perf_counter() - t0
+        log(f"[24a] {card}; `master` with no -pulseSeconds (5.0 s, "
+            f"SeaweedFS's default), -repair.enabled -repair.interval "
+            f"{STREAM_INTERVAL} -repair.grace {STREAM_GRACE}; "
+            f"{STREAM_SERVERS} `volume -dataplane python -ec.backend "
+            f"{'cuda' if on_card else 'native'}` processes: all listening "
+            f"{t_listen:.3f} s after the spawn, each on one heartbeat "
+            f"stream and registered {walls['a']:.3f} s after it; "
+            f"watchdog enabled {wd['enabled']}, grace {wd['grace']}")
+
+        # 24b. 256 MiB over HTTP into one volume, sealed by ec.encode
+        t0 = time.perf_counter()
+        g = env.master_get("/vol/grow", collection="s24", count=1)
+        if g.get("count") != 1:
+            fail(f"24b: /vol/grow of s24: {g}")
+        rng = np.random.default_rng([SEED, 24])
+        sizes, total = [], 0
+        while total < HTTP_FILL_BYTES:
+            sizes.append(int(np.exp(rng.uniform(np.log(1 << 10),
+                                                np.log(1 << 20)))))
+            total += sizes[-1]
+        fids: list[str] = []
+        while len(fids) < len(sizes):
+            a = verbs.assign(murl, collection="s24",
+                             count=FILL_ASSIGN_BATCH)
+            fids += [a.fid] + [f"{a.fid}_{i}" for i in range(1, a.count)]
+            if int(a.fid.split(",")[0]) != int(fids[0].split(",")[0]):
+                fail(f"24b: the assigns left one volume: {a.fid}")
+        vid = int(fids[0].split(",")[0])
+        home = env.volume_locations(vid)[0]
+        seeds = rng.integers(0, 1 << 62, len(sizes))
+        live: dict[str, str] = {}
+
+        def put(i: int) -> int:
+            data = np.random.default_rng(int(seeds[i])).bytes(sizes[i])
+            verbs.upload(f"http://{home}/{fids[i]}", data)
+            live[fids[i]] = hashlib.sha256(data).hexdigest()
+            return len(data)
+
+        t1 = time.perf_counter()
+        filled = sum(_pool_map(put, range(len(sizes)),
+                               threads=STREAM_THREADS))
+        t_fill = time.perf_counter() - t1
+        st = _get_json(f"http://{home}/status", timeout=30)
+        dat = next(v["size"] for v in st["volumes"] if v["id"] == vid)
+        before = {u: _tools_metrics(u)["launches"] for u in dirs}
+        warm.join(timeout=STREAM_DEADLINE)
+        repl.run_command(env, "lock")
+        t1 = time.perf_counter()
+        repl.run_command(env, f"ec.encode -volumeId={vid}")
+        t_encode = time.perf_counter() - t1
+        repl.run_command(env, "unlock")
+        after = {u: _tools_metrics(u)["launches"] for u in dirs}
+        out["encode"] = sum(after.values()) - sum(before.values())
+        want = _encode_launches(dat)
+        if on_card and out["encode"] != want:
+            fail(f"24b: ec.encode of a {dat} B .dat: {out['encode']} "
+                 f"launches, the size gives {want}")
+        locs = env.ec_shard_locations(vid)
+        if sorted(locs) != list(range(14)):
+            fail(f"24b: volume {vid} after ec.encode: {locs}")
+
+        def shard_path(url: str, sid: int) -> str:
+            return os.path.join(dirs[url], f"s24_{vid}.ec{sid:02d}")
+
+        sealed = {sid: sha256(shard_path(urls[0], sid))
+                  for sid, urls in locs.items()}
+        held = {u: sorted(s for s, urls in locs.items() if u in urls)
+                for u in dirs}
+        for url in dirs:
+            g = env.master_get("/vol/grow", collection="w24", count=1,
+                               dataNode=url)
+            if g.get("count") != 1:
+                fail(f"24b: /vol/grow of w24 on {url}: {g}")
+        if _repair_results(env, vid=vid):
+            fail(f"24b: the watchdog repaired volume {vid} during its "
+                 f"ec.encode")
+        walls["b"] = time.perf_counter() - t0
+        log(f"[24b] volume {vid}: {len(sizes)} needles of 1 KiB-1 MiB, "
+            f"{filled} B on {STREAM_THREADS} threads in {t_fill:.3f} s "
+            f"({filled / t_fill / 1e6:.1f} MB/s), .dat {dat} B; ec.encode "
+            f"{t_encode:.3f} s, {out['encode']} launches (/metrics; the "
+            f"size gives {want}); shards by server "
+            f"{ {u: len(s) for u, s in held.items()} }; no repair during "
+            f"the seal; a w24 volume grown on each server; "
+            f"{walls['b']:.3f} s")
+
+        # 24c. a writer assigning into w24; SIGKILL the fewest-shard server
+        t0 = time.perf_counter()
+        victim = min(held, key=lambda u: (len(held[u]), u))
+        assigns: list[tuple[float, str, bool]] = []
+        acked: dict[str, tuple[str, bytes]] = {}
+        wrng = np.random.default_rng([SEED, 24, 1])
+        lo, hi = np.log(STREAM_WRITES[0]), np.log(STREAM_WRITES[1])
+
+        def write_loop() -> None:
+            while not stop_writer.is_set():
+                data = wrng.bytes(int(np.exp(wrng.uniform(lo, hi))))
+                t_a = time.monotonic()
+                try:
+                    a = verbs.assign(murl, collection="w24")
+                except Exception as e:  # noqa: BLE001 — recorded below
+                    assigns.append((t_a, f"error: {e}", False))
+                    continue
+                try:
+                    verbs.upload(f"http://{a.url}/{a.fid}", data)
+                    acked[a.fid] = (a.url, data)
+                    assigns.append((t_a, a.url, True))
+                except Exception:  # noqa: BLE001 — counted as failed
+                    assigns.append((t_a, a.url, False))
+
+        writer = threading.Thread(target=write_loop, name="smoke24-writer",
+                                  daemon=True)
+        writer.start()
+        _poll(lambda: sum(1 for x in assigns if x[1] == victim) >= 8,
+              STREAM_DEADLINE, "24c: the writer reaching every server")
+        _repair_results(env)
+        rebuild_before = {u: _tools_metrics(u)["launches"]
+                          for u in dirs if u != victim}
+        since = time.time()
+        seen: dict[str, float] = {}
+
+        def reap() -> None:
+            procs[victim].wait()
+            seen["reaped"] = time.monotonic() - k0
+
+        k0 = time.monotonic()
+        os.kill(procs[victim].pid, signal.SIGKILL)
+        reaper = threading.Thread(target=reap, name="smoke24-reap",
+                                  daemon=True)
+        reaper.start()
+
+        def detected() -> bool:
+            if "lookup" not in seen:
+                urls = env.volume_locations(vid)
+                if urls and victim not in urls:
+                    seen["lookup"] = time.monotonic() - k0
+            if "under" not in seen:
+                up = env.master_get("/debug/repair")["under_parity"]
+                if any(e["volume"] == vid for e in up):
+                    seen["under"] = time.monotonic() - k0
+            return "lookup" in seen and "under" in seen
+
+        _poll(detected, STREAM_DEADLINE, "24c: the master dropping "
+              f"{victim}", step=0.005)
+        t_detect = k0 + seen["lookup"]
+        reaper.join(timeout=15)
+        rec = _poll(lambda: next(iter(_repair_results(
+            env, since=since, vid=vid, kind="ec")), None),
+            STREAM_DEADLINE, f"24c: the watchdog's rebuild of {vid}")
+        t_repaired = time.monotonic() - k0
+        stop_writer.set()
+        writer.join(timeout=30)
+        before_det = [x for x in assigns if k0 <= x[0] < t_detect]
+        after_det = [x for x in assigns if x[0] >= t_detect]
+        named_before = sum(1 for x in before_det if x[1] == victim)
+        named_after = sum(1 for x in after_det if x[1] == victim)
+        if named_after:
+            fail(f"24c: {named_after} of {len(after_det)} assigns after "
+                 f"the detection named the dead {victim}")
+        if on_card and seen["lookup"] >= 1.0:
+            fail(f"24c: detection took {seen['lookup']:.3f} s at the 5 s "
+                 f"pulse")
+        walls["c"] = time.perf_counter() - t0
+        log(f"[24c] SIGKILLed {victim} (shards {held[victim]}, the "
+            f"fewest): detection (stream closed) {seen['lookup']:.3f} s "
+            f"to /dir/lookup dropping it, {seen['under']:.3f} s to "
+            f"UnderParity listing volume {vid} (the 5-pulse reaper: up to "
+            f"25 s); the killed process reaped {seen['reaped']:.3f} s "
+            f"after the kill (its sockets close as it exits); assigns "
+            f"naming it {named_before} of "
+            f"{len(before_det)} between the kill and the detection, "
+            f"{named_after} of {len(after_det)} after it; the watchdog's "
+            f"rebuild done {t_repaired:.3f} s after the kill (grace "
+            f"{STREAM_GRACE} s): mode {rec['detail'].get('mode')!r}, "
+            f"rebuilt {rec['detail'].get('rebuilt')} on "
+            f"{rec['detail'].get('rebuilder')}, {rec['seconds']} s; "
+            f"{walls['c']:.3f} s")
+
+        # 24d. launches, shards and every live needle
+        t0 = time.perf_counter()
+        out["rebuild"] = sum(_tools_metrics(u)["launches"] - n
+                             for u, n in rebuild_before.items())
+        if on_card and out["rebuild"] <= 0:
+            fail(f"24d: the watchdog's rebuild made {out['rebuild']} "
+                 f"launches")
+        locs = _poll(lambda: (lambda m: m if sorted(m) == list(range(14))
+                              else None)(env.ec_shard_locations(vid)),
+                     STREAM_DEADLINE, "24d: 14 live shards")
+        bad = [sid for sid, urls in locs.items()
+               if sha256(shard_path(urls[0], sid)) != sealed[sid]]
+        if bad or any(victim in urls for urls in locs.values()):
+            fail(f"24d: shards {bad} differ from the sealed ones, or the "
+                 f"dead server is listed: {locs}")
+        readers = sorted({u for urls in locs.values() for u in urls})
+
+        def check(item: tuple[int, str]) -> int:
+            i, fid = item
+            r = session().get(f"http://{readers[i % len(readers)]}/{fid}",
+                              timeout=60)
+            if r.status_code != 200 or \
+                    hashlib.sha256(r.content).hexdigest() != live[fid]:
+                fail(f"24d: {fid} reads {r.status_code}, "
+                     f"{len(r.content)} B, not the written bytes "
+                     f"({r.content[:200]!r})")
+            return len(r.content)
+
+        t1 = time.perf_counter()
+        nb = sum(_pool_map(check, list(enumerate(sorted(live))),
+                           threads=STREAM_THREADS))
+        t_read = time.perf_counter() - t1
+        kept = {f: v for f, v in acked.items() if v[0] != victim}
+
+        def check_kept(fid: str) -> None:
+            url, data = kept[fid]
+            r = session().get(f"http://{url}/{fid}", timeout=30)
+            if r.status_code != 200 or r.content != data:
+                fail(f"24d: the writer's {fid} on {url} reads "
+                     f"{r.status_code}, not its bytes")
+
+        _pool_map(check_kept, sorted(kept), threads=STREAM_THREADS)
+        walls["d"] = time.perf_counter() - t0
+        log(f"[24d] rebuild launches {out['rebuild']} (the survivors' "
+            f"/metrics); 14 shards listed, none on the dead server, "
+            f"sha256-equal to the sealed ones; {len(live)} live needles of "
+            f"volume {vid} read back byte-equal from {len(readers)} "
+            f"servers in {t_read:.3f} s ({nb / t_read / 1e6:.1f} MB/s); "
+            f"the writer's {len(kept)} acked needles on live servers "
+            f"equal ({len(acked) - len(kept)} acked on {victim} went with "
+            f"it, unreplicated); {walls['d']:.3f} s")
+        wall = time.perf_counter() - t_phase
+        now_dev = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else None)
+        if now_dev != cur:
+            fail(f"phase 24 moved the current device from {cur} to "
+                 f"{now_dev}")
+        log(f"[24] phase 24 took {wall:.3f} s "
+            f"({ {k: round(v, 3) for k, v in walls.items()} }); kernel "
+            f"launches { {k: out[k] for k in ('encode', 'rebuild')} }; "
+            f"{card}")
+        out["detection_s"] = {k: round(seen[k], 6)
+                              for k in ("lookup", "under", "reaped")}
+        out["assigns_to_dead"] = {"before": named_before,
+                                  "after": named_after}
+        return out
+    finally:
+        stop_writer.set()
+        if writer is not None:
+            writer.join(timeout=30)
+        if env is not None:
+            env.close()
+        for p_ in procs.values():
+            if p_.poll() is None:
+                p_.terminate()
+        for p_ in procs.values():
+            try:
+                p_.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p_.kill()
+                p_.wait(timeout=15)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -10675,7 +11079,8 @@ def main() -> int:
     gateways = timed(21, phase_gateways, card)
     mounted = timed(22, phase_mount, card)
     pictures = timed(23, phase_images, card)
-    log(f"[walls] seconds by phase {walls}; phases 1-23 "
+    stream = timed(24, phase_stream, card)
+    log(f"[walls] seconds by phase {walls}; phases 1-24 "
         f"{time.perf_counter() - t_start:.3f} s")
     ms, plain_ms, bound_ms = timings["encode m=4"]
     rs28_ms, rs28_plain_ms, rs28_bound_ms = timings["encode k=28 m=4"]
@@ -10760,6 +11165,11 @@ def main() -> int:
         "images_idle_share": pictures["idle_share"],
         "images_renditions": pictures["renditions"],
         "analysis": pictures["analysis"],
+        "stream_launches": stream["encode"] + stream["rebuild"],
+        "stream_launches_by_step": {k: stream[k]
+                                    for k in ("encode", "rebuild")},
+        "stream_detection_s": stream["detection_s"],
+        "stream_assigns_to_dead": stream["assigns_to_dead"],
     }]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -530,8 +530,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "snowflake)")
     p.add_argument("-pulseSeconds", dest="pulse_seconds", type=float,
                    default=5.0,
-                   help="seconds between the volume servers' heartbeats; "
-                        "a server silent for 5 pulses is unregistered")
+                   help="the master's pulse, sent in each heartbeat "
+                        "reply (a volume server beats at the shorter of "
+                        "it and its own); members live 3 pulses and a "
+                        "fresh leader holds repairs for 5. The "
+                        "reference has no pulse flag")
     _add_master_flags(p)
     _add_tier_flags(p)
     p.add_argument("-master.traceStore", dest="trace_store_size",

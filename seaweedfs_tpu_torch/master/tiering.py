@@ -31,7 +31,7 @@ shell verbs over HTTP against this master, under the cluster admin lock
 
 A controller that just started, or whose master just took raft
 leadership, tracks wants at once but queues no transition of its own
-for one reaper window (5 pulses; the watchdog's repair hold,
+for 5 pulses (REAP_PULSES; the watchdog's repair hold,
 master/watchdog.py): its topology fills one heartbeat at a time. A
 resumed offload run then would skip the holders not yet registered and
 still record the volume remote; a seal would leave a replica that has
@@ -261,7 +261,7 @@ class TieringController:
 
     def transition_hold(self) -> float:
         """Seconds before this controller may queue transitions of its
-        own: one reaper window after it started, and the watchdog's
+        own: REAP_PULSES pulses after it started, and the watchdog's
         repair hold after its master took raft leadership."""
         window = REAP_PULSES * self.master.topo.pulse_seconds
         fresh = self._started_at + window - time.monotonic() \

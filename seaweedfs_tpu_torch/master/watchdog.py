@@ -24,10 +24,10 @@ and shows empty deficit sets (as the reference, :225-230). A fresh
 leader's topology fills one heartbeat at a time, so an EC volume whose
 servers have only partly re-registered looks like it is missing shards
 that are not lost. The reference drives repairs as soon as it leads;
-here a leader tracks deficits at once but queues no repair until a
-full reaper window (REAP_PULSES pulses) has passed since it took
-leadership: by then every live server has heartbeated, and a silent one
-is one the reaper would unregister anyway. That holds after a partition
+here a leader tracks deficits at once but queues no repair until
+REAP_PULSES pulses have passed since it took leadership: by then every
+live server has opened its heartbeat stream to it and reported, and one
+that has not is one whose stream is gone. That holds after a partition
 too: an old leader cut off from the other masters steps down within an
 election window (raft.py's check-quorum) and refuses heartbeats, so its
 servers re-home here.
@@ -52,8 +52,8 @@ from ..utils import retry as _retry
 
 # how long stop() waits for each thread
 JOIN_TIMEOUT = 10.0
-# silent pulses before the master unregisters a volume server
-# (Topology.dead_nodes), and so a fresh leader's repair hold
+# pulses a fresh leader holds repairs while the volume servers open
+# their heartbeat streams to it (Topology.dead_nodes' silence window)
 REAP_PULSES = 5.0
 
 
@@ -273,7 +273,7 @@ class RedundancyWatchdog:
 
     def repair_hold(self) -> float:
         """Seconds before a fresh raft leader may queue repairs (0 on a
-        single master or a leader past its first reaper window)."""
+        single master or a leader past its first REAP_PULSES pulses)."""
         raft = self.master.raft
         if raft is None:
             return 0.0

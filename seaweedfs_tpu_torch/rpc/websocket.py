@@ -1,5 +1,6 @@
 """A small RFC 6455 websocket server side and client on the standard
-library, for the master's KeepConnected stream (/ws/keepconnected).
+library, for the master's streams: the volume servers' heartbeat
+(/ws/heartbeat) and KeepConnected (/ws/keepconnected).
 
 The reference serves and consumes its streams with aiohttp's
 websockets. The port keeps the wire format — text frames of JSON, ping
@@ -13,6 +14,14 @@ messages are joined. A server's frames go unmasked, a client's masked
 its own; the client takes `wss://` (and `https://`, as the reference
 maps an https master to wss, wdclient/client.py:180) through the HTTP
 client's verifying context (rpc/httpclient.client_context).
+
+Liveness: `receive(timeout=...)` waits for a message until a deadline
+on a client socket whose own read timeout is longer (a server side's
+reads go through a buffered file, which a timeout would spoil), and
+`keepalive(interval)` is the server side's ping timer, aiohttp's
+`WebSocketResponse(heartbeat=interval)`: a ping once the peer has sent
+no frame for `interval` seconds, and the stream aborted when half an
+interval more passes without one.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import os
 import socket
 import struct
 import threading
+import time
 from typing import Any, Callable
 from urllib.parse import urlsplit
 
@@ -57,6 +67,9 @@ class WebSocket:
         self._client = client
         self._send_lock = threading.Lock()
         self.closed = False
+        self._ended = threading.Event()
+        # when the peer's last frame arrived (keepalive reads it)
+        self.last_frame_at = time.monotonic()
 
     # -- sending ---------------------------------------------------------
     def _send_frame(self, opcode: int, payload: bytes) -> None:
@@ -115,6 +128,7 @@ class WebSocket:
         a peer that stopped reading fails at once, and so does a
         blocked receive."""
         self.closed = True
+        self._ended.set()
         try:
             self.sock.shutdown(socket.SHUT_RDWR)
         except OSError:
@@ -152,29 +166,51 @@ class WebSocket:
             payload = _mask(payload, mask)
         return bool(b0 & 0x80), b0 & 0x0F, payload
 
-    def _read_frame(self) -> tuple[bool, int, bytes]:
+    def _read_frame(self, deadline: float | None) -> tuple[bool, int, bytes]:
         while True:
             frame = self._parse()
             if frame is not None:
+                self.last_frame_at = time.monotonic()
                 return frame
+            if deadline is not None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise socket.timeout("no message before the deadline")
+                self.sock.settimeout(left)
             more = self._fill()    # a socket timeout leaves buf whole
             if not more:
                 raise WebSocketError("connection closed")
             self._buf += more
 
-    def receive(self) -> str | bytes | None:
+    def receive(self, timeout: float | None = None) -> str | bytes | None:
         """The next data message (str for text, bytes for binary), or
         None once the stream ended. Pings are answered here. A socket
-        timeout propagates (socket.timeout) with the stream intact."""
+        timeout propagates (socket.timeout) with the stream intact; with
+        `timeout` (a client socket only) so does a deadline `timeout`
+        seconds from now that passes before a whole message, and the
+        socket's own timeout is restored after."""
+        if timeout is None:
+            return self._receive(None)
+        own = self.sock.gettimeout()
+        try:
+            return self._receive(time.monotonic() + timeout)
+        finally:
+            try:
+                self.sock.settimeout(own)
+            except OSError:
+                pass
+
+    def _receive(self, deadline: float | None) -> str | bytes | None:
         parts: list[bytes] = []
         kind = None
         while True:
             try:
-                fin, op, payload = self._read_frame()
+                fin, op, payload = self._read_frame(deadline)
             except socket.timeout:
                 raise
             except (WebSocketError, OSError, ValueError):
                 self.closed = True
+                self._ended.set()
                 return None
             if op == PING:
                 try:
@@ -197,6 +233,35 @@ class WebSocket:
             if fin:
                 data = b"".join(parts)
                 return data.decode() if kind == TEXT else data
+
+    def keepalive(self, interval: float) -> threading.Thread:
+        """Ping the peer once it has sent no frame for `interval`
+        seconds, and abort the stream (a blocked receive then returns
+        None) when another interval / 2 passes without one: aiohttp's
+        `heartbeat=interval`. -> the timer's thread, which ends with the
+        stream."""
+        def run() -> None:
+            while not self._ended.is_set():
+                idle = time.monotonic() - self.last_frame_at
+                if idle < interval:
+                    self._ended.wait(interval - idle)
+                    continue
+                pinged = time.monotonic()
+                try:
+                    self.ping()
+                except OSError:
+                    self.abort()
+                    return
+                if self._ended.wait(interval / 2):
+                    return
+                if self.last_frame_at < pinged:
+                    self.abort()
+                    return
+
+        th = threading.Thread(target=run, name="websocket-keepalive",
+                              daemon=True)
+        th.start()
+        return th
 
 
 def _mask(data: bytes, mask: bytes) -> bytes:

@@ -9,21 +9,23 @@ heartbeat (SendHeartbeat, master_grpc_server.go:61), KeepConnected
 (/ws/keepconnected, :250-330), and the status and EC-registry views the
 shell reads.
 
-The heartbeat: the reference keeps one websocket per volume server and
-unregisters the server when the stream drops. Here every pulse is one
-`POST /heartbeat` carrying the same JSON the websocket carried, and the
-reply carries what the master sent back on the stream. A server that
-stays silent for `Topology.dead_nodes`' timeout (5 pulses) is
-unregistered by the reaper thread, in place of the disconnect.
-KeepConnected is a websocket (rpc/websocket.py): a full location and
-EC-shard snapshot on connect, then deltas on every heartbeat, grow and
-unregistration.
+The heartbeat is the reference's stream: each volume server holds one
+websocket to /ws/heartbeat (rpc/websocket.py) and sends its full report
+on it every pulse, or at once when poked; the master answers each with
+the volume size limit and its pulse. The server is unregistered the
+moment its stream ends, however it ends: a close, a process that died
+(its socket closes with it), `stop()`, or no pong to the ping sent
+after 30 s of silence (the reference's `WebSocketResponse(heartbeat=30)`).
+Where a server reconnects before its old stream's end is seen, only the
+stream that last reported for the node unregisters it. KeepConnected
+is a websocket too: a full location and EC-shard snapshot on connect,
+then deltas on every heartbeat, grow and unregistration.
 
 HA: with `peers`, the masters run raft (master/raft.py) on threads and
 the leader alone owns the topology. A follower answers the mutating and
 topology routes with a 307 to the leader (503 while none is elected),
-refuses a heartbeat with a reply that names the leader (the reference
-drops the websocket), and answers KeepConnected with `{"leader": ...}`.
+ends a heartbeat stream at its first report (the volume server then
+finds the leader), and answers KeepConnected with `{"leader": ...}`.
 /vol/grow takes a raft barrier and commits the new max volume id before
 handing it out; the vacuum switch is committed through the log, so
 every master reports it and it survives a failover. `peers` forces the
@@ -38,9 +40,9 @@ startAdminScripts). The timer and the watchdog's repairs take the
 admin lock through a live filer's DLM (`live_filer_url`, from the
 filers' membership announces), so they serialize against operator
 shells; without a filer the lock is process-local. Only the raft
-leader reaps silent servers, runs the admin scripts and drives repairs,
-and a fresh leader holds repairs for one reaper window (5 pulses)
-while the volume servers re-register (watchdog.py).
+leader runs the admin scripts and drives repairs, and a fresh leader
+holds repairs for 5 pulses while the volume servers re-register
+(watchdog.py).
 
 The tiering controller (master/tiering.py) moves volumes through hot →
 ec → remote → hot: heat bookkeeping always, transitions with
@@ -64,9 +66,10 @@ own spans through a tracing sink, and serves the stitched traces at
 aggregator (master/workload.py) ingests the heartbeats' sketches and
 serves the distributions and advisors at /debug/workload (POST sets an
 operator override). /cluster/status folds the breakers, the workload
-and the collector's pushers. A heartbeat is one POST per pulse here
-where the reference keeps a stream, so /heartbeat records no span (the
-reference's one span per stream ends only when the stream does).
+and the collector's pushers. /ws/heartbeat records no span: the
+reference's one span per stream lasts as long as the stream, and a
+middleware's span here would end at the 101. `/` is the reference's
+HTML page of the topology.
 
 With `jwt_secret` (`-jwt.secret`) /dir/assign signs each fid it hands
 out (utils/security.Guard, jwt.go:30): the reply's `auth` is an HS256
@@ -107,11 +110,15 @@ GROW_TIMEOUT = (5.0, 60.0)
 # KeepConnected messages one subscriber may have waiting; one that falls
 # this far behind is dropped, and reconnects for a fresh snapshot
 KEEPCONNECTED_BACKLOG = 256
+# seconds of a heartbeat stream's silence before the master pings it;
+# with no pong in half as long again the stream is dropped (the
+# reference's WebSocketResponse(heartbeat=30))
+HEARTBEAT_KEEPALIVE = 30.0
 
 
 class _Subscriber:
     """One KeepConnected stream. Broadcasts only queue here, so the
-    heartbeat, grow and reaper threads never write to a socket; the
+    heartbeat and grow threads never write to a socket; the
     connection's own thread writes the queue out. A subscriber that
     stops reading blocks only that thread, and once its backlog is full
     its socket is shut down, which ends that write too."""
@@ -216,7 +223,12 @@ class MasterServer:
         self._clients_lock = threading.Lock()
         self._grow_lock = threading.Lock()
         self._stop = threading.Event()
-        self._reaper: threading.Thread | None = None
+        self._stepdown: threading.Thread | None = None
+        # open heartbeat streams -> the thread serving each, and each
+        # node's newest stream (only that one unregisters the node)
+        self._hb_streams: dict[WebSocket, threading.Thread] = {}
+        self._hb_owner: dict[str, WebSocket] = {}
+        self._hb_lock = threading.Lock()
         # periodic maintenance scripts: shell command lines run on a
         # timer, e.g. ["volume.vacuum", "volume.fix.replication"].
         # admin_scripts_url is this master's own HTTP address, set by
@@ -305,7 +317,8 @@ class MasterServer:
         app.post("/cluster/announce", self.handle_cluster_announce)
         app.get("/cluster/nodes", self.handle_cluster_nodes)
         app.get("/cluster/ec_shards", self.handle_ec_shards)
-        app.post("/heartbeat", self.handle_heartbeat)
+        app.get("/ws/heartbeat", self.handle_heartbeat_ws)
+        app.get("/", self.handle_ui)
         for method in ("GET", "POST"):
             app.route(method, "/vol/vacuum", self.handle_vacuum_now)
         app.post("/vol/vacuum/disable", self.handle_vacuum_toggle)
@@ -375,8 +388,8 @@ class MasterServer:
         return json_ok({"peers": self.raft.peers})
 
     # ------------------------------------------------------------------
-    # liveness: unregister servers whose heartbeats stopped; the
-    # watchdog and the admin-scripts timer
+    # lifecycle: the step-down watch, the watchdog and the
+    # admin-scripts timer
     # ------------------------------------------------------------------
     def start(self) -> None:
         self._stop.clear()
@@ -386,9 +399,10 @@ class MasterServer:
             # leader's heartbeats and depose it. Pay it before joining.
             _ec_router_snapshot()
             self.raft.start()
-        self._reaper = threading.Thread(target=self._reap_loop,
-                                        name="master-reaper", daemon=True)
-        self._reaper.start()
+        self._stepdown = threading.Thread(target=self._stepdown_loop,
+                                          name="master-stepdown",
+                                          daemon=True)
+        self._stepdown.start()
         self.watchdog.start()
         self.tiering.start()
         tracing.add_sink(self._local_span_sink)
@@ -430,35 +444,21 @@ class MasterServer:
                 th.join(timeout=JOIN_TIMEOUT)
         self._fed_thread = self._otlp_thread = None
         self._stop.set()
-        if self._reaper is not None:
-            self._reaper.join(timeout=10)
-            self._reaper = None
+        if self._stepdown is not None:
+            self._stepdown.join(timeout=10)
+            self._stepdown = None
         if self.raft is not None:
             self.raft.stop()
         self._close_clients()
+        self._end_heartbeat_streams()
 
-    def _reap_loop(self) -> None:
-        """Every pulse: the leader unregisters silent servers; a master
-        that is not the leader ends its KeepConnected streams, whose
-        clients then find the leader."""
+    def _stepdown_loop(self) -> None:
+        """Every pulse, a master that is not the leader ends its
+        KeepConnected streams, whose clients then find the leader (its
+        heartbeat streams end at their next report)."""
         while not self._stop.wait(self.pulse_seconds):
-            if self.is_leader():
-                self.reap_dead_nodes()
-            else:
+            if not self.is_leader():
                 self._close_clients()
-
-    def reap_dead_nodes(self) -> list[str]:
-        dead = self.topo.dead_nodes()
-        for node_id in dead:
-            glog.warning("volume server %s silent for 5 pulses: "
-                         "unregistered", node_id)
-            self.topo.unregister_data_node(node_id)
-            self.workload.forget(node_id)
-        if dead:
-            self.watchdog.poke()
-            self.tiering.poke()
-            self._broadcast_all_locations()
-        return dead
 
     def live_filer_url(self) -> str:
         """A live filer's url from the membership announces, or "" (the
@@ -652,18 +652,51 @@ class MasterServer:
             return vid
 
     # ------------------------------------------------------------------
-    # heartbeat (master_grpc_server.go:61 SendHeartbeat, one pulse)
+    # heartbeat (master_grpc_server.go:61 SendHeartbeat): one stream per
+    # volume server, unregistered when it ends
     # ------------------------------------------------------------------
-    def handle_heartbeat(self, req: Request) -> Response:
-        if not self.is_leader():
-            # only the leader owns topology: the reply names it, and the
-            # volume server heartbeats there (the reference drops the
-            # stream and the server finds the leader again)
-            return json_response({"error": "not the raft leader",
-                                  "leader": self.raft.leader() or ""},
-                                 status=503)
-        hb = req.json()
-        node_id = f"{hb['ip']}:{hb['port']}"
+    def handle_heartbeat_ws(self, req: Request) -> Response:
+        def serve(ws: WebSocket) -> None:
+            me = threading.current_thread()
+            with self._hb_lock:
+                if self._stop.is_set():
+                    return          # a stopping master takes no stream
+                self._hb_streams[ws] = me
+            me.name = "master-heartbeat-stream"
+            ws.keepalive(HEARTBEAT_KEEPALIVE)
+            node_id = None
+            try:
+                while True:
+                    data = ws.receive()
+                    if data is None:
+                        break
+                    if not isinstance(data, str):
+                        continue
+                    if not self.is_leader():
+                        # only the leader owns topology; dropping the
+                        # stream sends the volume server back to
+                        # _find_leader
+                        break
+                    hb = json.loads(data)
+                    node_id = f"{hb['ip']}:{hb['port']}"
+                    with self._hb_lock:
+                        self._hb_owner[node_id] = ws
+                    node = self._ingest_heartbeat(node_id, hb)
+                    ws.send_json({
+                        "volume_size_limit": self.topo.volume_size_limit,
+                        "pulse_seconds": self.pulse_seconds,
+                    })
+                    self._broadcast_node_update(node)
+            finally:
+                with self._hb_lock:
+                    self._hb_streams.pop(ws, None)
+                if node_id is not None:
+                    self._heartbeat_ended(node_id, ws)
+        return upgrade(req, serve)
+
+    def _ingest_heartbeat(self, node_id: str, hb: dict):
+        """Register the reporting node and sync what its report holds.
+        -> the node."""
         node = self.topo.register_node(
             node_id, hb["ip"], hb["port"],
             hb.get("public_url", node_id),
@@ -706,9 +739,32 @@ class MasterServer:
             self.workload.ingest(node_id, hb["workload"])
         self.watchdog.poke()
         self.tiering.poke()
-        self._broadcast_node_update(node)
-        return json_ok({"volume_size_limit": self.topo.volume_size_limit,
-                        "pulse_seconds": self.pulse_seconds})
+        return node
+
+    def _heartbeat_ended(self, node_id: str, ws: WebSocket) -> None:
+        """Unregister node_id as its stream `ws` ends, unless a newer
+        stream reports for it."""
+        with self._hb_lock:
+            if self._hb_owner.get(node_id) is not ws:
+                return
+            del self._hb_owner[node_id]
+        glog.v(1, "heartbeat stream of %s ended: unregistered", node_id)
+        self.topo.unregister_data_node(node_id)
+        self.workload.forget(node_id)
+        self.watchdog.poke()
+        self.tiering.poke()
+        self._broadcast_all_locations()
+
+    def _end_heartbeat_streams(self) -> None:
+        """Abort every heartbeat stream and wait for its thread, which
+        unregisters its node on the way out."""
+        with self._hb_lock:
+            streams = list(self._hb_streams.items())
+        for ws, _ in streams:
+            ws.abort()
+        for _, th in streams:
+            if th is not threading.current_thread():
+                th.join(timeout=JOIN_TIMEOUT)
 
     # ------------------------------------------------------------------
     # status / introspection
@@ -1235,6 +1291,19 @@ class MasterServer:
             subs, self._clients = list(self._clients), set()
         for sub in subs:
             sub.end()
+
+    def handle_ui(self, req: Request) -> Response:
+        """The status page (master_ui/templates.go): the node count,
+        the max volume id and the topology as JSON."""
+        topo = self.topo.to_dict()
+        n_nodes = sum(len(r["nodes"]) for dc in topo["datacenters"]
+                      for r in dc["racks"])
+        return text_response(
+            f"<html><body><h1>seaweedfs-tpu master</h1>"
+            f"<p>nodes: {n_nodes}, max volume id: "
+            f"{topo['max_volume_id']}</p>"
+            f"<pre>{json.dumps(topo, indent=2)}</pre></body></html>",
+            content_type="text/html; charset=utf-8")
 
 
 def _ec_router_snapshot() -> dict:

@@ -19,24 +19,24 @@ the reference's error middleware) and reaches the shell as a
 ShellError. A degraded GET reconstructs its interval on the CPU codec
 (Store._rs_for(interval=True)), the reference's routing.
 
-The heartbeat is a thread that POSTs the Store's full report to the
-master's /heartbeat every pulse, and at once when `poke_heartbeat`
-wakes it; network errors retry forever, as the reference's loop. The
-pulse is its own or the shorter one the master's reply names, since the
-master unregisters a server silent for 5 of its pulses (the reference's
-stream is never silent while it stays open). With
-several masters (`master_url` a comma list) it first asks them
-/cluster/leader for the raft leader (`_find_leader`, the reference's
-:401-416) and heartbeats there; a failed beat, or one a follower
-refuses (its reply names the leader), sends it to find the leader
-again. An admin route that changes what the master knows (volumes,
-mounted shards) replies once the leader has acknowledged the new
-report. The
-EC holder map that remote shard reads use comes from the master's
-/cluster/ec_shards through a MasterClient cache (EC_HOLDERS_TTL); a
-fan-out that comes back short reads the map again unless it is under
-EC_HOLDERS_RETRY_AGE old, in place of the reference's KeepConnected
-subscription.
+The heartbeat is the reference's stream: a thread holds one websocket
+to the leader's /ws/heartbeat (`wss://` for an https master) and sends
+the Store's full report on it every pulse, and at once when
+`poke_heartbeat` wakes it, waiting at most 4 pulses for each reply. The
+master unregisters the server the moment the stream ends, so `stop()`
+and `leave` close it, as a process that dies does. A closed stream or
+a reply that does not come sends the thread, after min(1 s, a pulse),
+back to /cluster/leader for the raft leader (`_find_leader`, the
+reference's :401-416) and a new stream: a follower ends a stream at its
+first report. Network errors retry forever, as the reference's loop.
+The pulse is its own or the shorter one the master's replies name (the
+reference's servers keep their own). An admin route that changes what
+the master knows (volumes, mounted shards) replies once the leader has
+acknowledged the new report. The EC holder map that remote shard
+reads use comes from the master's /cluster/ec_shards through a
+MasterClient cache (EC_HOLDERS_TTL); a fan-out that comes back short
+reads the map again unless it is under EC_HOLDERS_RETRY_AGE old, in
+place of the reference's KeepConnected subscription.
 
 A write or delete on a replicated volume fans out to the replicas the
 master lists (store_replicate.go:24) before it is acknowledged, and a
@@ -163,6 +163,7 @@ from ..ec.decoder import find_dat_size, write_dat_file, write_idx_from_ecx
 from ..rpc.http import (App, Request, Response, debug_index_factory,
                         file_response, json_response, server_middlewares,
                         text_response)
+from ..rpc import websocket
 from ..rpc.httpclient import RequestException, session
 from ..storage import backend
 from ..storage import needle as ndl
@@ -177,7 +178,7 @@ from ..utils import (compression, faults, glog, httprange, metrics,
 from ..utils.security import Guard
 from ..wdclient.client import MasterClient, find_leader
 
-# timeout of one heartbeat POST beyond the pulse it covers
+# timeout of a heartbeat stream's connect and of each send on it
 HEARTBEAT_TIMEOUT = 5.0
 # timeout of one ec/copy file pull (connect, read between pieces)
 COPY_TIMEOUT = (5.0, 120.0)
@@ -233,14 +234,6 @@ def first_form_part(body: bytes, content_type: str
     if headers.get("Content-Disposition"):
         filename = headers.get_filename("") or ""
     return body[data_start:end], filename, headers.get("Content-Type", "")
-
-
-def _named_leader(resp) -> str:
-    """The leader a follower's refusal names, or ""."""
-    try:
-        return str(resp.json().get("leader") or "")
-    except (ValueError, AttributeError):
-        return ""
 
 
 class InFlightLimiter:
@@ -349,6 +342,7 @@ class VolumeServer:
         self._hb_poked = 0
         self._hb_acked = 0
         self._hb_thread: threading.Thread | None = None
+        self._hb_ws: websocket.WebSocket | None = None
         self._mc = MasterClient(self.masters)
         # (vid, key) of big needles the paged read path cannot serve
         self._no_stream: set[tuple[int, int]] = set()
@@ -442,10 +436,10 @@ class VolumeServer:
         self._hb_thread.start()
 
     def stop(self) -> None:
-        """Stop heartbeating, drop the fetch pool, stop the native
-        front, close the store."""
-        self._stop.set()
-        self._hb_wake.set()
+        """Stop heartbeating (the stream's close tells the master at
+        once), drop the fetch pool, stop the native front, close the
+        store."""
+        self._stop_heartbeat()
         for attr in ("_hb_thread", "_peer_thread"):
             t = getattr(self, attr)
             if t is not None:
@@ -612,49 +606,64 @@ class VolumeServer:
             # ephemeral listen port not resolved yet (set by the
             # caller right after the server binds): don't register :0
             self._stop.wait(0.02)
-        timeout = (HEARTBEAT_TIMEOUT,
-                   HEARTBEAT_TIMEOUT + 4 * self.pulse_seconds)
-        self.master_url = self._find_leader()
-        redirected = False
         while not self._stop.is_set():
-            # cleared, and the generation read, BEFORE the report is
-            # taken: a poke that lands after this point sends another
-            # beat, none is lost
-            self._hb_wake.clear()
-            with self._hb_cond:
-                gen = self._hb_poked
+            self.master_url = self._find_leader()
             try:
-                resp = session().post(f"{self.master_url}/heartbeat",
-                                      json=self.heartbeat_payload(),
-                                      timeout=timeout)
-                if resp.status_code != 200:
-                    leader = _named_leader(resp)
-                    if leader and not redirected:
-                        # a follower refused the beat and named the
-                        # leader: go there at once (once in a row)
-                        self.master_url = f"http://{leader}"
-                        redirected = True
-                        continue
-                    raise RequestException(
-                        f"heartbeat: {resp.status_code} {resp.text}")
-                # beat at least as often as the master reaps: it
-                # unregisters a server silent for 5 of its pulses
-                pulse = resp.json().get("pulse_seconds")
-                if pulse:
-                    self.pulse_seconds = min(self.pulse_seconds, pulse)
+                self._heartbeat_stream()
+                # closed by the master (e.g. a follower refusing the
+                # stream while no leader exists): re-probe
+                glog.v(1, "heartbeat stream to %s closed; re-probing",
+                       self.master_url)
             except Exception as e:  # noqa: BLE001 — retry forever
                 glog.v(1, "heartbeat to %s failed: %s; retrying",
                        self.master_url, e)
-                self._stop.wait(min(1.0, self.pulse_seconds))
-                if not self._stop.is_set():
-                    self.master_url = self._find_leader()
-                redirected = False
-                continue
-            redirected = False
+            self._stop.wait(min(1.0, self.pulse_seconds))
+
+    def _heartbeat_stream(self) -> None:
+        """One stream to self.master_url: a report every pulse or poke,
+        each answered within 4 pulses. Returns when the master closes
+        it or the server stops; raises when the connect, a send or a
+        reply fails."""
+        ws = websocket.connect(f"{self.master_url}/ws/heartbeat",
+                               timeout=HEARTBEAT_TIMEOUT)
+        with self._hb_cond:
+            self._hb_ws = ws
+        try:
+            while not self._stop.is_set():
+                # cleared, and the generation read, BEFORE the report
+                # is taken: a poke that lands after this point sends
+                # another beat, none is lost
+                self._hb_wake.clear()
+                with self._hb_cond:
+                    gen = self._hb_poked
+                ws.send_json(self.heartbeat_payload())
+                data = ws.receive(timeout=4 * self.pulse_seconds)
+                if data is None:
+                    return
+                # beat at the master's pulse where it is shorter: what
+                # it shows of this server (volumes, heat, bucket fill)
+                # is then at most one of its pulses old
+                pulse = json.loads(data).get("pulse_seconds")
+                if pulse:
+                    self.pulse_seconds = min(self.pulse_seconds, pulse)
+                with self._hb_cond:
+                    self._hb_acked = max(self._hb_acked, gen)
+                    self._hb_cond.notify_all()
+                self._hb_wake.wait(self.pulse_seconds)
+        finally:
             with self._hb_cond:
-                self._hb_acked = max(self._hb_acked, gen)
-                self._hb_cond.notify_all()
-            self._hb_wake.wait(self.pulse_seconds)
+                self._hb_ws = None
+            ws.close()
+
+    def _stop_heartbeat(self) -> None:
+        """End the heartbeat loop and close its stream now."""
+        self._stop.set()
+        self._hb_wake.set()
+        with self._hb_cond:
+            ws = self._hb_ws
+            self._hb_cond.notify_all()
+        if ws is not None:
+            ws.close()
 
     def poke_heartbeat(self, wait: bool = False) -> None:
         """Send a heartbeat now. With `wait`, return once the master
@@ -1367,11 +1376,10 @@ class VolumeServer:
         return json_response({})
 
     def handle_leave(self, req: Request) -> Response:
-        """volume.server.leave (VolumeServerLeave): stop heartbeating so
-        the master drops this node; reads go on being served until the
-        server is shut down."""
-        self._stop.set()
-        self._hb_wake.set()
+        """volume.server.leave (VolumeServerLeave): end the heartbeat
+        stream, so the master drops this node; reads go on being served
+        until the server is shut down."""
+        self._stop_heartbeat()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10)
             self._hb_thread = None

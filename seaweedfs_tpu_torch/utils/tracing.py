@@ -299,12 +299,12 @@ def traces_json(limit: int = 20) -> list[dict]:
 
 # -- server glue (rpc/http.App) ------------------------------------------
 
-# /heartbeat: the port's pulse is one POST where the reference keeps a
-# stream whose one span ends with it; a span per pulse would crowd the
-# collector's store
+# /ws/heartbeat: the reference's one span per stream lasts as long as
+# the stream; here the handler returns at the 101, so its span would
+# time the handshake only. No span is made for the stream or its pulses
 _SKIP_PATHS = {"/metrics", "/status", "/healthz", "/debug/traces",
                "/cluster/traces", "/cluster/traces/push",
-               "/cluster/metrics", "/heartbeat"}
+               "/cluster/metrics", "/ws/heartbeat"}
 
 
 def middleware(service: str):

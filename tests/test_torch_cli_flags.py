@@ -38,12 +38,12 @@ from seaweedfs_tpu_torch.utils import glog, retry, sketch
 from tests.torch_port_cases import within
 
 # options the port has and the reference's parser lacks, each on
-# purpose: -pulseSeconds sets the master's heartbeat pulse (the port's
-# heartbeats are POSTs that a silent server stops, where the
-# reference's stream is never silent); the combined server takes the
-# master's -repair.* and -admin.* flags, which the reference's server
-# command never wired; the filer's -maxMB is the chunk size the
-# reference's filer hard-codes
+# purpose: -pulseSeconds sets the master's pulse, which each heartbeat
+# reply carries (the reference has no pulse flag: its master keeps
+# the 5 s default, and its volume servers their own pulse); the
+# combined server takes the master's -repair.* and -admin.* flags,
+# which the reference's server command never wired; the filer's -maxMB
+# is the chunk size the reference's filer hard-codes
 PORT_ONLY = {
     "filer": {"-maxMB"},
     "master": {"-pulseSeconds"},

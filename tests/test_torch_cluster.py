@@ -18,8 +18,9 @@ package's, over HTTP (tolerance 0).
   ec/generate fails ec.encode; a volume server on "cuda" raises
   without a GPU.
 * Two admin routes at once on one shared codec, with reads running.
-* Heartbeats by POST: a silent server is unregistered and comes back;
-  a volume server beats at the master's pulse where it is shorter.
+* The heartbeat stream: a server whose stream closes is unregistered
+  at once, at the default 5 s pulse, and comes back; a volume server
+  beats at the master's pulse where it is shorter.
 * The data plane's routes and the master's status routes.
 * `python -m seaweedfs_tpu_torch server` and the shell against it.
 """
@@ -395,17 +396,21 @@ def test_two_admin_routes_at_once_on_one_codec(tmp_path):
 
 
 def test_silent_server_is_unregistered_then_returns(tmp_path):
-    c = Cluster(str(tmp_path), n_volume_servers=2, pulse_seconds=0.1)
+    """At the default 5 s pulse a server whose heartbeat stream closes
+    is dropped within 2 s (well inside one pulse), and registers again
+    on a new stream."""
+    c = Cluster(str(tmp_path), n_volume_servers=2, pulse_seconds=5.0)
     try:
         vs = c.volume_servers[1]
         node = f"{vs.store.ip}:{vs.store.port}"
         assert node in c.master.topo.nodes
-        vs._stop.set()                      # heartbeats stop
+        start = time.monotonic()
+        vs._stop_heartbeat()                # its stream closes
         vs._hb_thread.join(timeout=5)
-        deadline = time.monotonic() + 10
+        assert not vs._hb_thread.is_alive()
         while node in c.master.topo.nodes:
-            assert time.monotonic() < deadline, "never unregistered"
-            time.sleep(0.05)
+            assert time.monotonic() - start < 2.0, "never unregistered"
+            time.sleep(0.01)
         vs.start()                          # and resume
         c.wait_for_nodes(2, timeout=10)
         assert node in c.master.topo.nodes
@@ -415,15 +420,15 @@ def test_silent_server_is_unregistered_then_returns(tmp_path):
 
 def test_volume_server_beats_at_the_masters_shorter_pulse(tmp_path):
     """A volume server built with the default 5 s pulse, under a master
-    that reaps after 5 of its 0.2 s pulses, takes the master's pulse
-    from the heartbeat reply and stays registered."""
+    of a 0.2 s pulse, takes the master's pulse from the heartbeat reply
+    and stays registered."""
     from seaweedfs_tpu_torch.rpc.http import ServerThread
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     from seaweedfs_tpu_torch.storage.store import Store
 
     ms = port_ms.MasterServer(pulse_seconds=0.2)
     mt = ServerThread(ms.app).start()
-    ms.start()                              # its reaper
+    ms.start()                              # its step-down watch
     store = Store([str(tmp_path)], ip="127.0.0.1", port=0,
                   ec_backend="numpy")
     vs = VolumeServer(store, mt.url)

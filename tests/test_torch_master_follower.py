@@ -11,7 +11,7 @@ package's (tolerance 0).
   EC-shard maps from the snapshot on, and again after a /vol/grow and
   after an EC encode mounts 14 shards.
 * A KeepConnected subscriber that stops reading blocks neither the
-  heartbeats, nor /vol/grow, nor the reaper: its messages queue, and
+  heartbeats, nor /vol/grow, nor an unregistration: its messages queue, and
   it is dropped once its backlog is full.
 
 Every wait polls for the state it asserts, up to a deadline.
@@ -155,8 +155,8 @@ def test_a_stalled_subscriber_blocks_nothing(tmp_path, monkeypatch):
         _wait(lambda: not master._clients, msg="the subscriber dropped")
         grown = session().get(f"{c.master_url}/vol/grow", timeout=30)
         assert grown.json()["count"] == 1
-        # heartbeats still land, and the reaper still unregisters a
-        # server that stopped sending them
+        # heartbeats still land, and a server whose heartbeat stream
+        # ends is still unregistered
         c.volume_threads[1].stop()
         _wait(lambda: len(master.topo.nodes) == 1, msg="the lost server")
     finally:

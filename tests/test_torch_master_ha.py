@@ -24,7 +24,7 @@ against the JAX package (tolerance 0).
 * The fresh-leader trap: a leader whose topology holds only some of an
   EC volume's servers sees a recoverable deficit. The reference's
   watchdog queues the rebuild of shards that are not lost; the port's
-  holds repairs for a reaper window (5 pulses) since it took
+  holds repairs for 5 pulses since it took
   leadership, and queues the rebuild once the window has passed.
 * The snowflake batch: a batch of 128 keys that starts near the end of
   a millisecond's 4096 sequences. The reference's keys run into the

@@ -14,7 +14,7 @@ and the automatic lifecycle, against the JAX package's (tolerance 0).
   volume whose second replica has not re-registered; the port tracks
   it and queues it once the watchdog's hold has passed. A restarted
   master: the reference resumes an offload at once with a holder not
-  yet registered; the port waits one reaper window.
+  yet registered; the port waits 5 pulses.
 * `POST /debug/tiering`: the reference master's status and body for
   every malformed input; the reference's own cases of
   tests/test_tiering.py (`test_tier_lifecycle_auto`,
@@ -282,7 +282,7 @@ def test_restarted_master_holds_a_resume(tmp_path):
     holders have re-registered (one's shards already remote). The
     reference queues the resumed offload at once, which would offload
     only the holders it sees and record the volume remote; the port
-    holds it for one reaper window after the controller started."""
+    holds it for 5 pulses after the controller started."""
     topo = port_topology.Topology(volume_size_limit=1 << 30,
                                   pulse_seconds=1.0)
     old = time.time() - OLD

@@ -439,7 +439,10 @@ def test_stop_under_live_watchdog_leaves_no_thread(tmp_path):
     left = [t.name for t in threading.enumerate()
             if t.ident not in before and t.is_alive()
             and t.name.startswith(("repair-", "admin-scripts",
-                                   "master-reaper", "volume-heartbeat"))]
+                                   "master-stepdown",
+                                   "master-heartbeat-stream",
+                                   "websocket-keepalive",
+                                   "volume-heartbeat"))]
     assert left == []
 
 
