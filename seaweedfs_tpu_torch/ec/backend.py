@@ -37,7 +37,7 @@ from typing import Callable, Protocol
 import numpy as np
 
 from ..ops import rs_matrix
-from ..utils import metrics
+from ..utils import metrics, tracing
 from . import geometry as geo
 
 
@@ -588,4 +588,12 @@ class ReedSolomon:
             raise ValueError(f"shards shape {shards.shape}, need "
                              f"({self.n}, n)")
         expect = self.encode(shards[: self.k])
-        return bool(np.array_equal(expect, shards[self.k:]))
+        # the host compare: a stage of the call beside the one-shot
+        # encode's h2d, kernel and d2h (ops/codec_torch.py)
+        t0 = _time.perf_counter()
+        with tracing.annotate("ec.verify.compare"):
+            same = bool(np.array_equal(expect, shards[self.k:]))
+        metrics.histogram_observe(
+            "ec_codec_call_stage_seconds", _time.perf_counter() - t0,
+            {"stage": "compare", "backend": _codec_label(self.backend)})
+        return same

@@ -8,6 +8,12 @@ source, every `.cuh` header in `csrc/` and the compiler flags, so an
 edited source builds anew and an unchanged one is loaded as it is.
 `build_all()` starts one nvcc per source, all at once, and waits for
 them. Nothing here runs at import time; a missing nvcc raises.
+
+A build that runs nvcc shows: a `cuda.kernel_build` span around it,
+and per source that built, one `cuda_kernel_build_seconds{kernel}`
+observation (from the start of the builds to the wait that saw that
+source's nvcc end; its `_count` counts the builds). A failed build
+records none, and loading a library already built records nothing.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+
+from ..utils import metrics, tracing
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -74,11 +83,21 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     names = sources() if names is None else names
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: library_path(n) for n in names}
-    procs = {n: _start(n, p) for n, p in paths.items()
-             if not os.path.exists(p)}
+    todo = [n for n, p in paths.items() if not os.path.exists(p)]
+    if not todo:
+        return paths
+    with tracing.span("cuda.kernel_build", peer=" ".join(todo)):
+        _compile(todo, paths)
+    return paths
+
+
+def _compile(names: list[str], paths: dict[str, str]) -> None:
+    t0 = time.perf_counter()
+    procs = {n: _start(n, paths[n]) for n in names}
     failed = []
     for n, proc in procs.items():
         log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
         tmp = f"{paths[n]}.{os.getpid()}.tmp"
         build_logs[n] = log
         if proc.returncode != 0:
@@ -87,9 +106,10 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
                 os.remove(tmp)
         else:
             os.replace(tmp, paths[n])   # atomic: concurrent builds agree
+            metrics.histogram_observe("cuda_kernel_build_seconds", seconds,
+                                      {"kernel": n})
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return paths
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,7 +19,12 @@ bit planes, `xor_matmul`, picked per (matrix, size bucket) when it
 measured faster than the dense product), and the depth-N staged
 `coded_matmul_stream` with the ec_codec_stage_seconds{stage,backend}
 stages pread, h2d, kernel, d2h and relay, plus `pin` on a GPU: the host
-copy into pinned staging, which the JAX feed did not have. What it drops:
+copy into pinned staging, which the JAX feed did not have. The one-shot
+`coded_matmul` records its own three stages, h2d (the pageable upload),
+kernel (the product with its slab `torch.cat`) and d2h (the read-back
+into new host memory), once per call into
+ec_codec_call_stage_seconds{stage,backend} (`_mark`), and opens a
+profiler range `ec.codec.<stage>` around each. What it drops:
 the power-of-two column padding (`_pad_width`), which only bounded XLA
 recompiles — eager PyTorch compiles nothing, so blocks go to the device
 at their true width and nothing is sliced off.
@@ -49,7 +54,7 @@ import numpy as np
 import torch
 
 from . import bits, gf256, schedule
-from ..utils import metrics
+from ..utils import metrics, tracing
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 # Columns per dense product: 2 Mi columns x 8k bit-rows of float32 is
@@ -62,6 +67,20 @@ def observe_stage(backend: str, stage: str, seconds: float) -> None:
     per (stage, backend)."""
     metrics.histogram_observe("ec_codec_stage_seconds", seconds,
                               {"stage": stage, "backend": backend})
+
+
+def _mark(device: torch.device):
+    """A stage boundary of a one-shot call: a CUDA event on the device's
+    current stream, which the call's copies and kernels run on, or the
+    host clock on the CPU. A stage is the device time between two marks
+    of one shared stream, so it holds only while one-shot calls on the
+    card do not overlap: two threads calling at once each see the
+    other's queued work in their stages."""
+    if device.type != "cuda":
+        return _time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 @functools.lru_cache(maxsize=schedule.PLAN_CACHE_MAX)
@@ -109,11 +128,18 @@ def _into(out: torch.Tensor | None, result: torch.Tensor) -> torch.Tensor:
     return result if out is None else out.copy_(result)
 
 
-def _readback(t: torch.Tensor) -> np.ndarray:
+def _readback(t: torch.Tensor, marks: list | None = None) -> np.ndarray:
     """One device result as a host array (the reference's
     codec_jax._readback): the one-shot calls' drain site, which waits
-    for the result by contract."""
-    return t.cpu().numpy()
+    for the result by contract. Given a call's stage `marks`, it ends
+    them with the read-back's own and waits for that too, so that every
+    stage can be read."""
+    arr = t.cpu().numpy()
+    if marks is not None:
+        marks.append(_mark(t.device))
+        if t.is_cuda:
+            marks[-1].synchronize()
+    return arr
 
 
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -256,8 +282,21 @@ class TorchCodec:
             return np.zeros((m, 0), dtype=np.uint8)
         plan = self._plan_for(coef, shards.nbytes)
         mats = self._coef_mats(coef)
-        out = self._run(mats, host_tensor(shards).to(self.device), plan)
-        return _readback(out)
+        marks = [_mark(self.device)]
+        with tracing.annotate("ec.codec.h2d"):
+            dev = host_tensor(shards).to(self.device)
+        marks.append(_mark(self.device))
+        with tracing.annotate("ec.codec.kernel"):
+            out = self._run(mats, dev, plan)
+        marks.append(_mark(self.device))
+        with tracing.annotate("ec.codec.d2h"):
+            res = _readback(out, marks)
+        for stage, t0, t1 in zip(("h2d", "kernel", "d2h"), marks, marks[1:]):
+            seconds = (t1 - t0 if isinstance(t0, float)
+                       else t0.elapsed_time(t1) / 1e3)
+            metrics.histogram_observe("ec_codec_call_stage_seconds", seconds,
+                                      {"stage": stage, "backend": self.name})
+        return res
 
     def coded_matmul_stream(self, coef: np.ndarray, blocks,
                             depth: int = 2):

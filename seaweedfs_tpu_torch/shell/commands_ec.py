@@ -11,6 +11,7 @@ from __future__ import annotations
 from collections import defaultdict
 
 from ..ec import geometry as geo
+from ..utils import tracing
 from .env import CommandEnv, ShellError
 
 
@@ -275,7 +276,16 @@ def ec_verify(env: CommandEnv, volume_id: int, sample_mb: int = 4,
     asks the master's repair queue for a rebuild (POST /debug/repair;
     `repair_enqueued` says whether the master took it). With
     -repair.enabled the watchdog then rebuilds the shard through the
-    volume servers' codec."""
+    volume servers' codec.
+
+    Runs under a span `ec.verify` (peer: the backend): the shard GETs'
+    client spans and `ec.verify.stack` are its children."""
+    with tracing.span("ec.verify", peer=str(backend)):
+        return _ec_verify(env, volume_id, sample_mb, backend, quarantine)
+
+
+def _ec_verify(env: CommandEnv, volume_id: int, sample_mb: int,
+               backend: str, quarantine: bool) -> dict:
     import numpy as np
 
     from ..ec.backend import ReedSolomon
@@ -304,7 +314,8 @@ def ec_verify(env: CommandEnv, volume_id: int, sample_mb: int = 4,
                              f"{resp.status_code}"}
         shards.append(np.frombuffer(resp.content, dtype=np.uint8))
     n = min(len(s) for s in shards)
-    stack = np.stack([s[:n] for s in shards])
+    with tracing.span("ec.verify.stack"):
+        stack = np.stack([s[:n] for s in shards])
     rs = ReedSolomon(k, m, backend=backend, code=code)
     ok = bool(rs.verify(stack))
     out = {"volume": volume_id, "verified": ok,

@@ -13,12 +13,21 @@ carrying the full span tree. `traces_json` groups the ring by trace.
 incoming traceparent (or starts a root trace) and records a server span
 named after the route's handler, with the reply's status;
 `handle_debug_traces` serves the ring at /debug/traces on every server.
+
+While a torch profiler records, every span also opens a
+`torch.profiler.record_function` range of its name, so the span shows on
+the profiler's timeline (a `user_annotation` in its chrome trace) beside
+the device's copies and kernels; `annotate(name)` opens such a range and
+records no span, for steps too frequent for the ring. With no profiler
+recording neither makes a torch call, and this module never imports
+torch: it looks for it in `sys.modules`.
 """
 from __future__ import annotations
 
 import contextvars
 import json
 import secrets
+import sys
 import threading
 import time
 from collections import deque
@@ -218,6 +227,7 @@ def span(name: str, *, service: str = "", kind: str = "internal",
         "duration": 0.0,
         "status": "",
     }
+    rng = _profiler_range(name)
     t0 = time.perf_counter()
     try:
         yield rec
@@ -226,8 +236,35 @@ def span(name: str, *, service: str = "", kind: str = "internal",
         raise
     finally:
         rec["duration"] = time.perf_counter() - t0
+        if rng is not None:
+            rng.__exit__(None, None, None)
         _current.reset(token)
         _finish(rec)
+
+
+def _profiler_range(name: str):
+    """An entered `torch.profiler.record_function(name)` while a torch
+    profiler records, else None. Reads torch's own flag for that
+    (`torch.autograd.profiler._is_profiler_enabled`) from `sys.modules`:
+    no import, and no torch call when nothing records."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    rng = sys.modules["torch"].profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+@contextmanager
+def annotate(name: str):
+    """A torch profiler range of `name` around the block while a profiler
+    records; no span, so the ring and the span sinks see nothing."""
+    rng = _profiler_range(name)
+    try:
+        yield
+    finally:
+        if rng is not None:
+            rng.__exit__(None, None, None)
 
 
 def _finish(rec: dict) -> None:
